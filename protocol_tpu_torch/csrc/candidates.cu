@@ -8,17 +8,29 @@
 // cell is scored in registers by one __device__ function and the
 // [P, T] block never reaches device memory.
 //
-// Two launches over the same cell function:
+// Two launches over the same cell function (cell.cuh), each with a
+// variant the warm-path repair drives:
 //   forward  one thread per task, walking all P providers in index order
 //            and keeping a running top-k under the key (cost, provider),
 //            so the lower index wins among equal costs (lax.top_k's order);
 //            admitted costs are buffered and merged 16 at a time.
 //            Writes fwd_p / fwd_c [T, k], provider -1 where cost >= 5e8.
+//            Rows variant (k1_forward_rows; replaces parallel/sparse.py
+//            _build_repair_forward's selection): the same walk for a list
+//            of global task ids, row i of the output for task t_ids[i],
+//            each row split over up to 32 lanes of a warp whose top-k
+//            lists are merged by shuffles, so that a few rows still fill
+//            the card.
 //   reverse  per provider, four threads each take a quarter of the task
 //            tiles: the first argmin of each tile goes to pool_t / pool_c
 //            [P, n_tiles]; then the pools are folded in tile order into a
 //            register top-r carry (the carry wins ties). Writes rev_t /
 //            rev_c [P, r].
+//            Blocks variant (k1_reverse_blocks; replaces parallel/sparse.py
+//            _build_repair_tile at rt = 1): one thread per flagged
+//            (provider, tile) block of a flat list, writing that block's
+//            first argmin into the pools in place; the list is ordered by
+//            (tile, provider), so a warp's task loads stay uniform.
 //
 // What bounds it on the H100: arithmetic. Each cell is ~40 integer ops of
 // the capability check plus, on feasible cells, two sinf, one asinf and
@@ -38,214 +50,11 @@
 // do. With proximity 0 the cost involves no transcendental and the
 // outputs are bit-identical to the plain torch version.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include <climits>
+
+#include "cell.cuh"
 
 namespace {
-
-constexpr float kInfeasible = 1e9f;
-constexpr float kHalfInfeasible = 5e8f;  // INFEASIBLE * 0.5, exact in f32
-constexpr float kTwoR = 12742.0f;        // 2 * EARTH_RADIUS_KM
-constexpr int kMaxK = 64;                // forward top-k capacity
-constexpr int kMaxR = 8;                 // reverse carry capacity
-constexpr int kMaxOpts = 8;              // GPU OR-options per requirement
-
-struct Prov {
-  const int32_t* gpu_count;
-  const int32_t* gpu_mem_mb;
-  const int32_t* gpu_model_id;
-  const uint8_t* has_gpu;
-  const uint8_t* has_cpu;
-  const int32_t* cpu_cores;
-  const int32_t* ram_mb;
-  const int32_t* storage_gb;
-  const float* lat;
-  const float* lon;
-  const uint8_t* has_location;
-  const float* price;
-  const float* load;
-  const uint8_t* valid;
-};
-
-struct Req {
-  const uint8_t* cpu_required;
-  const int32_t* cpu_cores;
-  const int32_t* ram_mb;
-  const int32_t* storage_gb;
-  const uint8_t* gpu_opt_valid;
-  const int32_t* gpu_count;
-  const int32_t* gpu_mem_min;
-  const int32_t* gpu_mem_max;
-  const int32_t* gpu_total_mem_min;
-  const int32_t* gpu_total_mem_max;
-  const uint32_t* gpu_model_mask;
-  const uint8_t* gpu_model_constrained;
-  const float* lat;
-  const float* lon;
-  const uint8_t* has_location;
-  const float* priority;
-  const uint8_t* valid;
-};
-
-struct Weights {
-  float price, load, proximity, priority;
-};
-
-// One provider's row, with its per-row cost terms hoisted.
-struct ProvRow {
-  int32_t count, mem, model, cores, ram, storage;
-  bool has_gpu, has_cpu, has_loc, valid;
-  float lat, lon, coslat, base;
-};
-
-// One requirement's scalar columns, with its per-row terms hoisted.
-struct TaskRow {
-  int32_t cores, ram, storage;
-  bool cpu_required, any_opt, has_loc, valid;
-  float lat, lon, coslat, prio;
-};
-
-__device__ __forceinline__ bool ge_min(int32_t spec, int32_t req) {
-  return (req < 0) | ((spec >= 0) & (spec >= req));
-}
-
-__device__ __forceinline__ bool le_max(int32_t spec, int32_t req) {
-  return (req < 0) | ((spec >= 0) & (spec <= req));
-}
-
-// Per-row cost terms, computed once per row by prep_kernel into aux:
-// [p_base P][p_coslat P][t_prio T][t_coslat T].
-struct Aux {
-  const float* p_base;
-  const float* p_coslat;
-  const float* t_prio;
-  const float* t_coslat;
-};
-
-__device__ __forceinline__ ProvRow load_prov(const Prov& P, const Aux& x, int p) {
-  ProvRow r;
-  r.count = P.gpu_count[p];
-  r.mem = P.gpu_mem_mb[p];
-  r.model = P.gpu_model_id[p];
-  r.cores = P.cpu_cores[p];
-  r.ram = P.ram_mb[p];
-  r.storage = P.storage_gb[p];
-  r.has_gpu = P.has_gpu[p] != 0;
-  r.has_cpu = P.has_cpu[p] != 0;
-  r.has_loc = P.has_location[p] != 0;
-  r.valid = P.valid[p] != 0;
-  r.lat = P.lat[p];
-  r.lon = P.lon[p];
-  r.coslat = x.p_coslat[p];
-  r.base = x.p_base[p];
-  return r;
-}
-
-__device__ __forceinline__ TaskRow load_task(const Req& R, const Aux& x, int t, int K) {
-  TaskRow r;
-  r.cores = R.cpu_cores[t];
-  r.ram = R.ram_mb[t];
-  r.storage = R.storage_gb[t];
-  r.cpu_required = R.cpu_required[t] != 0;
-  bool any = false;
-  for (int k = 0; k < K; ++k) any |= R.gpu_opt_valid[t * K + k] != 0;
-  r.any_opt = any;
-  r.has_loc = R.has_location[t] != 0;
-  r.valid = R.valid[t] != 0;
-  r.lat = R.lat[t];
-  r.lon = R.lon[t];
-  r.coslat = x.t_coslat[t];
-  r.prio = x.t_prio[t];
-  return r;
-}
-
-// One thread per row: the terms of cost_matrix that depend on one side.
-__global__ void prep_kernel(Prov prov, Req req, Weights w, int P, int T, float* aux) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < P) {
-    // weights.price * price + weights.load * load, one rounding per op
-    aux[i] = __fadd_rn(__fmul_rn(w.price, prov.price[i]), __fmul_rn(w.load, prov.load[i]));
-    aux[P + i] = cosf(prov.lat[i]);
-  }
-  if (i < T) {
-    aux[2 * P + i] = __fmul_rn(w.priority, req.priority[i]);
-    aux[2 * P + T + i] = cosf(req.lat[i]);
-  }
-}
-
-Aux make_aux(const float* aux, int P, int T) {
-  return Aux{aux, aux + P, aux + 2 * P, aux + 2 * P + T};
-}
-
-void launch_prep(const Prov& prov, const Req& req, const Weights& w, int P, int T, float* aux,
-                 cudaStream_t stream) {
-  const int n = P > T ? P : T;
-  prep_kernel<<<(n + 255) / 256, 256, 0, stream>>>(prov, req, w, P, T, aux);
-}
-
-// compat_mask for one cell: the reference's rules in its order.
-__device__ __forceinline__ bool compat(const ProvRow& p, const TaskRow& t, const Req& R,
-                                       int ti, int K, int W) {
-  bool ok = !t.cpu_required | (p.has_cpu & ge_min(p.cores, t.cores));
-  ok &= ge_min(p.ram, t.ram);
-  ok &= ge_min(p.storage, t.storage);
-  ok &= p.valid & t.valid;
-  if (!ok) return false;
-  if (!t.any_opt) return true;
-  if (!p.has_gpu) return false;
-  const int32_t pc = p.count, pm = p.mem;
-  // i32 product, wrapping as the reference's does
-  const int32_t total = (int32_t)((uint32_t)pc * (uint32_t)pm);
-  const bool have_total = (pc >= 0) & (pm >= 0);
-  const int mid = p.model < 0 ? 0 : p.model;
-  const int word = mid >> 5;
-  const uint32_t bit = (uint32_t)(mid & 31);
-  const bool has_model = p.model >= 0;
-  for (int k = 0; k < K; ++k) {
-    const int o = ti * K + k;
-    if (!R.gpu_opt_valid[o]) continue;
-    const int32_t rc = R.gpu_count[o];
-    const bool count_ok = (rc < 0) | (pc < 0 ? rc == 0 : pc == rc);
-    const bool mem_ok = ge_min(pm, R.gpu_mem_min[o]) & le_max(pm, R.gpu_mem_max[o]);
-    const int32_t tmin = R.gpu_total_mem_min[o], tmax = R.gpu_total_mem_max[o];
-    const bool tot_ok = ((tmin < 0) | !have_total | (total >= tmin)) &
-                        ((tmax < 0) | !have_total | (total <= tmax));
-    bool model_ok = true;
-    if (R.gpu_model_constrained[o]) {
-      const uint32_t wbits = word < W ? R.gpu_model_mask[(size_t)o * W + word] : 0u;
-      model_ok = has_model & (((wbits >> bit) & 1u) != 0u);
-    }
-    if (count_ok & mem_ok & tot_ok & model_ok) return true;
-  }
-  return false;
-}
-
-// The exact jittered cost of cell (p, t): cost_matrix's terms in its
-// order, INFEASIBLE off the mask, plus tie_jitter on feasible cells.
-__device__ __forceinline__ float cell_cost(const ProvRow& p, int pi, const TaskRow& t, int ti,
-                                           const Req& R, int K, int W, const Weights& w) {
-  if (!compat(p, t, R, ti, K, W)) return kInfeasible;
-  float cost = p.base;
-  float near = 0.0f;
-  if (p.has_loc & t.has_loc) {
-    const float dlat = __fsub_rn(t.lat, p.lat);
-    const float dlon = __fsub_rn(t.lon, p.lon);
-    const float s1 = sinf(__fdiv_rn(dlat, 2.0f));
-    const float s2 = sinf(__fdiv_rn(dlon, 2.0f));
-    float a = __fadd_rn(__fmul_rn(s1, s1),
-                        __fmul_rn(__fmul_rn(p.coslat, t.coslat), __fmul_rn(s2, s2)));
-    a = fminf(fmaxf(a, 0.0f), 1.0f);
-    const float dist = __fmul_rn(kTwoR, asinf(__fsqrt_rn(a)));
-    near = __fmul_rn(w.proximity, dist);
-  }
-  cost = __fadd_rn(cost, near);
-  cost = __fsub_rn(cost, t.prio);
-  if (cost < kHalfInfeasible) {
-    const uint32_t h = ((uint32_t)pi * 2654435761u) ^ ((uint32_t)ti * 40503u);
-    cost = __fadd_rn(cost, __fmul_rn((float)(h & 1023u), 1e-7f));
-  }
-  return cost;
-}
 
 // Admitted costs wait in a small unsorted buffer (arrival = provider
 // order) and are merged into the sorted list when it fills: appending is
@@ -290,18 +99,14 @@ __device__ __forceinline__ void flush_topk(float* bc, int32_t* bp, float* qc, in
   }
 }
 
-__global__ void __launch_bounds__(128) forward_kernel(Prov prov, Req req, Aux aux, Weights w, int P,
-                                                      int T, int K, int W, int k,
-                                                      int32_t* __restrict__ out_p,
-                                                      float* __restrict__ out_c) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= T) return;
-  const TaskRow tr = load_task(req, aux, t, K);
-  float bc[kMaxK];
-  int32_t bp[kMaxK];
-  for (int i = 0; i < k; ++i) {
-    bc[i] = INFINITY;
-    bp[i] = -1;
+// Walk providers [p0, p1) in index order for task row tr (global id t),
+// keeping the running top-k (bc, bp) under the key (cost, provider).
+__device__ __forceinline__ void walk_topk(const Prov& prov, const Req& req, const Aux& aux,
+                                          const Weights& w, const TaskRow& tr, int t, int K,
+                                          int W, int k, int p0, int p1, float* bc, int32_t* bp) {
+  for (int j = 0; j < k; ++j) {
+    bc[j] = INFINITY;
+    bp[j] = -1;
   }
   float qc[kBuf];
   int32_t qp[kBuf];
@@ -310,7 +115,7 @@ __global__ void __launch_bounds__(128) forward_kernel(Prov prov, Req req, Aux au
   // running threshold, so every cost that belongs in the top-k is
   // admitted (the merge drops the rest)
   float worst = INFINITY;
-  for (int p = 0; p < P; ++p) {
+  for (int p = p0; p < p1; ++p) {
     const ProvRow pr = load_prov(prov, aux, p);
     const float c = cell_cost(pr, p, tr, t, req, K, W, w);
     if (c < worst) {
@@ -324,9 +129,77 @@ __global__ void __launch_bounds__(128) forward_kernel(Prov prov, Req req, Aux au
     }
   }
   flush_topk(bc, bp, qc, qp, nq, k);
-  for (int i = 0; i < k; ++i) {
-    out_c[(size_t)t * k + i] = bc[i];
-    out_p[(size_t)t * k + i] = bc[i] < kHalfInfeasible ? bp[i] : -1;
+}
+
+__global__ void __launch_bounds__(128) forward_kernel(Prov prov, Req req, Aux aux, Weights w, int P,
+                                                      int T, int K, int W, int k,
+                                                      int32_t* __restrict__ out_p,
+                                                      float* __restrict__ out_c) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= T) return;
+  const TaskRow tr = load_task(req, aux, t, K);
+  float bc[kMaxK];
+  int32_t bp[kMaxK];
+  walk_topk(prov, req, aux, w, tr, t, K, W, k, 0, P, bc, bp);
+  for (int j = 0; j < k; ++j) {
+    out_c[(size_t)t * k + j] = bc[j];
+    out_p[(size_t)t * k + j] = bc[j] < kHalfInfeasible ? bp[j] : -1;
+  }
+}
+
+// Rows variant: row i is task t_ids[i], shared by `lanes` threads of one
+// warp (a power of two <= 32). Lane j walks the j-th contiguous part of
+// the providers with its own top-k; the lanes then merge their lists k
+// times by warp shuffles, taking the least (cost, provider) each time, so
+// the lower index wins among equal costs as in one walk (each list keeps
+// its own lower indices first). A few rows (a requirement-churn tick's
+// ~1%) still spread over the card this way; lanes = 1 is one walk per
+// row, as the cold launch.
+__global__ void __launch_bounds__(128) forward_rows_kernel(Prov prov, Req req, Aux aux, Weights w,
+                                                           int P, int n_rows,
+                                                           const int32_t* __restrict__ t_ids,
+                                                           int K, int W, int k, int lanes,
+                                                           int32_t* __restrict__ out_p,
+                                                           float* __restrict__ out_c) {
+  // every thread of a warp takes part in the shuffles: no early return
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = g / lanes;
+  const int lane = g % lanes;
+  const bool active = i < n_rows;
+  float bc[kMaxK];
+  int32_t bp[kMaxK];
+  if (active) {
+    const int t = t_ids[i];
+    const TaskRow tr = load_task(req, aux, t, K);
+    const int part = (P + lanes - 1) / lanes;
+    const int p0 = min(P, lane * part);
+    walk_topk(prov, req, aux, w, tr, t, K, W, k, p0, min(P, p0 + part), bc, bp);
+  } else {
+    for (int j = 0; j < k; ++j) {
+      bc[j] = INFINITY;
+      bp[j] = -1;
+    }
+  }
+  int head = 0;
+  for (int j = 0; j < k; ++j) {
+    const float c = head < k ? bc[head] : INFINITY;
+    int32_t p = head < k ? bp[head] : -1;
+    if (p < 0) p = INT_MAX;  // an empty slot sorts last
+    float best_c = c;
+    int32_t best_p = p;
+    for (int off = lanes >> 1; off > 0; off >>= 1) {
+      const float oc = __shfl_xor_sync(0xffffffffu, best_c, off);
+      const int32_t op = __shfl_xor_sync(0xffffffffu, best_p, off);
+      if (oc < best_c || (oc == best_c && op < best_p)) {
+        best_c = oc;
+        best_p = op;
+      }
+    }
+    if (p == best_p) ++head;  // provider ids are unique across the lanes
+    if (active && lane == 0) {
+      out_c[(size_t)i * k + j] = best_c;
+      out_p[(size_t)i * k + j] = best_c < kHalfInfeasible ? best_p : -1;
+    }
   }
 }
 
@@ -372,33 +245,10 @@ __global__ void __launch_bounds__(kRows * kParts) reverse_kernel(
   }
   __syncthreads();  // every part's pool entries of this block are written
   if (part != 0 || !active) return;
-  // fold the pools in tile order into the carry: enter before the first
-  // carry entry that is strictly worse, then shift the rest down (the
-  // carry wins ties)
+  // fold the pools in tile order into the carry (the carry wins ties)
   float rc[kMaxR];
   int32_t rt[kMaxR];
-#pragma unroll
-  for (int i = 0; i < kMaxR; ++i) {
-    rc[i] = kInfeasible;
-    rt[i] = -1;
-  }
-  for (int ti = 0; ti < n_tiles; ++ti) {
-    float c = pool_c[(size_t)p * n_tiles + ti];
-    int32_t tt = pool_t[(size_t)p * n_tiles + ti];
-    bool moved = false;
-#pragma unroll
-    for (int i = 0; i < kMaxR; ++i) {
-      if (i < r && (moved || c < rc[i])) {
-        const float sc = rc[i];
-        const int32_t st = rt[i];
-        rc[i] = c;
-        rt[i] = tt;
-        c = sc;
-        tt = st;
-        moved = true;
-      }
-    }
-  }
+  fold_pools(pool_t, pool_c, (size_t)p * n_tiles, n_tiles, r, rc, rt);
 #pragma unroll
   for (int i = 0; i < kMaxR; ++i) {
     if (i < r) {
@@ -408,45 +258,31 @@ __global__ void __launch_bounds__(kRows * kParts) reverse_kernel(
   }
 }
 
-Prov make_prov(const void* const* a) {
-  Prov p;
-  p.gpu_count = (const int32_t*)a[0];
-  p.gpu_mem_mb = (const int32_t*)a[1];
-  p.gpu_model_id = (const int32_t*)a[2];
-  p.has_gpu = (const uint8_t*)a[3];
-  p.has_cpu = (const uint8_t*)a[4];
-  p.cpu_cores = (const int32_t*)a[5];
-  p.ram_mb = (const int32_t*)a[6];
-  p.storage_gb = (const int32_t*)a[7];
-  p.lat = (const float*)a[8];
-  p.lon = (const float*)a[9];
-  p.has_location = (const uint8_t*)a[10];
-  p.price = (const float*)a[11];
-  p.load = (const float*)a[12];
-  p.valid = (const uint8_t*)a[13];
-  return p;
-}
-
-Req make_req(const void* const* a) {
-  Req r;
-  r.cpu_required = (const uint8_t*)a[0];
-  r.cpu_cores = (const int32_t*)a[1];
-  r.ram_mb = (const int32_t*)a[2];
-  r.storage_gb = (const int32_t*)a[3];
-  r.gpu_opt_valid = (const uint8_t*)a[4];
-  r.gpu_count = (const int32_t*)a[5];
-  r.gpu_mem_min = (const int32_t*)a[6];
-  r.gpu_mem_max = (const int32_t*)a[7];
-  r.gpu_total_mem_min = (const int32_t*)a[8];
-  r.gpu_total_mem_max = (const int32_t*)a[9];
-  r.gpu_model_mask = (const uint32_t*)a[10];
-  r.gpu_model_constrained = (const uint8_t*)a[11];
-  r.lat = (const float*)a[12];
-  r.lon = (const float*)a[13];
-  r.has_location = (const uint8_t*)a[14];
-  r.priority = (const float*)a[15];
-  r.valid = (const uint8_t*)a[16];
-  return r;
+// One thread per flagged (provider, tile) block: the first argmin of the
+// block's cells (strict <, as the cold reverse launch), written into the
+// pools at [p, j]. Blocks come ordered by (tile, provider).
+__global__ void __launch_bounds__(128) reverse_blocks_kernel(
+    Prov prov, Req req, Aux aux, Weights w, int n_tiles, int K, int W, int tile,
+    const int32_t* __restrict__ blk_p, const int32_t* __restrict__ blk_j, int n_blocks,
+    int32_t* __restrict__ pool_t, float* __restrict__ pool_c) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= n_blocks) return;
+  const int p = blk_p[b];
+  const int t0 = blk_j[b] * tile;
+  const ProvRow pr = load_prov(prov, aux, p);
+  float best = INFINITY;
+  int32_t bt = -1;
+  for (int j = 0; j < tile; ++j) {
+    const int t = t0 + j;
+    const TaskRow tr = load_task(req, aux, t, K);
+    const float c = cell_cost(pr, p, tr, t, req, K, W, w);
+    if (c < best) {
+      best = c;
+      bt = t;
+    }
+  }
+  pool_t[(size_t)p * n_tiles + blk_j[b]] = bt;
+  pool_c[(size_t)p * n_tiles + blk_j[b]] = best;
 }
 
 }  // namespace
@@ -477,6 +313,26 @@ extern "C" int k1_forward(const void* const* prov_cols, const void* const* req_c
   return (int)cudaGetLastError();
 }
 
+// Rows variant: the forward walk for the n_rows global task ids t_ids,
+// `lanes` threads per row.
+extern "C" int k1_forward_rows(const void* const* prov_cols, const void* const* req_cols, int P,
+                               int T, int K, int W, float w_price, float w_load, float w_prox,
+                               float w_prio, int k, const int32_t* t_ids, int n_rows, int lanes,
+                               float* aux, int32_t* out_p, float* out_c, void* stream) {
+  if (k < 1 || k > kMaxK || K > kMaxOpts || k > P || n_rows < 1 || lanes < 1 || lanes > 32 ||
+      (lanes & (lanes - 1)) != 0)
+    return (int)cudaErrorInvalidValue;
+  const Weights w{w_price, w_load, w_prox, w_prio};
+  const int threads = 128;
+  const long long total = (long long)n_rows * lanes;
+  const Prov prov = make_prov(prov_cols);
+  const Req req = make_req(req_cols);
+  launch_prep(prov, req, w, P, T, aux, (cudaStream_t)stream);
+  forward_rows_kernel<<<(int)((total + threads - 1) / threads), threads, 0, (cudaStream_t)stream>>>(
+      prov, req, make_aux(aux, P, T), w, P, n_rows, t_ids, K, W, k, lanes, out_p, out_c);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int k1_reverse(const void* const* prov_cols, const void* const* req_cols, int P,
                           int T, int K, int W, float w_price, float w_load, float w_prox,
                           float w_prio, int tile, int r, float* aux, int32_t* pool_t, float* pool_c,
@@ -491,5 +347,25 @@ extern "C" int k1_reverse(const void* const* prov_cols, const void* const* req_c
   launch_prep(prov, req, w, P, T, aux, (cudaStream_t)stream);
   reverse_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       prov, req, make_aux(aux, P, T), w, P, T, K, W, tile, r, pool_t, pool_c, rev_t, rev_c);
+  return (int)cudaGetLastError();
+}
+
+// Blocks variant: rescore n_blocks (provider, tile) blocks into the pools
+// [P, T / tile] in place (one contribution per tile).
+extern "C" int k1_reverse_blocks(const void* const* prov_cols, const void* const* req_cols, int P,
+                                 int T, int K, int W, float w_price, float w_load, float w_prox,
+                                 float w_prio, int tile, const int32_t* blk_p,
+                                 const int32_t* blk_j, int n_blocks, float* aux, int32_t* pool_t,
+                                 float* pool_c, void* stream) {
+  if (K > kMaxOpts || tile < 1 || T % tile != 0 || n_blocks < 1)
+    return (int)cudaErrorInvalidValue;
+  const Weights w{w_price, w_load, w_prox, w_prio};
+  const int threads = 128;
+  const Prov prov = make_prov(prov_cols);
+  const Req req = make_req(req_cols);
+  launch_prep(prov, req, w, P, T, aux, (cudaStream_t)stream);
+  reverse_blocks_kernel<<<(n_blocks + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
+      prov, req, make_aux(aux, P, T), w, T / tile, K, W, tile, blk_p, blk_j, n_blocks, pool_t,
+      pool_c);
   return (int)cudaGetLastError();
 }

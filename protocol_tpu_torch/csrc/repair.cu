@@ -1,0 +1,142 @@
+// Repair kernels of the warm path for Hopper (sm_90a): the parts of the
+// reference's churn-masked candidate repair (protocol_tpu/parallel/
+// sparse.py: repair_topk_bidir_sharded) that are not a K1 variant.
+//
+//   K3 enter     (_build_repair_enter) one thread per task walks the dirty
+//                providers (global ids, read from the full columns) and
+//                flags the task when some fresh jittered cost is <= the
+//                task's stored k-th cost and feasible: such rows are the
+//                ones whose forward top-k a dirty provider can enter. The
+//                test keeps the reference's <=, which over-flags exact ties
+//                on purpose (a flagged row is recomputed exactly). Every
+//                dirty provider is scored for every task: no early exit,
+//                so the work is n_dirty x T cells whatever the data.
+//   K4 tile min  (the dirty-column cost block of _build_repair_forward,
+//                reduced on the host there) one thread per provider walks
+//                the dirty tasks, sorted, and writes the minimum fresh cost
+//                per (provider, tile) they touch into min_tile [P, n_tiles]
+//                (prefilled with the pad cost). A minimum is exact in any
+//                order, so this is the reference's bits without the
+//                [P, dirty] block ever reaching device memory.
+//   K5 refold    (_build_repair_refold + _merge_rev_pools at one device)
+//                one thread per provider folds its n_tiles pool entries in
+//                tile order into the best r with fold_pools (cell.cuh), the
+//                same device function the cold reverse launch folds with,
+//                and writes rev_t (-1 where the cost is >= INFEASIBLE/2) and
+//                rev_c [P, r]. At one device the final pool merge is a
+//                stable top-r of r sorted entries, the identity.
+//
+// What bounds them on the H100: K3 and K4 score cells with cell_cost, so
+// they are bound by its arithmetic like K1, over n_dirty x T and P x
+// n_dirty cells (small at 1% churn); the loop side (providers for K3,
+// tasks for K4) is a warp-uniform load that hits L1. K5 reads the pools
+// once and writes the edges once: bound by bytes, ~P (n_tiles + r) x 8.
+//
+// Numerics: built like candidates.cu (-fmad=false, no fast-math); with
+// proximity 0 every output is bit-identical to the plain torch versions
+// in protocol_tpu_torch/parallel/sparse.py.
+
+#include "cell.cuh"
+
+namespace {
+
+__global__ void __launch_bounds__(128) enter_kernel(Prov prov, Req req, Aux aux, Weights w, int T,
+                                                    int K, int W, const int32_t* __restrict__ p_ids,
+                                                    int n_p, const float* __restrict__ thresh,
+                                                    uint8_t* __restrict__ enter) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= T) return;
+  const TaskRow tr = load_task(req, aux, t, K);
+  const float th = thresh[t];
+  bool hit = false;
+  for (int i = 0; i < n_p; ++i) {
+    const int p = p_ids[i];
+    const ProvRow pr = load_prov(prov, aux, p);
+    const float c = cell_cost(pr, p, tr, t, req, K, W, w);
+    hit |= (c <= th) & (c < kHalfInfeasible);
+  }
+  enter[t] = hit ? 1 : 0;
+}
+
+__global__ void __launch_bounds__(128) tile_min_kernel(Prov prov, Req req, Aux aux, Weights w,
+                                                       int P, int K, int W, int tile, int n_tiles,
+                                                       const int32_t* __restrict__ t_ids, int n_t,
+                                                       float* __restrict__ min_tile) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= P) return;
+  const ProvRow pr = load_prov(prov, aux, p);
+  int cur = -1;
+  float m = 0.0f;
+  for (int i = 0; i < n_t; ++i) {
+    const int t = t_ids[i];
+    const int j = t / tile;
+    if (j != cur) {  // t_ids ascend, so each tile's tasks are contiguous
+      if (cur >= 0) min_tile[(size_t)p * n_tiles + cur] = m;
+      cur = j;
+      m = min_tile[(size_t)p * n_tiles + j];
+    }
+    const TaskRow tr = load_task(req, aux, t, K);
+    m = fminf(m, cell_cost(pr, p, tr, t, req, K, W, w));
+  }
+  if (cur >= 0) min_tile[(size_t)p * n_tiles + cur] = m;
+}
+
+__global__ void __launch_bounds__(128) refold_kernel(const int32_t* __restrict__ pool_t,
+                                                     const float* __restrict__ pool_c, int P,
+                                                     int n_tiles, int r,
+                                                     int32_t* __restrict__ rev_t,
+                                                     float* __restrict__ rev_c) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= P) return;
+  float rc[kMaxR];
+  int32_t rt[kMaxR];
+  fold_pools(pool_t, pool_c, (size_t)p * n_tiles, n_tiles, r, rc, rt);
+#pragma unroll
+  for (int i = 0; i < kMaxR; ++i) {
+    if (i < r) {
+      rev_c[(size_t)p * r + i] = rc[i];
+      rev_t[(size_t)p * r + i] = rc[i] < kHalfInfeasible ? rt[i] : -1;
+    }
+  }
+}
+
+}  // namespace
+
+// Plain C interface (loaded with ctypes), as candidates.cu. Each returns
+// the launch's cudaError_t (0 = launched).
+extern "C" int k3_repair_enter(const void* const* prov_cols, const void* const* req_cols, int P,
+                               int T, int K, int W, float w_price, float w_load, float w_prox,
+                               float w_prio, const int32_t* p_ids, int n_p, const float* thresh,
+                               float* aux, uint8_t* enter, void* stream) {
+  if (K > kMaxOpts || n_p < 1 || T < 1) return (int)cudaErrorInvalidValue;
+  const Weights w{w_price, w_load, w_prox, w_prio};
+  const Prov prov = make_prov(prov_cols);
+  const Req req = make_req(req_cols);
+  launch_prep(prov, req, w, P, T, aux, (cudaStream_t)stream);
+  enter_kernel<<<(T + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
+      prov, req, make_aux(aux, P, T), w, T, K, W, p_ids, n_p, thresh, enter);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int k4_repair_tile_min(const void* const* prov_cols, const void* const* req_cols,
+                                  int P, int T, int K, int W, float w_price, float w_load,
+                                  float w_prox, float w_prio, int tile, const int32_t* t_ids,
+                                  int n_t, float* aux, float* min_tile, void* stream) {
+  if (K > kMaxOpts || tile < 1 || T % tile != 0 || n_t < 1 || P < 1)
+    return (int)cudaErrorInvalidValue;
+  const Weights w{w_price, w_load, w_prox, w_prio};
+  const Prov prov = make_prov(prov_cols);
+  const Req req = make_req(req_cols);
+  launch_prep(prov, req, w, P, T, aux, (cudaStream_t)stream);
+  tile_min_kernel<<<(P + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
+      prov, req, make_aux(aux, P, T), w, P, K, W, tile, T / tile, t_ids, n_t, min_tile);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int k5_repair_refold(const int32_t* pool_t, const float* pool_c, int P, int n_tiles,
+                                int r, int32_t* rev_t, float* rev_c, void* stream) {
+  if (r < 1 || r > kMaxR || n_tiles < r || P < 1) return (int)cudaErrorInvalidValue;
+  refold_kernel<<<(P + 127) / 128, 128, 0, (cudaStream_t)stream>>>(pool_t, pool_c, P, n_tiles, r,
+                                                                   rev_t, rev_c);
+  return (int)cudaGetLastError();
+}

@@ -4,8 +4,8 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface under ``build/kernels/`` beside
 the package, at first use (one ``nvcc`` per source, all started together),
 and loaded with ``ctypes``. A library's file name carries a hash of its
-source and flags, so an edited source is rebuilt and never mixed with an
-old build.
+source, the shared header ``csrc/cell.cuh`` and the flags, so an edited
+source is rebuilt and never mixed with an old build.
 
 Flags: ``-O3 -fmad=false`` and no fast-math, so every f32 operation in a
 kernel rounds once, as PyTorch's eager ops do.
@@ -30,14 +30,18 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / "kernels"
-SOURCES = ("candidates", "auction")
+SOURCES = ("candidates", "auction", "repair")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 # launches per kernel since the last reset_launches()
-LAUNCHES = {"candidates_forward": 0, "candidates_reverse": 0, "auction_phase": 0}
+LAUNCHES = {
+    "candidates_forward": 0, "candidates_reverse": 0, "auction_phase": 0,
+    "candidates_forward_rows": 0, "candidates_reverse_blocks": 0,
+    "repair_enter": 0, "repair_tile_min": 0, "repair_refold": 0,
+}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 BUILD_LOG: dict[str, str] = {}
@@ -64,7 +68,7 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> pathlib.Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = (CSRC / f"{name}.cu").read_bytes() + (CSRC / "cell.cuh").read_bytes()
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
@@ -110,7 +114,24 @@ def _lib(name: str) -> ctypes.CDLL:
             lib.k1_reverse.argtypes = [
                 _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _I, _P, _P, _P, _P, _P, _P,
             ]
-            lib.k1_forward.restype = lib.k1_reverse.restype = _I
+            lib.k1_forward_rows.argtypes = [
+                _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P, _I, _I, _P, _P, _P, _P,
+            ]
+            lib.k1_reverse_blocks.argtypes = [
+                _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P, _P, _I, _P, _P, _P, _P,
+            ]
+            for fn in ("k1_forward", "k1_reverse", "k1_forward_rows", "k1_reverse_blocks"):
+                getattr(lib, fn).restype = _I
+        elif name == "repair":
+            lib.k3_repair_enter.argtypes = [
+                _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P, _I, _P, _P, _P, _P,
+            ]
+            lib.k4_repair_tile_min.argtypes = [
+                _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P, _I, _P, _P, _P,
+            ]
+            lib.k5_repair_refold.argtypes = [_P, _P, _I, _I, _I, _P, _P, _P]
+            for fn in ("k3_repair_enter", "k4_repair_tile_min", "k5_repair_refold"):
+                getattr(lib, fn).restype = _I
         else:
             lib.k2_auction_phase.argtypes = [
                 _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
@@ -255,3 +276,126 @@ def auction_phase(
     if work_out is not None:
         work_out["frontier_rows"] = out[2]
     return (out[0], price, owner, p4t, retired), out[1]
+
+
+def _ids(ids: torch.Tensor, n: int, dev, what: str) -> torch.Tensor:
+    """A non-empty int32 id vector on ``dev`` with every id in [0, n)."""
+    if ids.device != dev or ids.dim() != 1 or ids.numel() == 0:
+        raise ValueError(f"{what}: need a non-empty 1-d id tensor on {dev}")
+    ids = ids.to(torch.int32).contiguous()
+    if int(ids.min()) < 0 or int(ids.max()) >= n:
+        raise ValueError(f"{what}: ids out of range [0, {n})")
+    return ids
+
+
+# threads the rows variant aims for: the cold forward launch's 65,536
+# (one per task at the main path's width)
+ROWS_TARGET_THREADS = 65_536
+
+
+def candidates_forward_rows(ep, er, weights, k: int, t_ids: torch.Tensor, lanes: int | None = None):
+    """K1 forward, rows variant (``csrc/candidates.cu``): the k cheapest
+    providers of each task in ``t_ids`` (global ids, also the jitter's),
+    (p [R, k] i32, c [R, k] f32), row i for task t_ids[i]. Each row is
+    walked by ``lanes`` threads (a power of two <= 32; by default the least
+    that brings R x lanes to :data:`ROWS_TARGET_THREADS`)."""
+    if not 1 <= k <= 64 or k > ep.num:
+        raise ValueError(f"K1 forward takes 1 <= k <= min(64, P), got k={k}")
+    dev, pcols, rcols, (P, T, K, W), w, aux = _k1_setup(ep, er, weights)
+    t_ids = _ids(t_ids, T, dev, "candidates_forward_rows")
+    R = t_ids.numel()
+    if lanes is None:
+        lanes = 1
+        while lanes < 32 and R * lanes < ROWS_TARGET_THREADS:
+            lanes *= 2
+    out_p = torch.empty((R, k), dtype=torch.int32, device=dev)
+    out_c = torch.empty((R, k), dtype=torch.float32, device=dev)
+    _check(_lib("candidates").k1_forward_rows(
+        pcols, rcols, P, T, K, W, *w, k, t_ids.data_ptr(), R, lanes,
+        aux.data_ptr(), out_p.data_ptr(), out_c.data_ptr(), _stream(out_p),
+    ), "candidates_forward_rows")
+    LAUNCHES["candidates_forward_rows"] += 1
+    return out_p, out_c
+
+
+def _pools(pool_t, pool_c, P: int, n_tiles: int, dev, what: str) -> None:
+    for t, dt in ((pool_t, torch.int32), (pool_c, torch.float32)):
+        if t.device != dev or t.dtype != dt or t.shape != (P, n_tiles) or not t.is_contiguous():
+            raise ValueError(f"{what}: pools must be contiguous [{P}, {n_tiles}] tensors on {dev}")
+
+
+def candidates_reverse_blocks(ep, er, weights, tile: int, blk_p, blk_j, pool_t, pool_c) -> None:
+    """K1 reverse, blocks variant (``csrc/candidates.cu``): rescores the
+    (provider blk_p[b], tile blk_j[b]) blocks and writes each block's first
+    argmin into ``pool_t`` / ``pool_c`` [P, n_tiles] in place (rt = 1)."""
+    dev, pcols, rcols, (P, T, K, W), w, aux = _k1_setup(ep, er, weights)
+    if tile < 1 or T % tile != 0:
+        raise ValueError(f"K1 reverse blocks: T={T} not divisible by tile={tile}")
+    n_tiles = T // tile
+    _pools(pool_t, pool_c, P, n_tiles, dev, "candidates_reverse_blocks")
+    blk_p = _ids(blk_p, P, dev, "candidates_reverse_blocks")
+    blk_j = _ids(blk_j, n_tiles, dev, "candidates_reverse_blocks")
+    if blk_p.shape != blk_j.shape:
+        raise ValueError("candidates_reverse_blocks: blk_p and blk_j differ in length")
+    _check(_lib("candidates").k1_reverse_blocks(
+        pcols, rcols, P, T, K, W, *w, tile, blk_p.data_ptr(), blk_j.data_ptr(),
+        blk_p.numel(), aux.data_ptr(), pool_t.data_ptr(), pool_c.data_ptr(), _stream(pool_t),
+    ), "candidates_reverse_blocks")
+    LAUNCHES["candidates_reverse_blocks"] += 1
+
+
+def repair_enter(ep, er, weights, p_ids, thresh):
+    """K3 (``csrc/repair.cu``): per task, whether some dirty provider
+    (global ids ``p_ids``) has a feasible fresh cost <= ``thresh`` [T] (the
+    stored k-th forward cost). Returns enter [T] bool."""
+    dev, pcols, rcols, (P, T, K, W), w, aux = _k1_setup(ep, er, weights)
+    p_ids = _ids(p_ids, P, dev, "repair_enter")
+    if thresh.device != dev or thresh.dtype != torch.float32 or thresh.shape != (T,):
+        raise ValueError(f"repair_enter: thresh must be a [{T}] f32 tensor on {dev}")
+    thresh = thresh.contiguous()
+    enter = torch.empty(T, dtype=torch.uint8, device=dev)
+    _check(_lib("repair").k3_repair_enter(
+        pcols, rcols, P, T, K, W, *w, p_ids.data_ptr(), p_ids.numel(), thresh.data_ptr(),
+        aux.data_ptr(), enter.data_ptr(), _stream(enter),
+    ), "repair_enter")
+    LAUNCHES["repair_enter"] += 1
+    return enter.bool()
+
+
+def repair_tile_min(ep, er, weights, t_ids, tile: int, pad: float):
+    """K4 (``csrc/repair.cu``): per (provider, tile), the least fresh cost
+    over the tasks ``t_ids`` (global ids, ascending, unique) of that tile;
+    ``pad`` where the tile holds none of them. Returns [P, n_tiles] f32."""
+    dev, pcols, rcols, (P, T, K, W), w, aux = _k1_setup(ep, er, weights)
+    if tile < 1 or T % tile != 0:
+        raise ValueError(f"repair_tile_min: T={T} not divisible by tile={tile}")
+    t_ids = _ids(t_ids, T, dev, "repair_tile_min")
+    if t_ids.numel() > 1 and not bool((t_ids[1:] > t_ids[:-1]).all()):
+        raise ValueError("repair_tile_min: task ids must ascend strictly")
+    min_tile = torch.full((P, T // tile), pad, dtype=torch.float32, device=dev)
+    _check(_lib("repair").k4_repair_tile_min(
+        pcols, rcols, P, T, K, W, *w, tile, t_ids.data_ptr(), t_ids.numel(),
+        aux.data_ptr(), min_tile.data_ptr(), _stream(min_tile),
+    ), "repair_tile_min")
+    LAUNCHES["repair_tile_min"] += 1
+    return min_tile
+
+
+def repair_refold(pool_t, pool_c, r: int):
+    """K5 (``csrc/repair.cu``): each provider's pools [P, n_tiles] (one
+    contribution per tile) folded in tile order into its best r, the carry
+    first among ties. Returns (rev_t [P, r] with -1 where the cost is
+    >= INFEASIBLE/2, rev_c [P, r])."""
+    dev = pool_c.device
+    P, n_tiles = pool_c.shape
+    _pools(pool_t, pool_c, P, n_tiles, dev, "repair_refold")
+    if not 1 <= r <= 8 or n_tiles < r:
+        raise ValueError(f"K5 takes 1 <= r <= min(8, n_tiles), got r={r}, n_tiles={n_tiles}")
+    rev_t = torch.empty((P, r), dtype=torch.int32, device=dev)
+    rev_c = torch.empty((P, r), dtype=torch.float32, device=dev)
+    _check(_lib("repair").k5_repair_refold(
+        pool_t.data_ptr(), pool_c.data_ptr(), P, n_tiles, r,
+        rev_t.data_ptr(), rev_c.data_ptr(), _stream(rev_c),
+    ), "repair_refold")
+    LAUNCHES["repair_refold"] += 1
+    return rev_t, rev_c

@@ -1,6 +1,6 @@
-"""Canonical column dtypes of the solve arenas, copied from
-``protocol_tpu/native/arena.py:54-103`` so the port imports nothing of
-the reference package."""
+"""Canonical column dtypes of the solve arenas and the row-wise dirty
+test, copied from ``protocol_tpu/native/arena.py:54-105`` so the port
+imports nothing of the reference package."""
 
 from __future__ import annotations
 
@@ -40,3 +40,13 @@ def _canon(enc, spec) -> dict[str, np.ndarray]:
         name: np.ascontiguousarray(_host(getattr(enc, name)), dtype)
         for name, dtype in spec
     }
+
+
+def _dirty_rows(new: dict, old: dict, spec) -> np.ndarray:
+    """Row-wise OR of per-field inequality (trailing axes collapsed)."""
+    n = new[spec[0][0]].shape[0]
+    dirty = np.zeros(n, bool)
+    for name, _ in spec:
+        diff = new[name] != old[name]
+        dirty |= diff.reshape(n, -1).any(axis=1)
+    return dirty

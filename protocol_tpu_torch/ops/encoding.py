@@ -172,3 +172,20 @@ def compat_mask(p: EncodedProviders, r: EncodedRequirements) -> torch.Tensor:
     ok &= gpu_ok
     ok &= p.valid.bool()[:, None] & r.valid.bool()[None, :]
     return ok
+
+
+def _take(col: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    # CUDA has no uint32 gather: move the bits through int32
+    if col.dtype == torch.uint32:
+        return col.view(torch.int32)[idx].view(torch.uint32)
+    return col[idx]
+
+
+def gather_providers(p: EncodedProviders, idx: torch.Tensor) -> EncodedProviders:
+    """The provider rows ``idx`` (global ids, any order), as new columns."""
+    return EncodedProviders(**{f.name: _take(getattr(p, f.name), idx) for f in fields(p)})
+
+
+def gather_requirements(r: EncodedRequirements, idx: torch.Tensor) -> EncodedRequirements:
+    """The requirement rows ``idx`` (global ids, any order), as new columns."""
+    return EncodedRequirements(**{f.name: _take(getattr(r, f.name), idx) for f in fields(r)})

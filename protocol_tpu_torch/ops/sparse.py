@@ -11,6 +11,9 @@
         the eps-scaled frontier auction on the candidate graph, its phases
         run in segments by ``_phase_adaptive`` with the host readbacks of
         the reference.
+  assign_auction_sparse_warm
+        the delta-frontier auction from carried duals (prices, matching,
+        retirement): one fine-eps phase through the same kernel K2.
 
 Two functions hold hand kernels for Hopper (``csrc/``); each dispatches on
 the device of its inputs, with no fallback:
@@ -575,3 +578,66 @@ def _report_stall(kind: str, stall, limit: int, stats_out: dict | None) -> None:
             kind,
             int(stall),
         )
+
+
+def assign_auction_sparse_warm(
+    cand_provider: torch.Tensor,
+    cand_cost: torch.Tensor,
+    num_providers: int,
+    price0: torch.Tensor,
+    p4t0: torch.Tensor,
+    eps: float = 0.02,
+    max_iters: int = 20000,
+    frontier: int = 4096,
+    stall_limit: int = 64,
+    stats_out: dict | None = None,
+    frontier_ladder: bool = True,
+    retired0: torch.Tensor | None = None,
+    with_state: bool = False,
+):
+    """Incremental (delta-frontier) auction from the previous solve's duals.
+
+    ``price0`` [P] are the previous final prices, ``p4t0`` [T] the previous
+    matching in the current index space (-1 for new or changed tasks,
+    injective over >= 0), ``retired0`` [T] the previous retirement mask
+    with the rows whose candidates or costs changed already cleared by
+    the caller. Seeds of tasks without candidates are dropped; prices are
+    shifted down uniformly until max(price) <= finite_max + 5 (a shift,
+    not a clamp: it changes no value difference, and prices may go
+    negative); seeds that violate eps-CS under the shifted prices are
+    evicted; then one phase at ``eps`` with 8x the stall budget, and the
+    greedy cleanup. Returns (AssignResult, prices), plus the retirement
+    mask with ``with_state=True``.
+    """
+    task_has_cand = (cand_provider >= 0).any(dim=1)
+    p4t0 = torch.where(task_has_cand, p4t0.to(torch.int32), -1)
+    finite_max = torch.where(cand_provider >= 0, cand_cost, 0.0).amax()
+    price0 = price0.to(torch.float32)
+    shift = torch.clamp(price0.amax() - (finite_max + 5.0), min=0.0)
+    price0 = price0 - shift
+    owner0 = _invert(p4t0, num_providers)
+    owner0, p4t0 = _unassign_unhappy(cand_provider, cand_cost, price0, owner0, p4t0, eps)
+    if retired0 is None:
+        retired_seed = torch.zeros(cand_cost.shape[0], dtype=torch.bool, device=cand_cost.device)
+    else:
+        # a seeded assignment outranks a stale retirement flag
+        retired_seed = retired0.to(torch.bool) & (p4t0 < 0)
+    state = (
+        torch.zeros((), dtype=torch.int32, device=cand_cost.device),
+        price0, owner0, p4t0, retired_seed,
+    )
+    phase_fn = _phase_adaptive if frontier_ladder else _sparse_auction_phase
+    state, stall = phase_fn(
+        cand_provider, cand_cost, num_providers, state,
+        eps=eps, max_iters=max_iters, frontier=frontier, retire=True,
+        stall_limit=stall_limit * 8,
+    )
+    _report_stall("warm", stall, stall_limit * 8, stats_out)
+    if stats_out is not None:
+        stats_out["rounds_total"] = int(state[0])
+    _, price, owner, p4t, retired = state
+    p4t = _greedy_cleanup(cand_provider, cand_cost, owner, p4t)
+    res = AssignResult(p4t, _invert(p4t, num_providers))
+    if with_state:
+        return res, price, retired & (p4t < 0)
+    return res, price

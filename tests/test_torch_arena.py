@@ -120,11 +120,15 @@ def test_restore_of_a_foreign_or_skewed_carry_invalidates():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="later slice"):
-        TorchSolveArena(device="cpu", cold_every=256)
-    a = TorchSolveArena(device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
+    """Warm ticks are ported: cold_every and apply_rows take their
+    reference meaning (apply_rows refuses an unprimed arena as the
+    reference does); approx_recall is still refused."""
+    a = TorchSolveArena(device="cpu", cold_every=256)
+    assert a.cold_every == 256 and TorchSolveArena(device="cpu").cold_every == 256
+    with pytest.raises(RuntimeError, match="not primed"):
         a.apply_rows(None, None, None, None, CostWeights())
+    with pytest.raises(NotImplementedError, match="approx_recall"):
+        TorchSolveArena(device="cpu", approx_recall=0.95)
 
 
 def test_default_device_is_the_card():

@@ -70,3 +70,106 @@ def test_card_cold_tick_matches_cpu(card):
         a_cpu.solve(ep, er, CostWeights(proximity=0.0)),
     )
     np.testing.assert_array_equal(a_gpu.price, a_cpu.price)
+
+
+def churned_parts(card, weights, P=3000, T=2048, tile=256):
+    """A cold pass's parts on the card under ``weights``, then 1% provider
+    and requirement churn: (churned columns, parts, dirty_p, dirty_t)."""
+    from protocol_tpu_torch.ops.encoding import providers_from_numpy, requirements_from_numpy
+    from protocol_tpu_torch.trace.synth import synth_provider_arrays, synth_requirement_arrays
+
+    pa = synth_provider_arrays(np.random.default_rng(5), P)
+    ra = synth_requirement_arrays(np.random.default_rng(6), T)
+    ep, er = providers_from_numpy(pa, card), requirements_from_numpy(ra, card)
+    fp, fc, _, _, pt, pc = sp.candidates_topk_reverse(ep, er, weights, k=64, tile=tile,
+                                                      reverse_r=8, with_pools=True)
+    rng = np.random.default_rng(7)
+    dirty_p = np.sort(rng.choice(P, P // 100, replace=False))
+    dirty_t = np.sort(rng.choice(T, T // 100, replace=False))
+    pa["price"][dirty_p] = rng.uniform(0.5, 4.0, dirty_p.size).astype(np.float32)
+    ra["ram_mb"][dirty_t] = 256
+    ep, er = providers_from_numpy(pa, card), requirements_from_numpy(ra, card)
+    return ep, er, (fp, fc, pt, pc), dirty_p, dirty_t
+
+
+def test_repair_kernels_match_plain_bits(card):
+    from protocol_tpu_torch import kernels
+    from protocol_tpu_torch.parallel import sparse as ps
+
+    w, tile = CostWeights(proximity=0.0), 256
+    ep, er, (fp, fc, pt, pc), dirty_p, dirty_t = churned_parts(card, w, tile=tile)
+    p_ids = torch.from_numpy(dirty_p).to(card)
+    t_ids = torch.from_numpy(dirty_t).to(card)
+    thresh = fc[:, -1].contiguous()
+    assert same_bits(kernels.repair_enter(ep, er, w, p_ids, thresh),
+                     ps._enter_plain(ep, er, w, p_ids, thresh))
+    rows = torch.arange(0, er.num, 7, device=card).flip(0)
+    plain = ps._forward_rows_plain(ep, er, w, 64, rows)
+    for lanes in (None, 1, 4, 32):  # None: 32 lanes for these 293 rows
+        got = kernels.candidates_forward_rows(ep, er, w, 64, rows, lanes=lanes)
+        assert all(same_bits(a, b) for a, b in zip(got, plain)), lanes
+    assert same_bits(kernels.repair_tile_min(ep, er, w, t_ids, tile, ps._PAD_COST),
+                     ps._tile_min_plain(ep, er, w, t_ids, tile, ps._PAD_COST))
+    gen = torch.Generator(device=card).manual_seed(0)
+    pick = torch.rand(ep.num, er.num // tile, device=card, generator=gen) < 0.05
+    blk_j, blk_p = torch.nonzero(pick.T, as_tuple=True)
+    got = (pt.clone(), pc.clone())
+    ref = (pt.clone(), pc.clone())
+    kernels.candidates_reverse_blocks(ep, er, w, tile, blk_p, blk_j, *got)
+    ps._reverse_blocks_plain(ep, er, w, tile, 1, blk_p, blk_j, *ref)
+    assert all(same_bits(a, b) for a, b in zip(got, ref))
+    assert all(same_bits(a, b) for a, b in zip(kernels.repair_refold(pt, pc, 8),
+                                                ps._refold_plain(pt, pc, 8, 1)))
+
+
+def test_card_repair_equals_card_regen(card):
+    """repaired == regen on the card, bit for bit, at default weights: the
+    repair kernels and K1 score every cell with the same device function."""
+    from protocol_tpu_torch.parallel import sparse as ps
+
+    w, tile = CostWeights(), 256
+    ep, er, (fp, fc, pt, pc), dirty_p, dirty_t = churned_parts(card, w, tile=tile)
+    got = ps.repair_topk_bidir(ep, er, w, fwd_p=fp, fwd_c=fc, pool_t=pt, pool_c=pc,
+                               dirty_p=dirty_p, dirty_t=dirty_t, tile=tile)
+    f2p, f2c, r2t, r2c, p2t, p2c = sp.candidates_topk_reverse(ep, er, w, k=64, tile=tile,
+                                                              reverse_r=8, with_pools=True)
+    m2p, m2c = sp.merge_reverse_candidates(f2p, f2c, r2t, r2c, extra=16)
+    assert all(same_bits(a, b) for a, b in zip(got[:6], (m2p, m2c, f2p, f2c, p2t, p2c)))
+    assert got[6]["repair_enter_rows"] > 0 and got[6]["repair_blocks"] > 0
+
+
+def test_card_warm_chain_matches_cpu(card):
+    """A short warm chain (provider churn, requirement churn, an event) on
+    the card equals the CPU's, tick for tick, at proximity 0."""
+    import dataclasses
+
+    from protocol_tpu_torch.native.arena import _P_SPEC, _canon
+
+    ep = synth_providers(np.random.default_rng(7), 1024, device="cpu")
+    er = synth_requirements(np.random.default_rng(8), 1024, device="cpu")
+    w = CostWeights(proximity=0.0)
+    a_gpu, a_cpu = TorchSolveArena(device=card), TorchSolveArena(device="cpu")
+    for a in (a_gpu, a_cpu):
+        a.solve(ep, er, w)
+    price = ep.price.clone()
+    price[:10] += 0.5
+    ep1 = dataclasses.replace(ep, price=price)
+    ram = er.ram_mb.clone()
+    ram[100:110] = 256
+    er1 = dataclasses.replace(er, ram_mb=ram)
+    pf = _canon(ep1, _P_SPEC)
+    rows = np.array([3, 900], np.int32)
+    vals = {n: pf[n][rows].copy() for n in pf}
+    vals["price"] += np.float32(0.75)
+    steps = [
+        lambda a: a.solve(ep1, er, w),
+        lambda a: a.solve(ep1, er1, w),
+        lambda a: a.apply_rows(rows, vals, None, None, w),
+    ]
+    for step in steps:
+        outs = [step(a) for a in (a_gpu, a_cpu)]
+        assert a_gpu.last_stats["cand_cold_passes"] == 0
+        np.testing.assert_array_equal(*outs)
+        np.testing.assert_array_equal(a_gpu.price, a_cpu.price)
+        for name in ("cand_p", "cand_c", "fwd_p", "fwd_c", "pool_t", "pool_c"):
+            np.testing.assert_array_equal(getattr(a_gpu, f"_{name}"), getattr(a_cpu, f"_{name}"))

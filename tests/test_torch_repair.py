@@ -1,0 +1,196 @@
+"""The port's churn-masked candidate repair (protocol_tpu_torch/parallel/
+sparse.py, plain torch versions on the CPU) held against the reference's
+repair_topk_bidir_sharded(mesh=None) on the same numpy inputs, bit for bit
+at CostWeights(proximity=0.0): outputs and scope stats. The cases are
+those of tests/test_parallel_sparse.py::TestCandidateRepair, on encoded
+marketplaces and on synthetic ones that tie heavily (identical prices share
+1,024 jitter levels), so a jitter keyed on a local index would show. The
+repair is also held against the port's own from-scratch pass."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from protocol_tpu.ops.cost import CostWeights as JCostWeights
+from protocol_tpu.ops.encoding import EncodedProviders
+from protocol_tpu.ops.sparse import candidates_topk_reverse as j_candidates_topk_reverse
+from protocol_tpu.parallel.sparse import _build_repair_enter as j_build_repair_enter
+from protocol_tpu.parallel.sparse import _build_repair_refold as j_build_repair_refold
+from protocol_tpu.parallel.sparse import repair_topk_bidir_sharded as j_repair
+from protocol_tpu_torch.ops.cost import CostWeights
+from protocol_tpu_torch.ops.sparse import candidates_topk_reverse, merge_reverse_candidates
+from protocol_tpu_torch.parallel import sparse as ps
+
+from tests.test_torch_candidates import bits, synth
+from tests.test_torch_encoding_cost import encode_random, to_port
+
+PARTS = ("cand_p", "cand_c", "fwd_p", "fwd_c", "pool_t", "pool_c")
+ZERO_PROX = (JCostWeights(proximity=0.0), CostWeights(proximity=0.0))
+
+
+def marketplace(kind, P, T, seed):
+    return encode_random(seed, P, T) if kind == "encoded" else synth(P, T, seed)
+
+
+def bump(ep, er, dirty_p, dirty_t):
+    price = np.array(ep.price, copy=True)
+    price[list(dirty_p)] += 0.25
+    cores = np.array(er.cpu_cores, copy=True)
+    cores[list(dirty_t)] = np.maximum(1, cores[list(dirty_t)] + 1)
+    return dataclasses.replace(ep, price=price), dataclasses.replace(er, cpu_cores=cores)
+
+
+def full_pass(ep, er, k, tile, r, extra):
+    """The port's from-scratch parts on the CPU, in PARTS order."""
+    tp, tr = to_port(ep, er)
+    fp, fc, rt_, rc, pt, pc = candidates_topk_reverse(
+        tp, tr, ZERO_PROX[1], k=k, tile=tile, reverse_r=r, with_pools=True
+    )
+    mp, mc = merge_reverse_candidates(fp, fc, rt_, rc, extra=extra)
+    return [a.numpy() for a in (mp, mc, fp, fc, pt, pc)]
+
+
+def repair_both(kind, P, T, k, tile, r, extra, dirty_p, dirty_t, seed):
+    ep, er = marketplace(kind, P, T, seed)
+    jw, tw = ZERO_PROX
+    fp, fc, _, _, pt, pc = (np.asarray(a) for a in j_candidates_topk_reverse(
+        ep, er, jw, k=k, tile=tile, reverse_r=r, with_pools=True))
+    ep2, er2 = bump(ep, er, dirty_p, dirty_t)
+    ref = j_repair(ep2, er2, jw, fwd_p=fp, fwd_c=fc, pool_t=pt, pool_c=pc,
+                   dirty_p=np.asarray(dirty_p, np.int64), dirty_t=np.asarray(dirty_t, np.int64),
+                   reverse_r=r, mesh=None, tile=tile, extra=extra)
+    got = ps.repair_topk_bidir(*to_port(ep2, er2), tw, fwd_p=fp, fwd_c=fc, pool_t=pt, pool_c=pc,
+                               dirty_p=dirty_p, dirty_t=dirty_t, reverse_r=r, tile=tile,
+                               extra=extra)
+    return ref, got, (ep2, er2)
+
+
+# (P, T, k, tile, r, extra, dirty_p, dirty_t): TestCandidateRepair's cases
+CASES = [
+    (96, 128, 16, 16, 8, 8, [5, 17, 40], []),       # provider-side churn only
+    (96, 128, 16, 16, 8, 8, [], [3, 60, 100, 101]),  # requirement-side churn only
+    (96, 128, 16, 16, 8, 8, [2, 90], [0, 127]),     # both sides
+    (96, 128, 16, 16, 8, 8, [], []),                # empty event: a no-op
+    (24, 256, 24, 16, 4, 8, [1, 20], [4, 200]),     # rt = 1 over 16 tiles, k clamped at P
+    (24, 16, 4, 8, 3, 4, [2, 7], [5, 12]),          # two tiles: rt = 2 (plain path only)
+]
+
+
+@pytest.mark.parametrize("kind", ["encoded", "synth"])
+@pytest.mark.parametrize("P,T,k,tile,r,extra,dirty_p,dirty_t", CASES)
+def test_repair_matches_reference_bit_for_bit(kind, P, T, k, tile, r, extra, dirty_p, dirty_t):
+    ref, got, _ = repair_both(kind, P, T, k, tile, r, extra, dirty_p, dirty_t, seed=11)
+    for name, g, o in zip(PARTS, got[:6], ref[:6]):
+        np.testing.assert_array_equal(bits(g.numpy()), bits(o), err_msg=name)
+    ref_stats = {key: v for key, v in ref[6].items() if key != "pad_hw"}
+    assert got[6] == ref_stats
+    if not dirty_p and not dirty_t:
+        assert got[6]["repair_rows"] == got[6]["repair_blocks"] == 0
+        assert got[6]["visited_cells_frac"] == 0.0
+    else:
+        assert got[6]["visited_cells_frac"] > 0.0
+        # churn-bounded work, not a rebuild (the two-tile case visits its
+        # few cells more than once)
+        assert T < 32 or got[6]["visited_cells_frac"] < 1.0
+
+
+@pytest.mark.parametrize("P,T,k,tile,r,extra,dirty_p,dirty_t", CASES)
+def test_repair_equals_the_ports_own_regen(P, T, k, tile, r, extra, dirty_p, dirty_t):
+    _, got, (ep2, er2) = repair_both("synth", P, T, k, tile, r, extra, dirty_p, dirty_t, seed=5)
+    oracle = full_pass(ep2, er2, min(k, P), tile, r, extra)
+    for name, g, o in zip(PARTS, got[:6], oracle):
+        np.testing.assert_array_equal(bits(g.numpy()), bits(o), err_msg=name)
+
+
+def test_repair_scope_is_churn_bounded():
+    """Requirement-side churn repairs O(churned rows): the forward scope
+    is exactly the dirty tasks, no enter scan runs."""
+    _, got, _ = repair_both("encoded", 96, 256, 16, 16, 8, 8, [], [10, 77], seed=5)
+    stats = got[6]
+    assert stats["repair_rows"] == 2 and stats["repair_enter_rows"] == 0
+    assert stats["visited_cells_frac"] < 0.5
+
+
+def test_repair_does_not_modify_the_stored_parts():
+    ep, er = synth(64, 128, 3)
+    fp, fc, _, _, pt, pc = (a.numpy() for a in candidates_topk_reverse(
+        *to_port(ep, er), ZERO_PROX[1], k=16, tile=16, reverse_r=8, with_pools=True))
+    keep = [a.copy() for a in (fp, fc, pt, pc)]
+    ep2, er2 = bump(ep, er, [3], [7])
+    ps.repair_topk_bidir(*to_port(ep2, er2), ZERO_PROX[1], fwd_p=fp, fwd_c=fc, pool_t=pt,
+                         pool_c=pc, dirty_p=[3], dirty_t=[7], reverse_r=8, tile=16, extra=8)
+    for a, b in zip((fp, fc, pt, pc), keep):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_repair_refuses_a_pool_of_another_width():
+    ep, er = synth(32, 64, 3)
+    tp, tr = to_port(ep, er)
+    fp, fc, _, _, pt, pc = candidates_topk_reverse(tp, tr, ZERO_PROX[1], k=8, tile=8,
+                                                   reverse_r=8, with_pools=True)
+    with pytest.raises(ValueError, match="pool width"):
+        ps.repair_topk_bidir(tp, tr, ZERO_PROX[1], fwd_p=fp, fwd_c=fc, pool_t=pt, pool_c=pc,
+                             dirty_p=[1], dirty_t=[], reverse_r=4, tile=4, extra=8)
+
+
+# ---------------- each kernel's plain version against the reference ------
+
+
+@pytest.mark.parametrize("kind", ["encoded", "synth"])
+def test_enter_plain_matches_reference_enter_scan(kind):
+    ep, er = marketplace(kind, 80, 96, 7)
+    jw, tw = ZERO_PROX
+    fwd_c = np.asarray(j_candidates_topk_reverse(ep, er, jw, k=16, tile=12, reverse_r=8)[1])
+    dirty_p = np.array([4, 33, 79], np.int64)
+    ep2, _ = bump(ep, er, dirty_p, [])
+    thresh = fwd_c[:, -1]
+    tp, tr = to_port(ep2, er)
+    got = ps.repair_enter(tp, tr, tw, torch.tensor(dirty_p), torch.tensor(thresh))
+    ep_dirty = EncodedProviders(**{f.name: jnp.asarray(np.asarray(getattr(ep2, f.name))[dirty_p])
+                                   for f in dataclasses.fields(ep2)})
+    run = j_build_repair_enter(dataclasses.astuple(jw), 12, 8, 3, jax.tree.structure(ep_dirty),
+                               jax.tree.structure(er))
+    ref = run(ep_dirty, jnp.asarray(dirty_p.astype(np.uint32)), jnp.ones(3, bool),
+              jax.tree.map(jnp.asarray, er), jnp.asarray(thresh))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    assert got.any()
+
+
+def test_refold_plain_matches_reference_refold():
+    ep, er = synth(48, 64, 9)
+    _, _, rev_t, rev_c, pt, pc = (np.asarray(a) for a in j_candidates_topk_reverse(
+        ep, er, ZERO_PROX[0], k=8, tile=8, reverse_r=6, with_pools=True))
+    ref_t, ref_c = j_build_repair_refold(48, 8, 1, 6, 1)(jnp.asarray(pt), jnp.asarray(pc))
+    got_t, got_c = ps.repair_refold(torch.from_numpy(pt.copy()), torch.from_numpy(pc.copy()), 6, 1)
+    np.testing.assert_array_equal(got_t.numpy(), np.asarray(ref_t))
+    np.testing.assert_array_equal(bits(got_c.numpy()), bits(np.asarray(ref_c)))
+    # the refold replays the cold pass's own fold
+    np.testing.assert_array_equal(got_t.numpy(), np.where(rev_c < 5e8, rev_t, -1))
+
+
+def test_tile_min_plain_is_the_dirty_column_minimum():
+    ep, er = synth(40, 64, 2)
+    tp, tr = to_port(ep, er)
+    dirty_t = torch.tensor([1, 5, 40, 41, 63])
+    got = ps.tile_min(tp, tr, ZERO_PROX[1], dirty_t, 16)
+    cost = ps._jittered(tp, tr, ZERO_PROX[1], torch.arange(40), torch.arange(64))
+    want = torch.full((40, 4), ps._PAD_COST, dtype=torch.float32)
+    for t in dirty_t.tolist():
+        want[:, t // 16] = torch.minimum(want[:, t // 16], cost[:, t])
+    np.testing.assert_array_equal(bits(got.numpy()), bits(want.numpy()))
+    assert (got[:, 1] == torch.tensor(ps._PAD_COST, dtype=torch.float32)).all()
+
+
+def test_forward_rows_plain_are_the_full_pass_rows():
+    ep, er = synth(72, 96, 4)
+    tp, tr = to_port(ep, er)
+    fp, fc, *_ = candidates_topk_reverse(tp, tr, ZERO_PROX[1], k=12, tile=12, reverse_r=8)
+    rows = torch.tensor([95, 0, 13, 14, 60])  # any order: global ids carry the jitter
+    p, c = ps.forward_rows(tp, tr, ZERO_PROX[1], 12, rows)
+    np.testing.assert_array_equal(p.numpy(), fp[rows].numpy())
+    np.testing.assert_array_equal(bits(c.numpy()), bits(fc[rows].numpy()))
