@@ -21,7 +21,28 @@ to 0 just before it and read just after:
 
 The kernels the warm chain adds (K1's rows and blocks variants, K3, K4,
 K5) and K2 from a carried state are then held against their plain
-versions on the arguments of their first call in the chain. Prints:
+versions on the arguments of their first call in the chain, and K9 (the
+greedy cleanup) on its first call in the cold ticks and on a state with
+thousands of open tasks.
+
+Then the batch matcher (TorchBatchMatcher) on an in-memory store built
+from the port's own models, in two more runs with the counts set to 0
+just before each:
+
+  - the dense route at its full width, p_bucket x s_bucket = 2^24 =
+    dense_cell_budget: 4,096 nodes (12 GPU classes, half located), 192
+    bounded tasks x 16 replicas = 3,072 slots and 1,024 unbounded tasks,
+    two refreshes (1% of the nodes repriced and two tasks replaced in
+    between): K6 + K7 (phase 1) and K8 (phase 2), each held against its
+    plain version on the first refresh's inputs;
+  - the torch route (native_engine="torch") at 65,536 nodes x 65,536
+    slots (4,096 tasks x 16 replicas): a cold refresh, then a warm one
+    after 1% node churn.
+
+The card's matcher must equal the port's CPU matcher on a 1,024-node x
+768-slot pool, every assigned pair must meet its requirements, and every
+node left to phase 2 with a compatible unbounded task must get one.
+Prints:
 
   - the card's name and power limit (nvidia-smi),
   - one JSON line ``{"kernels": [...]}``: per kernel its launches on the
@@ -49,9 +70,27 @@ SMALL = 2_048  # the CUDA-vs-CPU agreement check
 SEED = 2  # providers; requirements SEED + 1; churn rows SEED + 1 (own stream)
 CHURN = 0.01  # rows per warm tick, as the reference's warm bench
 EVENT_ROWS = 8  # providers repriced by the apply_rows event
-COLD_KERNELS = ("candidates_forward", "candidates_reverse", "auction_phase")
+COLD_KERNELS = ("candidates_forward", "candidates_reverse", "auction_phase", "greedy_cleanup")
+WARM_KERNELS = COLD_KERNELS + (
+    "candidates_forward_rows", "candidates_reverse_blocks", "repair_enter", "repair_tile_min",
+    "repair_refold",
+)
+DENSE_KERNELS = ("dense_value_base", "dense_auction", "unbounded_best")
 SRC_K1 = "protocol_tpu_torch/csrc/candidates.cu"
 SRC_REPAIR = "protocol_tpu_torch/csrc/repair.cu"
+SRC_DENSE = "protocol_tpu_torch/csrc/dense.cu"
+SRC_K9 = "protocol_tpu_torch/csrc/cleanup.cu"
+# the matcher's pools: the dense route at its budget, the torch route at
+# the one-chip rung, the card-vs-CPU check
+DENSE_POOL = (4_096, 192, 16, 1_024)  # nodes, bounded tasks, replicas, unbounded tasks
+ARENA_POOL = (N, 4_096, 16, 64)
+SMALL_POOL = (1_024, 48, 16, 64)
+K9_MIN_OPEN = 1_000  # open tasks K9 must sweep on the cut-auction state
+GPU_CLASSES = (  # 12 model classes with their per-card memory (MB)
+    ("H100", 80_000), ("H200", 141_000), ("A100", 40_000), ("A6000", 48_000),
+    ("L40S", 48_000), ("L4", 24_000), ("RTX 4090", 24_000), ("RTX 3090", 24_000),
+    ("V100", 32_000), ("T4", 16_000), ("MI300X", 192_000), ("B200", 180_000),
+)
 COST_TOL = 1e-3  # |cost| tolerance at default weights (haversine ulps)
 DEVICE = "cuda"
 
@@ -148,13 +187,14 @@ RECORDED = {
 }
 
 
-def record_first_calls(kernels) -> tuple[dict, dict]:
-    """Wrap the kernel wrappers so that the arguments of each one's first
-    call are kept; the wrapped call (and its count) is unchanged. Returns
+def record_first_calls(kernels, names: dict = RECORDED) -> tuple[dict, dict]:
+    """Wrap the kernel wrappers ``names`` (name -> positional arguments
+    written in place) so that the arguments of each one's first call are
+    kept; the wrapped call (and its count) is unchanged. Returns
     (recorded, originals)."""
     seen: dict = {}
-    originals = {name: getattr(kernels, name) for name in RECORDED}
-    for name, written in RECORDED.items():
+    originals = {name: getattr(kernels, name) for name in names}
+    for name, written in names.items():
         def wrapped(*args, _orig=originals[name], _name=name, _written=written, **kw):
             if _name not in seen:
                 kept = [a.clone() if i in _written else a for i, a in enumerate(args)]
@@ -183,6 +223,166 @@ def feasible_cells(torch, compat_mask, gp, gr, ep, er, p_ids=None, t_ids=None) -
         int(compat_mask(eps, gr(er, t_all[i:i + 1024])).sum())
         for i in range(0, t_all.numel(), 1024)
     )
+
+
+def row(name, src, replaces, err, ms, plain, bytes_, ops) -> dict:
+    """One entry of the kernels line; ``launches`` is filled in from the
+    main-path runs. The bound is the larger of the bytes over the memory
+    rate and the operations over the f32 rate."""
+    b_bytes = bytes_ / PEAK_BYTES_PER_S * 1e3
+    b_ops = ops / PEAK_F32_OPS_PER_S * 1e3
+    return {
+        "name": name, "route": "cuda", "source": src, "replaces": replaces,
+        "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+        "bound_ms": max(b_bytes, b_ops),
+        "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+        "library_ms": None,
+    }
+
+
+class _Nodes:
+    def __init__(self, nodes):
+        self.nodes = list(nodes)
+
+    def get_nodes(self):
+        return list(self.nodes)
+
+
+class _Tasks:
+    def __init__(self, tasks):
+        self.tasks = {t.id: t for t in tasks}
+
+    def get_all_tasks(self):
+        return list(self.tasks.values())
+
+    def get_task(self, task_id):
+        return self.tasks.get(task_id)
+
+
+def mem_store(nodes, tasks):
+    """An in-memory store with what the matcher reads of one."""
+    return types.SimpleNamespace(node_store=_Nodes(nodes), task_store=_Tasks(tasks))
+
+
+def pool_dsl(rng) -> str:
+    """A requirement in the DSL over GPU_CLASSES: one GPU alternative (70%)
+    or two, each with a count and one model (80%) or two, sometimes a
+    per-card memory minimum; sometimes CPU and RAM minima."""
+    parts = []
+    for _ in range(1 if rng.random() < 0.7 else 2):
+        models = rng.choice(len(GPU_CLASSES), 1 if rng.random() < 0.8 else 2, replace=False)
+        parts.append(f"gpu:count={rng.choice([1, 2, 4, 8])}")
+        parts.append("gpu:model=" + ",".join(GPU_CLASSES[m][0] for m in models))
+        if rng.random() < 0.2:
+            parts.append(f"gpu:memory_mb_min={rng.choice([16_000, 24_000, 40_000])}")
+    if rng.random() < 0.5:
+        parts.append(f"cpu:cores={rng.choice([4, 8, 16])}")
+    if rng.random() < 0.3:
+        parts.append(f"ram_mb={rng.choice([16_384, 65_536])}")
+    return ";".join(parts)
+
+
+def pool_task(rng, name: str, replicas=None):
+    from protocol_tpu_torch.models.task import (
+        SchedulingConfig,
+        Task,
+        _validate_tpu_scheduler_plugin,
+    )
+
+    plug = {"compute_requirements": [pool_dsl(rng)]}
+    if replicas:
+        plug["replicas"] = [str(replicas)]
+    cfg = SchedulingConfig(plugins={"tpu_scheduler": plug})
+    _validate_tpu_scheduler_plugin(cfg)
+    return Task(name=name, created_at=int(rng.integers(1_000_000)), scheduling_config=cfg)
+
+
+def make_pool(rng, n_nodes: int, n_bounded: int, replicas: int, n_unbounded: int):
+    """(nodes, tasks) of a marketplace drawn from ``rng``: nodes of the 12
+    GPU_CLASSES with counts {1, 2, 4, 8}, CPU, RAM, storage, price and load,
+    every other one located; bounded tasks of ``replicas`` replicas and
+    unbounded ones, each with a requirement DSL string."""
+    from protocol_tpu_torch.models.node import ComputeSpecs, CpuSpecs, GpuSpecs, NodeLocation
+    from protocol_tpu_torch.store.node_store import NodeStatus, OrchestratorNode
+
+    nodes = []
+    for i in range(n_nodes):
+        name, mem = GPU_CLASSES[int(rng.integers(len(GPU_CLASSES)))]
+        loc = NodeLocation(float(rng.uniform(-60, 60)), float(rng.uniform(-170, 170))) if i % 2 else None
+        nodes.append(OrchestratorNode(
+            address=f"0x{i:06x}", status=NodeStatus.HEALTHY,
+            compute_specs=ComputeSpecs(
+                gpu=GpuSpecs(count=int(rng.choice([1, 2, 4, 8])), model=name, memory_mb=mem),
+                cpu=CpuSpecs(cores=int(rng.choice([8, 16, 32, 64]))),
+                ram_mb=int(rng.choice([32_768, 65_536, 262_144])),
+                storage_gb=int(rng.choice([500, 2_000, 8_000])),
+            ),
+            location=loc, price=float(rng.uniform(0.5, 4.0)), load=float(rng.uniform(0, 1)),
+        ))
+    tasks = [pool_task(rng, f"b{j}", replicas) for j in range(n_bounded)]
+    tasks += [pool_task(rng, f"u{j}") for j in range(n_unbounded)]
+    return nodes, tasks
+
+
+def churn_pool(rng, store, frac: float, replace_tasks: int) -> None:
+    """Reprice ``frac`` of the nodes and replace ``replace_tasks`` bounded
+    tasks by new ones of as many replicas."""
+    from protocol_tpu_torch.sched.torch_backend import task_replicas
+
+    nodes = store.node_store.nodes
+    for i in rng.choice(len(nodes), max(1, int(len(nodes) * frac)), replace=False):
+        nodes[i].price = float(rng.uniform(0.5, 4.0))
+    tasks = store.task_store.tasks
+    bounded = [t for t in tasks.values() if task_replicas(t)]
+    for j, old in enumerate(bounded[:replace_tasks]):
+        del tasks[old.id]
+        new = pool_task(rng, f"r{j}", task_replicas(old))
+        tasks[new.id] = new
+
+
+def check_matching(torch, compat_mask, store, matcher) -> dict:
+    """Every assigned pair meets its task's requirements, no bounded task
+    holds more than its replicas, and every node left to phase 2 that has
+    a compatible unbounded task got one (compat by the plain torch mask)."""
+    from protocol_tpu_torch.ops.encoding import FeatureEncoder
+    from protocol_tpu_torch.sched.torch_backend import task_replicas, task_requirements
+
+    nodes = store.node_store.get_nodes()
+    tasks = store.task_store.tasks
+    unbounded = [t for t in tasks.values() if task_replicas(t) is None]
+    reqs = {tid: task_requirements(t) for tid, t in tasks.items()}
+    held: dict = {}
+    for n in nodes:
+        tid = matcher._assignment.get(n.address)
+        if tid is None:
+            continue
+        if not n.compute_specs.meets(reqs[tid]):
+            raise AssertionError(f"{n.address} holds {tid} but does not meet its requirements")
+        held[tid] = held.get(tid, 0) + 1
+    over = [t for t, c in held.items() if task_replicas(tasks[t]) and c > task_replicas(tasks[t])]
+    if over:
+        raise AssertionError(f"bounded tasks over their replicas: {over[:5]}")
+    bounded_ids = {tid for tid, t in tasks.items() if task_replicas(t)}
+    in_phase2 = [i for i, n in enumerate(nodes)
+                 if matcher._assignment.get(n.address) not in bounded_ids]
+    n_bounded = len(nodes) - len(in_phase2)
+    n_compat = n_swarm = 0
+    if unbounded and in_phase2:
+        enc = FeatureEncoder()
+        ep = enc.encode_providers([nodes[i].compute_specs for i in in_phase2], device=DEVICE)
+        er = enc.encode_requirements([reqs[t.id] for t in unbounded], device=DEVICE)
+        has = compat_mask(ep, er).any(dim=1).cpu().tolist()
+        unb_ids = {t.id for t in unbounded}
+        for i, h in zip(in_phase2, has):
+            got = matcher._assignment.get(nodes[i].address) in unb_ids
+            n_compat += h
+            n_swarm += got
+            if h and not got:
+                raise AssertionError(f"{nodes[i].address} has a compatible unbounded task "
+                                     "but phase 2 gave it none")
+    return {"bounded_seats": n_bounded, "phase2_nodes": len(in_phase2),
+            "phase2_compatible": n_compat, "phase2_assigned": n_swarm}
+
 
 def main() -> int:
     try:
@@ -285,6 +485,28 @@ def main() -> int:
         stall_limit=0), 3)
     k2_plain_ms = cuda_ms(torch, lambda: sp._auction_rounds_plain(
         cand_safe, value_base, feas, give_up, state0, N, 4.0, 256, 4096, 0), 1)
+    # K9 on a state with thousands of open tasks: the cold auction cut
+    # after two rounds, its first 4,096 open tasks (the reference sweeps a
+    # prefix of the open set too, flatnonzero(size=budget))
+    cut, _ = kernels.auction_phase(cand_safe, value_base, feas, give_up, state0, P=N, eps=4.0,
+                                   max_iters=2, B=4096, stall_limit=0)
+    cut_owner, cut_p4t = cut[2], cut[3]
+    cut_open = torch.nonzero(cut_p4t < 0).flatten()[:4096]
+    k9_got = kernels.greedy_cleanup(cand_p, cand_c, cut_owner, cut_p4t, cut_open)
+    k9_ref = sp._greedy_cleanup_plain(cand_p, cand_c, cut_owner, cut_p4t, cut_open)
+    torch.cuda.synchronize()
+    k9_seated = int((k9_got[cut_open] >= 0).sum())
+    print(f"K9 on a cut auction: {cut_open.numel()} open tasks swept, {k9_seated} seated, "
+          f"bit-identical {bits_equal(torch, k9_got, k9_ref.to(torch.int32))}", flush=True)
+    if cut_open.numel() < K9_MIN_OPEN or not bits_equal(torch, k9_got, k9_ref.to(torch.int32)):
+        return fail("K9 on a cut auction: too few open tasks or not bit-identical")
+    k9_ms = cuda_ms(torch, lambda: kernels.greedy_cleanup(cand_p, cand_c, cut_owner, cut_p4t,
+                                                          cut_open), 5)
+    k9_plain_ms = cuda_ms(torch, lambda: sp._greedy_cleanup_plain(cand_p, cand_c, cut_owner,
+                                                                  cut_p4t, cut_open), 1)
+    k9_bytes = cut_open.numel() * (cand_c.shape[1] * 8 + 4 + 4) + N * 4 + N * 8
+    del cut, cut_owner, cut_p4t, k9_got, k9_ref
+
     K = cand_c.shape[1]
     k2_bytes = N * K * 8 + N * 2 + N * 2 * 4 + N * 4 + 2 * (N * 2 * 4 + N * 4 + N)
     k2_ops = k2_rows * K * 3  # per candidate: subtract, compare, max
@@ -311,6 +533,7 @@ def main() -> int:
     arena = TorchSolveArena(device=dev, cold_every=0)
     torch.cuda.synchronize()
     kernels.reset_launches()
+    k9_recorded, k9_originals = record_first_calls(kernels, {"greedy_cleanup": ()})
     ticks = []
     for i in range(3):
         t_tick = time.perf_counter()
@@ -323,6 +546,8 @@ def main() -> int:
               f"assigned {st['assigned']}/{N} ({st['assigned'] / N:.6f}) "
               f"plan_cost {st.get('plan_cost')} gap_per_task {st.get('gap_per_task')}", flush=True)
     launches = dict(kernels.LAUNCHES)
+    for name, fn in k9_originals.items():
+        setattr(kernels, name, fn)
     print(f"kernels (cold ticks): {json.dumps(launches)}", flush=True)
     missing = [n for n in COLD_KERNELS if launches[n] == 0]
     if missing:
@@ -447,7 +672,7 @@ def main() -> int:
         setattr(kernels, name, fn)
     launches_warm = dict(kernels.LAUNCHES)
     print(f"kernels (warm chain): {json.dumps(launches_warm)}", flush=True)
-    missing = [n for n, c in launches_warm.items() if c == 0]
+    missing = [n for n in WARM_KERNELS if launches_warm[n] == 0]
     if missing:
         return fail(f"the warm chain launched no {missing}")
     if not warm_ticks[-2].get("dual_refresh"):
@@ -608,36 +833,175 @@ def main() -> int:
     if not same:
         return fail("K2 from the warm chain's carried state: not bit-identical to the plain version")
 
-    def row(name, src, replaces, launches_n, err, ms, plain, bytes_, ops):
-        b_bytes = bytes_ / PEAK_BYTES_PER_S * 1e3
-        b_ops = ops / PEAK_F32_OPS_PER_S * 1e3
-        return {
-            "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches_n, "max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": max(b_bytes, b_ops),
-            "bound_by": "bytes" if b_bytes >= b_ops else "operations",
-            "library_ms": None,
+    # ---- K9 on the first call of the cold ticks
+    k9_args, _ = k9_recorded["greedy_cleanup"]
+    got = kernels.greedy_cleanup(*k9_args)
+    ref = sp._greedy_cleanup_plain(*k9_args)
+    torch.cuda.synchronize()
+    print(f"K9 first cold-tick call: {k9_args[4].numel()} open tasks, "
+          f"bit-identical {bits_equal(torch, got, ref.to(torch.int32))}", flush=True)
+    if not bits_equal(torch, got, ref.to(torch.int32)):
+        return fail("K9 on the cold tick's call: not bit-identical to the plain version")
+
+    # ---- the batch matcher
+    from protocol_tpu_torch.ops import assign as da
+    from protocol_tpu_torch.ops.cost import cost_matrix, with_tie_jitter
+    from protocol_tpu_torch.sched import torch_backend as tb
+
+    m_default = CostWeights(priority=1.0)  # the matcher's default weights
+    m_zero = CostWeights(priority=1.0, proximity=0.0)
+
+    def refresh(matcher, store, label: str, kernel: str) -> dict:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        matcher.refresh()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        st = dict(matcher.last_solve_stats)
+        print(f"matcher {label}: refresh wall_ms {wall:.1f} solve_ms {st['solve_ms']:.1f} "
+              f"encode_ms {st['encode_ms']:.1f} phase1_ms {st['phase1_ms']:.1f} "
+              f"phase2_ms {st['phase2_ms']:.1f} auction_rounds {st.get('auction_rounds')} "
+              f"arena_cold {st.get('arena_cold')} arena_gen_ms {st.get('arena_gen_ms')} "
+              f"arena_solve_ms {st.get('arena_solve_ms')} assigned {st['assigned']}/{st['nodes']} "
+              f"kernel {st['kernel']}", flush=True)
+        if st["kernel"] != kernel:
+            raise AssertionError(f"matcher {label}: kernel {st['kernel']}, not {kernel}")
+        checked = check_matching(torch, compat_mask, store, matcher)
+        print(f"matcher {label}: {json.dumps(checked)}", flush=True)
+        return st
+
+    # the card against the CPU on a small pool (dense route on both)
+    nodes, tasks = make_pool(np.random.default_rng(SEED + 10), *SMALL_POOL)
+    small = mem_store(nodes, tasks)
+    on_card = tb.TorchBatchMatcher(small, device=dev)
+    on_cpu = tb.TorchBatchMatcher(small, device="cpu")
+    on_card.refresh()
+    on_cpu.refresh()
+    same_small = on_card._assignment == on_cpu._assignment
+    print(f"matcher {SMALL_POOL[0]} nodes x {SMALL_POOL[1] * SMALL_POOL[2]} slots, card vs cpu: "
+          f"identical {same_small}, assigned {len(on_card._assignment)}", flush=True)
+    if not same_small:
+        return fail("the card's matcher differs from the CPU's on the small pool")
+    del on_card, on_cpu, small
+
+    # the dense route at its budget: two refreshes
+    nodes, tasks = make_pool(np.random.default_rng(SEED + 20), *DENSE_POOL)
+    rng = np.random.default_rng(SEED + 21)
+    store = mem_store(nodes, tasks)
+    dense = tb.TorchBatchMatcher(store, device=dev)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    d_recorded, d_originals = record_first_calls(
+        kernels, {name: () for name in DENSE_KERNELS})
+    dense_stats = [refresh(dense, store, "dense-0", "dense_auction")]
+    churn_pool(rng, store, CHURN, replace_tasks=2)
+    dense_stats.append(refresh(dense, store, "dense-1", "dense_auction"))
+    for name, fn in d_originals.items():
+        setattr(kernels, name, fn)
+    launches_dense = dict(kernels.LAUNCHES)
+    print(f"kernels (matcher, dense route): {json.dumps(launches_dense)}", flush=True)
+    missing = [n for n in DENSE_KERNELS if launches_dense[n] == 0]
+    if missing:
+        return fail(f"the dense route launched no {missing}")
+
+    # K6, K7 (fed K6's output) and K8 against their plain versions on the
+    # first refresh's inputs, at proximity 0 and at the matcher's weights
+    (ep6, er6, _), _ = d_recorded["dense_value_base"]
+    (ep8, er8, _), _ = d_recorded["unbounded_best"]
+
+    def plain_value_base(w):
+        return da._value_base(with_tie_jitter(cost_matrix(ep6, er6, w)[0]))
+
+    for w in (m_zero, m_default):
+        vb, feas = kernels.dense_value_base(ep6, er6, w)
+        pvb, pfeas = plain_value_base(w)
+        work: dict = {}
+        got = kernels.dense_auction(vb, feas, 0.05, 300, work)
+        ref = da._auction_dense_plain(vb, feas, 0.05, 300)
+        best = kernels.unbounded_best(ep8, er8, w)
+        pbest = tb._solve_unbounded_plain(ep8, er8, w)
+        torch.cuda.synchronize()
+        checks = {
+            "K6": bits_equal(torch, vb, pvb) and bool(torch.equal(feas, pfeas)),
+            "K7": all(bits_equal(torch, a, b) for a, b in zip(got[:3], ref[:3]))
+            and int(got[3]) == int(ref[3]) and int(work["open_rows"]) == ref[4],
+            "K8": bits_equal(torch, best, pbest),
         }
+        print(f"dense kernels (proximity {w.proximity}): bit-identical {json.dumps(checks)}; "
+              f"K7 rounds {int(got[3])} open rows {int(work['open_rows'])} "
+              f"seated {int((got[0] >= 0).sum())}/{int(feas.sum())} feasible slots", flush=True)
+        if not all(checks.values()):
+            return fail(f"dense kernels differ from their plain versions: {checks}")
+    k7_rounds, k7_open_rows = int(got[3]), int(work["open_rows"])
+    k6_ms = cuda_ms(torch, lambda: kernels.dense_value_base(ep6, er6, m_default), 5)
+    k6_plain_ms = cuda_ms(torch, lambda: plain_value_base(m_default), 3)
+    k7_ms = cuda_ms(torch, lambda: kernels.dense_auction(vb, feas, 0.05, 300), 3)
+    k7_plain_ms = cuda_ms(torch, lambda: da._auction_dense_plain(vb, feas, 0.05, 300), 1)
+    k8_ms = cuda_ms(torch, lambda: kernels.unbounded_best(ep8, er8, m_default), 5)
+    k8_plain_ms = cuda_ms(torch, lambda: tb._solve_unbounded_plain(ep8, er8, m_default), 3)
+    Pd, Td, Tu = ep6.num, er6.num, er8.num
+    k6_feasible = int((vb > -5e17).sum())
+    k6_bytes = Pd * row_bytes(ep6) + Td * row_bytes(er6) + Td * Pd * 4 + Td
+    k6_ops = Pd * Td * OPS_PER_CELL + k6_feasible * OPS_PER_FEASIBLE_CELL
+    k7_bytes = k7_open_rows * Pd * 4
+    k7_ops = k7_open_rows * Pd * 3  # per cell: subtract, compare, max
+    k8_feasible = int(compat_mask(ep8, er8).sum())
+    k8_bytes = Pd * row_bytes(ep8) + Tu * row_bytes(er8) + Pd * 4
+    k8_ops = Pd * Tu * OPS_PER_CELL + k8_feasible * OPS_PER_FEASIBLE_CELL
+    print(f"dense route: {Pd} x {Td} cells ({k6_feasible} feasible), K8 {Pd} x {Tu} cells "
+          f"({k8_feasible} feasible)", flush=True)
+    del vb, feas, pvb, pfeas, got, ref, dense, store, d_recorded
+
+    # the torch route at the one-chip rung: a cold refresh, then a warm one
+    nodes, tasks = make_pool(np.random.default_rng(SEED + 30), *ARENA_POOL)
+    rng = np.random.default_rng(SEED + 31)
+    store = mem_store(nodes, tasks)
+    arena_m = tb.TorchBatchMatcher(store, native_engine="torch", device=dev)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    torch_stats = [refresh(arena_m, store, "torch-cold", "torch_arena")]
+    churn_pool(rng, store, CHURN, replace_tasks=0)
+    torch_stats.append(refresh(arena_m, store, "torch-warm", "torch_arena"))
+    launches_torch = dict(kernels.LAUNCHES)
+    print(f"kernels (matcher, torch route): {json.dumps(launches_torch)}", flush=True)
+    missing = [n for n in COLD_KERNELS + ("unbounded_best",) if launches_torch[n] == 0]
+    if missing:
+        return fail(f"the torch route launched no {missing}")
+    if not torch_stats[0]["arena_cold"] or torch_stats[1]["arena_cold"]:
+        return fail("the torch route's refreshes were not cold then warm")
+    del arena_m, store, nodes, tasks
+
+    runs = {"cold_ticks": launches, "warm_chain": launches_warm,
+            "matcher_dense": launches_dense, "matcher_torch": launches_torch}
 
     rows = [
         row("candidates_forward", SRC_K1, "protocol_tpu/ops/sparse.py:131",
-            launches["candidates_forward"], k1_default["fwd_max_abs_err"], fwd_ms,
-            fwd_plain_ms, fwd_bytes, k1_ops),
+            k1_default["fwd_max_abs_err"], fwd_ms, fwd_plain_ms, fwd_bytes, k1_ops),
         row("candidates_reverse", SRC_K1, "protocol_tpu/ops/sparse.py:172",
-            launches["candidates_reverse"], k1_default["rev_max_abs_err"], rev_ms,
-            rev_plain_ms, rev_bytes, k1_ops),
+            k1_default["rev_max_abs_err"], rev_ms, rev_plain_ms, rev_bytes, k1_ops),
         row("auction_phase", "protocol_tpu_torch/csrc/auction.cu",
-            "protocol_tpu/ops/sparse.py:418", launches["auction_phase"], 0.0, k2_ms,
-            k2_plain_ms, k2_bytes, k2_ops),
+            "protocol_tpu/ops/sparse.py:418", 0.0, k2_ms, k2_plain_ms, k2_bytes, k2_ops),
     ]
     for name, src, repl, err, ms, plain, bytes_, ops, work in new_rows:
-        rows.append(row(name, src, repl, launches_warm[name], err, ms, plain, bytes_, ops))
+        rows.append(row(name, src, repl, err, ms, plain, bytes_, ops))
         print(f"{name} timed on its first-call arguments: {work}", flush=True)
+    rows += [
+        row("dense_value_base", SRC_DENSE, "protocol_tpu/sched/tpu_backend.py:172", 0.0,
+            k6_ms, k6_plain_ms, k6_bytes, k6_ops),
+        row("dense_auction", SRC_DENSE, "protocol_tpu/ops/assign.py:176", 0.0, k7_ms,
+            k7_plain_ms, k7_bytes, k7_ops),
+        row("unbounded_best", SRC_DENSE, "protocol_tpu/sched/tpu_backend.py:189", 0.0, k8_ms,
+            k8_plain_ms, k8_bytes, k8_ops),
+        row("greedy_cleanup", SRC_K9, "protocol_tpu/ops/sparse.py:545", 0.0, k9_ms,
+            k9_plain_ms, k9_bytes, 0),
+    ]
     for r_ in rows:
-        r_["launches_cold_ticks"] = launches[r_["name"]]
-        r_["launches_warm_chain"] = launches_warm[r_["name"]]
-        r_["launches"] = r_["launches_cold_ticks"] + r_["launches_warm_chain"]
+        for run, counts in runs.items():
+            r_[f"launches_{run}"] = counts[r_["name"]]
+        r_["launches"] = sum(counts[r_["name"]] for counts in runs.values())
     print(f"K2 timed launch: eps 4.0, B 4096, {k2_rounds} rounds, {k2_rows} frontier rows", flush=True)
+    print(f"K7 timed launch: {Td} slots x {Pd} providers, eps 0.05, {k7_rounds} rounds, "
+          f"{k7_open_rows} open rows; K9 timed on {cut_open.numel()} open tasks", flush=True)
     print(f"elapsed: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(f"card: {card}", flush=True)

@@ -1,10 +1,11 @@
-// Shared by the candidate kernels (candidates.cu) and the repair kernels
-// (repair.cu): the column layout, the per-row cost terms, the capability
-// check, the exact jittered cost of one (provider, task) cell, and the
-// fold of per-tile reverse pools into a provider's best r. Every kernel
-// that scores a cell calls cell_cost, and both the cold reverse launch and
-// the repair refold call fold_pools, so a repaired cell or edge is the
-// same bits as a cold one.
+// Shared by the candidate kernels (candidates.cu), the repair kernels
+// (repair.cu) and the dense matcher kernels (dense.cu): the column
+// layout, the per-row cost terms, the capability check, the exact
+// jittered cost of one (provider, task) cell, and the fold of per-tile
+// reverse pools into a provider's best r. Every kernel that scores a cell
+// calls cell_cost, and both the cold reverse launch and the repair refold
+// call fold_pools, so a repaired cell or edge is the same bits as a cold
+// one.
 //
 // Jitter is keyed on the global provider and task ids the caller passes
 // (a kernel that walks a gathered subset reads its columns at the global
@@ -194,8 +195,11 @@ __device__ __forceinline__ bool compat(const ProvRow& p, const TaskRow& t, const
   return false;
 }
 
-// The exact jittered cost of cell (p, t): cost_matrix's terms in its
-// order, INFEASIBLE off the mask, plus tie_jitter on feasible cells.
+// The exact cost of cell (p, t): cost_matrix's terms in its order,
+// INFEASIBLE off the mask, plus tie_jitter on feasible cells when kJitter
+// (the candidate, repair and dense auction kernels); without it for the
+// swarm phase's argmin (dense.cu), which the reference scores unjittered.
+template <bool kJitter = true>
 __device__ __forceinline__ float cell_cost(const ProvRow& p, int pi, const TaskRow& t, int ti,
                                            const Req& R, int K, int W, const Weights& w) {
   if (!compat(p, t, R, ti, K, W)) return kInfeasible;
@@ -214,7 +218,7 @@ __device__ __forceinline__ float cell_cost(const ProvRow& p, int pi, const TaskR
   }
   cost = __fadd_rn(cost, near);
   cost = __fsub_rn(cost, t.prio);
-  if (cost < kHalfInfeasible) {
+  if (kJitter && cost < kHalfInfeasible) {
     const uint32_t h = ((uint32_t)pi * 2654435761u) ^ ((uint32_t)ti * 40503u);
     cost = __fadd_rn(cost, __fmul_rn((float)(h & 1023u), 1e-7f));
   }

@@ -30,7 +30,7 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / "kernels"
-SOURCES = ("candidates", "auction", "repair")
+SOURCES = ("candidates", "auction", "repair", "dense", "cleanup")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -41,6 +41,7 @@ LAUNCHES = {
     "candidates_forward": 0, "candidates_reverse": 0, "auction_phase": 0,
     "candidates_forward_rows": 0, "candidates_reverse_blocks": 0,
     "repair_enter": 0, "repair_tile_min": 0, "repair_refold": 0,
+    "dense_value_base": 0, "dense_auction": 0, "unbounded_best": 0, "greedy_cleanup": 0,
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -132,6 +133,17 @@ def _lib(name: str) -> ctypes.CDLL:
             lib.k5_repair_refold.argtypes = [_P, _P, _I, _I, _I, _P, _P, _P]
             for fn in ("k3_repair_enter", "k4_repair_tile_min", "k5_repair_refold"):
                 getattr(lib, fn).restype = _I
+        elif name == "dense":
+            lib.k6_value_base.argtypes = [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P, _P]
+            lib.k7_dense_auction.argtypes = [
+                _P, _P, _I, _I, _F, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+            ]
+            lib.k8_unbounded_best.argtypes = [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P]
+            for fn in ("k6_value_base", "k7_dense_auction", "k8_unbounded_best"):
+                getattr(lib, fn).restype = _I
+        elif name == "cleanup":
+            lib.k9_greedy_cleanup.argtypes = [_P, _P, _I, _I, _P, _P, _I, _P, _P]
+            lib.k9_greedy_cleanup.restype = _I
         else:
             lib.k2_auction_phase.argtypes = [
                 _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
@@ -399,3 +411,95 @@ def repair_refold(pool_t, pool_c, r: int):
     ), "repair_refold")
     LAUNCHES["repair_refold"] += 1
     return rev_t, rev_c
+
+
+def dense_value_base(ep, er, weights):
+    """K6 (``csrc/dense.cu``): the dense auction's value rows, (value_base
+    [T, P] f32 = -(jittered cost), -1e18 where the cost is >= INFEASIBLE/2;
+    task_feasible [T] bool)."""
+    if ep.num < 1 or er.num < 1:
+        raise ValueError("K6 takes at least one provider and one task")
+    dev, pcols, rcols, (P, T, K, W), w, aux = _k1_setup(ep, er, weights)
+    value_base = torch.empty((T, P), dtype=torch.float32, device=dev)
+    feasible = torch.zeros(T, dtype=torch.uint8, device=dev)
+    _check(_lib("dense").k6_value_base(
+        pcols, rcols, P, T, K, W, *w, aux.data_ptr(), value_base.data_ptr(),
+        feasible.data_ptr(), _stream(value_base),
+    ), "dense_value_base")
+    LAUNCHES["dense_value_base"] += 1
+    return value_base, feasible.bool()
+
+
+def dense_auction(value_base, task_feasible, eps: float, max_iters: int,
+                  work_out: dict | None = None):
+    """K7 (``csrc/dense.cu``): the dense Jacobi auction from scratch duals,
+    every round in one cooperative launch. Returns (p4t [T] i32, t4p [P]
+    i32, price [P] f32, rounds 0-d i64); ``work_out["open_rows"]``
+    receives the open rows summed over the rounds (0-d i64)."""
+    T, P = value_base.shape
+    dev = value_base.device
+    if value_base.dtype != torch.float32 or not value_base.is_contiguous():
+        raise ValueError("K7: value_base must be a contiguous f32 [T, P] tensor")
+    if T < 1 or P < 1:
+        raise ValueError("K7 takes at least one task and one provider")
+    feasible = task_feasible.to(torch.uint8).contiguous()
+    if feasible.device != dev or feasible.shape != (T,):
+        raise ValueError(f"K7: task_feasible must be a [{T}] tensor on {dev}")
+    price = torch.zeros(P, dtype=torch.float32, device=dev)
+    owner = torch.full((P,), -1, dtype=torch.int32, device=dev)
+    p4t = torch.full((T,), -1, dtype=torch.int32, device=dev)
+    fr_p1 = torch.full((2, T), -1, dtype=torch.int32, device=dev)
+    fr_key = torch.empty(T, dtype=torch.int64, device=dev)
+    win_key = torch.zeros((2, P), dtype=torch.int64, device=dev)
+    ctl = torch.zeros(2, dtype=torch.int32, device=dev)  # barrier, open count
+    out = torch.zeros(2, dtype=torch.int64, device=dev)
+    _check(_lib("dense").k7_dense_auction(
+        value_base.data_ptr(), feasible.data_ptr(), T, P, eps, max_iters,
+        price.data_ptr(), owner.data_ptr(), p4t.data_ptr(), fr_p1.data_ptr(),
+        fr_key.data_ptr(), win_key.data_ptr(), ctl.data_ptr(), ctl[1:].data_ptr(),
+        out.data_ptr(), _stream(out),
+    ), "dense_auction")
+    LAUNCHES["dense_auction"] += 1
+    if work_out is not None:
+        work_out["open_rows"] = out[1]
+    return p4t, owner, price, out[0]
+
+
+def unbounded_best(ep, er, weights):
+    """K8 (``csrc/dense.cu``): per provider, the first argmin over the
+    tasks of the unjittered cost, -1 where it is >= INFEASIBLE/2. Returns
+    best [P] i32."""
+    if ep.num < 1 or er.num < 1:
+        raise ValueError("K8 takes at least one provider and one task")
+    dev, pcols, rcols, (P, T, K, W), w, aux = _k1_setup(ep, er, weights)
+    best = torch.empty(P, dtype=torch.int32, device=dev)
+    _check(_lib("dense").k8_unbounded_best(
+        pcols, rcols, P, T, K, W, *w, aux.data_ptr(), best.data_ptr(), _stream(best),
+    ), "unbounded_best")
+    LAUNCHES["unbounded_best"] += 1
+    return best
+
+
+def greedy_cleanup(cand_provider, cand_cost, owner, p4t, open_idx):
+    """K9 (``csrc/cleanup.cu``): the open tasks ``open_idx`` (ascending) in
+    order each take their cheapest still-free candidate. Returns the new
+    p4t [T] i32 (the input is not changed)."""
+    T, K = cand_cost.shape
+    dev = cand_cost.device
+    P = owner.shape[0]
+    cand_p = cand_provider.to(torch.int32).contiguous()
+    cand_c = cand_cost.to(torch.float32).contiguous()
+    owner = owner.to(torch.int32).contiguous()
+    open_idx = open_idx.to(torch.int32).contiguous()
+    out = p4t.to(torch.int32).clone()
+    for t in (cand_p, owner, open_idx, out):
+        if t.device != dev:
+            raise ValueError(f"K9: every input must lie on {dev}, got {t.device}")
+    if cand_p.shape != (T, K) or out.shape != (T,) or K > 128 or P > 1_638_400:
+        raise ValueError(f"K9 takes [T, K <= 128] candidates and P <= 1,638,400, got {K}, {P}")
+    _check(_lib("cleanup").k9_greedy_cleanup(
+        cand_p.data_ptr(), cand_c.data_ptr(), K, P, owner.data_ptr(), open_idx.data_ptr(),
+        open_idx.numel(), out.data_ptr(), _stream(out),
+    ), "greedy_cleanup")
+    LAUNCHES["greedy_cleanup"] += 1
+    return out

@@ -81,6 +81,17 @@ def tie_jitter_ids(p_ids: torch.Tensor, t_ids: torch.Tensor) -> torch.Tensor:
     return _jitter_hash(p_idx[:, None], t_idx[None, :])
 
 
+def with_tie_jitter(cost: torch.Tensor) -> torch.Tensor:
+    """Apply :func:`tie_jitter` to the feasible cells of a dense [P, T]
+    cost matrix (``protocol_tpu/ops/cost.py:100``); with
+    :func:`cost_matrix` it is the plain version of the dense route's K6."""
+    return torch.where(
+        cost < INFEASIBLE * 0.5,
+        cost + tie_jitter(cost.shape[0], cost.shape[1], device=cost.device),
+        cost,
+    )
+
+
 def cost_matrix(
     p: EncodedProviders,
     r: EncodedRequirements,

@@ -1,25 +1,36 @@
-"""Encoded feature columns and the vectorized capability mask
-(``protocol_tpu/ops/encoding.py:45-100, 324-391``).
+"""Encoded feature columns, the host-side encoder and the vectorized
+capability mask (``protocol_tpu/ops/encoding.py``).
 
 The columns are plain dataclasses of tensors with the reference's field
-names. ``FeatureEncoder`` (the host-side interning of GPU model strings)
-is not ported yet: the port takes the reference's encoded arrays across
-as numpy dicts (:func:`providers_from_numpy` /
-:func:`requirements_from_numpy`), coerced to the arena's canonical
-dtypes (``native/arena.py::_P_SPEC`` / ``_R_SPEC``): bool columns are
-uint8, the model-class bitmask uint32.
+names, in the arena's canonical dtypes (``native/arena.py::_P_SPEC`` /
+``_R_SPEC``): bool columns are uint8, the model-class bitmask uint32.
+:class:`FeatureEncoder` (the reference's :103-320) interns GPU model
+strings and encodes specs and requirements in numpy on the host, with the
+reference's arrays, padding included; :func:`providers_from_numpy` /
+:func:`requirements_from_numpy` place such arrays (or the reference's
+encoded arrays) on a device.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, fields
-from typing import Mapping
+from typing import Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
 from protocol_tpu_torch.device import resolve_device
+from protocol_tpu_torch.models.node import (
+    ComputeRequirements,
+    ComputeSpecs,
+    NodeLocation,
+    _models_fuzzy_match,
+)
 from protocol_tpu_torch.native.arena import _P_SPEC, _R_SPEC
+
+# Number of padded GPU OR-alternatives per requirement set. The reference DSL
+# rarely exceeds 2-3 alternatives; overflowing options raise at encode time.
+DEFAULT_MAX_GPU_OPTIONS = 4
 
 
 @dataclass
@@ -108,6 +119,223 @@ def slice_requirements(r: EncodedRequirements, start: int, size: int) -> Encoded
     return EncodedRequirements(
         **{f.name: getattr(r, f.name)[start:start + size] for f in fields(r)}
     )
+
+
+class FeatureEncoder:
+    """Host-side interning + batch encoding (``protocol_tpu/ops/encoding.py:
+    103-320``).
+
+    The encoder owns the GPU-model vocabulary. It is incremental: new model
+    strings get fresh class ids, and requirement bitmasks are resolved against
+    the vocabulary *at encode time* (so encode requirements after the
+    providers they will be matched with, or re-encode on vocab growth —
+    ``vocab_version`` tracks this).
+
+    ``provider_arrays`` / ``requirement_arrays`` return the reference's
+    numpy arrays by field name; ``encode_providers`` /
+    ``encode_requirements`` place them on ``device`` as port columns.
+    """
+
+    def __init__(self, model_words: int = 8, max_gpu_options: int = DEFAULT_MAX_GPU_OPTIONS):
+        # W words of 32 bits each => capacity model_words*32 distinct models
+        self._vocab: dict[str, int] = {}
+        self._vocab_list: list[str] = []
+        self.model_words = model_words
+        self.max_gpu_options = max_gpu_options
+        self.vocab_version = 0
+
+    # ---------------- vocabulary ----------------
+
+    def intern_model(self, model: Optional[str]) -> int:
+        if model is None:
+            return -1
+        key = model.strip()
+        mid = self._vocab.get(key)
+        if mid is None:
+            mid = len(self._vocab_list)
+            if mid >= self.model_words * 32:
+                raise ValueError(
+                    f"GPU model vocabulary overflow (> {self.model_words * 32}); "
+                    "construct the FeatureEncoder with more model_words"
+                )
+            self._vocab[key] = mid
+            self._vocab_list.append(key)
+            self.vocab_version += 1
+        return mid
+
+    def _model_csv_to_mask(self, csv: Optional[str]) -> tuple[np.ndarray, bool]:
+        """Resolve a requirement's model CSV into a bitmask over vocab classes
+        using the reference's fuzzy-match rule. Returns (mask[W] u32,
+        constrained)."""
+        mask = np.zeros(self.model_words, dtype=np.uint32)
+        if csv is None:
+            return mask, False
+        for mid, spec_model in enumerate(self._vocab_list):
+            if _models_fuzzy_match(spec_model, csv):
+                mask[mid >> 5] |= np.uint32(1) << np.uint32(mid & 31)
+        return mask, True
+
+    # ---------------- providers ----------------
+
+    def provider_arrays(
+        self,
+        specs: Sequence[Optional[ComputeSpecs]],
+        locations: Optional[Sequence[Optional[NodeLocation]]] = None,
+        prices: Optional[Sequence[float]] = None,
+        loads: Optional[Sequence[float]] = None,
+        pad_to: Optional[int] = None,
+    ) -> dict[str, np.ndarray]:
+        n = len(specs)
+        p = pad_to if pad_to is not None else n
+        if p < n:
+            raise ValueError("pad_to smaller than provider count")
+
+        gpu_count = np.full(p, -1, np.int32)
+        gpu_mem = np.full(p, -1, np.int32)
+        gpu_model = np.full(p, -1, np.int32)
+        has_gpu = np.zeros(p, bool)
+        has_cpu = np.zeros(p, bool)
+        cpu_cores = np.full(p, -1, np.int32)
+        ram = np.full(p, -1, np.int32)
+        storage = np.full(p, -1, np.int32)
+        lat = np.zeros(p, np.float32)
+        lon = np.zeros(p, np.float32)
+        has_loc = np.zeros(p, bool)
+        price = np.zeros(p, np.float32)
+        load = np.zeros(p, np.float32)
+        valid = np.zeros(p, bool)
+
+        for i, s in enumerate(specs):
+            valid[i] = True
+            if s is None:
+                continue
+            if s.gpu is not None:
+                has_gpu[i] = True
+                if s.gpu.count is not None:
+                    gpu_count[i] = s.gpu.count
+                if s.gpu.memory_mb is not None:
+                    gpu_mem[i] = s.gpu.memory_mb
+                gpu_model[i] = self.intern_model(s.gpu.model)
+            if s.cpu is not None:
+                has_cpu[i] = True
+                if s.cpu.cores is not None:
+                    cpu_cores[i] = s.cpu.cores
+            if s.ram_mb is not None:
+                ram[i] = s.ram_mb
+            if s.storage_gb is not None:
+                storage[i] = s.storage_gb
+        if locations is not None:
+            for i, lc in enumerate(locations):
+                if lc is not None:
+                    lat[i] = np.radians(lc.latitude)
+                    lon[i] = np.radians(lc.longitude)
+                    has_loc[i] = True
+        if prices is not None:
+            price[: len(prices)] = np.asarray(prices, np.float32)
+        if loads is not None:
+            load[: len(loads)] = np.asarray(loads, np.float32)
+
+        return dict(
+            gpu_count=gpu_count, gpu_mem_mb=gpu_mem, gpu_model_id=gpu_model,
+            has_gpu=has_gpu, has_cpu=has_cpu, cpu_cores=cpu_cores, ram_mb=ram,
+            storage_gb=storage, lat=lat, lon=lon, has_location=has_loc,
+            price=price, load=load, valid=valid,
+        )
+
+    def encode_providers(self, specs, locations=None, prices=None, loads=None,
+                         pad_to=None, device="cuda") -> EncodedProviders:
+        return providers_from_numpy(
+            self.provider_arrays(specs, locations, prices, loads, pad_to), device
+        )
+
+    # ---------------- requirements ----------------
+
+    def requirement_arrays(
+        self,
+        reqs: Sequence[ComputeRequirements],
+        locations: Optional[Sequence[Optional[NodeLocation]]] = None,
+        priorities: Optional[Sequence[float]] = None,
+        pad_to: Optional[int] = None,
+    ) -> dict[str, np.ndarray]:
+        n = len(reqs)
+        t = pad_to if pad_to is not None else n
+        if t < n:
+            raise ValueError("pad_to smaller than requirement count")
+        k, w = self.max_gpu_options, self.model_words
+
+        cpu_required = np.zeros(t, bool)
+        cpu_cores = np.full(t, -1, np.int32)
+        ram = np.full(t, -1, np.int32)
+        storage = np.full(t, -1, np.int32)
+        opt_valid = np.zeros((t, k), bool)
+        gcount = np.full((t, k), -1, np.int32)
+        gmem_min = np.full((t, k), -1, np.int32)
+        gmem_max = np.full((t, k), -1, np.int32)
+        gtot_min = np.full((t, k), -1, np.int32)
+        gtot_max = np.full((t, k), -1, np.int32)
+        gmask = np.zeros((t, k, w), np.uint32)
+        gconstrained = np.zeros((t, k), bool)
+        lat = np.zeros(t, np.float32)
+        lon = np.zeros(t, np.float32)
+        has_loc = np.zeros(t, bool)
+        prio = np.zeros(t, np.float32)
+        valid = np.zeros(t, bool)
+
+        for i, r in enumerate(reqs):
+            valid[i] = True
+            if r.cpu is not None:
+                cpu_required[i] = True
+                if r.cpu.cores is not None:
+                    cpu_cores[i] = r.cpu.cores
+            if r.ram_mb is not None:
+                ram[i] = r.ram_mb
+            if r.storage_gb is not None:
+                storage[i] = r.storage_gb
+            if len(r.gpu) > k:
+                raise ValueError(
+                    f"requirement has {len(r.gpu)} GPU alternatives > max {k}"
+                )
+            for j, g in enumerate(r.gpu):
+                opt_valid[i, j] = True
+                if g.count is not None:
+                    gcount[i, j] = g.count
+                # memory_mb is itself a lower bound (node.rs:480-500); when a
+                # dict-deserialized requirement carries both (the DSL parser
+                # rejects the combination but the wire path does not), the
+                # effective bound is the stricter of the two.
+                bounds = [b for b in (g.memory_mb, g.memory_mb_min) if b is not None]
+                if bounds:
+                    gmem_min[i, j] = max(bounds)
+                if g.memory_mb_max is not None:
+                    gmem_max[i, j] = g.memory_mb_max
+                if g.total_memory_min is not None:
+                    gtot_min[i, j] = g.total_memory_min
+                if g.total_memory_max is not None:
+                    gtot_max[i, j] = g.total_memory_max
+                gmask[i, j], gconstrained[i, j] = self._model_csv_to_mask(g.model)
+        if locations is not None:
+            for i, lc in enumerate(locations):
+                if lc is not None:
+                    lat[i] = np.radians(lc.latitude)
+                    lon[i] = np.radians(lc.longitude)
+                    has_loc[i] = True
+        if priorities is not None:
+            prio[: len(priorities)] = np.asarray(priorities, np.float32)
+
+        return dict(
+            cpu_required=cpu_required, cpu_cores=cpu_cores, ram_mb=ram,
+            storage_gb=storage, gpu_opt_valid=opt_valid, gpu_count=gcount,
+            gpu_mem_min=gmem_min, gpu_mem_max=gmem_max,
+            gpu_total_mem_min=gtot_min, gpu_total_mem_max=gtot_max,
+            gpu_model_mask=gmask, gpu_model_constrained=gconstrained,
+            lat=lat, lon=lon, has_location=has_loc, priority=prio, valid=valid,
+        )
+
+    def encode_requirements(self, reqs, locations=None, priorities=None, pad_to=None,
+                            device="cuda") -> EncodedRequirements:
+        return requirements_from_numpy(
+            self.requirement_arrays(reqs, locations, priorities, pad_to), device
+        )
 
 
 def _ge_min(spec: torch.Tensor, req: torch.Tensor) -> torch.Tensor:

@@ -15,14 +15,16 @@
         the delta-frontier auction from carried duals (prices, matching,
         retirement): one fine-eps phase through the same kernel K2.
 
-Two functions hold hand kernels for Hopper (``csrc/``); each dispatches on
-the device of its inputs, with no fallback:
+Three functions hold hand kernels for Hopper (``csrc/``); each dispatches
+on the device of its inputs, with no fallback:
 
   candidates_forward / candidates_reverse -> K1 (``csrc/candidates.cu``),
         its forward and reverse launches: a CPU tensor takes the plain
         torch scans below, a CUDA tensor the fused kernel.
   _sparse_auction_phase   -> K2 (``csrc/auction.cu``): a CPU tensor takes the
         plain round loop below, a CUDA tensor the persistent kernel.
+  _greedy_cleanup_compacted -> K9 (``csrc/cleanup.cu``): a CPU tensor takes
+        the plain loop below, a CUDA tensor the one-block sweep.
 
 Every structure op (selection, fold, merge, auction) reproduces the
 reference's tie order: among equal values the lower index comes first, as
@@ -424,8 +426,19 @@ def _unassign_unhappy(cand_provider, cand_cost, price, owner, p4t, eps_next):
 
 def _greedy_cleanup_compacted(cand_provider, cand_cost, owner, p4t, open_idx):
     """Sweep the open tasks ``open_idx`` (index order) greedily: each takes
-    its cheapest free candidate. Sequential by nature; the loop runs over
-    the open rows only and never reads a value back to the host."""
+    its cheapest free candidate. Sequential by nature: K9 on a card (one
+    block, ``csrc/cleanup.cu``), the plain loop below on the CPU."""
+    if cand_cost.is_cuda:
+        from protocol_tpu_torch import kernels
+
+        return kernels.greedy_cleanup(cand_provider, cand_cost, owner, p4t, open_idx)
+    return _greedy_cleanup_plain(cand_provider, cand_cost, owner, p4t, open_idx)
+
+
+def _greedy_cleanup_plain(cand_provider, cand_cost, owner, p4t, open_idx):
+    """K9's plain version: one masked argmin per open row, in order; the
+    loop runs over the open rows only and never reads a value back to the
+    host."""
     T, K = cand_cost.shape
     free = owner < 0  # [P]
     cand_valid = cand_provider >= 0

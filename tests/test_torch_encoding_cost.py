@@ -177,6 +177,9 @@ def test_port_imports_neither_jax_nor_the_reference():
         "import protocol_tpu_torch.kernels, protocol_tpu_torch.ops.sparse\n"
         "import protocol_tpu_torch.parallel.torch_arena, protocol_tpu_torch.trace.synth\n"
         "import protocol_tpu_torch.obs.quality\n"
+        "import protocol_tpu_torch.models.node, protocol_tpu_torch.models.task\n"
+        "import protocol_tpu_torch.store.node_store, protocol_tpu_torch.ops.assign\n"
+        "import protocol_tpu_torch.sched.torch_backend\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'protocol_tpu' or m.startswith('protocol_tpu.')]\n"
         "print('BAD', bad)\n"

@@ -173,3 +173,88 @@ def test_card_warm_chain_matches_cpu(card):
         np.testing.assert_array_equal(a_gpu.price, a_cpu.price)
         for name in ("cand_p", "cand_c", "fwd_p", "fwd_c", "pool_t", "pool_c"):
             np.testing.assert_array_equal(getattr(a_gpu, f"_{name}"), getattr(a_cpu, f"_{name}"))
+
+
+@pytest.mark.parametrize("proximity", [0.0, 0.001])
+def test_dense_kernels_match_plain_bits(card, proximity):
+    """K6 against cost_matrix + with_tie_jitter, K7 (fed K6's output)
+    against the plain auction loop, K8 against cost_matrix + argmin: the
+    same bits, rounds and work counters, at proximity 0 and at default
+    weights (torch's CUDA sin/cos/asin are the kernels')."""
+    from protocol_tpu_torch import kernels
+    from protocol_tpu_torch.ops import assign as da
+    from protocol_tpu_torch.ops.cost import cost_matrix, with_tie_jitter
+    from protocol_tpu_torch.sched import torch_backend as tb
+
+    ep = synth_providers(np.random.default_rng(11), 1000, device=card)
+    er = synth_requirements(np.random.default_rng(12), 700, device=card)
+    w = CostWeights(priority=1.0, proximity=proximity)
+    vb, feas = kernels.dense_value_base(ep, er, w)
+    cost, _ = cost_matrix(ep, er, w)
+    pvb, pfeas = da._value_base(with_tie_jitter(cost))
+    assert same_bits(vb, pvb) and torch.equal(feas, pfeas)
+    work: dict = {}
+    got = kernels.dense_auction(vb, feas, 0.05, 300, work)
+    p4t, t4p, price, rounds, open_rows = da._auction_dense_plain(vb, feas, 0.05, 300)
+    assert all(same_bits(a, b) for a, b in zip(got[:3], (p4t, t4p, price)))
+    assert int(got[3]) == int(rounds) and int(work["open_rows"]) == open_rows
+    cut = kernels.dense_auction(vb, feas, 0.05, 3)  # cut at max_iters
+    ref = da._auction_dense_plain(vb, feas, 0.05, 3)
+    assert all(same_bits(a, b) for a, b in zip(cut[:3], ref[:3])) and int(cut[3]) == 3
+    assert same_bits(kernels.unbounded_best(ep, er, w), tb._solve_unbounded_plain(ep, er, w))
+
+
+def test_greedy_cleanup_kernel_matches_plain_bits(card):
+    """K9 on the state an auction cut after a few rounds leaves (many open
+    tasks contending for the same free providers)."""
+    from protocol_tpu_torch import kernels
+
+    n = 3000
+    ep = synth_providers(np.random.default_rng(2), n, device=card)
+    er = synth_requirements(np.random.default_rng(3), n, device=card)
+    cp, cc = sp.candidates_topk_bidir(ep, er, CostWeights(), k=64, tile=250)
+    state, _ = sp._sparse_auction_phase(cp, cc, n, None, eps=4.0, max_iters=2, frontier=4096,
+                                        retire=True, stall_limit=0)
+    _, _, owner, p4t, _ = state
+    open_idx = torch.nonzero(p4t < 0).flatten()
+    assert open_idx.numel() >= 1000
+    got = kernels.greedy_cleanup(cp, cc, owner, p4t, open_idx)
+    ref = sp._greedy_cleanup_plain(cp, cc, owner, p4t, open_idx)
+    assert same_bits(got, ref.to(torch.int32))
+
+
+def test_card_matcher_matches_cpu(card):
+    """TorchBatchMatcher on the card (K6, K7, K8) equals the CPU's on a
+    mixed pool, on the dense route and on the torch route (K9 in it)."""
+    import random
+
+    from protocol_tpu_torch.models.node import ComputeSpecs, CpuSpecs, GpuSpecs
+    from protocol_tpu_torch.models.task import SchedulingConfig, Task
+    from protocol_tpu_torch.sched.torch_backend import TorchBatchMatcher
+    from protocol_tpu_torch.store.node_store import NodeStatus, OrchestratorNode
+
+    rng = random.Random(1)
+    models = ["H100", "A100", "L40S", "RTX 4090"]
+    nodes = [OrchestratorNode(
+        address=f"0x{i:04d}", status=NodeStatus.HEALTHY, price=rng.uniform(0.5, 4),
+        compute_specs=ComputeSpecs(gpu=GpuSpecs(count=rng.choice([1, 2, 4, 8]),
+                                                model=rng.choice(models), memory_mb=80000),
+                                   cpu=CpuSpecs(cores=32), ram_mb=65536, storage_gb=1000))
+        for i in range(300)]
+    tasks = [Task(name=f"b{j}", created_at=j, scheduling_config=SchedulingConfig(plugins={
+        "tpu_scheduler": {"replicas": [str(rng.randint(1, 30))], "compute_requirements": [
+            f"gpu:count={rng.choice([1, 2, 4, 8])};gpu:model={rng.choice(models)}"]}}))
+        for j in range(20)] + [Task(name="swarm", created_at=0)]
+    by_id = {t.id: t for t in tasks}
+    store = type("S", (), {})()
+    store.node_store = type("N", (), {"get_nodes": lambda s: nodes})()
+    store.task_store = type("T", (), {"get_all_tasks": lambda s: tasks,
+                                      "get_task": lambda s, i: by_id[i]})()
+    for engine, kernel in (("native", "dense_auction"), ("torch", "torch_arena")):
+        w = CostWeights(priority=1.0, proximity=0.0)
+        on_card = TorchBatchMatcher(store, weights=w, native_engine=engine, device=card)
+        on_cpu = TorchBatchMatcher(store, weights=w, native_engine=engine, device="cpu")
+        on_card.refresh()
+        on_cpu.refresh()
+        assert on_card.last_solve_stats["kernel"] == kernel
+        assert on_card._assignment == on_cpu._assignment
