@@ -42,6 +42,27 @@ just before each:
 The card's matcher must equal the port's CPU matcher on a 1,024-node x
 768-slot pool, every assigned pair must meet its requirements, and every
 node left to phase 2 with a compatible unbounded task must get one.
+
+Then the matcher's anti-affinity and colocation phases (0 and 0.5), in
+two more runs with the counts set to 0 just before each:
+
+  - the torch route on the 65,536-node pool above, its located nodes at
+    256 shared sites, plus 64 location-spread and 64 provider-spread tasks
+    x 32 replicas and 512 colocated tasks x 8 one-GPU slices (model and
+    per-GPU-memory gates): a cold refresh, then a warm one after 1% node
+    churn;
+  - the dense route on the 4,096-node pool with the same mix at 1/8.
+K10 (the dense cost block) and K11 (the FFD bin-pack) must equal their
+plain versions bit for bit on every call of the cold refresh, and K1 its
+plain version on the colocation phase's reverse call (several tasks per
+tile) and phase 0's forward call (the rows variant, also against the
+forward launch); every spread task's replicas must sit on distinct
+providers or location classes, every colocated provider's summed demand
+must fit its capacity in all five resources, no provider claimed by
+phase 0 or 0.5 may hold a phase-1 or phase-2 task, every placed pair must
+meet its (relaxed, for colocation) requirement, and the card's matcher
+must equal the CPU's on a 1,024-node store with every task kind, on both
+routes.
 Prints:
 
   - the card's name and power limit (nvidia-smi),
@@ -76,15 +97,26 @@ WARM_KERNELS = COLD_KERNELS + (
     "repair_refold",
 )
 DENSE_KERNELS = ("dense_value_base", "dense_auction", "unbounded_best")
+PHASE_KERNELS = ("cost_block", "binpack_ffd")
 SRC_K1 = "protocol_tpu_torch/csrc/candidates.cu"
 SRC_REPAIR = "protocol_tpu_torch/csrc/repair.cu"
 SRC_DENSE = "protocol_tpu_torch/csrc/dense.cu"
 SRC_K9 = "protocol_tpu_torch/csrc/cleanup.cu"
+SRC_K11 = "protocol_tpu_torch/csrc/binpack.cu"
 # the matcher's pools: the dense route at its budget, the torch route at
 # the one-chip rung, the card-vs-CPU check
 DENSE_POOL = (4_096, 192, 16, 1_024)  # nodes, bounded tasks, replicas, unbounded tasks
 ARENA_POOL = (N, 4_096, 16, 64)
 SMALL_POOL = (1_024, 48, 16, 64)
+# phases 0 and 0.5: (location-spread tasks, provider-spread tasks,
+# colocated tasks) beside a pool's tasks; replicas of each kind; the
+# shared sites of the located nodes
+PHASE_MIX = (64, 64, 512)
+PHASE_DENSE_MIX = (8, 8, 64)  # the same mix at 1/8 on the dense route
+PHASE_SMALL_MIX = (4, 4, 32)
+AA_REPLICAS, COLO_REPLICAS = 32, 8
+SITES = 256
+FWD_SWEEP = (2_048, 4_096, 8_192, 16_384, 32_768, 65_536)  # K1 forward vs rows, tasks x N
 K9_MIN_OPEN = 1_000  # open tasks K9 must sweep on the cut-auction state
 GPU_CLASSES = (  # 12 model classes with their per-card memory (MB)
     ("H100", 80_000), ("H200", 141_000), ("A100", 40_000), ("A6000", 48_000),
@@ -297,18 +329,29 @@ def pool_task(rng, name: str, replicas=None):
     return Task(name=name, created_at=int(rng.integers(1_000_000)), scheduling_config=cfg)
 
 
-def make_pool(rng, n_nodes: int, n_bounded: int, replicas: int, n_unbounded: int):
+def make_pool(rng, n_nodes: int, n_bounded: int, replicas: int, n_unbounded: int,
+              sites: int = 0):
     """(nodes, tasks) of a marketplace drawn from ``rng``: nodes of the 12
     GPU_CLASSES with counts {1, 2, 4, 8}, CPU, RAM, storage, price and load,
-    every other one located; bounded tasks of ``replicas`` replicas and
-    unbounded ones, each with a requirement DSL string."""
+    every other one located (with ``sites``, at one of that many shared
+    coordinates); bounded tasks of ``replicas`` replicas and unbounded
+    ones, each with a requirement DSL string."""
     from protocol_tpu_torch.models.node import ComputeSpecs, CpuSpecs, GpuSpecs, NodeLocation
     from protocol_tpu_torch.store.node_store import NodeStatus, OrchestratorNode
 
+    import numpy as np
+
+    site_rng = np.random.default_rng(SEED + 99)
+    site_xy = np.stack([site_rng.uniform(-60, 60, sites), site_rng.uniform(-170, 170, sites)], 1)
     nodes = []
     for i in range(n_nodes):
         name, mem = GPU_CLASSES[int(rng.integers(len(GPU_CLASSES)))]
-        loc = NodeLocation(float(rng.uniform(-60, 60)), float(rng.uniform(-170, 170))) if i % 2 else None
+        if i % 2 and sites:
+            loc = NodeLocation(*map(float, site_xy[int(rng.integers(sites))]))
+        elif i % 2:
+            loc = NodeLocation(float(rng.uniform(-60, 60)), float(rng.uniform(-170, 170)))
+        else:
+            loc = None
         nodes.append(OrchestratorNode(
             address=f"0x{i:06x}", status=NodeStatus.HEALTHY,
             compute_specs=ComputeSpecs(
@@ -322,6 +365,44 @@ def make_pool(rng, n_nodes: int, n_bounded: int, replicas: int, n_unbounded: int
     tasks = [pool_task(rng, f"b{j}", replicas) for j in range(n_bounded)]
     tasks += [pool_task(rng, f"u{j}") for j in range(n_unbounded)]
     return nodes, tasks
+
+
+def colo_dsl(rng) -> str:
+    """A one-GPU slice: one model (70%) or two, sometimes a per-GPU memory
+    minimum, sometimes CPU and RAM."""
+    models = rng.choice(len(GPU_CLASSES), 1 if rng.random() < 0.7 else 2, replace=False)
+    parts = ["gpu:count=1", "gpu:model=" + ",".join(GPU_CLASSES[m][0] for m in models)]
+    if rng.random() < 0.4:
+        parts.append(f"gpu:memory_mb_min={rng.choice([16_000, 24_000, 40_000])}")
+    if rng.random() < 0.3:
+        parts.append(f"cpu:cores={rng.choice([2, 4])}")
+    if rng.random() < 0.3:
+        parts.append(f"ram_mb={rng.choice([8_192, 16_384])}")
+    return ";".join(parts)
+
+
+def phase_tasks(rng, n_loc: int, n_task: int, n_colo: int) -> list:
+    """Spread tasks (``anti_affinity: location`` and ``task``, AA_REPLICAS
+    replicas, pool_dsl requirements) and colocated one-GPU tasks
+    (COLO_REPLICAS replicas)."""
+    from protocol_tpu_torch.models.task import (
+        SchedulingConfig,
+        Task,
+        _validate_tpu_scheduler_plugin,
+    )
+
+    def task(name, dsl, replicas, **plug):
+        cfg = SchedulingConfig(plugins={"tpu_scheduler": {
+            "compute_requirements": [dsl], "replicas": [str(replicas)],
+            **{k: [v] for k, v in plug.items()}}})
+        _validate_tpu_scheduler_plugin(cfg)
+        return Task(name=name, created_at=int(rng.integers(1_000_000)), scheduling_config=cfg)
+
+    out = [task(f"al{j}", pool_dsl(rng), AA_REPLICAS, anti_affinity="location")
+           for j in range(n_loc)]
+    out += [task(f"at{j}", pool_dsl(rng), AA_REPLICAS, anti_affinity="task") for j in range(n_task)]
+    out += [task(f"co{j}", colo_dsl(rng), COLO_REPLICAS, colocate="true") for j in range(n_colo)]
+    return out
 
 
 def churn_pool(rng, store, frac: float, replace_tasks: int) -> None:
@@ -340,17 +421,32 @@ def churn_pool(rng, store, frac: float, replace_tasks: int) -> None:
         tasks[new.id] = new
 
 
+def relaxed_requirement(req):
+    """A colocated slot's compat requirement: GPU count and whole-provider
+    memory maximum dropped (the slice is reserved by its demand)."""
+    import dataclasses
+
+    return dataclasses.replace(req, gpu=[
+        dataclasses.replace(g, count=None, total_memory_max=None) for g in req.gpu])
+
+
 def check_matching(torch, compat_mask, store, matcher) -> dict:
-    """Every assigned pair meets its task's requirements, no bounded task
-    holds more than its replicas, and every node left to phase 2 that has
-    a compatible unbounded task got one (compat by the plain torch mask)."""
+    """Every assigned pair meets its task's requirements (relaxed for a
+    colocated task), no bounded task holds more than its replicas, and
+    every node left to phase 2 that has a compatible unbounded task got
+    one (compat by the plain torch mask)."""
     from protocol_tpu_torch.ops.encoding import FeatureEncoder
-    from protocol_tpu_torch.sched.torch_backend import task_replicas, task_requirements
+    from protocol_tpu_torch.sched.torch_backend import (
+        task_colocate,
+        task_replicas,
+        task_requirements,
+    )
 
     nodes = store.node_store.get_nodes()
     tasks = store.task_store.tasks
     unbounded = [t for t in tasks.values() if task_replicas(t) is None]
-    reqs = {tid: task_requirements(t) for tid, t in tasks.items()}
+    reqs = {tid: relaxed_requirement(task_requirements(t)) if task_colocate(t)
+            else task_requirements(t) for tid, t in tasks.items()}
     held: dict = {}
     for n in nodes:
         tid = matcher._assignment.get(n.address)
@@ -359,6 +455,10 @@ def check_matching(torch, compat_mask, store, matcher) -> dict:
         if not n.compute_specs.meets(reqs[tid]):
             raise AssertionError(f"{n.address} holds {tid} but does not meet its requirements")
         held[tid] = held.get(tid, 0) + 1
+    for n in nodes:
+        for tid in matcher._assignment_multi.get(n.address, ()):
+            if not n.compute_specs.meets(reqs[tid]):
+                raise AssertionError(f"{n.address} stacks {tid} but does not meet it")
     over = [t for t, c in held.items() if task_replicas(tasks[t]) and c > task_replicas(tasks[t])]
     if over:
         raise AssertionError(f"bounded tasks over their replicas: {over[:5]}")
@@ -382,6 +482,360 @@ def check_matching(torch, compat_mask, store, matcher) -> dict:
                                      "but phase 2 gave it none")
     return {"bounded_seats": n_bounded, "phase2_nodes": len(in_phase2),
             "phase2_compatible": n_compat, "phase2_assigned": n_swarm}
+
+
+def record_calls(kernels, names) -> tuple[dict, dict]:
+    """Wrap the kernel wrappers ``names`` so that every call's arguments
+    and result are kept (the call and its count are unchanged). Returns
+    ({name: [(args, kwargs, out), ...]}, originals)."""
+    calls: dict = {name: [] for name in names}
+    originals = {name: getattr(kernels, name) for name in names}
+    for name in names:
+        def wrapped(*args, _orig=originals[name], _name=name, **kw):
+            out = _orig(*args, **kw)
+            calls[_name].append((args, kw, out))
+            return out
+
+        setattr(kernels, name, wrapped)
+    return calls, originals
+
+
+def spy_phases(matcher) -> dict:
+    """Keep the arguments and result of the matcher's last phase 0 and
+    phase 0.5 (``_solve_anti_affinity`` / ``_solve_colocation``)."""
+    seen: dict = {}
+    for name in ("_solve_anti_affinity", "_solve_colocation"):
+        def wrapped(*args, _orig=getattr(matcher, name), _name=name):
+            out = _orig(*args)
+            seen[_name] = (args, out)
+            return out
+
+        setattr(matcher, name, wrapped)
+    return seen
+
+
+def slot_demand(req) -> list:
+    """A colocated replica's reservation [gpu, vram, cpu, ram, storage]:
+    the element-wise maximum over its GPU options."""
+    gcount = vram = 0.0
+    for g in req.gpu:
+        c = float(g.count or 0)
+        v = float(g.total_memory_min) if g.total_memory_min is not None else (
+            c * float(g.memory_mb or g.memory_mb_min or 0))
+        gcount, vram = max(gcount, c), max(vram, v)
+    return [gcount, vram, float(req.cpu.cores or 0) if req.cpu else 0.0,
+            float(req.ram_mb or 0), float(req.storage_gb or 0)]
+
+
+def node_capacity(specs) -> list:
+    gpu = specs.gpu
+    count = float(gpu.count or 0) if gpu else 0.0
+    return [count, count * float(gpu.memory_mb or 0) if gpu else 0.0,
+            float(specs.cpu.cores or 0) if specs.cpu else 0.0,
+            float(specs.ram_mb or 0), float(specs.storage_gb or 0)]
+
+
+def check_phases(store, matcher, seen) -> dict:
+    """Phases 0 and 0.5 of the last refresh: every spread task's replicas
+    on distinct providers (``task``) or location classes (``location``),
+    each meeting its requirement; every colocated provider's summed demand
+    within its capacity in all five resources, each slot meeting its
+    relaxed requirement; every claimed provider still holding its phase's
+    task (no phase-1 or phase-2 task) and the stats counting them."""
+    from protocol_tpu_torch.sched.torch_backend import (
+        task_anti_affinity,
+        task_replicas,
+        task_requirements,
+    )
+
+    nodes = store.node_store.get_nodes()
+    st = matcher.last_solve_stats
+    claims = placed = {}
+    tasks = None
+    if "_solve_anti_affinity" in seen:
+        args, claims = seen["_solve_anti_affinity"]
+        tasks = args[3]
+    if "_solve_colocation" in seen:
+        args, placed = seen["_solve_colocation"]
+        tasks = args[2]
+    by_task: dict = {}
+    for row, i in claims.items():
+        by_task.setdefault(i, []).append(row)
+        node = nodes[row]
+        if not node.compute_specs.meets(task_requirements(tasks[i])):
+            raise AssertionError(f"{node.address} holds spread task {tasks[i].id} unmet")
+        if matcher._assignment.get(node.address) != tasks[i].id:
+            raise AssertionError(f"{node.address}, claimed by phase 0, holds another task")
+    n_loc_tasks = 0
+    for i, rows in by_task.items():
+        if len(rows) > task_replicas(tasks[i]):
+            raise AssertionError(f"spread task {tasks[i].id} over its replicas")
+        if task_anti_affinity(tasks[i]) == "location":
+            n_loc_tasks += 1
+            keys = [(round(nodes[r].location.latitude, 3), round(nodes[r].location.longitude, 3))
+                    if nodes[r].location is not None else ("solo", r) for r in rows]
+            if len(set(keys)) != len(keys):
+                raise AssertionError(f"spread task {tasks[i].id}: two replicas at one location")
+    if set(claims) & set(placed):
+        raise AssertionError("a provider claimed by both phase 0 and phase 0.5")
+    n_slots = max_stack = 0
+    for row, idxs in placed.items():
+        node = nodes[row]
+        cap = node_capacity(node.compute_specs)
+        used = [0.0] * 5
+        for i in idxs:
+            req = task_requirements(tasks[i])
+            if not node.compute_specs.meets(relaxed_requirement(req)):
+                raise AssertionError(f"{node.address} stacks {tasks[i].id} unmet")
+            used = [u + d for u, d in zip(used, slot_demand(req))]
+        if any(u > c for u, c in zip(used, cap)):
+            raise AssertionError(f"{node.address}: stacked demand {used} over capacity {cap}")
+        want = list(dict.fromkeys(tasks[i].id for i in idxs))
+        if (matcher._assignment.get(node.address) != tasks[idxs[0]].id
+                or matcher._assignment_multi.get(node.address) != want):
+            raise AssertionError(f"{node.address}, claimed by phase 0.5, holds another task")
+        n_slots += len(idxs)
+        max_stack = max(max_stack, len(idxs))
+    if st["anti_affinity_assigned"] != len(claims) or st["colocated_slots"] != n_slots:
+        raise AssertionError("the phase stats do not count the phases' placements")
+    return {"spread_rows": len(claims), "spread_tasks": len(by_task),
+            "location_spread_tasks": n_loc_tasks, "colocated_rows": len(placed),
+            "colocated_slots": n_slots, "max_slots_per_row": max_stack,
+            "colocated_unplaced": st["colocated_unplaced"]}
+
+
+def check_phase_kernels(torch, kernels, bp, cost_matrix, calls, label: str) -> None:
+    """K10 and K11 against their plain versions, bit for bit, on every
+    recorded call; K11's picks keep the groups apart and the capacity."""
+    with uncounted(kernels):
+        # (a recorded K10 block itself may since carry phase 0's taken-row
+        # mask: the call is made again)
+        for args, kw, _ in calls["cost_block"]:
+            got = kernels.cost_block(*args, **kw)
+            ref = cost_matrix(*args, **kw)[0].T.contiguous()
+            torch.cuda.synchronize()
+            if not bits_equal(torch, got, ref):
+                raise AssertionError(f"{label}: K10 differs from its plain version")
+        for args, kw, out in calls["binpack_ffd"]:
+            cost_tp, demand, capacity, order, anti, loc, L, G = args
+            got = kernels.binpack_ffd(*args)
+            ref = bp._binpack_plain(cost_tp.T, demand, capacity,
+                                    bp.ffd_demand_order(demand) if order is None else order,
+                                    anti, loc, L, G)
+            torch.cuda.synchronize()
+            if not all(bits_equal(torch, a, b) for a, b in zip((*got, *out), (*ref, *ref))):
+                raise AssertionError(f"{label}: K11 differs from its plain version")
+            pft = got[0]
+            seated = torch.nonzero(pft >= 0).flatten()
+            p = pft[seated].long()
+            use = torch.zeros(capacity.shape, dtype=torch.float64, device=capacity.device)
+            use.index_add_(0, p, demand[seated].double())
+            if bool((use > capacity.double()).any()):
+                raise AssertionError(f"{label}: K11 placed over a provider's capacity")
+            g = anti[seated].long()
+            grouped = g >= 0
+            pairs = loc[p][grouped].long() * G + g[grouped]
+            if torch.unique(pairs).numel() != pairs.numel():
+                raise AssertionError(f"{label}: K11 put two members of a group in one domain")
+    ranked = sum(args[3] is None for args, _, _ in calls["binpack_ffd"])
+    if ranked == 0:
+        raise AssertionError(f"{label}: no K11 call ranked the FFD order in its launch")
+    print(f"{label}: K10 x {len(calls['cost_block'])} and K11 x {len(calls['binpack_ffd'])} "
+          f"calls ({ranked} ranking the FFD order in the launch) bit-identical to their plain "
+          "versions; groups and capacity hold", flush=True)
+
+
+def refresh_matcher(torch, compat_mask, matcher, store, label: str, kernel: str) -> dict:
+    """One refresh, timed by the host clock to the end of the device work;
+    its stats printed, its kernel route and matching checked."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    matcher.refresh()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    st = dict(matcher.last_solve_stats)
+    print(f"matcher {label}: refresh wall_ms {wall:.1f} solve_ms {st['solve_ms']:.1f} "
+          f"encode_ms {st['encode_ms']:.1f} phase0_ms {st['phase0_ms']:.1f} "
+          f"phase05_ms {st['phase05_ms']:.1f} phase1_ms {st['phase1_ms']:.1f} "
+          f"phase2_ms {st['phase2_ms']:.1f} anti_affinity_assigned "
+          f"{st['anti_affinity_assigned']} colocated_slots {st['colocated_slots']} "
+          f"colocated_unplaced {st['colocated_unplaced']} "
+          f"auction_rounds {st.get('auction_rounds')} "
+          f"arena_cold {st.get('arena_cold')} arena_gen_ms {st.get('arena_gen_ms')} "
+          f"arena_solve_ms {st.get('arena_solve_ms')} assigned {st['assigned']}/{st['nodes']} "
+          f"kernel {st['kernel']}", flush=True)
+    if st["kernel"] != kernel:
+        raise AssertionError(f"matcher {label}: kernel {st['kernel']}, not {kernel}")
+    checked = check_matching(torch, compat_mask, store, matcher)
+    print(f"matcher {label}: {json.dumps(checked)}", flush=True)
+    return st
+
+
+def run_phases(torch, kernels, ep, er, k: int, refresh) -> tuple[list, dict]:
+    """The matcher's phases 0 and 0.5 on the card: K1 forward against its
+    rows variant at the phase-0 shape over ``ep`` and the first tasks of
+    ``er``; the card against the CPU on a small store with every task
+    kind; the dense route with the mix at 1/8, and the torch route at full
+    width (cold, then warm), each run with the counts set to 0 just
+    before it. Returns (the kernels-line rows of K10 and K11, {run name:
+    launches}); raises on any failed check."""
+    import numpy as np
+
+    from protocol_tpu_torch.ops import binpack as bp
+    from protocol_tpu_torch.ops import sparse as sp
+    from protocol_tpu_torch.ops.cost import CostWeights, cost_matrix
+    from protocol_tpu_torch.ops.encoding import slice_requirements
+    from protocol_tpu_torch.sched import torch_backend as tb
+
+    dev = ep.gpu_count.device
+    m_default = CostWeights(priority=1.0)
+    N = ep.num
+
+    # K1 forward at the phase-0 shape: the forward launch (one thread per
+    # task) against its rows variant over every task id, N providers
+    for T_ in FWD_SWEEP:
+        er_t = slice_requirements(er, 0, T_)
+        ids = torch.arange(T_, dtype=torch.int32, device=dev)
+        a = kernels.candidates_forward(ep, er_t, m_default, k)
+        b = kernels.candidates_forward_rows(ep, er_t, m_default, k, ids)
+        torch.cuda.synchronize()
+        if not all(bits_equal(torch, x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"K1 forward and its rows variant differ at {T_} x {N}")
+        f_ms = cuda_ms(torch, lambda: kernels.candidates_forward(ep, er_t, m_default, k), 2)
+        r_ms = cuda_ms(torch, lambda: kernels.candidates_forward_rows(ep, er_t, m_default, k,
+                                                                      ids), 2)
+        print(f"K1 forward at {T_} tasks x {N} providers: forward launch {f_ms:.3f} ms, rows "
+              f"variant {r_ms:.3f} ms, bit-identical; routed to "
+              f"{'rows' if T_ < kernels.forward_fill_tasks(dev) else 'forward'}", flush=True)
+
+    # the card against the CPU on a small store with every task kind
+    nodes, tasks = make_pool(np.random.default_rng(SEED + 40), *SMALL_POOL, sites=SITES)
+    tasks += phase_tasks(np.random.default_rng(SEED + 41), *PHASE_SMALL_MIX)
+    small = mem_store(nodes, tasks)
+    for engine in ("native", "torch"):
+        on_card = tb.TorchBatchMatcher(small, native_engine=engine, device=dev)
+        on_cpu = tb.TorchBatchMatcher(small, native_engine=engine, device="cpu")
+        on_card.refresh()
+        on_cpu.refresh()
+        keys = ("anti_affinity_assigned", "colocated_slots", "colocated_unplaced")
+        same = (on_card._assignment == on_cpu._assignment
+                and on_card._assignment_multi == on_cpu._assignment_multi
+                and all(on_card.last_solve_stats[x] == on_cpu.last_solve_stats[x] for x in keys))
+        print(f"matcher with phase tasks, {SMALL_POOL[0]} nodes, {engine} route, card vs cpu: "
+              f"identical {same}, assigned {len(on_card._assignment)}, "
+              f"{json.dumps({x: on_card.last_solve_stats[x] for x in keys})}", flush=True)
+        if not same:
+            raise AssertionError(f"the card's matcher differs from the CPU's with phase "
+                                 f"tasks ({engine} route)")
+    del on_card, on_cpu, small
+
+    # the dense route with the mix at 1/8
+    nodes, tasks = make_pool(np.random.default_rng(SEED + 20), *DENSE_POOL, sites=SITES)
+    tasks += phase_tasks(np.random.default_rng(SEED + 22), *PHASE_DENSE_MIX)
+    store = mem_store(nodes, tasks)
+    dense_p = tb.TorchBatchMatcher(store, device=dev)
+    seen = spy_phases(dense_p)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    pd_calls, pd_originals = record_calls(kernels, PHASE_KERNELS)
+    refresh(dense_p, store, "phases-dense", "dense_auction")
+    for name, fn in pd_originals.items():
+        setattr(kernels, name, fn)
+    launches_pdense = dict(kernels.LAUNCHES)
+    print(f"kernels (matcher phases, dense route): {json.dumps(launches_pdense)}", flush=True)
+    missing = [n for n in PHASE_KERNELS + DENSE_KERNELS if launches_pdense[n] == 0]
+    if missing:
+        raise AssertionError(f"the dense route with phase tasks launched no {missing}")
+    print(f"matcher phases-dense: {json.dumps(check_phases(store, dense_p, seen))}", flush=True)
+    check_phase_kernels(torch, kernels, bp, cost_matrix, pd_calls, "phases-dense")
+    del dense_p, store, pd_calls, seen
+
+    # the torch route at full width: cold, then warm after 1% node churn
+    nodes, tasks = make_pool(np.random.default_rng(SEED + 30), *ARENA_POOL, sites=SITES)
+    tasks += phase_tasks(np.random.default_rng(SEED + 32), *PHASE_MIX)
+    rng = np.random.default_rng(SEED + 31)
+    store = mem_store(nodes, tasks)
+    arena_p = tb.TorchBatchMatcher(store, native_engine="torch", device=dev)
+    seen = spy_phases(arena_p)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    pt_calls, pt_originals = record_calls(
+        kernels, PHASE_KERNELS + ("candidates_reverse", "candidates_forward_rows"))
+    phase_torch_stats = [refresh(arena_p, store, "phases-torch-cold", "torch_arena")]
+    for name, fn in pt_originals.items():
+        setattr(kernels, name, fn)
+    with uncounted(kernels):
+        print(f"matcher phases-torch-cold: {json.dumps(check_phases(store, arena_p, seen))}",
+              flush=True)
+    churn_pool(rng, store, CHURN, replace_tasks=0)
+    phase_torch_stats.append(refresh(arena_p, store, "phases-torch-warm", "torch_arena"))
+    launches_ptorch = dict(kernels.LAUNCHES)
+    print(f"kernels (matcher phases, torch route): {json.dumps(launches_ptorch)}", flush=True)
+    missing = [n for n in PHASE_KERNELS + COLD_KERNELS + ("unbounded_best",)
+               if launches_ptorch[n] == 0]
+    if missing:
+        raise AssertionError(f"the torch route with phase tasks launched no {missing}")
+    if not phase_torch_stats[0]["arena_cold"] or phase_torch_stats[1]["arena_cold"]:
+        raise AssertionError("the torch route's phase refreshes were not cold then warm")
+    print(f"matcher phases-torch-warm: {json.dumps(check_phases(store, arena_p, seen))}",
+          flush=True)
+    check_phase_kernels(torch, kernels, bp, cost_matrix, pt_calls, "phases-torch-cold")
+
+    # K1 on the phases' calls: the colocation phase's reverse launch (rt
+    # tasks per tile) and phase 0's forward pass (the rows variant) against
+    # their plain versions, and phase 0's against the forward launch
+    (rv_ep, rv_er, rv_w), rv_kw, rv_out = pt_calls["candidates_reverse"][0]
+    rv_tile, rv_r, rv_rt = rv_kw["tile"], rv_kw["r"], rv_kw["rt"]
+    rv_ref = sp._reverse_plain(rv_ep, rv_er, rv_w, rv_tile, rv_r, rv_rt)
+    (fr_ep, fr_er, fr_w, fr_k, fr_ids), _, fr_out = pt_calls["candidates_forward_rows"][0]
+    fr_ref = sp._forward_plain(fr_ep, fr_er, fr_w, fr_k, min(1024, fr_er.num))
+    fr_fwd = kernels.candidates_forward(fr_ep, fr_er, fr_w, fr_k)
+    torch.cuda.synchronize()
+    k1_phase = {
+        "reverse_rt": rv_rt, "reverse_tiles": rv_er.num // rv_tile,
+        "reverse_bits": all(bits_equal(torch, a, b) for a, b in zip(rv_out, rv_ref)),
+        "forward_rows_bits": all(bits_equal(torch, a, b) for a, b in zip(fr_out, fr_ref)),
+        "forward_launch_bits": all(bits_equal(torch, a, b) for a, b in zip(fr_out, fr_fwd)),
+    }
+    print(f"K1 on the phases' calls ({fr_er.num} and {rv_er.num} slots x {rv_ep.num} "
+          f"providers): {json.dumps(k1_phase)}", flush=True)
+    if rv_rt < 2 or not all(v for x, v in k1_phase.items() if x.endswith("bits")):
+        raise AssertionError(f"K1 on the phases' calls: {k1_phase}")
+
+    # K10 and K11 timed on each call of the cold refresh; the kernels line
+    # takes the call with the most cells
+    k10_times, k11_times = [], []
+    for (a10, _, c10), (a11, _, _) in zip(pt_calls["cost_block"], pt_calls["binpack_ffd"]):
+        t10 = cuda_ms(torch, lambda: kernels.cost_block(*a10), 3)
+        t11 = cuda_ms(torch, lambda: kernels.binpack_ffd(*a11), 2)
+        k10_times.append(t10)
+        k11_times.append(t11)
+        print(f"K10 / K11 on {c10.shape[0]} slots x {c10.shape[1]} rows "
+              f"(R={a11[1].shape[1]}): {t10:.4f} / {t11:.3f} ms", flush=True)
+    widest = max(range(len(k10_times)), key=lambda i: pt_calls["cost_block"][i][2].numel())
+    (ep10, er10, w10), _, c10 = pt_calls["cost_block"][widest]
+    a11 = pt_calls["binpack_ffd"][widest][0]
+    k10_ms, k11_ms = k10_times[widest], k11_times[widest]
+    k10_plain_ms = cuda_ms(torch, lambda: cost_matrix(ep10, er10, w10)[0], 3)
+    k11_plain_ms = cuda_ms(torch, lambda: bp._binpack_plain(
+        a11[0].T, a11[1], a11[2], bp.ffd_demand_order(a11[1]), *a11[4:]), 1)
+    T10, P10 = c10.shape
+    finite = int((c10 < 5e8).sum())
+    k10_bytes = P10 * row_bytes(ep10) + T10 * row_bytes(er10) + T10 * P10 * 4
+    k10_ops = T10 * P10 * OPS_PER_CELL + finite * OPS_PER_FEASIBLE_CELL
+    R11 = a11[1].shape[1]
+    k11_bytes = T10 * P10 * 4 + T10 * (R11 * 4 + 4 + 4) + P10 * (2 * R11 * 4 + 4)
+    k11_ops = T10 * P10 + finite * (R11 + 2)  # a compare per cell, the fit on finite ones
+    print(f"K10 / K11 in the kernels line: call {widest} of the cold refresh, {T10} slots x "
+          f"{P10} rows, {finite} finite cells", flush=True)
+    del arena_p, store, nodes, tasks, pt_calls, seen
+    rows = [
+        row("cost_block", SRC_DENSE, "protocol_tpu/sched/tpu_backend.py:184", 0.0, k10_ms,
+            k10_plain_ms, k10_bytes, k10_ops),
+        row("binpack_ffd", SRC_K11, "protocol_tpu/ops/binpack.py:61", 0.0, k11_ms,
+            k11_plain_ms, k11_bytes, k11_ops),
+    ]
+    return rows, {"matcher_phases_dense": launches_pdense, "matcher_phases_torch": launches_ptorch}
 
 
 def main() -> int:
@@ -852,23 +1306,7 @@ def main() -> int:
     m_zero = CostWeights(priority=1.0, proximity=0.0)
 
     def refresh(matcher, store, label: str, kernel: str) -> dict:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        matcher.refresh()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-        st = dict(matcher.last_solve_stats)
-        print(f"matcher {label}: refresh wall_ms {wall:.1f} solve_ms {st['solve_ms']:.1f} "
-              f"encode_ms {st['encode_ms']:.1f} phase1_ms {st['phase1_ms']:.1f} "
-              f"phase2_ms {st['phase2_ms']:.1f} auction_rounds {st.get('auction_rounds')} "
-              f"arena_cold {st.get('arena_cold')} arena_gen_ms {st.get('arena_gen_ms')} "
-              f"arena_solve_ms {st.get('arena_solve_ms')} assigned {st['assigned']}/{st['nodes']} "
-              f"kernel {st['kernel']}", flush=True)
-        if st["kernel"] != kernel:
-            raise AssertionError(f"matcher {label}: kernel {st['kernel']}, not {kernel}")
-        checked = check_matching(torch, compat_mask, store, matcher)
-        print(f"matcher {label}: {json.dumps(checked)}", flush=True)
-        return st
+        return refresh_matcher(torch, compat_mask, matcher, store, label, kernel)
 
     # the card against the CPU on a small pool (dense route on both)
     nodes, tasks = make_pool(np.random.default_rng(SEED + 10), *SMALL_POOL)
@@ -971,8 +1409,11 @@ def main() -> int:
         return fail("the torch route's refreshes were not cold then warm")
     del arena_m, store, nodes, tasks
 
+    # ---- phases 0 and 0.5 (anti-affinity and colocation)
+    phase_rows, phase_runs = run_phases(torch, kernels, ep, er, k, refresh)
+
     runs = {"cold_ticks": launches, "warm_chain": launches_warm,
-            "matcher_dense": launches_dense, "matcher_torch": launches_torch}
+            "matcher_dense": launches_dense, "matcher_torch": launches_torch, **phase_runs}
 
     rows = [
         row("candidates_forward", SRC_K1, "protocol_tpu/ops/sparse.py:131",
@@ -994,7 +1435,7 @@ def main() -> int:
             k8_plain_ms, k8_bytes, k8_ops),
         row("greedy_cleanup", SRC_K9, "protocol_tpu/ops/sparse.py:545", 0.0, k9_ms,
             k9_plain_ms, k9_bytes, 0),
-    ]
+    ] + phase_rows
     for r_ in rows:
         for run, counts in runs.items():
             r_[f"launches_{run}"] = counts[r_["name"]]

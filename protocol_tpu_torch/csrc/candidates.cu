@@ -25,7 +25,12 @@
 //            tiles: the first argmin of each tile goes to pool_t / pool_c
 //            [P, n_tiles]; then the pools are folded in tile order into a
 //            register top-r carry (the carry wins ties). Writes rev_t /
-//            rev_c [P, r].
+//            rev_c [P, r]. Where a tile contributes rt > 1 tasks (fewer
+//            than r tiles, as the matcher's colocation phase has), each
+//            tile keeps a stable register top-rt instead of its argmin,
+//            the pools are [P, n_tiles * rt] in tile order, and the fold
+//            takes their entries in that order: the stable top-r of
+//            concat(carry, tile's top-rt) per tile, the reference's step.
 //            Blocks variant (k1_reverse_blocks; replaces parallel/sparse.py
 //            _build_repair_tile at rt = 1): one thread per flagged
 //            (provider, tile) block of a flat list, writing that block's
@@ -213,8 +218,9 @@ __global__ void __launch_bounds__(128) forward_rows_kernel(Prov prov, Req req, A
 constexpr int kParts = 4;
 constexpr int kRows = 32;
 
+template <bool kMulti>
 __global__ void __launch_bounds__(kRows * kParts) reverse_kernel(
-    Prov prov, Req req, Aux aux, Weights w, int P, int T, int K, int W, int tile, int r,
+    Prov prov, Req req, Aux aux, Weights w, int P, int T, int K, int W, int tile, int r, int rt,
     int32_t* pool_t, float* pool_c, int32_t* __restrict__ rev_t, float* __restrict__ rev_c) {
   // pool_t / pool_c are written by every part and read back by part 0
   const int lane = threadIdx.x % kRows;
@@ -224,36 +230,75 @@ __global__ void __launch_bounds__(kRows * kParts) reverse_kernel(
   const int n_tiles = T / tile;
   const int chunk = (n_tiles + kParts - 1) / kParts;
   const int ti_end = min(n_tiles, (part + 1) * chunk);
+  const int n_pool = n_tiles * rt;
   if (active) {
     const ProvRow pr = load_prov(prov, aux, p);
     for (int ti = part * chunk; ti < ti_end; ++ti) {
       const int t0 = ti * tile;
-      float best = INFINITY;
-      int32_t bt = -1;
-      for (int j = 0; j < tile; ++j) {
-        const int t = t0 + j;
-        const TaskRow tr = load_task(req, aux, t, K);
-        const float c = cell_cost(pr, p, tr, t, req, K, W, w);
-        if (c < best) {  // strict: the first index among ties
-          best = c;
-          bt = t;
+      if constexpr (!kMulti) {
+        float best = INFINITY;
+        int32_t bt = -1;
+        for (int j = 0; j < tile; ++j) {
+          const int t = t0 + j;
+          const TaskRow tr = load_task(req, aux, t, K);
+          const float c = cell_cost(pr, p, tr, t, req, K, W, w);
+          if (c < best) {  // strict: the first index among ties
+            best = c;
+            bt = t;
+          }
+        }
+        pool_t[(size_t)p * n_pool + ti] = bt;
+        pool_c[(size_t)p * n_pool + ti] = best;
+      } else {
+        // stable top-rt of the tile: an entry goes after the entries it
+        // equals, so the lower index comes first among ties
+        float tc[kMaxR];
+        int32_t tt[kMaxR];
+#pragma unroll
+        for (int i = 0; i < kMaxR; ++i) {
+          tc[i] = INFINITY;
+          tt[i] = -1;
+        }
+        for (int j = 0; j < tile; ++j) {
+          const int t = t0 + j;
+          const TaskRow tr = load_task(req, aux, t, K);
+          float c = cell_cost(pr, p, tr, t, req, K, W, w);
+          int32_t ct = t;
+          bool moved = false;
+#pragma unroll
+          for (int i = 0; i < kMaxR; ++i) {
+            if (i < rt && (moved || c < tc[i])) {
+              const float sc = tc[i];
+              const int32_t st = tt[i];
+              tc[i] = c;
+              tt[i] = ct;
+              c = sc;
+              ct = st;
+              moved = true;
+            }
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < kMaxR; ++i) {
+          if (i < rt) {
+            pool_t[(size_t)p * n_pool + (size_t)ti * rt + i] = tt[i];
+            pool_c[(size_t)p * n_pool + (size_t)ti * rt + i] = tc[i];
+          }
         }
       }
-      pool_t[(size_t)p * n_tiles + ti] = bt;
-      pool_c[(size_t)p * n_tiles + ti] = best;
     }
   }
   __syncthreads();  // every part's pool entries of this block are written
   if (part != 0 || !active) return;
   // fold the pools in tile order into the carry (the carry wins ties)
   float rc[kMaxR];
-  int32_t rt[kMaxR];
-  fold_pools(pool_t, pool_c, (size_t)p * n_tiles, n_tiles, r, rc, rt);
+  int32_t rv[kMaxR];
+  fold_pools(pool_t, pool_c, (size_t)p * n_pool, n_pool, r, rc, rv);
 #pragma unroll
   for (int i = 0; i < kMaxR; ++i) {
     if (i < r) {
       rev_c[(size_t)p * r + i] = rc[i];
-      rev_t[(size_t)p * r + i] = rt[i];
+      rev_t[(size_t)p * r + i] = rv[i];
     }
   }
 }
@@ -333,20 +378,28 @@ extern "C" int k1_forward_rows(const void* const* prov_cols, const void* const* 
   return (int)cudaGetLastError();
 }
 
+// rt tasks per tile (1 <= rt <= r, rt <= tile, n_tiles * rt >= r): pools
+// [P, n_tiles * rt].
 extern "C" int k1_reverse(const void* const* prov_cols, const void* const* req_cols, int P,
                           int T, int K, int W, float w_price, float w_load, float w_prox,
-                          float w_prio, int tile, int r, float* aux, int32_t* pool_t, float* pool_c,
-                          int32_t* rev_t, float* rev_c, void* stream) {
-  if (r < 1 || r > kMaxR || K > kMaxOpts || tile < 1 || T % tile != 0 || T / tile < r)
+                          float w_prio, int tile, int r, int rt, float* aux, int32_t* pool_t,
+                          float* pool_c, int32_t* rev_t, float* rev_c, void* stream) {
+  if (r < 1 || r > kMaxR || K > kMaxOpts || tile < 1 || T % tile != 0 || rt < 1 || rt > r ||
+      rt > tile || (T / tile) * rt < r)
     return (int)cudaErrorInvalidValue;
   const Weights w{w_price, w_load, w_prox, w_prio};
   const int threads = kRows * kParts;
   const int blocks = (P + kRows - 1) / kRows;
   const Prov prov = make_prov(prov_cols);
   const Req req = make_req(req_cols);
+  const Aux ax = make_aux(aux, P, T);
   launch_prep(prov, req, w, P, T, aux, (cudaStream_t)stream);
-  reverse_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      prov, req, make_aux(aux, P, T), w, P, T, K, W, tile, r, pool_t, pool_c, rev_t, rev_c);
+  if (rt == 1)
+    reverse_kernel<false><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        prov, req, ax, w, P, T, K, W, tile, r, 1, pool_t, pool_c, rev_t, rev_c);
+  else
+    reverse_kernel<true><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        prov, req, ax, w, P, T, K, W, tile, r, rt, pool_t, pool_c, rev_t, rev_c);
   return (int)cudaGetLastError();
 }
 

@@ -30,7 +30,7 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / "kernels"
-SOURCES = ("candidates", "auction", "repair", "dense", "cleanup")
+SOURCES = ("candidates", "auction", "repair", "dense", "cleanup", "binpack")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -42,6 +42,7 @@ LAUNCHES = {
     "candidates_forward_rows": 0, "candidates_reverse_blocks": 0,
     "repair_enter": 0, "repair_tile_min": 0, "repair_refold": 0,
     "dense_value_base": 0, "dense_auction": 0, "unbounded_best": 0, "greedy_cleanup": 0,
+    "cost_block": 0, "binpack_ffd": 0,
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -113,7 +114,7 @@ def _lib(name: str) -> ctypes.CDLL:
         if name == "candidates":
             lib.k1_forward.argtypes = [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P, _P, _P, _P]
             lib.k1_reverse.argtypes = [
-                _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _I, _P, _P, _P, _P, _P, _P,
+                _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _I, _I, _P, _P, _P, _P, _P, _P,
             ]
             lib.k1_forward_rows.argtypes = [
                 _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P, _I, _I, _P, _P, _P, _P,
@@ -139,11 +140,18 @@ def _lib(name: str) -> ctypes.CDLL:
                 _P, _P, _I, _I, _F, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
             ]
             lib.k8_unbounded_best.argtypes = [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P]
-            for fn in ("k6_value_base", "k7_dense_auction", "k8_unbounded_best"):
+            lib.k10_cost_block.argtypes = [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P]
+            for fn in ("k6_value_base", "k7_dense_auction", "k8_unbounded_best",
+                       "k10_cost_block"):
                 getattr(lib, fn).restype = _I
         elif name == "cleanup":
             lib.k9_greedy_cleanup.argtypes = [_P, _P, _I, _I, _P, _P, _I, _P, _P]
             lib.k9_greedy_cleanup.restype = _I
+        elif name == "binpack":
+            lib.k11_binpack_ffd.argtypes = [
+                _P, _I, _I, _P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _P,
+            ]
+            lib.k11_binpack_ffd.restype = _I
         else:
             lib.k2_auction_phase.argtypes = [
                 _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
@@ -201,6 +209,16 @@ def _k1_setup(ep, er, weights):
     return dev, pcols, rcols, shape, w, aux
 
 
+# threads per block of the forward launch (csrc/candidates.cu)
+FORWARD_BLOCK = 128
+
+
+def forward_fill_tasks(dev) -> int:
+    """Tasks the forward launch needs to give every SM of ``dev`` one
+    block: below it, the rows variant spreads each task over lanes."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count * FORWARD_BLOCK
+
+
 def candidates_forward(ep, er, weights, k: int):
     """K1, forward launch (``csrc/candidates.cu``): each task's k cheapest
     providers, (fwd_p [T, k] i32, fwd_c [T, k] f32)."""
@@ -218,24 +236,23 @@ def candidates_forward(ep, er, weights, k: int):
 
 
 def candidates_reverse(ep, er, weights, tile: int, r: int, rt: int):
-    """K1, reverse launch (``csrc/candidates.cu``): per-(provider, tile)
-    pools folded into each provider's best r. Returns (rev_t [P, r]
-    unmasked, rev_c, pool_t [P, n_tiles], pool_c)."""
-    if rt != 1:
-        raise ValueError(
-            f"K1 takes one reverse contribution per tile (rt=1), got rt={rt}: "
-            "use a tile with T/tile >= reverse_r"
-        )
+    """K1, reverse launch (``csrc/candidates.cu``): each tile's stable
+    top-rt tasks per provider (the pools), folded into each provider's
+    best r. Returns (rev_t [P, r] unmasked, rev_c, pool_t [P, n_tiles *
+    rt], pool_c)."""
     dev, pcols, rcols, (P, T, K, W), w, aux = _k1_setup(ep, er, weights)
-    if not 1 <= r <= 8 or T % tile != 0 or T // tile < r:
-        raise ValueError(f"K1 reverse takes r <= 8 and T/tile >= r (r={r}, T={T}, tile={tile})")
+    if not 1 <= r <= 8 or tile < 1 or T % tile != 0:
+        raise ValueError(f"K1 reverse takes r <= 8 and T % tile == 0 (r={r}, T={T}, tile={tile})")
     n_tiles = T // tile
-    pool_t = torch.empty((P, n_tiles), dtype=torch.int32, device=dev)
-    pool_c = torch.empty((P, n_tiles), dtype=torch.float32, device=dev)
+    if not 1 <= rt <= min(r, tile) or n_tiles * rt < r:
+        raise ValueError(f"K1 reverse takes 1 <= rt <= min(r, tile), n_tiles * rt >= r "
+                         f"(rt={rt}, r={r}, tile={tile}, n_tiles={n_tiles})")
+    pool_t = torch.empty((P, n_tiles * rt), dtype=torch.int32, device=dev)
+    pool_c = torch.empty((P, n_tiles * rt), dtype=torch.float32, device=dev)
     rev_t = torch.empty((P, r), dtype=torch.int32, device=dev)
     rev_c = torch.empty((P, r), dtype=torch.float32, device=dev)
     _check(_lib("candidates").k1_reverse(
-        pcols, rcols, P, T, K, W, *w, tile, r, aux.data_ptr(),
+        pcols, rcols, P, T, K, W, *w, tile, r, rt, aux.data_ptr(),
         pool_t.data_ptr(), pool_c.data_ptr(), rev_t.data_ptr(), rev_c.data_ptr(),
         _stream(pool_t),
     ), "candidates_reverse")
@@ -503,3 +520,59 @@ def greedy_cleanup(cand_provider, cand_cost, owner, p4t, open_idx):
     ), "greedy_cleanup")
     LAUNCHES["greedy_cleanup"] += 1
     return out
+
+
+def cost_block(ep, er, weights):
+    """K10 (``csrc/dense.cu``): the unjittered cost of every cell, INFEASIBLE
+    off the mask, slot-major: cost [T, P] f32 (``cost_matrix(ep, er,
+    weights)[0].T``)."""
+    if ep.num < 1 or er.num < 1:
+        raise ValueError("K10 takes at least one provider and one task")
+    dev, pcols, rcols, (P, T, K, W), w, aux = _k1_setup(ep, er, weights)
+    cost = torch.empty((T, P), dtype=torch.float32, device=dev)
+    _check(_lib("dense").k10_cost_block(
+        pcols, rcols, P, T, K, W, *w, aux.data_ptr(), cost.data_ptr(), _stream(cost),
+    ), "cost_block")
+    LAUNCHES["cost_block"] += 1
+    return cost
+
+
+def binpack_ffd(cost_tp, demand, capacity, task_order, anti_group, loc_id, L: int, G: int):
+    """K11 (``csrc/binpack.cu``): the FFD vector bin-pack over the slot-major
+    cost ``cost_tp`` [T, P]; ``task_order`` None = the FFD demand order,
+    ranked in the launch. Returns (provider_for_task [T] i32, remaining
+    capacity [P, R] f32)."""
+    T, P = cost_tp.shape
+    dev = cost_tp.device
+    R = demand.shape[1] if demand.dim() == 2 else 0
+    cost_tp = cost_tp.to(torch.float32).contiguous()
+    demand = demand.to(torch.float32).contiguous()
+    cap = capacity.to(torch.float32).clone().contiguous()
+    group = anti_group.to(torch.int32).contiguous()
+    loc = loc_id.to(torch.int32).contiguous()
+    if T < 1 or P < 1 or not 1 <= R <= 8 or demand.shape != (T, R) or cap.shape != (P, R):
+        raise ValueError(f"K11 takes cost [T, P], demand [T, R <= 8] and capacity [P, R], "
+                         f"got {tuple(cost_tp.shape)}, {tuple(demand.shape)}, {tuple(cap.shape)}")
+    if group.shape != (T,) or loc.shape != (P,) or L < 1 or G < 1:
+        raise ValueError("K11: anti_group must be [T] and loc_id [P], with L, G >= 1")
+    for t in (demand, cap, group, loc):
+        if t.device != dev:
+            raise ValueError(f"K11: every input must lie on {dev}, got {t.device}")
+    if int(group.min()) < -1 or int(group.max()) >= G or int(loc.min()) < 0 or int(loc.max()) >= L:
+        raise ValueError(f"K11: anti_group must lie in [-1, {G}) and loc_id in [0, {L})")
+    if task_order is None:
+        order = torch.empty(T, dtype=torch.int32, device=dev)
+    else:
+        order = task_order.to(torch.int32).contiguous()
+        if order.device != dev or order.shape != (T,):
+            raise ValueError(f"K11: task_order must be a [{T}] tensor on {dev}")
+        order = _ids(order, T, dev, "binpack_ffd")
+    used = torch.zeros((L * G + 31) // 32, dtype=torch.int32, device=dev)
+    pft = torch.empty(T, dtype=torch.int32, device=dev)
+    _check(_lib("binpack").k11_binpack_ffd(
+        cost_tp.data_ptr(), P, T, demand.data_ptr(), R, order.data_ptr(),
+        int(task_order is not None), group.data_ptr(), loc.data_ptr(), G, cap.data_ptr(),
+        used.data_ptr(), pft.data_ptr(), _stream(pft),
+    ), "binpack_ffd")
+    LAUNCHES["binpack_ffd"] += 1
+    return pft, cap

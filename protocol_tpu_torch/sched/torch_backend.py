@@ -4,10 +4,19 @@ One batched solve per population change: encode every schedulable node
 and every task once, solve on the device, and serve per-heartbeat lookups
 from a host dict. The task semantics are the reference's: a task with a
 ``replicas`` bound (``plugins["tpu_scheduler"]["replicas"]``) is expanded
-into replica slots that compete in an auction over [nodes x slots]
-(phase 1); every node left over then takes its cheapest compatible
-unbounded task (phase 2, a row argmin: the swarm semantics). Shapes are
-padded to power-of-two buckets as in the reference.
+into replica slots. Anti-affinity tasks (``anti_affinity: task|location``)
+are placed first, one replica per provider and per domain, by the
+bin-pack over the union of their slots' forward candidates (phase 0);
+colocated tasks (``colocate: true``) then stack on providers while their
+[gpu, vram, cpu, ram, storage] capacity holds, by the bin-pack over
+their bidirectional candidates (phase 0.5). The providers those phases
+claim leave the pool; the other bounded slots compete in an auction over
+[nodes x slots] (phase 1); every node left over then takes its cheapest
+compatible unbounded task (phase 2, a row argmin: the swarm semantics).
+Shapes are padded to power-of-two buckets as in the reference.
+
+Phases 0 and 0.5 score with :func:`cost_only` (K10 on a card) and place
+with ``ops/binpack.py::assign_binpack_ffd`` (K11 on a card).
 
 Phase 1 routes:
   ``native_engine="native"`` (the default): the dense auction for pools
@@ -20,14 +29,14 @@ Phase 2 is :func:`solve_unbounded` (K8 on a card).
 
 What the port does not carry yet raises ``NotImplementedError`` naming
 its ROADMAP.md item, never a silently different solve: the candidate-cache
-and stateless sparse routes above the dense budget, anti-affinity and
-colocation (phases 0 and 0.5), node groups, the reference's native C++
-engines, multi-card engines, ``approx_recall``, and the trace and profile
-hooks.
+and stateless sparse routes above the dense budget, node groups, the
+reference's native C++ engines, multi-card engines, ``approx_recall``, and
+the trace and profile hooks.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import os
 import threading
@@ -41,12 +50,16 @@ import torch
 from protocol_tpu_torch.device import resolve_device
 from protocol_tpu_torch.models.node import ComputeRequirements
 from protocol_tpu_torch.ops.assign import auction_dense, auction_value_base
+from protocol_tpu_torch.ops.binpack import assign_binpack_ffd
 from protocol_tpu_torch.ops.cost import INFEASIBLE, CostWeights, cost_matrix
 from protocol_tpu_torch.ops.encoding import (
     FeatureEncoder,
+    gather_providers,
     providers_from_numpy,
     requirements_from_numpy,
 )
+from protocol_tpu_torch.ops.sparse import candidates_forward
+from protocol_tpu_torch.sched.cand_cache import CandidateMemo
 from protocol_tpu_torch.store.node_store import NodeStatus
 
 # compared by value, so either package's NodeStatus (a str enum) passes
@@ -153,6 +166,18 @@ def solve_bounded(ep, er, weights, stats_out: Optional[dict] = None) -> torch.Te
     return t4p
 
 
+def cost_only(ep, er, weights) -> torch.Tensor:
+    """The unjittered dense cost of phases 0 and 0.5 (``_cost_only``):
+    ``cost_matrix(ep, er, weights)[0]``, [P, T] f32. On a card this is K10,
+    whose block is slot-major: the result is its transposed view, which
+    ``assign_binpack_ffd`` reads without a copy."""
+    if ep.gpu_count.is_cuda:
+        from protocol_tpu_torch import kernels
+
+        return kernels.cost_block(ep, er, weights).T
+    return cost_matrix(ep, er, weights)[0]
+
+
 def _solve_unbounded_plain(ep, er, weights) -> torch.Tensor:
     """K8's plain version: the first argmin of each provider's cost row
     (no tie jitter), -1 where that cost is >= INFEASIBLE/2."""
@@ -175,8 +200,8 @@ def solve_unbounded(ep, er, weights) -> torch.Tensor:
 class TorchBatchMatcher:
     """The reference's ``TpuBatchMatcher`` on one card: the same
     constructor arguments, names and defaults, plus ``device``.
-    ``top_k``, ``warm_start`` and ``native_threads`` are taken for the
-    reference's signature: only its unported routes read them."""
+    ``warm_start`` and ``native_threads`` are taken for the reference's
+    signature: only its unported routes read them."""
 
     def __init__(
         self,
@@ -235,6 +260,8 @@ class TorchBatchMatcher:
         # [providers x slots] cost cells up to which phase 1 solves dense:
         # 2^24 cells = 64 MB f32
         self.dense_cell_budget = dense_cell_budget
+        self.top_k = top_k  # candidates per slot of phases 0 and 0.5
+        self._cand_memo = CandidateMemo()
         self.cold_every = 256
         self.native_engine = native_engine
         self._arena_engine = name == "torch"
@@ -244,6 +271,8 @@ class TorchBatchMatcher:
         self._dirty = True
         self._last_solve = float("-inf")
         self._assignment: dict[str, str] = {}  # node address -> task id
+        # colocated node address -> its distinct task ids, placement order
+        self._assignment_multi: dict[str, list[str]] = {}
         self._covered: set[str] = set()  # addresses the last solve considered
         # heartbeats arrive from worker threads: one lock serializes solves
         # and makes (_assignment, _covered) swaps atomic
@@ -251,6 +280,10 @@ class TorchBatchMatcher:
         self.encoder = FeatureEncoder()
         self.last_solve_stats: dict = {}
         self._solve_seq = 0
+        # per-solve counters of phases 0 and 0.5, and the solve's host
+        # encoding time
+        self._aa_truncated = self._colo_truncated = self._colo_requested = 0
+        self._encode_ms = 0.0
 
     # ----- invalidation hooks (wire to TaskStore observers + node changes)
 
@@ -280,15 +313,21 @@ class TorchBatchMatcher:
         return self.lookup(node)[0]
 
     def assigned_task_ids(self, address: str) -> list[str]:
-        """Multi-assignment ids of a colocated node: always [] here, since
-        colocation (which stacks several tasks on a node) is not ported."""
-        return []
+        """Multi-assignment ids from the last solve, no refresh; [] for a
+        node that is not colocated."""
+        return list(self._assignment_multi.get(address, ()))
 
     def tasks_for_node(self, node) -> list:
-        """All tasks assigned to this node in the last solve: one at most
-        (colocation is not ported)."""
-        task, _ = self.lookup(node)
-        return [task] if task is not None else []
+        """All tasks assigned to this node in the last solve: one for an
+        auction or swarm node, several for a colocated node, in placement
+        order (the first is what ``lookup`` serves)."""
+        self._ensure_fresh()
+        tids = self._assignment_multi.get(node.address)
+        if not tids:
+            task, _ = self.lookup(node)
+            return [task] if task is not None else []
+        found = (self.store.task_store.get_task(t) for t in tids)
+        return [t for t in found if t is not None]
 
     def _ensure_fresh(self) -> None:
         # re-solve only when something changed, and never more often than
@@ -318,6 +357,208 @@ class TorchBatchMatcher:
         seated = p4s >= 0
         t4p[p4s[seated]] = np.flatnonzero(seated)
         return t4p
+
+    def _gather_rows(self, ep, rows: np.ndarray):
+        """The provider rows ``rows`` (sorted global ids) as new columns,
+        padded with row 0 to a pow-2 bucket whose padding is invalid.
+        Returns (sub_ep, rpad)."""
+        rpad = _pow2_bucket(len(rows))
+        gather = np.concatenate([rows, np.zeros(rpad - len(rows), np.int64)])
+        idx = torch.from_numpy(gather).to(self.device)
+        valid = torch.zeros(rpad, dtype=torch.uint8, device=self.device)
+        valid[: len(rows)] = ep.valid[idx[: len(rows)]]
+        return dataclasses.replace(gather_providers(ep, idx), valid=valid), rpad
+
+    def _encode_slots(self, reqs, slot_task, prio, s_pad: int):
+        t0 = time.perf_counter()
+        er = self.encoder.encode_requirements(
+            reqs, priorities=[float(prio[i]) for i in slot_task], pad_to=s_pad,
+            device=self.device,
+        )
+        self._encode_ms += (time.perf_counter() - t0) * 1e3
+        return er
+
+    def _solve_anti_affinity(
+        self, ep, N: int, aa, tasks, prio, idx_addrs, loc_by_addr
+    ) -> dict[int, int]:
+        """Phase 0 (``_solve_anti_affinity``): anti-affinity replicas
+        through the bin-pack with unit capacity (one replica per provider)
+        and exclusion groups over the declared domain: providers
+        (``"task"``) or location classes (``"location"``), one mode after
+        the other. The bin-pack runs over the sorted union of the slots'
+        forward top-k candidates, not all N providers. Returns {provider
+        row -> task idx}."""
+        results: dict[int, int] = {}
+        for mode in ("task", "location"):
+            items = [(i, r, m) for (i, r, m) in aa if m == mode]
+            if not items:
+                continue
+            slot_task: list[int] = []
+            groups: list[int] = []
+            for gi, (i, r, _m) in enumerate(items):
+                take = min(r, N, 4096)
+                if take < min(r, N):
+                    # never a silent cap, as the phase-1 slot cap
+                    self._aa_truncated += min(r, N) - take
+                    logging.getLogger(__name__).warning(
+                        "anti-affinity replica demand for task %s capped at "
+                        "4096 slots (%d dropped this solve)",
+                        tasks[i].id, min(r, N) - take,
+                    )
+                slot_task.extend([i] * take)
+                groups.extend([gi] * take)
+            S = len(slot_task)
+            if S == 0:
+                continue
+            s_pad = _pow2_bucket(S)
+            er = self._encode_slots(
+                [task_requirements(tasks[i]) for i in slot_task], slot_task, prio, s_pad
+            )
+            cand_p, _ = candidates_forward(
+                ep, er, self.weights, min(self.top_k, ep.num), min(1024, s_pad)
+            )
+            # sorted: a lower subset row is a lower global row, the
+            # bin-pack's tie order
+            rows = np.unique(cand_p.cpu().numpy())
+            rows = rows[rows >= 0].astype(np.int64)
+            if rows.size == 0:
+                continue
+            sub_ep, rpad = self._gather_rows(ep, rows)
+            cost = cost_only(sub_ep, er, self.weights)
+            # rows claimed by the mode before are taken (cost is this
+            # call's own block)
+            taken = np.flatnonzero(np.isin(rows, np.fromiter(results, np.int64, len(results))))
+            if taken.size:
+                cost[torch.from_numpy(taken).to(self.device)] = INFEASIBLE
+            if mode == "location":
+                loc_local, L = self._location_classes(rows, idx_addrs, loc_by_addr)
+                loc = np.zeros(rpad, np.int32)
+                loc[: len(rows)] = loc_local
+            else:
+                loc = np.arange(rpad, dtype=np.int32)
+                L = rpad
+            anti = np.concatenate(
+                [np.asarray(groups, np.int32), np.full(s_pad - S, -1, np.int32)]
+            )
+            res = assign_binpack_ffd(
+                cost,
+                torch.ones((s_pad, 1), dtype=torch.float32, device=self.device),
+                torch.ones((rpad, 1), dtype=torch.float32, device=self.device),
+                anti_group=torch.from_numpy(anti).to(self.device),
+                loc_id=torch.from_numpy(loc).to(self.device),
+                # pow-2 buckets, as the reference sizes its [L, G] carry
+                num_locations=_pow2_bucket(int(L)),
+                num_groups=_pow2_bucket(len(items)),
+            )
+            p4s = res.provider_for_task[:S].cpu().numpy()
+            for s_idx, r_local in enumerate(p4s):
+                if 0 <= r_local < len(rows):
+                    results[int(rows[r_local])] = slot_task[s_idx]
+        return results
+
+    def _solve_colocation(self, ep, colo, tasks, prio, taken_rows) -> dict[int, list[int]]:
+        """Phase 0.5 (``_solve_colocation``): colocated replicas through the
+        bin-pack with the providers' real capacity [gpu count, gpu count x
+        per-GPU memory, cpu cores, ram, storage], so several replicas (of
+        one task or several) stack on one provider while it holds. The
+        bin-pack runs over the sorted union of the slots' bidirectional
+        candidates, less the rows phase 0 took. Returns {provider row ->
+        [task idx, ...]} in placement order."""
+        slot_task: list[int] = []
+        for i, r in colo:
+            take = min(r, 4096)
+            if take < r:
+                self._colo_truncated += r - take
+                logging.getLogger(__name__).warning(
+                    "colocate replica demand for task %s capped at 4096 "
+                    "slots (%d dropped this solve)", tasks[i].id, r - take,
+                )
+            slot_task.extend([i] * take)
+        S = len(slot_task)
+        self._colo_requested = S
+        if S == 0:
+            return {}
+        s_pad = _pow2_bucket(S)
+        req_of = {i: task_requirements(tasks[i]) for i, _ in colo}
+        # a colocated slot claims a slice of a provider: the compat side
+        # drops the exact GPU count and the whole-provider memory maximum,
+        # and the demand (from the unrelaxed requirement) reserves the
+        # slice against the remaining capacity
+        relaxed = {
+            i: dataclasses.replace(r, gpu=[
+                dataclasses.replace(g, count=None, total_memory_max=None) for g in r.gpu
+            ])
+            for i, r in req_of.items()
+        }
+        er = self._encode_slots([relaxed[i] for i in slot_task], slot_task, prio, s_pad)
+        cand_p, _ = self._cand_memo.get(
+            ep, er, self.weights, k=self.top_k, tile=min(1024, s_pad), reverse_r=8, extra=16,
+        )
+        rows = np.unique(cand_p.cpu().numpy())
+        rows = rows[rows >= 0].astype(np.int64)
+        if taken_rows:
+            rows = rows[~np.isin(rows, np.fromiter(taken_rows, np.int64))]
+        if rows.size == 0:
+            return {}
+        sub_ep, rpad = self._gather_rows(ep, rows)
+        cost = cost_only(sub_ep, er, self.weights)
+
+        # capacity from the encoded columns in f32 (-1, unreported, is 0:
+        # a provider cannot host what it does not report)
+        def col(x):
+            return torch.clamp(x.to(torch.float32), min=0.0)
+
+        pg = col(sub_ep.gpu_count)
+        capacity = torch.stack(
+            [pg, pg * col(sub_ep.gpu_mem_mb), col(sub_ep.cpu_cores), col(sub_ep.ram_mb),
+             col(sub_ep.storage_gb)],
+            dim=1,
+        )
+        # with GPU alternatives, reserve the element-wise maximum over the
+        # options: compat may match any of them
+        demand_of = {}
+        for i, r in req_of.items():
+            gcount = vram = 0.0
+            for g in r.gpu:
+                c = float(g.count or 0)
+                if g.total_memory_min is not None:
+                    v = float(g.total_memory_min)
+                else:
+                    v = c * float(g.memory_mb or g.memory_mb_min or 0)
+                gcount = max(gcount, c)
+                vram = max(vram, v)
+            demand_of[i] = (
+                gcount,
+                vram,
+                float(r.cpu.cores or 0) if r.cpu else 0.0,
+                float(r.ram_mb or 0),
+                float(r.storage_gb or 0),
+            )
+        demand = np.zeros((s_pad, 5), np.float32)
+        demand[:S] = np.asarray([demand_of[i] for i in slot_task], np.float32)
+        res = assign_binpack_ffd(cost, torch.from_numpy(demand).to(self.device), capacity)
+        p4s = res.provider_for_task[:S].cpu().numpy()
+        placed: dict[int, list[int]] = {}
+        for s_idx, r_local in enumerate(p4s):
+            if 0 <= r_local < len(rows):
+                placed.setdefault(int(rows[r_local]), []).append(slot_task[s_idx])
+        return placed
+
+    @staticmethod
+    def _location_classes(rows: np.ndarray, idx_addrs, loc_by_addr) -> tuple[np.ndarray, int]:
+        """Location class id per subset row: nodes at one (rounded to 3
+        decimals) lat/lon share a class, ids in order of first appearance;
+        a node without a location is its own class (it cannot be shown to
+        share a failure domain)."""
+        keys = []
+        for r in rows:
+            loc = loc_by_addr.get(idx_addrs[r]) if r < len(idx_addrs) else None
+            if loc is not None:
+                keys.append((round(loc.latitude, 3), round(loc.longitude, 3)))
+            else:
+                keys.append(("solo", int(r)))
+        uniq = {k: i for i, k in enumerate(dict.fromkeys(keys))}
+        return np.asarray([uniq[k] for k in keys], np.int32), len(uniq)
 
     # ----- batch solve
 
@@ -363,6 +604,7 @@ class TorchBatchMatcher:
         assignment: dict[str, str] = {}
         covered = {n.address for n in nodes}
         if not nodes or not tasks:
+            self._assignment_multi = {}
             self._assignment, self._covered = assignment, covered
             self._solve_seq += 1
             self.last_solve_stats = {
@@ -375,18 +617,20 @@ class TorchBatchMatcher:
 
         bounded: list[tuple[int, int]] = []  # (task idx, replicas)
         unbounded: list[int] = []
+        aa: list[tuple[int, int, str]] = []  # (task idx, replicas, mode)
+        colo: list[tuple[int, int]] = []  # (task idx, replicas), capacity-sharing
         for i, t in enumerate(tasks):
             r = task_replicas(t)
             if r is None:
                 unbounded.append(i)
-            elif task_colocate(t) or task_anti_affinity(t):
-                self._dirty = True
-                raise _not_ported(
-                    "tasks with anti_affinity or colocate (phases 0 and 0.5)",
-                    "queue A, M2",
-                )
+            elif task_colocate(t):
+                colo.append((i, r))
             else:
-                bounded.append((i, r))
+                mode = task_anti_affinity(t)
+                if mode:
+                    aa.append((i, r, mode))
+                else:
+                    bounded.append((i, r))
 
         P = len(nodes)
         p_bucket = _pow2_bucket(P)
@@ -435,7 +679,61 @@ class TorchBatchMatcher:
         ep = providers_from_numpy(p_arrays, self.device)
         idx_addrs = [n.address for n in nodes]
         assigned = np.zeros(P, bool)
-        encode_ms = (time.perf_counter() - t_enc) * 1e3
+        self._encode_ms = (time.perf_counter() - t_enc) * 1e3
+
+        # ---- phase 0: anti-affinity replicas spread over providers or
+        # location classes by the bin-pack; the providers they claim leave
+        # the auction and phase 2
+        t0, enc0 = time.perf_counter(), self._encode_ms
+        self._aa_truncated = 0
+        claims: dict[int, int] = {}
+        if aa:
+            loc_by_addr = {n.address: n.location for n in nodes}
+            claims = self._solve_anti_affinity(ep, P, aa, tasks, prio, idx_addrs, loc_by_addr)
+            for row, i in claims.items():
+                assignment[idx_addrs[row]] = tasks[i].id
+                assigned[row] = True
+        phase0_ms = (time.perf_counter() - t0) * 1e3 - (self._encode_ms - enc0)
+
+        # ---- phase 0.5: colocated replicas stack on providers while their
+        # capacity holds
+        t0, enc0 = time.perf_counter(), self._encode_ms
+        colo_slots = 0
+        self._colo_truncated = 0
+        self._colo_requested = 0
+        assignment_multi: dict[str, list[str]] = {}
+        placed: dict[int, list[int]] = {}
+        if colo:
+            placed = self._solve_colocation(ep, colo, tasks, prio, set(claims))
+            for row, tidxs in placed.items():
+                addr = idx_addrs[row]
+                assignment[addr] = tasks[tidxs[0]].id
+                # replicas of one task stacked on a provider reserve that
+                # many slices, but a node runs one instance per distinct
+                # task: the wire list carries distinct ids
+                assignment_multi[addr] = list(dict.fromkeys(tasks[j].id for j in tidxs))
+                assigned[row] = True
+                colo_slots += len(tidxs)
+            if colo_slots < self._colo_requested:
+                logging.getLogger(__name__).warning(
+                    "colocation placed %d/%d replica slots (insufficient "
+                    "fleet capacity for the rest)",
+                    colo_slots, self._colo_requested,
+                )
+        phase05_ms = (time.perf_counter() - t0) * 1e3 - (self._encode_ms - enc0)
+
+        claimed_rows = list(claims) + list(placed)
+        arena_p_arrays = p_arrays
+        if claimed_rows:
+            # the auction and phase 2 must not re-assign a claimed
+            # provider: drop it from the compatibility domain. The arena
+            # gets a NEW valid array: it keeps the arrays it is given as
+            # its baseline, so an edit in place would read as no change.
+            claimed = np.zeros(p_bucket, bool)
+            claimed[claimed_rows] = True
+            arena_p_arrays = dict(p_arrays, valid=p_arrays["valid"] & ~claimed)
+            keep = torch.from_numpy((~claimed).astype(np.uint8)).to(self.device)
+            ep = dataclasses.replace(ep, valid=ep.valid & keep)
 
         # ---- phase 1: bounded tasks -> replica slots -> auction
         kernel_used = "none"
@@ -449,11 +747,11 @@ class TorchBatchMatcher:
                 pad_to=s_bucket,
             )
             t1 = time.perf_counter()
-            encode_ms += (t1 - t_enc) * 1e3
+            self._encode_ms += (t1 - t_enc) * 1e3
             if self._arena_engine:
                 kernel_used = "torch_arena"
                 t4p = self._bounded_t4p_arena(
-                    types.SimpleNamespace(**p_arrays), types.SimpleNamespace(**r_arrays)
+                    types.SimpleNamespace(**arena_p_arrays), types.SimpleNamespace(**r_arrays)
                 )
             else:
                 kernel_used = "dense_auction"
@@ -476,13 +774,17 @@ class TorchBatchMatcher:
                 device=self.device,
             )
             t2 = time.perf_counter()
-            encode_ms += (t2 - t_enc) * 1e3
+            self._encode_ms += (t2 - t_enc) * 1e3
             best = solve_unbounded(ep, er, self.weights).cpu().numpy()[:P]
             for p_idx in range(P):
                 if not assigned[p_idx] and 0 <= best[p_idx] < len(unbounded):
                     assignment[idx_addrs[p_idx]] = tasks[unbounded[best[p_idx]]].id
             phase2_ms = (time.perf_counter() - t2) * 1e3
 
+        # multi first: a lock-free reader racing the swap (tasks_for_node
+        # reads _assignment_multi, then _assignment) serves the previous
+        # solve whole, never a new-solve/old-multi mix
+        self._assignment_multi = assignment_multi
         self._assignment, self._covered = assignment, covered
         self._solve_seq += 1
         self.last_solve_stats = {
@@ -490,9 +792,9 @@ class TorchBatchMatcher:
             "tasks": len(tasks),
             "bounded_tasks": len(bounded),
             "assigned": len(assignment),
-            "colocated_slots": 0,
-            "colocated_unplaced": 0,
-            "truncated_colocate_slots": 0,
+            "colocated_slots": colo_slots,
+            "colocated_unplaced": self._colo_requested - colo_slots,
+            "truncated_colocate_slots": self._colo_truncated,
             "solve_ms": (time.perf_counter() - t_start) * 1e3,
             "truncated_replica_slots": truncated_slots,
             "kernel": kernel_used,  # dense_auction | torch_arena | none
@@ -501,13 +803,15 @@ class TorchBatchMatcher:
             "warm": False,
             "warm_seeded_slots": 0,
             "stall_exit": False,
-            "anti_affinity_assigned": 0,
-            "truncated_aa_slots": 0,
+            "anti_affinity_assigned": len(claims),
+            "truncated_aa_slots": self._aa_truncated,
             "group_assignments": 0,
             "seq": self._solve_seq,
-            # the port's split of solve_ms: host encoding, then each phase's
-            # solve up to its readback and dict build
-            "encode_ms": encode_ms,
+            # the port's split of solve_ms: host encoding (every phase's),
+            # then each phase's solve up to its readback and dict build
+            "encode_ms": self._encode_ms,
+            "phase0_ms": phase0_ms,
+            "phase05_ms": phase05_ms,
             "phase1_ms": phase1_ms,
             "phase2_ms": phase2_ms,
             **({"auction_rounds": int(solve_stats["auction_rounds"])} if solve_stats else {}),

@@ -258,3 +258,81 @@ def test_card_matcher_matches_cpu(card):
         on_cpu.refresh()
         assert on_card.last_solve_stats["kernel"] == kernel
         assert on_card._assignment == on_cpu._assignment
+
+
+@pytest.mark.parametrize("proximity", [0.0, 0.001])
+def test_cost_block_matches_plain_bits(card, proximity):
+    """K10 (through the matcher's cost_only, a view of its slot-major
+    block) against cost_matrix: the same bits at both weights."""
+    from protocol_tpu_torch.ops.cost import cost_matrix
+    from protocol_tpu_torch.sched import torch_backend as tb
+
+    ep = synth_providers(np.random.default_rng(13), 1000, device=card)
+    er = synth_requirements(np.random.default_rng(14), 700, device=card)
+    w = CostWeights(priority=1.0, proximity=proximity)
+    got = tb.cost_only(ep, er, w)
+    assert got.shape == (1000, 700) and got.T.is_contiguous()
+    assert same_bits(got.contiguous(), cost_matrix(ep, er, w)[0])
+
+
+def binpack_case(kind: str, card):
+    """Integer-valued bin-pack inputs: unit demand with groups over
+    domains (phase 0's shape), five resources (phase 0.5's), or a given
+    visit order; every case has an all-infeasible column."""
+    rng = np.random.default_rng({"unit": 1, "capacity": 2, "order": 3}[kind])
+    P, T = 3000, 700
+    cost = rng.integers(1, 2000, (P, T)).astype(np.float32) / 8
+    cost[rng.uniform(size=(P, T)) > 0.3] = 1e9
+    cost[:, 5] = 1e9
+    if kind == "unit":
+        demand, capacity = np.ones((T, 1), np.float32), np.ones((P, 1), np.float32)
+        anti = np.where(np.arange(T) < 600, np.arange(T) // 40, -1).astype(np.int32)
+        loc = rng.integers(0, 64, P).astype(np.int32)
+        L, G, order = 64, 16, None
+    else:
+        demand = rng.integers(0, 4, (T, 5)).astype(np.float32)
+        capacity = rng.integers(0, 9, (P, 5)).astype(np.float32)
+        anti, loc = np.full(T, -1, np.int32), np.arange(P, dtype=np.int32)
+        L, G = P, 1
+        order = rng.permutation(T).astype(np.int32) if kind == "order" else None
+
+    def dev(x):
+        return None if x is None else torch.from_numpy(x).to(card)
+
+    return dev(cost), dev(demand), dev(capacity), dev(order), dev(anti), dev(loc), L, G
+
+
+@pytest.mark.parametrize("kind", ["unit", "capacity", "order"])
+def test_binpack_kernel_matches_plain_bits(card, kind):
+    """K11 (its rank launch included) against the plain step loop."""
+    from protocol_tpu_torch import kernels
+    from protocol_tpu_torch.ops import binpack as bp
+
+    cost, demand, capacity, order, anti, loc, L, G = binpack_case(kind, card)
+    got = kernels.binpack_ffd(cost.T.contiguous(), demand, capacity, order, anti, loc, L, G)
+    ref = bp._binpack_plain(cost, demand, capacity,
+                            bp.ffd_demand_order(demand) if order is None else order,
+                            anti, loc, L, G)
+    assert same_bits(got[0], ref[0]) and same_bits(got[1], ref[1])
+    assert int(got[0][5]) == -1 and int((got[0] >= 0).sum()) > 0
+    # the public entry point launches K11 on a card (ranking the default
+    # order in the launch), from a transposed view as the matcher's K10 gives
+    before = kernels.LAUNCHES["binpack_ffd"]
+    res = bp.assign_binpack_ffd(cost.T.contiguous().T, demand, capacity, task_order=order,
+                                anti_group=anti, loc_id=loc, num_locations=L, num_groups=G)
+    assert kernels.LAUNCHES["binpack_ffd"] == before + 1
+    assert same_bits(res.provider_for_task, ref[0]) and same_bits(res.remaining_capacity, ref[1])
+
+
+@pytest.mark.parametrize("tile", [256, 512, 1024])
+def test_candidate_reverse_several_per_tile_matches_plain_bits(card, tile):
+    """K1 reverse with rt = ceil(8 / n_tiles) > 1 tasks per tile (the
+    colocation phase's bidirectional candidates at few tiles)."""
+    ep = synth_providers(np.random.default_rng(15), 3000, device=card)
+    er = synth_requirements(np.random.default_rng(16), 1024, device=card)
+    rt = -(-8 // (1024 // tile))
+    w = CostWeights(proximity=0.0)
+    got = sp.candidates_reverse(ep, er, w, tile, 8, rt)
+    ref = sp._reverse_plain(ep, er, w, tile, 8, rt)
+    assert got[2].shape == (3000, 1024 // tile * rt)
+    assert all(same_bits(a, b) for a, b in zip(got, ref))

@@ -2,8 +2,9 @@
 against the reference's ``TpuBatchMatcher`` on the same ``StoreContext``:
 the scenarios of ``tests/test_scheduler.py::TestTpuBatchMatcher`` and a
 seeded mixed marketplace, on the dense route and on the arena route
-(``"torch"`` against ``"jax:1"`` along a churn chain), plus every case the
-port refuses.
+(``"torch"`` against ``"jax:1"`` along a churn chain); stores with
+anti-affinity tasks (phase 0, nodes at shared sites) and colocated tasks
+(phase 0.5) on both routes; plus every case the port refuses.
 
 The matcher encodes tasks without a location, so its proximity term is 0
 whatever the nodes' locations: the assignment dicts must be identical at
@@ -24,6 +25,8 @@ from protocol_tpu_torch.ops.cost import CostWeights
 from protocol_tpu_torch.sched import torch_backend as tb
 from protocol_tpu_torch.sched.torch_backend import TorchBatchMatcher
 
+from tests.test_colocation import ONE_GPU, mk_colo_task
+from tests.test_colocation import mk_node as mk_colo_node
 from tests.test_scheduler import mk_node, mk_task
 from tests.test_torch_dense import MODELS, random_dsl
 
@@ -154,7 +157,7 @@ def test_matcher_stats_keys_mirror_the_reference():
     ref.refresh()
     got = TorchBatchMatcher(ctx, device="cpu")
     got.refresh()
-    extra = {"encode_ms", "phase1_ms", "phase2_ms", "auction_rounds"}
+    extra = {"encode_ms", "phase0_ms", "phase05_ms", "phase1_ms", "phase2_ms", "auction_rounds"}
     assert set(got.last_solve_stats) == set(ref.last_solve_stats) | extra
     assert got.last_solve_stats["kernel"] == "dense_auction"
     assert 0 < got.last_solve_stats["auction_rounds"] <= 300
@@ -241,14 +244,6 @@ def test_torch_route_takes_every_size(engine):
     assert got.last_solve_stats["assigned"] > 0
 
 
-def aa_task():
-    return mk_task("aa", 1, {"tpu_scheduler": {"replicas": ["2"], "anti_affinity": ["task"]}})
-
-
-def colo_task():
-    return mk_task("co", 1, {"tpu_scheduler": {"replicas": ["2"], "colocate": ["true"]}})
-
-
 @pytest.mark.parametrize("kwargs,item", [
     ({"native_fallback": True}, "M5"),
     ({"native_engine": "native-mt"}, "M5"),
@@ -267,17 +262,6 @@ def test_unported_options_raise_naming_their_roadmap_item(kwargs, item):
 def test_unknown_engines_are_refused(engine):
     with pytest.raises(ValueError, match="native_engine|suffix"):
         TorchBatchMatcher(StoreContext.new_test(), native_engine=engine, device="cpu")
-
-
-@pytest.mark.parametrize("make_task,item", [(aa_task, "M2"), (colo_task, "M2")])
-def test_unported_task_kinds_raise_and_stay_dirty(make_task, item):
-    ctx = sc_bounded_replicas()
-    ctx.task_store.add_task(make_task())
-    m = TorchBatchMatcher(ctx, min_solve_interval=0.0, device="cpu")
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md .*{item}"):
-        m.refresh()
-    with pytest.raises(NotImplementedError):  # never serves a stale or partial solve
-        m.task_for_node(ctx.node_store.get_node("0x0"))
 
 
 def test_default_route_above_the_dense_budget_raises():
@@ -358,3 +342,235 @@ def test_default_device_is_the_card():
         pytest.skip("a CUDA device is present: the no-card rule cannot be exercised")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TorchBatchMatcher(StoreContext.new_test())
+
+
+# ---------------------------------------------------------------- phases 0 and 0.5
+# (anti-affinity and colocation: the stores of tests/test_sparse_matcher.py::
+# TestAntiAffinityMatcher and tests/test_colocation.py, and a seeded mix)
+
+SITES = [(10.0, 10.0), (50.0, 50.0), (-33.9, 151.2), (40.7, -74.0), (35.7, 139.7)]
+
+
+def aa_task(name, created_at, replicas, mode, dsl=None):
+    plug = {"replicas": [str(replicas)], "anti_affinity": [mode]}
+    if dsl:
+        plug["compute_requirements"] = [dsl]
+    return mk_task(name, created_at, {"tpu_scheduler": plug})
+
+
+def bounded_task(name, created_at, replicas, dsl=None):
+    plug = {"replicas": [str(replicas)]}
+    if dsl:
+        plug["compute_requirements"] = [dsl]
+    return mk_task(name, created_at, {"tpu_scheduler": plug})
+
+
+def sc_aa_sites():
+    """20 nodes at 5 shared sites plus 4 unlocated ones (each its own
+    class), a location-spread task wider than the sites, a provider-spread
+    task, an auction task and a swarm task."""
+    ctx = StoreContext.new_test()
+    for i in range(24):
+        n = mk_node(f"0xs{i:02d}", gpu_model="H100", gpu_count=8)
+        n.price = 1.0 + (i % 7) * 0.25
+        if i < 20:
+            n.location = NodeLocation(*SITES[i % 5])
+        ctx.node_store.add_node(n)
+    ctx.task_store.add_task(aa_task("spread-loc", 300, 12, "location"))
+    ctx.task_store.add_task(aa_task("spread-loc-2", 250, 3, "location"))
+    ctx.task_store.add_task(aa_task("spread-task", 200, 4, "task"))
+    ctx.task_store.add_task(bounded_task("auction", 100, 5))
+    ctx.task_store.add_task(mk_task("swarm", 50))
+    return ctx
+
+
+def sc_aa_task_only():
+    """Provider spread only (no location mode), with an auction competing
+    for the rest: the claimed providers must leave phase 1."""
+    ctx = StoreContext.new_test()
+    for i in range(6):
+        ctx.node_store.add_node(mk_node(f"0x{i}", gpu_model="H100", gpu_count=8))
+    ctx.task_store.add_task(aa_task("spread", 100, 3, "task"))
+    ctx.task_store.add_task(bounded_task("auction", 200, 6))
+    return ctx
+
+
+def sc_colocation():
+    """Multi-GPU nodes holding 1-GPU slices of several tasks, a 2-GPU task,
+    a task too large for any node (unplaced), an auction and a swarm."""
+    ctx = StoreContext.new_test()
+    for i, g in enumerate([2, 2, 4, 8, 1, 2]):
+        ctx.node_store.add_node(mk_colo_node(f"0xc{i}", gpu_count=g))
+    ctx.node_store.add_node(mk_colo_node("0xa100", gpu_count=4, model="A100"))
+    ctx.task_store.add_task(mk_colo_task("a", 1.0, 3, ONE_GPU))
+    ctx.task_store.add_task(mk_colo_task("b", 2.0, 5, ONE_GPU))
+    ctx.task_store.add_task(mk_colo_task("pair", 3.0, 2, "gpu:count=2;gpu:model=H100"))
+    ctx.task_store.add_task(mk_colo_task("cpu", 4.0, 2, "gpu:count=1;cpu:cores=16;ram_mb=32768"))
+    ctx.task_store.add_task(mk_colo_task("huge", 5.0, 1, "gpu:count=16;gpu:model=H100"))
+    ctx.task_store.add_task(bounded_task("auction", 6.0, 2))
+    ctx.task_store.add_task(mk_task("swarm", 0.5))
+    return ctx
+
+
+def sc_all_kinds(seed=21, n_nodes=80):
+    """The seeded marketplace of sc_mixed with nodes at shared sites and
+    every task kind: anti-affinity in both modes, colocation, bounded and
+    unbounded, each with a random requirement."""
+    rng = random.Random(seed)
+    ctx = StoreContext.new_test()
+    for i in range(n_nodes):
+        n = mixed_node(rng, i, located=False)
+        if i % 3:
+            n.location = NodeLocation(*SITES[rng.randrange(len(SITES))])
+        ctx.node_store.add_node(n)
+    for j in range(3):
+        ctx.task_store.add_task(aa_task(f"al{j}", rng.randint(0, 10_000), rng.randint(2, 7),
+                                        "location", random_dsl(rng)))
+        ctx.task_store.add_task(aa_task(f"at{j}", rng.randint(0, 10_000), rng.randint(2, 7),
+                                        "task", random_dsl(rng)))
+    for j in range(4):
+        ctx.task_store.add_task(mk_colo_task(f"co{j}", rng.randint(0, 10_000),
+                                             rng.randint(1, 6), random_dsl(rng)))
+    for j in range(4):
+        ctx.task_store.add_task(bounded_task(f"b{j}", rng.randint(0, 10_000),
+                                             rng.randint(1, 6), random_dsl(rng)))
+    for j in range(2):
+        ctx.task_store.add_task(mk_task(f"u{j}", rng.randint(0, 10_000), {
+            "tpu_scheduler": {"compute_requirements": [random_dsl(rng)]}}))
+    return ctx
+
+
+PHASE_SCENARIOS = {
+    "aa_sites": sc_aa_sites,
+    "aa_task_only": sc_aa_task_only,
+    "colocation": sc_colocation,
+    "all_kinds": sc_all_kinds,
+    "all_kinds_2": lambda: sc_all_kinds(seed=22, n_nodes=64),
+}
+PHASE_STATS = ("anti_affinity_assigned", "truncated_aa_slots", "colocated_slots",
+               "colocated_unplaced", "truncated_colocate_slots")
+ROUTES = {"dense": ("native", "native"), "torch": ("torch", "jax:1")}
+
+
+def assert_same_solve(ctx, got, ref):
+    assert got._assignment == ref._assignment
+    assert got._assignment_multi == ref._assignment_multi
+    assert got._covered == ref._covered
+    rs, gs = ref.last_solve_stats, got.last_solve_stats
+    for key in PHASE_STATS + ("assigned", "bounded_tasks", "truncated_replica_slots"):
+        assert gs[key] == rs[key], key
+    for n in ctx.node_store.get_nodes():
+        assert [t.id for t in got.tasks_for_node(n)] == [t.id for t in ref.tasks_for_node(n)]
+        assert got.assigned_task_ids(n.address) == ref.assigned_task_ids(n.address)
+
+
+@pytest.mark.parametrize("route", list(ROUTES))
+@pytest.mark.parametrize("weights", list(WEIGHTS))
+@pytest.mark.parametrize("scenario", list(PHASE_SCENARIOS))
+def test_phases_zero_and_half_equal_the_reference(scenario, weights, route):
+    ctx = PHASE_SCENARIOS[scenario]()
+    jw = WEIGHTS[weights]
+    port_engine, ref_engine = ROUTES[route]
+    ref = TpuBatchMatcher(ctx, weights=jw, native_engine=ref_engine)
+    ref.refresh()
+    got = TorchBatchMatcher(ctx, weights=port_weights(jw), native_engine=port_engine,
+                            device="cpu")
+    got.refresh()
+    assert_same_solve(ctx, got, ref)
+    gs = got.last_solve_stats
+    assert gs["anti_affinity_assigned"] + gs["colocated_slots"] > 0
+    assert gs["phase0_ms"] >= 0 and gs["phase05_ms"] >= 0
+
+
+def test_phase_zero_spreads_and_claims_leave_the_auction():
+    ctx = sc_aa_sites()
+    m = TorchBatchMatcher(ctx, device="cpu")
+    m.refresh()
+    by_task: dict = {}
+    for addr, tid in m._assignment.items():
+        by_task.setdefault(ctx.task_store.get_task(tid).name, []).append(addr)
+
+    def domain(addr):
+        lc = ctx.node_store.get_node(addr).location
+        return (lc.latitude, lc.longitude) if lc else addr  # unlocated: its own class
+
+    sites = {}
+    for name in ("spread-loc", "spread-loc-2"):
+        keys = [domain(a) for a in by_task[name]]
+        assert len(set(keys)) == len(keys)  # one replica per location class
+        sites[name] = len(keys)
+    # the provider-spread mode runs first; the classes left among the
+    # other nodes (5 sites + 4 unlocated nodes at most) cap the 12 replicas
+    assert len(by_task["spread-task"]) == 4
+    free = {domain(n.address) for n in ctx.node_store.get_nodes()
+            if n.address not in by_task["spread-task"]}
+    assert sites["spread-loc"] == min(12, len(free))
+    st = m.last_solve_stats
+    assert st["anti_affinity_assigned"] == sum(sites.values()) + 4
+    assert len(by_task["auction"]) == 5  # the auction took only free nodes
+
+
+def test_colocation_stacks_within_capacity():
+    ctx = sc_colocation()
+    m = TorchBatchMatcher(ctx, device="cpu")
+    m.refresh()
+    st = m.last_solve_stats
+    assert st["colocated_unplaced"] >= 1  # "huge" fits no node
+    stacked = [a for a, tids in m._assignment_multi.items() if len(tids) > 1]
+    assert stacked  # several tasks share a node
+    for addr, tids in m._assignment_multi.items():
+        node = ctx.node_store.get_node(addr)
+        gpus = sum(tb.task_requirements(ctx.task_store.get_task(t)).gpu[0].count for t in tids)
+        assert gpus <= node.compute_specs.gpu.count
+
+
+def test_colocation_cap_warns_like_the_reference(caplog):
+    ctx = StoreContext.new_test()
+    for i in range(4):
+        ctx.node_store.add_node(mk_colo_node(f"0xw{i}", gpu_count=8))
+    ctx.task_store.add_task(mk_colo_task("wide", 1.0, 4100, ONE_GPU))
+    ref = TpuBatchMatcher(ctx)
+    with caplog.at_level("WARNING"):
+        ref.refresh()
+    ref_lines = [r.getMessage() for r in caplog.records]
+    caplog.clear()
+    got = TorchBatchMatcher(ctx, device="cpu")
+    with caplog.at_level("WARNING"):
+        got.refresh()
+    got_lines = [r.getMessage() for r in caplog.records]
+    assert got_lines == ref_lines
+    assert any("capped at 4096 slots (4 dropped this solve)" in line for line in got_lines)
+    assert any("colocation placed 32/4096" in line for line in got_lines)
+    assert_same_solve(ctx, got, ref)
+    assert got.last_solve_stats["truncated_colocate_slots"] == 4
+
+
+def test_torch_route_equals_jax1_along_a_churn_chain_with_phase_tasks():
+    ctx = sc_all_kinds(seed=31, n_nodes=72)
+    jw = JCostWeights(priority=1.0, proximity=0.0)
+    ref = TpuBatchMatcher(ctx, weights=jw, native_engine="jax:1")
+    got = TorchBatchMatcher(ctx, weights=port_weights(jw), native_engine="torch", device="cpu")
+    rng = random.Random(4)
+    for step in range(4):
+        if step:
+            churn(ctx, rng, step)
+        ref.refresh()
+        got.refresh()
+        assert_same_solve(ctx, got, ref)
+        for key in ("arena_cold", "arena_assigned", "arena_changed_rows"):
+            assert got.last_solve_stats[key] == ref.last_solve_stats[key], (step, key)
+    assert got.last_solve_stats["anti_affinity_assigned"] > 0
+    assert got.last_solve_stats["colocated_slots"] > 0
+
+
+def test_candidate_memo_hits_on_a_repeat_and_misses_on_a_change():
+    ctx = sc_colocation()
+    m = TorchBatchMatcher(ctx, device="cpu")
+    m.refresh()
+    m.refresh()
+    assert (m._cand_memo.misses, m._cand_memo.hits) == (1, 1)
+    n = ctx.node_store.get_node("0xc3")
+    n.price = 3.5
+    ctx.node_store.update_node(n)
+    m.refresh()
+    assert (m._cand_memo.misses, m._cand_memo.hits) == (2, 1)
