@@ -19,8 +19,8 @@ to 0 just before it and read just after:
     (repaired == regen), and reconcile() on a copy of the arena must equal
     a fresh arena's cold tick.
 
-The kernels the warm chain adds (K1's rows and blocks variants, K3, K4,
-K5) and K2 from a carried state are then held against their plain
+The kernels the warm chain adds (K1's forward launch on the dirty rows,
+its blocks variant, K3, K4, K5) and K2 from a carried state are then held against their plain
 versions on the arguments of their first call in the chain, and K9 (the
 greedy cleanup) on its first call in the cold ticks and on a state with
 thousands of open tasks.
@@ -48,15 +48,15 @@ two more runs with the counts set to 0 just before each:
 
   - the torch route on the 65,536-node pool above, its located nodes at
     256 shared sites, plus 64 location-spread and 64 provider-spread tasks
-    x 32 replicas and 512 colocated tasks x 8 one-GPU slices (model and
-    per-GPU-memory gates): a cold refresh, then a warm one after 1% node
-    churn;
+    x 32 replicas over six GPU classes and 512 colocated tasks x 8
+    one-GPU slices over the other six (model, per-GPU-memory, CPU, RAM and
+    storage gates): a cold refresh, then a warm one after 1% node churn;
+    the cold refresh must place at least half the colocated slots;
   - the dense route on the 4,096-node pool with the same mix at 1/8.
 K10 (the dense cost block) and K11 (the FFD bin-pack) must equal their
 plain versions bit for bit on every call of the cold refresh, and K1 its
 plain version on the colocation phase's reverse call (several tasks per
-tile) and phase 0's forward call (the rows variant, also against the
-forward launch); every spread task's replicas must sit on distinct
+tile) and phase 0's forward call; every spread task's replicas must sit on distinct
 providers or location classes, every colocated provider's summed demand
 must fit its capacity in all five resources, no provider claimed by
 phase 0 or 0.5 may hold a phase-1 or phase-2 task, every placed pair must
@@ -91,10 +91,10 @@ SMALL = 2_048  # the CUDA-vs-CPU agreement check
 SEED = 2  # providers; requirements SEED + 1; churn rows SEED + 1 (own stream)
 CHURN = 0.01  # rows per warm tick, as the reference's warm bench
 EVENT_ROWS = 8  # providers repriced by the apply_rows event
-COLD_KERNELS = ("candidates_forward", "candidates_reverse", "auction_phase", "greedy_cleanup")
+COLD_KERNELS = ("candidates_forward_rows", "candidates_reverse", "auction_phase",
+                "greedy_cleanup")
 WARM_KERNELS = COLD_KERNELS + (
-    "candidates_forward_rows", "candidates_reverse_blocks", "repair_enter", "repair_tile_min",
-    "repair_refold",
+    "candidates_reverse_blocks", "repair_enter", "repair_tile_min", "repair_refold",
 )
 DENSE_KERNELS = ("dense_value_base", "dense_auction", "unbounded_best")
 PHASE_KERNELS = ("cost_block", "binpack_ffd")
@@ -116,13 +116,17 @@ PHASE_DENSE_MIX = (8, 8, 64)  # the same mix at 1/8 on the dense route
 PHASE_SMALL_MIX = (4, 4, 32)
 AA_REPLICAS, COLO_REPLICAS = 32, 8
 SITES = 256
-FWD_SWEEP = (2_048, 4_096, 8_192, 16_384, 32_768, 65_536)  # K1 forward vs rows, tasks x N
 K9_MIN_OPEN = 1_000  # open tasks K9 must sweep on the cut-auction state
 GPU_CLASSES = (  # 12 model classes with their per-card memory (MB)
     ("H100", 80_000), ("H200", 141_000), ("A100", 40_000), ("A6000", 48_000),
     ("L40S", 48_000), ("L4", 24_000), ("RTX 4090", 24_000), ("RTX 3090", 24_000),
     ("V100", 32_000), ("T4", 16_000), ("MI300X", 192_000), ("B200", 180_000),
 )
+# the spread tasks ask for the first six classes and the colocated ones
+# for the other six, so that phase 0 does not take the rows phase 0.5
+# would stack on
+ALL_CLASSES = tuple(range(len(GPU_CLASSES)))
+SPREAD_CLASSES, COLO_CLASSES = ALL_CLASSES[:6], ALL_CLASSES[6:]
 COST_TOL = 1e-3  # |cost| tolerance at default weights (haversine ulps)
 DEVICE = "cuda"
 
@@ -296,15 +300,15 @@ def mem_store(nodes, tasks):
     return types.SimpleNamespace(node_store=_Nodes(nodes), task_store=_Tasks(tasks))
 
 
-def pool_dsl(rng) -> str:
-    """A requirement in the DSL over GPU_CLASSES: one GPU alternative (70%)
-    or two, each with a count and one model (80%) or two, sometimes a
-    per-card memory minimum; sometimes CPU and RAM minima."""
+def pool_dsl(rng, classes=ALL_CLASSES) -> str:
+    """A requirement in the DSL over GPU_CLASSES[classes]: one GPU
+    alternative (70%) or two, each with a count and one model (80%) or two,
+    sometimes a per-card memory minimum; sometimes CPU and RAM minima."""
     parts = []
     for _ in range(1 if rng.random() < 0.7 else 2):
-        models = rng.choice(len(GPU_CLASSES), 1 if rng.random() < 0.8 else 2, replace=False)
+        models = rng.choice(len(classes), 1 if rng.random() < 0.8 else 2, replace=False)
         parts.append(f"gpu:count={rng.choice([1, 2, 4, 8])}")
-        parts.append("gpu:model=" + ",".join(GPU_CLASSES[m][0] for m in models))
+        parts.append("gpu:model=" + ",".join(GPU_CLASSES[classes[m]][0] for m in models))
         if rng.random() < 0.2:
             parts.append(f"gpu:memory_mb_min={rng.choice([16_000, 24_000, 40_000])}")
     if rng.random() < 0.5:
@@ -367,24 +371,29 @@ def make_pool(rng, n_nodes: int, n_bounded: int, replicas: int, n_unbounded: int
     return nodes, tasks
 
 
-def colo_dsl(rng) -> str:
-    """A one-GPU slice: one model (70%) or two, sometimes a per-GPU memory
-    minimum, sometimes CPU and RAM."""
-    models = rng.choice(len(GPU_CLASSES), 1 if rng.random() < 0.7 else 2, replace=False)
-    parts = ["gpu:count=1", "gpu:model=" + ",".join(GPU_CLASSES[m][0] for m in models)]
+def colo_dsl(rng, classes=COLO_CLASSES) -> str:
+    """A one-GPU slice of GPU_CLASSES[classes]: one model (70%) or two,
+    sometimes a per-GPU memory minimum; sometimes CPU, RAM and storage
+    minima, which the slice also reserves. The minima split each model's
+    nodes into nested subsets, so the slices' cheapest candidates spread
+    over thousands of nodes."""
+    models = rng.choice(len(classes), 1 if rng.random() < 0.7 else 2, replace=False)
+    parts = ["gpu:count=1", "gpu:model=" + ",".join(GPU_CLASSES[classes[m]][0] for m in models)]
     if rng.random() < 0.4:
         parts.append(f"gpu:memory_mb_min={rng.choice([16_000, 24_000, 40_000])}")
-    if rng.random() < 0.3:
-        parts.append(f"cpu:cores={rng.choice([2, 4])}")
-    if rng.random() < 0.3:
-        parts.append(f"ram_mb={rng.choice([8_192, 16_384])}")
+    if rng.random() < 0.5:
+        parts.append(f"cpu:cores={rng.choice([8, 16, 32])}")
+    if rng.random() < 0.5:
+        parts.append(f"ram_mb={rng.choice([16_384, 65_536, 131_072])}")
+    if rng.random() < 0.4:
+        parts.append(f"storage_gb={rng.choice([1_000, 4_000])}")
     return ";".join(parts)
 
 
 def phase_tasks(rng, n_loc: int, n_task: int, n_colo: int) -> list:
     """Spread tasks (``anti_affinity: location`` and ``task``, AA_REPLICAS
-    replicas, pool_dsl requirements) and colocated one-GPU tasks
-    (COLO_REPLICAS replicas)."""
+    replicas, pool_dsl requirements over SPREAD_CLASSES) and colocated
+    one-GPU tasks (COLO_REPLICAS replicas over COLO_CLASSES)."""
     from protocol_tpu_torch.models.task import (
         SchedulingConfig,
         Task,
@@ -398,9 +407,15 @@ def phase_tasks(rng, n_loc: int, n_task: int, n_colo: int) -> list:
         _validate_tpu_scheduler_plugin(cfg)
         return Task(name=name, created_at=int(rng.integers(1_000_000)), scheduling_config=cfg)
 
-    out = [task(f"al{j}", pool_dsl(rng), AA_REPLICAS, anti_affinity="location")
+    def spread_dsl():
+        # a storage minimum (60%) splits each model-and-count class again,
+        # so that the spread tasks' cheapest candidates differ
+        dsl = pool_dsl(rng, SPREAD_CLASSES)
+        return dsl + (f";storage_gb={rng.choice([1_000, 4_000])}" if rng.random() < 0.6 else "")
+
+    out = [task(f"al{j}", spread_dsl(), AA_REPLICAS, anti_affinity="location")
            for j in range(n_loc)]
-    out += [task(f"at{j}", pool_dsl(rng), AA_REPLICAS, anti_affinity="task") for j in range(n_task)]
+    out += [task(f"at{j}", spread_dsl(), AA_REPLICAS, anti_affinity="task") for j in range(n_task)]
     out += [task(f"co{j}", colo_dsl(rng), COLO_REPLICAS, colocate="true") for j in range(n_colo)]
     return out
 
@@ -501,13 +516,13 @@ def record_calls(kernels, names) -> tuple[dict, dict]:
 
 
 def spy_phases(matcher) -> dict:
-    """Keep the arguments and result of the matcher's last phase 0 and
+    """Keep the arguments and placements of the matcher's last phase 0 and
     phase 0.5 (``_solve_anti_affinity`` / ``_solve_colocation``)."""
     seen: dict = {}
     for name in ("_solve_anti_affinity", "_solve_colocation"):
         def wrapped(*args, _orig=getattr(matcher, name), _name=name):
             out = _orig(*args)
-            seen[_name] = (args, out)
+            seen[_name] = (args, out[0])
             return out
 
         setattr(matcher, name, wrapped)
@@ -671,42 +686,21 @@ def refresh_matcher(torch, compat_mask, matcher, store, label: str, kernel: str)
     return st
 
 
-def run_phases(torch, kernels, ep, er, k: int, refresh) -> tuple[list, dict]:
-    """The matcher's phases 0 and 0.5 on the card: K1 forward against its
-    rows variant at the phase-0 shape over ``ep`` and the first tasks of
-    ``er``; the card against the CPU on a small store with every task
-    kind; the dense route with the mix at 1/8, and the torch route at full
-    width (cold, then warm), each run with the counts set to 0 just
-    before it. Returns (the kernels-line rows of K10 and K11, {run name:
-    launches}); raises on any failed check."""
+def run_phases(torch, kernels, refresh) -> tuple[list, dict]:
+    """The matcher's phases 0 and 0.5 on the card: the card against the
+    CPU on a small store with every task kind; the dense route with the
+    mix at 1/8, and the torch route at full width (cold, then warm), each
+    run with the counts set to 0 just before it. Returns (the
+    kernels-line rows of K10 and K11, {run name: launches}); raises on any
+    failed check."""
     import numpy as np
 
     from protocol_tpu_torch.ops import binpack as bp
     from protocol_tpu_torch.ops import sparse as sp
-    from protocol_tpu_torch.ops.cost import CostWeights, cost_matrix
-    from protocol_tpu_torch.ops.encoding import slice_requirements
+    from protocol_tpu_torch.ops.cost import cost_matrix
     from protocol_tpu_torch.sched import torch_backend as tb
 
-    dev = ep.gpu_count.device
-    m_default = CostWeights(priority=1.0)
-    N = ep.num
-
-    # K1 forward at the phase-0 shape: the forward launch (one thread per
-    # task) against its rows variant over every task id, N providers
-    for T_ in FWD_SWEEP:
-        er_t = slice_requirements(er, 0, T_)
-        ids = torch.arange(T_, dtype=torch.int32, device=dev)
-        a = kernels.candidates_forward(ep, er_t, m_default, k)
-        b = kernels.candidates_forward_rows(ep, er_t, m_default, k, ids)
-        torch.cuda.synchronize()
-        if not all(bits_equal(torch, x, y) for x, y in zip(a, b)):
-            raise AssertionError(f"K1 forward and its rows variant differ at {T_} x {N}")
-        f_ms = cuda_ms(torch, lambda: kernels.candidates_forward(ep, er_t, m_default, k), 2)
-        r_ms = cuda_ms(torch, lambda: kernels.candidates_forward_rows(ep, er_t, m_default, k,
-                                                                      ids), 2)
-        print(f"K1 forward at {T_} tasks x {N} providers: forward launch {f_ms:.3f} ms, rows "
-              f"variant {r_ms:.3f} ms, bit-identical; routed to "
-              f"{'rows' if T_ < kernels.forward_fill_tasks(dev) else 'forward'}", flush=True)
+    dev = DEVICE
 
     # the card against the CPU on a small store with every task kind
     nodes, tasks = make_pool(np.random.default_rng(SEED + 40), *SMALL_POOL, sites=SITES)
@@ -765,8 +759,13 @@ def run_phases(torch, kernels, ep, er, k: int, refresh) -> tuple[list, dict]:
     for name, fn in pt_originals.items():
         setattr(kernels, name, fn)
     with uncounted(kernels):
-        print(f"matcher phases-torch-cold: {json.dumps(check_phases(store, arena_p, seen))}",
-              flush=True)
+        cold_phases = check_phases(store, arena_p, seen)
+    print(f"matcher phases-torch-cold: {json.dumps(cold_phases)}", flush=True)
+    # the colocated tasks ask for models the spread tasks do not: phase
+    # 0.5 must stack most of its slots, or its capacity path went untried
+    if cold_phases["colocated_slots"] < PHASE_MIX[2] * COLO_REPLICAS // 2:
+        raise AssertionError(f"phase 0.5 placed only {cold_phases['colocated_slots']} of "
+                             f"{PHASE_MIX[2] * COLO_REPLICAS} colocated slots")
     churn_pool(rng, store, CHURN, replace_tasks=0)
     phase_torch_stats.append(refresh(arena_p, store, "phases-torch-warm", "torch_arena"))
     launches_ptorch = dict(kernels.LAUNCHES)
@@ -782,20 +781,18 @@ def run_phases(torch, kernels, ep, er, k: int, refresh) -> tuple[list, dict]:
     check_phase_kernels(torch, kernels, bp, cost_matrix, pt_calls, "phases-torch-cold")
 
     # K1 on the phases' calls: the colocation phase's reverse launch (rt
-    # tasks per tile) and phase 0's forward pass (the rows variant) against
-    # their plain versions, and phase 0's against the forward launch
+    # tasks per tile) and phase 0's forward launch (2,048 rows, spread
+    # over lanes) against their plain versions
     (rv_ep, rv_er, rv_w), rv_kw, rv_out = pt_calls["candidates_reverse"][0]
     rv_tile, rv_r, rv_rt = rv_kw["tile"], rv_kw["r"], rv_kw["rt"]
     rv_ref = sp._reverse_plain(rv_ep, rv_er, rv_w, rv_tile, rv_r, rv_rt)
     (fr_ep, fr_er, fr_w, fr_k, fr_ids), _, fr_out = pt_calls["candidates_forward_rows"][0]
     fr_ref = sp._forward_plain(fr_ep, fr_er, fr_w, fr_k, min(1024, fr_er.num))
-    fr_fwd = kernels.candidates_forward(fr_ep, fr_er, fr_w, fr_k)
     torch.cuda.synchronize()
     k1_phase = {
         "reverse_rt": rv_rt, "reverse_tiles": rv_er.num // rv_tile,
         "reverse_bits": all(bits_equal(torch, a, b) for a, b in zip(rv_out, rv_ref)),
         "forward_rows_bits": all(bits_equal(torch, a, b) for a, b in zip(fr_out, fr_ref)),
-        "forward_launch_bits": all(bits_equal(torch, a, b) for a, b in zip(fr_out, fr_fwd)),
     }
     print(f"K1 on the phases' calls ({fr_er.num} and {rv_er.num} slots x {rv_ep.num} "
           f"providers): {json.dumps(k1_phase)}", flush=True)
@@ -803,7 +800,7 @@ def run_phases(torch, kernels, ep, er, k: int, refresh) -> tuple[list, dict]:
         raise AssertionError(f"K1 on the phases' calls: {k1_phase}")
 
     # K10 and K11 timed on each call of the cold refresh; the kernels line
-    # takes the call with the most cells
+    # takes the colocation call (K11 with the five resources)
     k10_times, k11_times = [], []
     for (a10, _, c10), (a11, _, _) in zip(pt_calls["cost_block"], pt_calls["binpack_ffd"]):
         t10 = cuda_ms(torch, lambda: kernels.cost_block(*a10), 3)
@@ -812,10 +809,13 @@ def run_phases(torch, kernels, ep, er, k: int, refresh) -> tuple[list, dict]:
         k11_times.append(t11)
         print(f"K10 / K11 on {c10.shape[0]} slots x {c10.shape[1]} rows "
               f"(R={a11[1].shape[1]}): {t10:.4f} / {t11:.3f} ms", flush=True)
-    widest = max(range(len(k10_times)), key=lambda i: pt_calls["cost_block"][i][2].numel())
-    (ep10, er10, w10), _, c10 = pt_calls["cost_block"][widest]
-    a11 = pt_calls["binpack_ffd"][widest][0]
-    k10_ms, k11_ms = k10_times[widest], k11_times[widest]
+    colo = [i for i, (a, _, _) in enumerate(pt_calls["binpack_ffd"]) if a[1].shape[1] == 5]
+    if len(colo) != 1:
+        raise AssertionError(f"the cold refresh made {len(colo)} five-resource K11 calls, not 1")
+    call = colo[0]
+    (ep10, er10, w10), _, c10 = pt_calls["cost_block"][call]
+    a11 = pt_calls["binpack_ffd"][call][0]
+    k10_ms, k11_ms = k10_times[call], k11_times[call]
     k10_plain_ms = cuda_ms(torch, lambda: cost_matrix(ep10, er10, w10)[0], 3)
     k11_plain_ms = cuda_ms(torch, lambda: bp._binpack_plain(
         a11[0].T, a11[1], a11[2], bp.ffd_demand_order(a11[1]), *a11[4:]), 1)
@@ -826,8 +826,8 @@ def run_phases(torch, kernels, ep, er, k: int, refresh) -> tuple[list, dict]:
     R11 = a11[1].shape[1]
     k11_bytes = T10 * P10 * 4 + T10 * (R11 * 4 + 4 + 4) + P10 * (2 * R11 * 4 + 4)
     k11_ops = T10 * P10 + finite * (R11 + 2)  # a compare per cell, the fit on finite ones
-    print(f"K10 / K11 in the kernels line: call {widest} of the cold refresh, {T10} slots x "
-          f"{P10} rows, {finite} finite cells", flush=True)
+    print(f"K10 / K11 in the kernels line: call {call} of the cold refresh (colocation), "
+          f"{T10} slots x {P10} rows, {finite} finite cells", flush=True)
     del arena_p, store, nodes, tasks, pt_calls, seen
     rows = [
         row("cost_block", SRC_DENSE, "protocol_tpu/sched/tpu_backend.py:184", 0.0, k10_ms,
@@ -901,7 +901,7 @@ def main() -> int:
     k1_ops = cells * OPS_PER_CELL + feasible * OPS_PER_FEASIBLE_CELL
     p_bytes = sum(getattr(ep, f).element_size() * getattr(ep, f).numel() for f in ep.__dataclass_fields__)
     r_bytes = sum(getattr(er, f).element_size() * getattr(er, f).numel() for f in er.__dataclass_fields__)
-    fwd_bytes = p_bytes + r_bytes + N * k * 8
+    fwd_bytes = p_bytes + r_bytes + N * 4 + N * k * 8  # the task ids too
     n_tiles = N // tile
     rev_bytes = p_bytes + r_bytes + N * n_tiles * 8 + N * r * 8
     print(f"K1 cells {cells}, feasible {feasible} ({feasible / cells:.4f}), ops {k1_ops}", flush=True)
@@ -1170,7 +1170,7 @@ def main() -> int:
             raise AssertionError(f"{name}: cost error {err} > {COST_TOL}")
         return err
 
-    # K1 forward, rows variant
+    # K1 forward on the repair's dirty rows
     (fr_ep, fr_er, _, fr_k, fr_ids), _ = args_of("candidates_forward_rows")
     err = cmp_cells("candidates_forward_rows",
                     lambda w: kernels.candidates_forward_rows(fr_ep, fr_er, w, fr_k, fr_ids),
@@ -1185,10 +1185,12 @@ def main() -> int:
           f"{ms_one_lane:.3f} ms with one lane per row", flush=True)
     feas = feasible_cells(torch, compat_mask, gather_providers, gather_requirements, fr_ep, fr_er,
                           t_ids=fr_ids.long())
-    new_rows.append(("candidates_forward_rows", SRC_K1, "protocol_tpu/parallel/sparse.py:702",
+    fwd_repair = row("candidates_forward_rows", SRC_K1, "protocol_tpu/parallel/sparse.py:702",
                      err, ms, plain, N * p_row + R * (r_row + 4) + R * fr_k * 8,
-                     R * N * OPS_PER_CELL + feas * OPS_PER_FEASIBLE_CELL,
-                     f"{R} rows x {N} providers"))
+                     R * N * OPS_PER_CELL + feas * OPS_PER_FEASIBLE_CELL)
+    fwd_repair = {"rows": R, **{x: fwd_repair[x] for x in (
+        "replaces", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+        "ms_one_lane": ms_one_lane}
 
     # K1 reverse, blocks variant (writes the pools in place: fresh copies per call)
     (rb_ep, rb_er, _, rb_tile, rb_p, rb_j, rb_pt, rb_pc), _ = args_of("candidates_reverse_blocks")
@@ -1410,14 +1412,18 @@ def main() -> int:
     del arena_m, store, nodes, tasks
 
     # ---- phases 0 and 0.5 (anti-affinity and colocation)
-    phase_rows, phase_runs = run_phases(torch, kernels, ep, er, k, refresh)
+    phase_rows, phase_runs = run_phases(torch, kernels, refresh)
 
     runs = {"cold_ticks": launches, "warm_chain": launches_warm,
             "matcher_dense": launches_dense, "matcher_torch": launches_torch, **phase_runs}
 
+    # K1's forward launch: the cold pass over every task id; its call on
+    # the warm repair's dirty rows rides along as "repair_call"
+    fwd_row = row("candidates_forward_rows", SRC_K1, "protocol_tpu/ops/sparse.py:131",
+                  k1_default["fwd_max_abs_err"], fwd_ms, fwd_plain_ms, fwd_bytes, k1_ops)
+    fwd_row["repair_call"] = fwd_repair
     rows = [
-        row("candidates_forward", SRC_K1, "protocol_tpu/ops/sparse.py:131",
-            k1_default["fwd_max_abs_err"], fwd_ms, fwd_plain_ms, fwd_bytes, k1_ops),
+        fwd_row,
         row("candidates_reverse", SRC_K1, "protocol_tpu/ops/sparse.py:172",
             k1_default["rev_max_abs_err"], rev_ms, rev_plain_ms, rev_bytes, k1_ops),
         row("auction_phase", "protocol_tpu_torch/csrc/auction.cu",

@@ -8,19 +8,18 @@
 // cell is scored in registers by one __device__ function and the
 // [P, T] block never reaches device memory.
 //
-// Two launches over the same cell function (cell.cuh), each with a
-// variant the warm-path repair drives:
-//   forward  one thread per task, walking all P providers in index order
-//            and keeping a running top-k under the key (cost, provider),
-//            so the lower index wins among equal costs (lax.top_k's order);
-//            admitted costs are buffered and merged 16 at a time.
-//            Writes fwd_p / fwd_c [T, k], provider -1 where cost >= 5e8.
-//            Rows variant (k1_forward_rows; replaces parallel/sparse.py
-//            _build_repair_forward's selection): the same walk for a list
-//            of global task ids, row i of the output for task t_ids[i],
-//            each row split over up to 32 lanes of a warp whose top-k
-//            lists are merged by shuffles, so that a few rows still fill
-//            the card.
+// Two launches over the same cell function (cell.cuh):
+//   forward  (k1_forward_rows) for a list of global task ids, row i of
+//            the output for task t_ids[i]: the cold pass gives every task
+//            id, the warm-path repair (parallel/sparse.py
+//            _build_repair_forward's selection) the dirty ones. Each row
+//            walks the P providers in index order, split over up to 32
+//            lanes of a warp, each lane keeping a running top-k under the
+//            key (cost, provider), so the lower index wins among equal
+//            costs (lax.top_k's order); admitted costs are buffered and
+//            merged 16 at a time, and the lanes' lists are merged by
+//            shuffles, so that a few rows still fill the card. Writes
+//            [R, k], provider -1 where cost >= 5e8.
 //   reverse  per provider, four threads each take a quarter of the task
 //            tiles: the first argmin of each tile goes to pool_t / pool_c
 //            [P, n_tiles]; then the pools are folded in tile order into a
@@ -136,30 +135,15 @@ __device__ __forceinline__ void walk_topk(const Prov& prov, const Req& req, cons
   flush_topk(bc, bp, qc, qp, nq, k);
 }
 
-__global__ void __launch_bounds__(128) forward_kernel(Prov prov, Req req, Aux aux, Weights w, int P,
-                                                      int T, int K, int W, int k,
-                                                      int32_t* __restrict__ out_p,
-                                                      float* __restrict__ out_c) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= T) return;
-  const TaskRow tr = load_task(req, aux, t, K);
-  float bc[kMaxK];
-  int32_t bp[kMaxK];
-  walk_topk(prov, req, aux, w, tr, t, K, W, k, 0, P, bc, bp);
-  for (int j = 0; j < k; ++j) {
-    out_c[(size_t)t * k + j] = bc[j];
-    out_p[(size_t)t * k + j] = bc[j] < kHalfInfeasible ? bp[j] : -1;
-  }
-}
-
-// Rows variant: row i is task t_ids[i], shared by `lanes` threads of one
-// warp (a power of two <= 32). Lane j walks the j-th contiguous part of
+// Row i is task t_ids[i], shared by `lanes` threads of one warp (a power
+// of two <= 32). Lane j walks the j-th contiguous part of
 // the providers with its own top-k; the lanes then merge their lists k
 // times by warp shuffles, taking the least (cost, provider) each time, so
 // the lower index wins among equal costs as in one walk (each list keeps
 // its own lower indices first). A few rows (a requirement-churn tick's
-// ~1%) still spread over the card this way; lanes = 1 is one walk per
-// row, as the cold launch.
+// ~1%, a matcher phase's few thousand slots) still spread over the card
+// this way; lanes = 1 is one walk per row, as the cold pass over 65,536
+// tasks takes.
 __global__ void __launch_bounds__(128) forward_rows_kernel(Prov prov, Req req, Aux aux, Weights w,
                                                            int P, int n_rows,
                                                            const int32_t* __restrict__ t_ids,
@@ -213,8 +197,9 @@ __global__ void __launch_bounds__(128) forward_rows_kernel(Prov prov, Req req, A
 // so the loop side stays warp-uniform and four times as many warps are
 // resident as with one thread per provider; the pools are folded in tile
 // order afterwards, so ties resolve exactly as one walk would resolve
-// them. (The forward launch keeps one thread per task: split the same
-// way, its top-k insertions per cell rise and it measured 2x slower.)
+// them. (The forward launch splits a row only where the rows are too
+// few to fill the card: split the same way at full width, its top-k
+// insertions per cell rise and it measured 2x slower.)
 constexpr int kParts = 4;
 constexpr int kRows = 32;
 
@@ -342,24 +327,8 @@ extern "C" int k1_limits(int* max_k, int* max_r, int* max_opts) {
   return 0;
 }
 
-extern "C" int k1_forward(const void* const* prov_cols, const void* const* req_cols, int P,
-                          int T, int K, int W, float w_price, float w_load, float w_prox,
-                          float w_prio, int k, float* aux, int32_t* out_p, float* out_c,
-                          void* stream) {
-  if (k < 1 || k > kMaxK || K > kMaxOpts || k > P) return (int)cudaErrorInvalidValue;
-  const Weights w{w_price, w_load, w_prox, w_prio};
-  const int threads = 128;
-  const int blocks = (T + threads - 1) / threads;
-  const Prov prov = make_prov(prov_cols);
-  const Req req = make_req(req_cols);
-  launch_prep(prov, req, w, P, T, aux, (cudaStream_t)stream);
-  forward_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      prov, req, make_aux(aux, P, T), w, P, T, K, W, k, out_p, out_c);
-  return (int)cudaGetLastError();
-}
-
-// Rows variant: the forward walk for the n_rows global task ids t_ids,
-// `lanes` threads per row.
+// The forward walk for the n_rows global task ids t_ids, `lanes` threads
+// per row.
 extern "C" int k1_forward_rows(const void* const* prov_cols, const void* const* req_cols, int P,
                                int T, int K, int W, float w_price, float w_load, float w_prox,
                                float w_prio, int k, const int32_t* t_ids, int n_rows, int lanes,

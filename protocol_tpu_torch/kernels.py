@@ -38,8 +38,8 @@ NVCC_FLAGS = (
 
 # launches per kernel since the last reset_launches()
 LAUNCHES = {
-    "candidates_forward": 0, "candidates_reverse": 0, "auction_phase": 0,
-    "candidates_forward_rows": 0, "candidates_reverse_blocks": 0,
+    "candidates_forward_rows": 0, "candidates_reverse": 0, "auction_phase": 0,
+    "candidates_reverse_blocks": 0,
     "repair_enter": 0, "repair_tile_min": 0, "repair_refold": 0,
     "dense_value_base": 0, "dense_auction": 0, "unbounded_best": 0, "greedy_cleanup": 0,
     "cost_block": 0, "binpack_ffd": 0,
@@ -112,7 +112,6 @@ def _lib(name: str) -> ctypes.CDLL:
         build((name,))
         lib = ctypes.CDLL(str(_lib_path(name)))
         if name == "candidates":
-            lib.k1_forward.argtypes = [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P, _P, _P, _P]
             lib.k1_reverse.argtypes = [
                 _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _I, _I, _P, _P, _P, _P, _P, _P,
             ]
@@ -122,7 +121,7 @@ def _lib(name: str) -> ctypes.CDLL:
             lib.k1_reverse_blocks.argtypes = [
                 _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P, _P, _I, _P, _P, _P, _P,
             ]
-            for fn in ("k1_forward", "k1_reverse", "k1_forward_rows", "k1_reverse_blocks"):
+            for fn in ("k1_reverse", "k1_forward_rows", "k1_reverse_blocks"):
                 getattr(lib, fn).restype = _I
         elif name == "repair":
             lib.k3_repair_enter.argtypes = [
@@ -209,32 +208,6 @@ def _k1_setup(ep, er, weights):
     return dev, pcols, rcols, shape, w, aux
 
 
-# threads per block of the forward launch (csrc/candidates.cu)
-FORWARD_BLOCK = 128
-
-
-def forward_fill_tasks(dev) -> int:
-    """Tasks the forward launch needs to give every SM of ``dev`` one
-    block: below it, the rows variant spreads each task over lanes."""
-    return torch.cuda.get_device_properties(dev).multi_processor_count * FORWARD_BLOCK
-
-
-def candidates_forward(ep, er, weights, k: int):
-    """K1, forward launch (``csrc/candidates.cu``): each task's k cheapest
-    providers, (fwd_p [T, k] i32, fwd_c [T, k] f32)."""
-    if not 1 <= k <= 64 or k > ep.num:
-        raise ValueError(f"K1 forward takes 1 <= k <= min(64, P), got k={k}")
-    dev, pcols, rcols, (P, T, K, W), w, aux = _k1_setup(ep, er, weights)
-    fwd_p = torch.empty((T, k), dtype=torch.int32, device=dev)
-    fwd_c = torch.empty((T, k), dtype=torch.float32, device=dev)
-    _check(_lib("candidates").k1_forward(
-        pcols, rcols, P, T, K, W, *w, k,
-        aux.data_ptr(), fwd_p.data_ptr(), fwd_c.data_ptr(), _stream(fwd_p),
-    ), "candidates_forward")
-    LAUNCHES["candidates_forward"] += 1
-    return fwd_p, fwd_c
-
-
 def candidates_reverse(ep, er, weights, tile: int, r: int, rt: int):
     """K1, reverse launch (``csrc/candidates.cu``): each tile's stable
     top-rt tasks per provider (the pools), folded into each provider's
@@ -317,13 +290,13 @@ def _ids(ids: torch.Tensor, n: int, dev, what: str) -> torch.Tensor:
     return ids
 
 
-# threads the rows variant aims for: the cold forward launch's 65,536
-# (one per task at the main path's width)
+# threads the forward launch aims for: one per task at the main path's
+# width of 65,536 tasks
 ROWS_TARGET_THREADS = 65_536
 
 
 def candidates_forward_rows(ep, er, weights, k: int, t_ids: torch.Tensor, lanes: int | None = None):
-    """K1 forward, rows variant (``csrc/candidates.cu``): the k cheapest
+    """K1, forward launch (``csrc/candidates.cu``): the k cheapest
     providers of each task in ``t_ids`` (global ids, also the jitter's),
     (p [R, k] i32, c [R, k] f32), row i for task t_ids[i]. Each row is
     walked by ``lanes`` threads (a power of two <= 32; by default the least

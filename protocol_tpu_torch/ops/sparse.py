@@ -20,9 +20,8 @@ on the device of its inputs, with no fallback:
 
   candidates_forward / candidates_reverse -> K1 (``csrc/candidates.cu``),
         its forward and reverse launches: a CPU tensor takes the plain
-        torch scans below, a CUDA tensor the fused kernel (a forward pass
-        over fewer tasks than fill the card takes K1's rows variant over
-        every task id, the same bits).
+        torch scans below, a CUDA tensor the fused kernel (the forward
+        launch over every task id).
   _sparse_auction_phase   -> K2 (``csrc/auction.cu``): a CPU tensor takes the
         plain round loop below, a CUDA tensor the persistent kernel.
   _greedy_cleanup_compacted -> K9 (``csrc/cleanup.cu``): a CPU tensor takes
@@ -132,17 +131,13 @@ def _reverse_plain(ep, er, weights, tile: int, r: int, rt: int):
 def candidates_forward(ep, er, weights, k: int, tile: int):
     """Each task's k cheapest providers, lower index first among ties:
     (fwd_p [T, k] i32 with -1 where infeasible, fwd_c [T, k]). On a CUDA
-    tensor this is K1's forward launch (one thread per task), or its rows
-    variant (up to 32 lanes per task) when the tasks are too few to give
-    every SM a block of the forward launch; else :func:`_forward_plain`."""
+    tensor this is K1's forward launch over every task id (one to 32
+    lanes per task), else :func:`_forward_plain`."""
     if ep.gpu_count.is_cuda:
         from protocol_tpu_torch import kernels
 
-        dev = ep.gpu_count.device
-        if er.num < kernels.forward_fill_tasks(dev):
-            ids = torch.arange(er.num, dtype=torch.int32, device=dev)
-            return kernels.candidates_forward_rows(ep, er, weights, k, ids)
-        return kernels.candidates_forward(ep, er, weights, k=k)
+        ids = torch.arange(er.num, dtype=torch.int32, device=ep.gpu_count.device)
+        return kernels.candidates_forward_rows(ep, er, weights, k, ids)
     return _forward_plain(ep, er, weights, k, tile)
 
 

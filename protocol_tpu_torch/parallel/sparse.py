@@ -16,7 +16,7 @@ torch version beside it, a CUDA tensor the kernel.
 
   repair_enter     -> K3 (``csrc/repair.cu``), the reference's
                       ``_build_repair_enter``
-  forward_rows     -> K1 forward, rows variant (``csrc/candidates.cu``),
+  forward_rows     -> K1's forward launch (``csrc/candidates.cu``),
                       the selection of ``_build_repair_forward``
   tile_min         -> K4 (``csrc/repair.cu``), the dirty-column cost block
                       of ``_build_repair_forward`` reduced to per-(provider,
@@ -99,7 +99,8 @@ def _enter_plain(ep, er, weights, p_ids, thresh):
 
 
 def _forward_rows_plain(ep, er, weights, k: int, t_ids):
-    """Plain torch version of K1's rows variant: (p [R, k], c [R, k])."""
+    """Plain torch version of K1's forward launch over the task ids
+    ``t_ids``: (p [R, k], c [R, k])."""
     p_all = torch.arange(ep.num, device=t_ids.device)
     out_p, out_c = [], []
     for lo in range(0, t_ids.numel(), _CHUNK):

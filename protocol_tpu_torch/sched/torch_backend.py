@@ -280,10 +280,8 @@ class TorchBatchMatcher:
         self.encoder = FeatureEncoder()
         self.last_solve_stats: dict = {}
         self._solve_seq = 0
-        # per-solve counters of phases 0 and 0.5, and the solve's host
-        # encoding time
+        # per-solve counters of phases 0 and 0.5
         self._aa_truncated = self._colo_truncated = self._colo_requested = 0
-        self._encode_ms = 0.0
 
     # ----- invalidation hooks (wire to TaskStore observers + node changes)
 
@@ -370,25 +368,26 @@ class TorchBatchMatcher:
         return dataclasses.replace(gather_providers(ep, idx), valid=valid), rpad
 
     def _encode_slots(self, reqs, slot_task, prio, s_pad: int):
+        """The slots' encoded requirements and the host time taken (ms)."""
         t0 = time.perf_counter()
         er = self.encoder.encode_requirements(
             reqs, priorities=[float(prio[i]) for i in slot_task], pad_to=s_pad,
             device=self.device,
         )
-        self._encode_ms += (time.perf_counter() - t0) * 1e3
-        return er
+        return er, (time.perf_counter() - t0) * 1e3
 
     def _solve_anti_affinity(
         self, ep, N: int, aa, tasks, prio, idx_addrs, loc_by_addr
-    ) -> dict[int, int]:
+    ) -> tuple[dict[int, int], float]:
         """Phase 0 (``_solve_anti_affinity``): anti-affinity replicas
         through the bin-pack with unit capacity (one replica per provider)
         and exclusion groups over the declared domain: providers
         (``"task"``) or location classes (``"location"``), one mode after
         the other. The bin-pack runs over the sorted union of the slots'
-        forward top-k candidates, not all N providers. Returns {provider
-        row -> task idx}."""
+        forward top-k candidates, not all N providers. Returns ({provider
+        row -> task idx}, the host encoding time in ms)."""
         results: dict[int, int] = {}
+        encode_ms = 0.0
         for mode in ("task", "location"):
             items = [(i, r, m) for (i, r, m) in aa if m == mode]
             if not items:
@@ -411,9 +410,10 @@ class TorchBatchMatcher:
             if S == 0:
                 continue
             s_pad = _pow2_bucket(S)
-            er = self._encode_slots(
+            er, ms = self._encode_slots(
                 [task_requirements(tasks[i]) for i in slot_task], slot_task, prio, s_pad
             )
+            encode_ms += ms
             cand_p, _ = candidates_forward(
                 ep, er, self.weights, min(self.top_k, ep.num), min(1024, s_pad)
             )
@@ -454,16 +454,19 @@ class TorchBatchMatcher:
             for s_idx, r_local in enumerate(p4s):
                 if 0 <= r_local < len(rows):
                     results[int(rows[r_local])] = slot_task[s_idx]
-        return results
+        return results, encode_ms
 
-    def _solve_colocation(self, ep, colo, tasks, prio, taken_rows) -> dict[int, list[int]]:
+    def _solve_colocation(
+        self, ep, colo, tasks, prio, taken_rows
+    ) -> tuple[dict[int, list[int]], float]:
         """Phase 0.5 (``_solve_colocation``): colocated replicas through the
         bin-pack with the providers' real capacity [gpu count, gpu count x
         per-GPU memory, cpu cores, ram, storage], so several replicas (of
         one task or several) stack on one provider while it holds. The
         bin-pack runs over the sorted union of the slots' bidirectional
-        candidates, less the rows phase 0 took. Returns {provider row ->
-        [task idx, ...]} in placement order."""
+        candidates, less the rows phase 0 took. Returns ({provider row ->
+        [task idx, ...]} in placement order, the host encoding time in
+        ms)."""
         slot_task: list[int] = []
         for i, r in colo:
             take = min(r, 4096)
@@ -477,7 +480,7 @@ class TorchBatchMatcher:
         S = len(slot_task)
         self._colo_requested = S
         if S == 0:
-            return {}
+            return {}, 0.0
         s_pad = _pow2_bucket(S)
         req_of = {i: task_requirements(tasks[i]) for i, _ in colo}
         # a colocated slot claims a slice of a provider: the compat side
@@ -490,7 +493,9 @@ class TorchBatchMatcher:
             ])
             for i, r in req_of.items()
         }
-        er = self._encode_slots([relaxed[i] for i in slot_task], slot_task, prio, s_pad)
+        er, encode_ms = self._encode_slots(
+            [relaxed[i] for i in slot_task], slot_task, prio, s_pad
+        )
         cand_p, _ = self._cand_memo.get(
             ep, er, self.weights, k=self.top_k, tile=min(1024, s_pad), reverse_r=8, extra=16,
         )
@@ -499,7 +504,7 @@ class TorchBatchMatcher:
         if taken_rows:
             rows = rows[~np.isin(rows, np.fromiter(taken_rows, np.int64))]
         if rows.size == 0:
-            return {}
+            return {}, encode_ms
         sub_ep, rpad = self._gather_rows(ep, rows)
         cost = cost_only(sub_ep, er, self.weights)
 
@@ -542,7 +547,7 @@ class TorchBatchMatcher:
         for s_idx, r_local in enumerate(p4s):
             if 0 <= r_local < len(rows):
                 placed.setdefault(int(rows[r_local]), []).append(slot_task[s_idx])
-        return placed
+        return placed, encode_ms
 
     @staticmethod
     def _location_classes(rows: np.ndarray, idx_addrs, loc_by_addr) -> tuple[np.ndarray, int]:
@@ -679,32 +684,35 @@ class TorchBatchMatcher:
         ep = providers_from_numpy(p_arrays, self.device)
         idx_addrs = [n.address for n in nodes]
         assigned = np.zeros(P, bool)
-        self._encode_ms = (time.perf_counter() - t_enc) * 1e3
+        encode_ms = (time.perf_counter() - t_enc) * 1e3
 
         # ---- phase 0: anti-affinity replicas spread over providers or
         # location classes by the bin-pack; the providers they claim leave
         # the auction and phase 2
-        t0, enc0 = time.perf_counter(), self._encode_ms
+        t0, enc_ms = time.perf_counter(), 0.0
         self._aa_truncated = 0
         claims: dict[int, int] = {}
         if aa:
             loc_by_addr = {n.address: n.location for n in nodes}
-            claims = self._solve_anti_affinity(ep, P, aa, tasks, prio, idx_addrs, loc_by_addr)
+            claims, enc_ms = self._solve_anti_affinity(
+                ep, P, aa, tasks, prio, idx_addrs, loc_by_addr
+            )
             for row, i in claims.items():
                 assignment[idx_addrs[row]] = tasks[i].id
                 assigned[row] = True
-        phase0_ms = (time.perf_counter() - t0) * 1e3 - (self._encode_ms - enc0)
+        phase0_ms = (time.perf_counter() - t0) * 1e3 - enc_ms
+        encode_ms += enc_ms
 
         # ---- phase 0.5: colocated replicas stack on providers while their
         # capacity holds
-        t0, enc0 = time.perf_counter(), self._encode_ms
+        t0, enc_ms = time.perf_counter(), 0.0
         colo_slots = 0
         self._colo_truncated = 0
         self._colo_requested = 0
         assignment_multi: dict[str, list[str]] = {}
         placed: dict[int, list[int]] = {}
         if colo:
-            placed = self._solve_colocation(ep, colo, tasks, prio, set(claims))
+            placed, enc_ms = self._solve_colocation(ep, colo, tasks, prio, set(claims))
             for row, tidxs in placed.items():
                 addr = idx_addrs[row]
                 assignment[addr] = tasks[tidxs[0]].id
@@ -720,7 +728,8 @@ class TorchBatchMatcher:
                     "fleet capacity for the rest)",
                     colo_slots, self._colo_requested,
                 )
-        phase05_ms = (time.perf_counter() - t0) * 1e3 - (self._encode_ms - enc0)
+        phase05_ms = (time.perf_counter() - t0) * 1e3 - enc_ms
+        encode_ms += enc_ms
 
         claimed_rows = list(claims) + list(placed)
         arena_p_arrays = p_arrays
@@ -747,7 +756,7 @@ class TorchBatchMatcher:
                 pad_to=s_bucket,
             )
             t1 = time.perf_counter()
-            self._encode_ms += (t1 - t_enc) * 1e3
+            encode_ms += (t1 - t_enc) * 1e3
             if self._arena_engine:
                 kernel_used = "torch_arena"
                 t4p = self._bounded_t4p_arena(
@@ -774,7 +783,7 @@ class TorchBatchMatcher:
                 device=self.device,
             )
             t2 = time.perf_counter()
-            self._encode_ms += (t2 - t_enc) * 1e3
+            encode_ms += (t2 - t_enc) * 1e3
             best = solve_unbounded(ep, er, self.weights).cpu().numpy()[:P]
             for p_idx in range(P):
                 if not assigned[p_idx] and 0 <= best[p_idx] < len(unbounded):
@@ -809,7 +818,7 @@ class TorchBatchMatcher:
             "seq": self._solve_seq,
             # the port's split of solve_ms: host encoding (every phase's),
             # then each phase's solve up to its readback and dict build
-            "encode_ms": self._encode_ms,
+            "encode_ms": encode_ms,
             "phase0_ms": phase0_ms,
             "phase05_ms": phase05_ms,
             "phase1_ms": phase1_ms,
