@@ -63,6 +63,22 @@ phase 0 or 0.5 may hold a phase-1 or phase-2 task, every placed pair must
 meet its (relaxed, for colocation) requirement, and the card's matcher
 must equal the CPU's on a 1,024-node store with every task kind, on both
 routes.
+
+Then the scheduler backend (services/scheduler_grpc.py), in one more run
+with the counts set to 0 just before it: the port's gRPC server on a free
+localhost port, driven through the port's client, on the synthetic
+marketplace (new arrays for every kernel): greedy, sinkhorn (eps 0.05, 200
+rounds) and auction (eps 0.01, 500 rounds) at 4,096 x 4,096 and best at
+4,096 providers x 1,024 tasks, each over wire v1 and v2; topk (k = 64) at
+65,536 x 65,536 cold (v2), a byte-identical repeat (v1, a candidate memo
+hit), then warm from the cold answer's prices and seeds after 1% of the
+providers are repriced. Every answer must pair compatible rows only, be a
+matching (best: one task a provider), agree across the wires and equal the
+kernel dispatch run in process on the card. K12 (the greedy) must equal its
+plain version bit for bit on its first call, and K13 (the Sinkhorn) its
+plain version within the stated tolerances, its rounding the plain one's
+wherever no decision is closer than the plan tolerance (the ties it
+excluded are printed).
 Prints:
 
   - the card's name and power limit (nvidia-smi),
@@ -103,6 +119,22 @@ SRC_REPAIR = "protocol_tpu_torch/csrc/repair.cu"
 SRC_DENSE = "protocol_tpu_torch/csrc/dense.cu"
 SRC_K9 = "protocol_tpu_torch/csrc/cleanup.cu"
 SRC_K11 = "protocol_tpu_torch/csrc/binpack.cu"
+SRC_K12 = "protocol_tpu_torch/csrc/greedy.cu"
+SRC_K13 = "protocol_tpu_torch/csrc/sinkhorn.cu"
+# the scheduler backend: greedy, sinkhorn and auction at the dense route's
+# 2^24-cell budget, best at 4,096 providers x 1,024 tasks, topk at N x N
+BACKEND_N = 4_096
+BACKEND_BEST = (4_096, 1_024)
+BACKEND_TOP_K = 64
+SINKHORN_EPS, SINKHORN_ITERS = 0.05, 200
+AUCTION_EPS, AUCTION_ITERS = 0.01, 500
+BACKEND_KERNELS = ("greedy_assign", "sinkhorn", "cost_block", "dense_value_base",
+                   "dense_auction", "unbounded_best", "candidates_forward_rows",
+                   "candidates_reverse", "auction_phase", "greedy_cleanup")
+# K13 against its plain version, as tests/test_torch_kernels_cuda.py states
+# the bounds: the sums run in another order on the card
+SINKHORN_UV_ATOL = 1e-3
+SINKHORN_PLAN_ATOL = 2e-5
 # the matcher's pools: the dense route at its budget, the torch route at
 # the one-chip rung, the card-vs-CPU check
 DENSE_POOL = (4_096, 192, 16, 1_024)  # nodes, bounded tasks, replicas, unbounded tasks
@@ -838,6 +870,319 @@ def run_phases(torch, kernels, refresh) -> tuple[list, dict]:
     return rows, {"matcher_phases_dense": launches_pdense, "matcher_phases_torch": launches_ptorch}
 
 
+def pairs_compatible(torch, compat_mask, gp, gr, ep, er, p_idx, t_idx) -> bool:
+    """Whether every pair (p_idx[i], t_idx[i]) is compatible: the diagonal
+    of the plain torch mask, 1,024 pairs at a time."""
+    for i in range(0, p_idx.numel(), 1024):
+        m = compat_mask(gp(ep, p_idx[i:i + 1024]), gr(er, t_idx[i:i + 1024]))
+        if not bool(torch.diagonal(m).all()):
+            return False
+    return True
+
+
+def check_answer(torch, compat_mask, gp, gr, ep, er, res, num_assigned: int, kernel: str) -> int:
+    """An RPC's answer: every pair compatible; for a matching kernel the
+    matching is injective and ``task_for_provider`` is its inverse; the
+    reported count is the pairs'. Returns the pairs."""
+    import numpy as np
+
+    dev = ep.gpu_count.device
+    p4t = torch.from_numpy(np.asarray(res.p4t, np.int64)).to(dev)
+    t4p = torch.from_numpy(np.asarray(res.t4p, np.int64)).to(dev)
+    if p4t.shape != (er.num,) or t4p.shape != (ep.num,):
+        raise AssertionError(f"{kernel}: answer shapes {tuple(p4t.shape)}, {tuple(t4p.shape)}")
+    if kernel == "best":  # each provider's cheapest task: not a matching
+        p_idx = torch.nonzero(t4p >= 0).flatten()
+        t_idx = t4p[p_idx]
+    else:
+        t_idx = torch.nonzero(p4t >= 0).flatten()
+        p_idx = p4t[t_idx]
+        if torch.unique(p_idx).numel() != p_idx.numel():
+            raise AssertionError(f"{kernel}: a provider holds two tasks")
+        if int((t4p >= 0).sum()) != t_idx.numel() or not bool((t4p[p_idx] == t_idx).all()):
+            raise AssertionError(f"{kernel}: task_for_provider is not the matching's inverse")
+    if num_assigned != t_idx.numel() or t_idx.numel() == 0:
+        raise AssertionError(f"{kernel}: num_assigned {num_assigned}, {t_idx.numel()} pairs")
+    if not pairs_compatible(torch, compat_mask, gp, gr, ep, er, p_idx, t_idx):
+        raise AssertionError(f"{kernel}: an assigned pair is not compatible")
+    return t_idx.numel()
+
+
+def rounding_near_ties(torch, rcost_tp, order, colmax, tol: float):
+    """The plain rounding replayed step by step, counting the decisions
+    that a difference below ``tol`` could turn: adjacent entries of the
+    visit order whose plan maxima are closer than ``tol``, and steps whose
+    two best free candidates are. Returns (p4t, order ties, a bool [T] of
+    the steps that tie, in visit order)."""
+    T, P = rcost_tp.shape
+    dev = rcost_tp.device
+    keys = colmax[order.long()]
+    order_ties = int(((keys[:-1] - keys[1:]).abs() < tol).sum())
+    avail = torch.ones(P, dtype=torch.bool, device=dev)
+    p4t = torch.full((T,), -1, dtype=torch.int32, device=dev)
+    step_tie = torch.zeros(T, dtype=torch.bool)
+    for s, t in enumerate(order.tolist()):
+        masked = torch.where(avail, rcost_tp[t], 1e9) + 0.0
+        two = torch.topk(masked, min(2, P), largest=False).values.tolist()
+        p = int(torch.argmin(masked))
+        if two[0] < 5e8:
+            avail[p] = False
+            p4t[t] = p
+            step_tie[s] = len(two) == 2 and two[1] - two[0] < tol
+    return p4t, order_ties, step_tie
+
+
+def run_backend(torch, kernels) -> tuple[list, dict]:
+    """The scheduler backend on the card: the port's server on a free
+    localhost port, driven through the port's client over both wires with
+    the counts set to 0 just before. Every answer is checked (compatible,
+    a matching, v1 == v2, equal to the dispatch in process); K12 and K13
+    are held against their plain versions on their first calls. Returns
+    (the kernels-line rows of K12 and K13, {"backend": launches})."""
+    import numpy as np
+
+    from protocol_tpu_torch.ops import assign as da
+    from protocol_tpu_torch.ops.cost import CostWeights
+    from protocol_tpu_torch.ops.encoding import (
+        compat_mask,
+        gather_providers,
+        gather_requirements,
+        providers_from_numpy,
+        requirements_from_numpy,
+    )
+    from protocol_tpu_torch.services import scheduler_grpc as sg
+    from protocol_tpu_torch.services.assign_kernels import KernelDispatch
+    from protocol_tpu_torch.trace.synth import synth_provider_arrays, synth_requirement_arrays
+
+    weights = CostWeights()
+    n = BACKEND_N
+
+    def market(seed, P, T):
+        rng = np.random.default_rng(seed)
+        return (types.SimpleNamespace(**synth_provider_arrays(rng, P)),
+                types.SimpleNamespace(**synth_requirement_arrays(rng, T)))
+
+    markets = {
+        "greedy": market(SEED + 50, n, n),
+        "sinkhorn": market(SEED + 51, n, n),
+        "auction": market(SEED + 52, n, n),
+        "best": market(SEED + 53, *BACKEND_BEST),
+        "topk": market(SEED + 54, N, N),
+    }
+    params = {  # kernel -> (top_k, eps, max_iters) as the requests carry them
+        "greedy": (0, 0.0, 0), "sinkhorn": (0, SINKHORN_EPS, SINKHORN_ITERS),
+        "auction": (0, AUCTION_EPS, AUCTION_ITERS), "best": (0, 0.0, 0),
+        "topk": (BACKEND_TOP_K, 0.0, 0),
+    }
+
+    server = sg.serve("127.0.0.1:0", device=DEVICE)
+    client = sg.SchedulerBackendClient(f"127.0.0.1:{server.port}")
+
+    def rpc(label, kernel, wire, ep, er, warm=None):
+        top_k, eps, iters = params[kernel]
+        t0 = time.perf_counter()
+        if wire == "v1":
+            req = sg.encoded_to_proto(ep, er, weights, kernel=kernel, top_k=top_k, eps=eps,
+                                      max_iters=iters)
+            if warm is not None:
+                req.warm_price.extend(warm[0])
+                req.seed_provider_for_task.extend(warm[1])
+            resp = client.assign(req, timeout=600.0)
+            res, decode_ms = sg._res_v1(resp), None
+        else:
+            req = sg.encoded_to_proto_v2(ep, er, weights, kernel=kernel, top_k=top_k, eps=eps,
+                                         max_iters=iters)
+            if warm is not None:
+                req.warm_price.CopyFrom(sg.blob(warm[0], np.float32))
+                req.seed_provider_for_task.CopyFrom(sg.blob(warm[1], np.int32))
+            resp = client.assign_v2(req, timeout=600.0)
+            res, decode_ms = sg._res_v2(resp), resp.decode_ms
+        timing = {"rtt_ms": (time.perf_counter() - t0) * 1e3, "server_ms": resp.solve_ms,
+                  "decode_ms": decode_ms, "bytes_in": req.ByteSize(),
+                  "bytes_out": resp.ByteSize()}
+        print(f"backend {label} ({kernel}, {wire}, {len(res.t4p)} x {len(res.p4t)}): "
+              f"{json.dumps(timing)} assigned {resp.num_assigned}", flush=True)
+        return {"label": label, "kernel": kernel, "wire": wire, "res": res,
+                "num": resp.num_assigned, "ep": ep, "er": er, "warm": warm, **timing}
+
+    answers = []
+    try:
+        health = client.health(timeout=60.0)
+        print(f"backend health: status {health.status} platform {health.platform} "
+              f"devices {health.device_count}", flush=True)
+        if (health.status, health.platform) != ("ok", "gpu"):
+            raise AssertionError("the backend's Health does not report a GPU")
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        calls, originals = record_calls(kernels, ("greedy_assign", "sinkhorn"))
+        for kernel in ("greedy", "sinkhorn", "auction", "best"):
+            for wire in ("v1", "v2"):
+                answers.append(rpc(kernel, kernel, wire, *markets[kernel]))
+        ep, er = markets["topk"]
+        cold = rpc("topk-cold", "topk", "v2", ep, er)
+        repeat = rpc("topk-repeat", "topk", "v1", ep, er)
+        rows = np.random.default_rng(SEED + 55).choice(N, int(N * CHURN), replace=False)
+        price = ep.price.copy()  # a new array: the repriced providers
+        price[rows] = np.random.default_rng(SEED + 56).uniform(0.5, 4.0, rows.size).astype(
+            np.float32)
+        ep_warm = types.SimpleNamespace(**{**vars(ep), "price": price})
+        warm = rpc("topk-warm", "topk", "v2", ep_warm, er,
+                   warm=(cold["res"].price, cold["res"].p4t))
+        answers += [cold, repeat, warm]
+        launches = dict(kernels.LAUNCHES)
+        for name, fn in originals.items():
+            setattr(kernels, name, fn)
+        memo = server.servicer.kernels.memo
+        print(f"kernels (backend): {json.dumps(launches)}; candidate memo hits {memo.hits} "
+              f"misses {memo.misses}", flush=True)
+        seam = {m.name: m.value for m in client.health(timeout=60.0).seam_metrics}
+        print(f"backend seam metrics: {json.dumps(seam)}", flush=True)
+    finally:
+        client.close()
+        server.stop(grace=None)
+    missing = [k for k in BACKEND_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"the backend's RPCs launched no {missing}")
+    if memo.hits != 1:
+        raise AssertionError(f"the byte-identical topk repeat was not a memo hit ({memo.hits})")
+
+    with uncounted(kernels):
+        # every answer: compatible pairs, a matching; v1 == v2; the same
+        # bits as the dispatch in process on the card
+        dispatch = KernelDispatch()
+        for a in answers:
+            ep_d = providers_from_numpy(a["ep"], DEVICE)
+            er_d = requirements_from_numpy(a["er"], DEVICE)
+            pairs = check_answer(torch, compat_mask, gather_providers, gather_requirements,
+                                 ep_d, er_d, a["res"], a["num"], a["kernel"])
+            top_k, eps, iters = params[a["kernel"]]
+            carried = a["warm"] or (None, None)
+            local = dispatch.solve(ep_d, er_d, weights, a["kernel"], top_k,
+                                   float(np.float32(eps)), iters, *carried)
+            same = (np.array_equal(local.p4t, a["res"].p4t)
+                    and np.array_equal(local.t4p, a["res"].t4p)
+                    and (local.price is None) == (a["res"].price is None)
+                    and (local.price is None or local.price.tobytes() == a["res"].price.tobytes()))
+            print(f"backend {a['label']} ({a['wire']}): {pairs} compatible pairs, equal to "
+                  f"the dispatch in process {same}", flush=True)
+            if not same:
+                raise AssertionError(f"backend {a['label']} ({a['wire']}) differs from the "
+                                     "dispatch in process")
+        for x, y in zip(answers[0:8:2], answers[1:8:2]):
+            if not (np.array_equal(x["res"].p4t, y["res"].p4t)
+                    and np.array_equal(x["res"].t4p, y["res"].t4p)):
+                raise AssertionError(f"backend {x['kernel']}: v1 and v2 differ")
+        if not (np.array_equal(cold["res"].p4t, repeat["res"].p4t)
+                and cold["res"].price.tobytes() == repeat["res"].price.tobytes()):
+            raise AssertionError("backend topk: the repeat (v1) differs from the cold call (v2)")
+        print(f"backend: v1 == v2 for greedy, sinkhorn, auction, best and topk; topk warm "
+              f"assigned {warm['num']} of {N} (cold {cold['num']})", flush=True)
+        if warm["num"] / N < 0.99 or cold["num"] / N < 0.99:
+            raise AssertionError("backend topk assigned fewer than 99% of the tasks")
+
+        # K12 on its first call (the greedy RPC over K10's block) and K13 on
+        # its first (the sinkhorn RPC), against their plain versions
+        (g_cost, g_order), _, g_out = calls["greedy_assign"][0]
+        g_ref = da._greedy_plain(g_cost, g_order)
+        torch.cuda.synchronize()
+        if not bits_equal(torch, g_out, g_ref):
+            raise AssertionError("K12 differs from its plain version on its first call")
+        (s_cost, s_eps, s_iters), _, s_out = calls["sinkhorn"][0]
+        plan_k, rcost_k, colmax_k, u_k, v_k = s_out
+        cost = s_cost.T  # the reference's [P, T]
+        K, u_p, v_p = da._sinkhorn_plain(cost, s_eps, s_iters)
+        plan_p = da._plan_plain(K, u_p, v_p)
+        errs = {}
+        for name, got, ref in (("u", u_k, u_p), ("v", v_k, v_p)):
+            masked = ref < -1e17
+            if not (torch.equal(got < -1e17, masked) and bool((got[masked] == -1e18).all())):
+                raise AssertionError(f"K13: {name} is masked elsewhere than the plain version's")
+            errs[name] = float((got - ref)[~masked].abs().max())
+        errs["plan"] = float((plan_k.T - plan_p).abs().max())
+        if errs["u"] > SINKHORN_UV_ATOL or errs["v"] > SINKHORN_UV_ATOL \
+                or errs["plan"] > SINKHORN_PLAN_ATOL:
+            raise AssertionError(f"K13 outside its tolerance: {errs}")
+        # the rounding: K13's own inputs give the plain rounding's, bit for
+        # bit; against the plain plan's rounding, the first difference must
+        # sit on a decision closer than the plan tolerance
+        r_tp, r_order = da._rounding_inputs(cost, plan_k.T)
+        k_order = torch.sort(-colmax_k, stable=True).indices.to(torch.int32)
+        k_p4t = kernels.greedy_assign(rcost_k, k_order)
+        exact = (bits_equal(torch, rcost_k, r_tp) and torch.equal(k_order, r_order)
+                 and bits_equal(torch, k_p4t, da._greedy_plain(r_tp, r_order)))
+        if not exact:
+            raise AssertionError("K13's rounding inputs or K12 on them differ from the plain "
+                                 "rounding of K13's plan")
+        p_rcost, p_order = da._rounding_inputs(cost, plan_p)
+        p_p4t, order_ties, step_tie = rounding_near_ties(torch, p_rcost, p_order,
+                                                         plan_p.amax(dim=0), SINKHORN_PLAN_ATOL)
+        if not bits_equal(torch, p_p4t, da._greedy_plain(p_rcost, p_order)):
+            raise AssertionError("the rounding replay differs from the plain rounding")
+        diverge = None
+        differ = torch.nonzero(k_order != p_order).flatten()
+        first_order = int(differ[0]) if differ.numel() else len(p_order)
+        picks_k, picks_p = k_p4t[p_order.long()], p_p4t[p_order.long()]
+        differ = torch.nonzero(picks_k[:first_order] != picks_p[:first_order]).flatten()
+        if differ.numel():
+            diverge = ("step", int(differ[0]), bool(step_tie[int(differ[0])]))
+        elif first_order < len(p_order):
+            keys = plan_p.amax(dim=0)
+            gap = abs(float(keys[int(k_order[first_order])] - keys[int(p_order[first_order])]))
+            diverge = ("order", first_order, gap < SINKHORN_PLAN_ATOL)
+        same_rounding = bits_equal(torch, k_p4t, p_p4t)
+        print(f"K13 against its plain version ({cost.shape[0]} x {cost.shape[1]}, eps {s_eps}, "
+              f"{s_iters} rounds): max_abs_err {json.dumps(errs)}; rounding equal {same_rounding}, "
+              f"ties excluded: {order_ties} in the visit order, {int(step_tie.sum())} steps "
+              f"(tolerance {SINKHORN_PLAN_ATOL}); first difference {diverge}", flush=True)
+        if not same_rounding and (diverge is None or not diverge[2]):
+            raise AssertionError(f"K13's rounding differs from the plain one away from a tie: "
+                                 f"{diverge}")
+
+        # times on the first calls' inputs
+        k12_ms = cuda_ms(torch, lambda: kernels.greedy_assign(g_cost, g_order), 3)
+        k12_plain_ms = cuda_ms(torch, lambda: da._greedy_plain(g_cost, g_order), 1)
+        k13_ms = cuda_ms(torch, lambda: kernels.sinkhorn(s_cost, s_eps, s_iters), 3)
+
+        def k13_plain():
+            plan = da._plan_plain(*da._sinkhorn_plain(cost, s_eps, s_iters))
+            return da._rounding_inputs(cost, plan)
+
+        k13_plain_ms = cuda_ms(torch, k13_plain, 1)
+        x = K + v_p[None, :]
+        lse_ms = cuda_ms(torch, lambda: torch.logsumexp(x, dim=1), 5)
+
+        def lse_passes():
+            for _ in range(s_iters):
+                torch.logsumexp(x, dim=1)
+                torch.logsumexp(x, dim=0)
+
+        lse_passes_ms = cuda_ms(torch, lse_passes, 1)
+        del x, K, plan_p, p_rcost
+    Tg, Pg = g_cost.shape
+    Ts, Ps = s_cost.shape
+    cells = Ts * Ps
+    rows = [
+        # K12: the cost block read once, the order and the picks; a compare
+        # and a select per cell
+        row("greedy_assign", SRC_K12, "protocol_tpu/ops/assign.py:70", 0.0, k12_ms,
+            k12_plain_ms, Tg * Pg * 4 + Tg * 8, Tg * Pg * 2),
+        # K13: the cost in, the plan and the rounding cost out; per cell and
+        # round two passes of five operations (add, max, subtract, exp,
+        # add), plus nine in the prep and the final pass
+        row("sinkhorn", SRC_K13, "protocol_tpu/ops/assign.py:111", errs["plan"], k13_ms,
+            k13_plain_ms, cells * 12 + (Ts + Ps) * 8, cells * (10 * s_iters + 9)),
+    ]
+    rows[1]["library_ms"] = lse_passes_ms
+    rows[1]["library_call"] = (f"torch.logsumexp on the [P, T] block, two passes a round "
+                               f"x {s_iters} rounds (the nearest call: the passes only)")
+    rows[1]["logsumexp_pass_ms"] = lse_ms
+    rows[1]["uv_max_abs_err"] = max(errs["u"], errs["v"])
+    print(f"K12 timed on the greedy RPC's call ({Tg} steps x {Pg} providers); K13 on the "
+          f"sinkhorn RPC's ({Ts} x {Ps}, {s_iters} rounds); one torch.logsumexp pass "
+          f"{lse_ms:.4f} ms", flush=True)
+    return rows, {"backend": launches}
+
+
 def main() -> int:
     try:
         import torch
@@ -1414,8 +1759,12 @@ def main() -> int:
     # ---- phases 0 and 0.5 (anti-affinity and colocation)
     phase_rows, phase_runs = run_phases(torch, kernels, refresh)
 
+    # ---- the scheduler backend's stateless RPCs
+    backend_rows, backend_runs = run_backend(torch, kernels)
+
     runs = {"cold_ticks": launches, "warm_chain": launches_warm,
-            "matcher_dense": launches_dense, "matcher_torch": launches_torch, **phase_runs}
+            "matcher_dense": launches_dense, "matcher_torch": launches_torch, **phase_runs,
+            **backend_runs}
 
     # K1's forward launch: the cold pass over every task id; its call on
     # the warm repair's dirty rows rides along as "repair_call"
@@ -1441,7 +1790,7 @@ def main() -> int:
             k8_plain_ms, k8_bytes, k8_ops),
         row("greedy_cleanup", SRC_K9, "protocol_tpu/ops/sparse.py:545", 0.0, k9_ms,
             k9_plain_ms, k9_bytes, 0),
-    ] + phase_rows
+    ] + phase_rows + backend_rows
     for r_ in rows:
         for run, counts in runs.items():
             r_[f"launches_{run}"] = counts[r_["name"]]

@@ -2,9 +2,10 @@
 Hopper card (H100, ``sm_90a``).
 
 The JAX package stays the reference; this package mirrors its layout
-(``ops/``, ``parallel/``, ``obs/``, ``trace/``, ``native/``) so each
-counterpart is easy to find, and imports nothing of it: what it needs of
-the reference's host modules is copied here.
+(``ops/``, ``parallel/``, ``sched/``, ``services/``, ``proto/``,
+``obs/``, ``trace/``, ``native/``) so each counterpart is easy to find,
+and imports nothing of it: what it needs of the reference's host modules
+is copied here.
 
 Entry points take an explicit ``device``. The default is ``"cuda"``;
 without a card they raise unless the caller asks for ``device="cpu"``.

@@ -30,7 +30,7 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / "kernels"
-SOURCES = ("candidates", "auction", "repair", "dense", "cleanup", "binpack")
+SOURCES = ("candidates", "auction", "repair", "dense", "cleanup", "binpack", "greedy", "sinkhorn")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -42,7 +42,7 @@ LAUNCHES = {
     "candidates_reverse_blocks": 0,
     "repair_enter": 0, "repair_tile_min": 0, "repair_refold": 0,
     "dense_value_base": 0, "dense_auction": 0, "unbounded_best": 0, "greedy_cleanup": 0,
-    "cost_block": 0, "binpack_ffd": 0,
+    "cost_block": 0, "binpack_ffd": 0, "greedy_assign": 0, "sinkhorn": 0,
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -151,6 +151,12 @@ def _lib(name: str) -> ctypes.CDLL:
                 _P, _I, _I, _P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _P,
             ]
             lib.k11_binpack_ffd.restype = _I
+        elif name == "greedy":
+            lib.k12_greedy.argtypes = [_P, _I, _I, _P, _I, _P, _P]
+            lib.k12_greedy.restype = _I
+        elif name == "sinkhorn":
+            lib.k13_sinkhorn.argtypes = [_P, _I, _I, _F, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P]
+            lib.k13_sinkhorn.restype = _I
         else:
             lib.k2_auction_phase.argtypes = [
                 _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
@@ -549,3 +555,57 @@ def binpack_ffd(cost_tp, demand, capacity, task_order, anti_group, loc_id, L: in
     ), "binpack_ffd")
     LAUNCHES["binpack_ffd"] += 1
     return pft, cap
+
+
+def greedy_assign(cost_tp, task_order):
+    """K12 (``csrc/greedy.cu``): the sequential greedy over the slot-major
+    cost ``cost_tp`` [T, P], tasks in ``task_order`` (ids in [0, T)).
+    Returns provider_for_task [T] i32 (-1 for a task not visited or left
+    unassigned)."""
+    T, P = cost_tp.shape
+    dev = cost_tp.device
+    if cost_tp.dtype != torch.float32 or not cost_tp.is_contiguous() or T < 1 or P < 1:
+        raise ValueError("K12: cost_tp must be a non-empty contiguous f32 [T, P] tensor")
+    if P > 1_638_400:
+        raise ValueError(f"K12 takes P <= 1,638,400 providers, got {P}")
+    order = task_order.to(torch.int32).contiguous()
+    if order.device != dev or order.dim() != 1:
+        raise ValueError(f"K12: task_order must be a 1-d tensor on {dev}")
+    if order.numel() and (int(order.min()) < 0 or int(order.max()) >= T):
+        raise ValueError(f"K12: task ids out of range [0, {T})")
+    p4t = torch.full((T,), -1, dtype=torch.int32, device=dev)
+    _check(_lib("greedy").k12_greedy(
+        cost_tp.data_ptr(), T, P, order.data_ptr(), order.numel(), p4t.data_ptr(), _stream(p4t),
+    ), "greedy_assign")
+    LAUNCHES["greedy_assign"] += 1
+    return p4t
+
+
+def sinkhorn(cost_tp, eps: float, num_iters: int):
+    """K13 (``csrc/sinkhorn.cu``): the log-domain Sinkhorn over the
+    slot-major cost ``cost_tp`` [T, P]. Returns (plan [T, P] with
+    subnormal entries flushed to +0, the rounding cost [T, P] =
+    where(feasible, -plan, INFEASIBLE), each task's largest plan entry [T],
+    u [P], v [T]), all f32."""
+    T, P = cost_tp.shape
+    dev = cost_tp.device
+    if cost_tp.dtype != torch.float32 or not cost_tp.is_contiguous() or T < 1 or P < 1:
+        raise ValueError("K13: cost_tp must be a non-empty contiguous f32 [T, P] tensor")
+    if not eps > 0 or num_iters < 0:
+        raise ValueError(f"K13 takes eps > 0 and num_iters >= 0, got {eps}, {num_iters}")
+    rcost = torch.empty((T, P), dtype=torch.float32, device=dev)  # K, then the rounding cost
+    plan = torch.empty((T, P), dtype=torch.float32, device=dev)
+    feas_row = torch.empty(P, dtype=torch.uint8, device=dev)
+    feas_col = torch.empty(T, dtype=torch.uint8, device=dev)
+    log_a = torch.empty(P, dtype=torch.float32, device=dev)
+    log_b = torch.empty(T, dtype=torch.float32, device=dev)
+    u = torch.zeros(P, dtype=torch.float32, device=dev)
+    v = torch.zeros(T, dtype=torch.float32, device=dev)
+    colmax = torch.empty(T, dtype=torch.float32, device=dev)
+    _check(_lib("sinkhorn").k13_sinkhorn(
+        cost_tp.data_ptr(), T, P, eps, num_iters, rcost.data_ptr(), feas_row.data_ptr(),
+        feas_col.data_ptr(), log_a.data_ptr(), log_b.data_ptr(), u.data_ptr(), v.data_ptr(),
+        plan.data_ptr(), colmax.data_ptr(), _stream(plan),
+    ), "sinkhorn")
+    LAUNCHES["sinkhorn"] += 1
+    return plan, rcost, colmax, u, v

@@ -172,14 +172,15 @@ def test_synth_copies_match_reference(seed, n):
 
 def test_port_imports_neither_jax_nor_the_reference():
     code = (
-        "import sys\n"
+        "import importlib, pkgutil, sys\n"
         "import protocol_tpu_torch\n"
-        "import protocol_tpu_torch.kernels, protocol_tpu_torch.ops.sparse\n"
-        "import protocol_tpu_torch.parallel.torch_arena, protocol_tpu_torch.trace.synth\n"
-        "import protocol_tpu_torch.obs.quality\n"
-        "import protocol_tpu_torch.models.node, protocol_tpu_torch.models.task\n"
-        "import protocol_tpu_torch.store.node_store, protocol_tpu_torch.ops.assign\n"
-        "import protocol_tpu_torch.sched.torch_backend\n"
+        "mods = [m.name for m in pkgutil.walk_packages(protocol_tpu_torch.__path__,\n"
+        "                                              'protocol_tpu_torch.')]\n"
+        "for name in mods:\n"
+        "    importlib.import_module(name)\n"
+        "need = {'protocol_tpu_torch.services.scheduler_grpc', 'protocol_tpu_torch.serve',\n"
+        "        'protocol_tpu_torch.proto.wire', 'protocol_tpu_torch.kernels'}\n"
+        "assert need <= set(mods), need - set(mods)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'protocol_tpu' or m.startswith('protocol_tpu.')]\n"
         "print('BAD', bad)\n"
@@ -200,3 +201,9 @@ def test_entry_points_raise_without_a_card():
         providers_from_numpy(arrays)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         t_synth.synth_requirements(np.random.default_rng(0), 4)
+    from protocol_tpu_torch.services.scheduler_grpc import SchedulerBackendServicer, serve
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SchedulerBackendServicer()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve("127.0.0.1:0")

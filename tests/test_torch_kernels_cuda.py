@@ -336,3 +336,75 @@ def test_candidate_reverse_several_per_tile_matches_plain_bits(card, tile):
     ref = sp._reverse_plain(ep, er, w, tile, 8, rt)
     assert got[2].shape == (3000, 1024 // tile * rt)
     assert all(same_bits(a, b) for a, b in zip(got, ref))
+
+
+# K13 against its plain version: the potentials and the plan are summed in
+# another order on the card, so they agree within these bounds (f32 ulps of
+# potentials up to ~200 at eps 0.05, over 200 rounds); chip_smoke.py holds
+# K13 to the same bounds
+SINKHORN_UV_ATOL = 1e-3
+SINKHORN_PLAN_ATOL = 2e-5
+
+
+def greedy_cost(rng, P, T, card):
+    """A [P, T] cost with integer-valued eighths (many exact ties), -0.0
+    and +0.0 entries, 30% infeasible cells and an all-infeasible column."""
+    cost = rng.integers(0, 64, (P, T)).astype(np.float32) / 8
+    cost[rng.uniform(size=(P, T)) < 0.1] = -0.0
+    cost[rng.uniform(size=(P, T)) < 0.3] = 1e9
+    cost[:, 3] = 1e9
+    return torch.from_numpy(cost).to(card)
+
+
+@pytest.mark.parametrize("P,T", [(700, 1000), (4096, 512), (33, 2000)])
+def test_greedy_kernel_matches_plain_bits(card, P, T):
+    """K12 against the plain step loop: ascending order and a given one."""
+    from protocol_tpu_torch import kernels
+    from protocol_tpu_torch.ops import assign as da
+
+    rng = np.random.default_rng(P + T)
+    cost = greedy_cost(rng, P, T, card)
+    cost_tp = cost.T.contiguous()
+    for order in (torch.arange(T, device=card), torch.from_numpy(rng.permutation(T)).to(card)):
+        got = kernels.greedy_assign(cost_tp, order)
+        ref = da._greedy_plain(cost_tp, order)
+        assert same_bits(got, ref) and int(got[3]) == -1 and int((got >= 0).sum()) > 0
+    before = kernels.LAUNCHES["greedy_assign"]
+    res = da.assign_greedy(cost)  # the public entry point launches K12 on a card
+    assert kernels.LAUNCHES["greedy_assign"] == before + 1
+    assert same_bits(res.provider_for_task, da._greedy_plain(cost_tp, torch.arange(T)))
+
+
+@pytest.mark.parametrize("P,T,eps", [(1000, 700, 0.05), (512, 2048, 0.02)])
+def test_sinkhorn_kernel_matches_plain(card, P, T, eps):
+    """K13 against the plain Sinkhorn within the stated bounds; its
+    rounding cost and column maxima are the plain rounding's inputs from
+    its own plan, bit for bit; K12 then rounds as the plain loop does."""
+    from protocol_tpu_torch import kernels
+    from protocol_tpu_torch.ops import assign as da
+
+    rng = np.random.default_rng(P)
+    cost = rng.uniform(0.0, 10.0, (P, T)).astype(np.float32)
+    cost[rng.uniform(size=(P, T)) < 0.3] = 1e9
+    cost[:, 7] = 1e9
+    cost[11, :] = 1e9
+    cost = torch.from_numpy(cost).to(card)
+    plan_tp, rcost_tp, colmax, u, v = kernels.sinkhorn(cost.T.contiguous(), eps, 200)
+    K, pu, pv = da._sinkhorn_plain(cost, eps, 200)
+    pplan = da._plan_plain(K, pu, pv)
+    for got, ref in ((u, pu), (v, pv)):
+        masked = ref < -1e17
+        assert torch.equal(got < -1e17, masked) and bool((got[masked] == -1e18).all())
+        assert float((got - ref)[~masked].abs().max()) <= SINKHORN_UV_ATOL
+    assert float((plan_tp.T - pplan).abs().max()) <= SINKHORN_PLAN_ATOL
+    tiny = torch.finfo(torch.float32).tiny
+    assert not bool(((plan_tp > 0) & (plan_tp < tiny)).any())
+    r_tp, order = da._rounding_inputs(cost, plan_tp.T)
+    assert same_bits(rcost_tp, r_tp) and same_bits(colmax, plan_tp.amax(dim=1))
+    assert torch.equal(torch.sort(-colmax, stable=True).indices.to(torch.int32), order)
+    assert same_bits(kernels.greedy_assign(rcost_tp, order), da._greedy_plain(r_tp, order))
+    res = da.assign_sinkhorn(cost, eps, 200)
+    p4t = res.provider_for_task
+    seated = p4t >= 0
+    assert int(seated.sum()) > 0 and bool((cost[p4t[seated].long(), seated.nonzero()[:, 0]]
+                                           < 5e8).all())
