@@ -64,6 +64,26 @@ meet its (relaxed, for colocation) requirement, and the card's matcher
 must equal the CPU's on a 1,024-node store with every task kind, on both
 routes.
 
+Then the matcher's default route above dense_cell_budget: the card
+against the CPU on 2,048 nodes x 2,048 slots under a lowered budget
+(cold, 1% node churn, a task replaced; the dicts and the candidate
+cache's prepared lists bit-identical), then on the torch route's pool
+(65,536 nodes x 65,536 slots), in two more runs with the counts set to 0
+just before each:
+
+  - the stateless sparse route (warm_start=False), cold;
+  - the candidate-cache route with the reference's defaults: cold (a
+    rebuild), warm after 1% node churn (joins of new specs, departures,
+    price drift under the stale tolerance; the delta rows are the joins),
+    two tasks replaced (a fresh forward pass at the cache's non-zero
+    jitter cursor), then the phase-task mix added (phases 0 and 0.5 over
+    the cache's rows, their claims out of phase 1).
+The cold cached refresh must seat at least 98% of the stateless route's
+bounded slots, and every K1 launch of the cache at a non-zero cursor
+must equal its plain version bit for bit; K1 is also held bit for bit
+with a jitter offset of 123,456,789 at 65,536 x 65,536 and timed with and
+without it.
+
 Then the scheduler backend (services/scheduler_grpc.py), in one more run
 with the counts set to 0 just before it: the port's gRPC server on a free
 localhost port, driven through the port's client, on the synthetic
@@ -146,6 +166,15 @@ SMALL_POOL = (1_024, 48, 16, 64)
 PHASE_MIX = (64, 64, 512)
 PHASE_DENSE_MIX = (8, 8, 64)  # the same mix at 1/8 on the dense route
 PHASE_SMALL_MIX = (4, 4, 32)
+# the default route above dense_cell_budget (the candidate cache): the
+# torch route's pool at full width, and the card-vs-CPU check on 2,048
+# nodes x 2,048 slots under a lowered budget
+ROUTE_SMALL_POOL = (2_048, 128, 16, 16)
+ROUTE_SMALL_BUDGET = 1 << 20
+ROUTE_KERNELS = ("candidates_forward_rows", "candidates_reverse", "auction_phase",
+                 "greedy_cleanup", "unbounded_best")
+ROUTE_SEATS_FLOOR = 0.98  # cold cached seats against the stateless route's
+K1_OFFSET = 123_456_789  # a jitter offset K1 is held at, bit for bit
 AA_REPLICAS, COLO_REPLICAS = 32, 8
 SITES = 256
 K9_MIN_OPEN = 1_000  # open tasks K9 must sweep on the cut-auction state
@@ -211,12 +240,14 @@ def bits_equal(torch, a, b) -> bool:
     return bool(torch.equal(a, b))
 
 
-def check_k1(torch, sp, ep, er, weights, tile, k, r, exact: bool, label: str) -> dict:
-    """K1 (both launches) against the plain scans on the same inputs."""
-    fwd = sp.candidates_forward(ep, er, weights, k, tile)
-    rev = sp.candidates_reverse(ep, er, weights, tile, r, 1)
-    pf = sp._forward_plain(ep, er, weights, k, tile)
-    pr = sp._reverse_plain(ep, er, weights, tile, r, 1)
+def check_k1(torch, sp, ep, er, weights, tile, k, r, exact: bool, label: str,
+             offset: int = 0) -> dict:
+    """K1 (both launches, the jitter keyed on task id + ``offset``) against
+    the plain scans on the same inputs."""
+    fwd = sp.candidates_forward(ep, er, weights, k, tile, task_offset=offset)
+    rev = sp.candidates_reverse(ep, er, weights, tile, r, 1, task_offset=offset)
+    pf = sp._forward_plain(ep, er, weights, k, tile, task_offset=offset)
+    pr = sp._reverse_plain(ep, er, weights, tile, r, 1, task_offset=offset)
     torch.cuda.synchronize()
     names = ("fwd_p", "fwd_c", "rev_t", "rev_c", "pool_t", "pool_c")
     got, ref = (*fwd, *rev), (*pf, *pr)
@@ -366,12 +397,13 @@ def pool_task(rng, name: str, replicas=None):
 
 
 def make_pool(rng, n_nodes: int, n_bounded: int, replicas: int, n_unbounded: int,
-              sites: int = 0):
+              sites: int = 0, first: int = 0):
     """(nodes, tasks) of a marketplace drawn from ``rng``: nodes of the 12
     GPU_CLASSES with counts {1, 2, 4, 8}, CPU, RAM, storage, price and load,
     every other one located (with ``sites``, at one of that many shared
-    coordinates); bounded tasks of ``replicas`` replicas and unbounded
-    ones, each with a requirement DSL string."""
+    coordinates), addressed from index ``first``; bounded tasks of
+    ``replicas`` replicas and unbounded ones, each with a requirement DSL
+    string."""
     from protocol_tpu_torch.models.node import ComputeSpecs, CpuSpecs, GpuSpecs, NodeLocation
     from protocol_tpu_torch.store.node_store import NodeStatus, OrchestratorNode
 
@@ -389,7 +421,7 @@ def make_pool(rng, n_nodes: int, n_bounded: int, replicas: int, n_unbounded: int
         else:
             loc = None
         nodes.append(OrchestratorNode(
-            address=f"0x{i:06x}", status=NodeStatus.HEALTHY,
+            address=f"0x{first + i:06x}", status=NodeStatus.HEALTHY,
             compute_specs=ComputeSpecs(
                 gpu=GpuSpecs(count=int(rng.choice([1, 2, 4, 8])), model=name, memory_mb=mem),
                 cpu=CpuSpecs(cores=int(rng.choice([8, 16, 32, 64]))),
@@ -466,6 +498,23 @@ def churn_pool(rng, store, frac: float, replace_tasks: int) -> None:
         del tasks[old.id]
         new = pool_task(rng, f"r{j}", task_replicas(old))
         tasks[new.id] = new
+
+
+def churn_nodes(rng, store, frac: float, first: int) -> dict:
+    """Node churn under the candidate cache's stale tolerance: frac/2 of
+    the nodes leave, as many join with new specs (addressed from
+    ``first``), and frac of the rest drift in price by up to 3%. Returns
+    the counts."""
+    nodes = store.node_store.nodes
+    n = max(1, int(len(nodes) * frac / 2))
+    gone = set(rng.choice(len(nodes), n, replace=False).tolist())
+    nodes[:] = [x for i, x in enumerate(nodes) if i not in gone]
+    joins, _ = make_pool(rng, n, 0, 0, 0, sites=SITES, first=first)
+    drift = rng.choice(len(nodes), max(1, int(len(nodes) * frac)), replace=False)
+    for i in drift:
+        nodes[i].price = float(nodes[i].price * rng.uniform(0.97, 1.03))
+    nodes.extend(joins)
+    return {"left": n, "joined": n, "repriced": int(drift.size)}
 
 
 def relaxed_requirement(req):
@@ -582,13 +631,15 @@ def node_capacity(specs) -> list:
             float(specs.ram_mb or 0), float(specs.storage_gb or 0)]
 
 
-def check_phases(store, matcher, seen) -> dict:
+def check_phases(store, matcher, seen, addr_of_row=None) -> dict:
     """Phases 0 and 0.5 of the last refresh: every spread task's replicas
     on distinct providers (``task``) or location classes (``location``),
     each meeting its requirement; every colocated provider's summed demand
     within its capacity in all five resources, each slot meeting its
     relaxed requirement; every claimed provider still holding its phase's
-    task (no phase-1 or phase-2 task) and the stats counting them."""
+    task (no phase-1 or phase-2 task) and the stats counting them. A row
+    is the node's index in the store, or ``addr_of_row[row]`` is its
+    address (the candidate cache's rows)."""
     from protocol_tpu_torch.sched.torch_backend import (
         task_anti_affinity,
         task_replicas,
@@ -596,6 +647,9 @@ def check_phases(store, matcher, seen) -> dict:
     )
 
     nodes = store.node_store.get_nodes()
+    if addr_of_row is not None:
+        by_addr = {n.address: n for n in nodes}
+        nodes = [by_addr.get(a) for a in addr_of_row]
     st = matcher.last_solve_stats
     claims = placed = {}
     tasks = None
@@ -711,10 +765,16 @@ def refresh_matcher(torch, compat_mask, matcher, store, label: str, kernel: str)
           f"arena_cold {st.get('arena_cold')} arena_gen_ms {st.get('arena_gen_ms')} "
           f"arena_solve_ms {st.get('arena_solve_ms')} assigned {st['assigned']}/{st['nodes']} "
           f"kernel {st['kernel']}", flush=True)
+    if st["kernel"] == "sparse_topk":
+        print(f"matcher {label}: " + json.dumps({x: st.get(x) for x in (
+            "prepare_ms", "warm", "warm_seeded_slots", "stall_exit", "cache_rebuilt",
+            "cache_delta_rows", "cache_delta_tasks", "cache_uncovered_rows",
+            "cache_stale_frac")}), flush=True)
     if st["kernel"] != kernel:
         raise AssertionError(f"matcher {label}: kernel {st['kernel']}, not {kernel}")
     checked = check_matching(torch, compat_mask, store, matcher)
     print(f"matcher {label}: {json.dumps(checked)}", flush=True)
+    st["checked"] = checked
     return st
 
 
@@ -868,6 +928,168 @@ def run_phases(torch, kernels, refresh) -> tuple[list, dict]:
             k11_plain_ms, k11_bytes, k11_ops),
     ]
     return rows, {"matcher_phases_dense": launches_pdense, "matcher_phases_torch": launches_ptorch}
+
+
+def spy_prepare(matcher) -> list:
+    """Keep every PreparedSolve the matcher's candidate cache returns."""
+    kept: list = []
+    orig = matcher._cache.prepare
+
+    def wrapped(*args):
+        kept.append(orig(*args))
+        return kept[-1]
+
+    matcher._cache.prepare = wrapped
+    return kept
+
+
+def run_default_route(torch, kernels, refresh) -> dict:
+    """The matcher's default route above dense_cell_budget on the card:
+    the card against the CPU on 2,048 nodes x 2,048 slots (cold, node
+    churn, a task replaced); then at full width on the torch route's pool
+    (65,536 nodes x 65,536 slots), the stateless route (warm_start=False)
+    cold, and the candidate-cache route with the reference's defaults:
+    cold, warm after 1% node churn, two tasks replaced, the phase-task mix
+    added; each run with the counts set to 0 just before it. The cache's
+    K1 calls at a non-zero cursor are held bit for bit against their plain
+    versions. Returns {run name: launches}; raises on any failed check."""
+    import numpy as np
+
+    from protocol_tpu_torch.ops import sparse as sp
+    from protocol_tpu_torch.ops.cost import CostWeights
+    from protocol_tpu_torch.sched import torch_backend as tb
+
+    dev = DEVICE
+
+    # the card against the CPU, proximity 0, under a lowered budget
+    nodes, tasks = make_pool(np.random.default_rng(SEED + 50), *ROUTE_SMALL_POOL, sites=SITES)
+    small = mem_store(nodes, tasks)
+    w0 = CostWeights(priority=1.0, proximity=0.0)
+    pair = [tb.TorchBatchMatcher(small, weights=w0, dense_cell_budget=ROUTE_SMALL_BUDGET,
+                                 device=d) for d in (dev, "cpu")]
+    kept = [spy_prepare(m) for m in pair]
+    rng = np.random.default_rng(SEED + 51)
+    for step in ("cold", "node-churn", "task-replaced"):
+        if step == "node-churn":
+            churn_nodes(rng, small, CHURN, first=len(nodes))
+        elif step == "task-replaced":
+            churn_pool(rng, small, 0.0, replace_tasks=1)
+        for m in pair:
+            m.refresh()
+        a, b = kept[0][-1], kept[1][-1]
+        same = (pair[0]._assignment == pair[1]._assignment
+                and bool(np.array_equal(a.cand_p, b.cand_p))
+                and bool(np.array_equal(a.cand_c.view(np.uint32), b.cand_c.view(np.uint32))))
+        st = pair[0].last_solve_stats
+        print(f"default route, {ROUTE_SMALL_POOL[0]} nodes x {a.num_slots} slots, {step}, card "
+              f"vs cpu: identical {same}, kernel {st['kernel']}, warm {st['warm']}, cursor "
+              f"{pair[0]._cache._jitter_cursor}, assigned {st['assigned']}", flush=True)
+        if not same or st["kernel"] != "sparse_topk":
+            raise AssertionError(f"the card's default route differs from the CPU's ({step})")
+    if not pair[0].last_solve_stats["warm"]:
+        raise AssertionError("the small default route's last refresh was not warm")
+    del pair, kept, small
+
+    # full width: the stateless route, then the cache's route, same pool
+    nodes, tasks = make_pool(np.random.default_rng(SEED + 30), *ARENA_POOL, sites=SITES)
+    store = mem_store(nodes, tasks)
+    stateless = tb.TorchBatchMatcher(store, warm_start=False, device=dev)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    stateless_seats = refresh(stateless, store, "default-stateless-cold",
+                              "sparse_topk")["checked"]["bounded_seats"]
+    launches_stateless = dict(kernels.LAUNCHES)
+    print(f"kernels (matcher, stateless sparse route): {json.dumps(launches_stateless)}",
+          flush=True)
+    missing = [n for n in ROUTE_KERNELS if launches_stateless[n] == 0]
+    if missing:
+        raise AssertionError(f"the stateless sparse route launched no {missing}")
+    del stateless
+
+    m = tb.TorchBatchMatcher(store, device=dev)  # the reference's defaults
+    seen = spy_phases(m)
+    rng = np.random.default_rng(SEED + 52)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    k1_calls, k1_originals = record_calls(kernels, ("candidates_forward_rows",
+                                                    "candidates_reverse"))
+    route_stats = []
+
+    def step(label):
+        before = dict(kernels.LAUNCHES)
+        st = refresh(m, store, label, "sparse_topk")
+        k1 = {n: kernels.LAUNCHES[n] - before[n] for n in ("candidates_forward_rows",
+                                                          "candidates_reverse")}
+        print(f"matcher {label}: K1 launches {json.dumps(k1)}, cursor "
+              f"{m._cache._jitter_cursor}", flush=True)
+        route_stats.append(st)
+        return st
+
+    st = step("default-cold")
+    if not st["cache_rebuilt"] or st["warm"]:
+        raise AssertionError("the first refresh of the default route was not a cold rebuild")
+    cold_seats = st["checked"]["bounded_seats"]
+    print(f"default route cold: {cold_seats} bounded seats, the stateless route "
+          f"{stateless_seats}", flush=True)
+    if cold_seats < ROUTE_SEATS_FLOOR * stateless_seats:
+        raise AssertionError(f"the cold cached refresh seats {cold_seats}, under "
+                             f"{ROUTE_SEATS_FLOOR} x the stateless route's {stateless_seats}")
+    churned = churn_nodes(rng, store, CHURN, first=len(nodes))
+    st = step("default-warm-node-churn")
+    print(f"default-warm-node-churn: {json.dumps(churned)}", flush=True)
+    if not st["warm"] or st["cache_rebuilt"] or st["cache_delta_rows"] != churned["joined"]:
+        raise AssertionError(f"the refresh after node churn was not warm over the joined rows: "
+                             f"warm {st['warm']}, delta rows {st['cache_delta_rows']}")
+    cursor = m._cache._jitter_cursor
+    churn_pool(rng, store, 0.0, replace_tasks=2)
+    st = step("default-tasks-replaced")
+    offsets = [c[1].get("offset", 0) for c in k1_calls["candidates_forward_rows"][-2:]]
+    if st["cache_delta_tasks"] != 2 or cursor not in offsets:
+        raise AssertionError(f"the replaced tasks took no fresh forward pass at cursor {cursor} "
+                             f"(delta tasks {st['cache_delta_tasks']}, offsets {offsets})")
+    store.task_store.tasks.update(
+        {t.id: t for t in phase_tasks(np.random.default_rng(SEED + 53), *PHASE_MIX)})
+    step("default-phase-mix")
+    for name, fn in k1_originals.items():
+        setattr(kernels, name, fn)
+    launches_route = dict(kernels.LAUNCHES)
+    print(f"kernels (matcher, default route): {json.dumps(launches_route)}", flush=True)
+    missing = [n for n in ROUTE_KERNELS + PHASE_KERNELS if launches_route[n] == 0]
+    if missing:
+        raise AssertionError(f"the default route launched no {missing}")
+    with uncounted(kernels):
+        phases = check_phases(store, m, seen, addr_of_row=m._cache.addr_of_row)
+    print(f"matcher default-phase-mix: {json.dumps(phases)}", flush=True)
+    if not phases["spread_rows"] or not phases["colocated_slots"]:
+        raise AssertionError("phases 0 and 0.5 placed nothing on the default route")
+
+    # K1 at the cache's cursor against its plain versions, bit for bit
+    # (the matcher's tasks carry no location: no haversine term)
+    held = 0
+    for (c_ep, c_er, c_w, c_k, c_ids), kw, out in k1_calls["candidates_forward_rows"]:
+        off = kw.get("offset", 0)
+        if off == 0:
+            continue
+        if not torch.equal(c_ids.long(), torch.arange(c_er.num, device=c_ids.device)):
+            raise AssertionError("a cache forward pass did not launch over every task id")
+        ref = sp._forward_plain(c_ep, c_er, c_w, c_k, min(1024, c_er.num), task_offset=off)
+        if not all(bits_equal(torch, a, b) for a, b in zip(out, ref)):
+            raise AssertionError(f"K1 forward at cursor {off} differs from its plain version")
+        held += 1
+    for (c_ep, c_er, c_w), kw, out in k1_calls["candidates_reverse"]:
+        off = kw.get("offset", 0)
+        ref = sp._reverse_plain(c_ep, c_er, c_w, kw["tile"], kw["r"], kw["rt"], task_offset=off)
+        if not all(bits_equal(torch, a, b) for a, b in zip(out, ref)):
+            raise AssertionError(f"K1 reverse at cursor {off} differs from its plain version")
+        held += off != 0
+    torch.cuda.synchronize()
+    print(f"K1 on the cache's calls: {held} launches at a non-zero cursor bit-identical to "
+          f"their plain versions ({len(k1_calls['candidates_forward_rows'])} forward, "
+          f"{len(k1_calls['candidates_reverse'])} reverse calls)", flush=True)
+    if held == 0:
+        raise AssertionError("no cache launch at a non-zero cursor was held")
+    del m, store, nodes, tasks, k1_calls, seen
+    return {"matcher_stateless": launches_stateless, "matcher_default": launches_route}
 
 
 def pairs_compatible(torch, compat_mask, gp, gr, ep, er, p_idx, t_idx) -> bool:
@@ -1226,6 +1448,8 @@ def main() -> int:
     # ---- K1 against its plain version: bit-identical without the
     # haversine term, within COST_TOL with it; at a second size too
     check_k1(torch, sp, ep, er, zero_prox, tile, k, r, True, f"{N}x{N} proximity=0")
+    check_k1(torch, sp, ep, er, zero_prox, tile, k, r, True,
+             f"{N}x{N} proximity=0 jitter offset {K1_OFFSET}", offset=K1_OFFSET)
     k1_default = check_k1(torch, sp, ep, er, default, tile, k, r, False, f"{N}x{N} default")
     p2, t2 = SECOND
     ep2 = synth_providers(np.random.default_rng(5), p2, device=dev)
@@ -1237,6 +1461,13 @@ def main() -> int:
 
     fwd_ms = cuda_ms(torch, lambda: sp.candidates_forward(ep, er, default, k, tile), 3)
     rev_ms = cuda_ms(torch, lambda: sp.candidates_reverse(ep, er, default, tile, r, 1), 3)
+    # the same launches keyed on a jitter offset (the candidate cache's)
+    fwd_off_ms = cuda_ms(torch, lambda: sp.candidates_forward(ep, er, default, k, tile,
+                                                              task_offset=K1_OFFSET), 3)
+    rev_off_ms = cuda_ms(torch, lambda: sp.candidates_reverse(ep, er, default, tile, r, 1,
+                                                              task_offset=K1_OFFSET), 3)
+    print(f"K1 at {N}x{N}: forward {fwd_ms:.3f} ms, {fwd_off_ms:.3f} ms with a jitter offset; "
+          f"reverse {rev_ms:.3f} ms, {rev_off_ms:.3f} ms with a jitter offset", flush=True)
     fwd_plain_ms = cuda_ms(torch, lambda: sp._forward_plain(ep, er, default, k, tile), 1)
     rev_plain_ms = cuda_ms(torch, lambda: sp._reverse_plain(ep, er, default, tile, r, 1), 1)
     feasible = sum(
@@ -1759,22 +1990,28 @@ def main() -> int:
     # ---- phases 0 and 0.5 (anti-affinity and colocation)
     phase_rows, phase_runs = run_phases(torch, kernels, refresh)
 
+    # ---- the default route above dense_cell_budget (the candidate cache)
+    route_runs = run_default_route(torch, kernels, refresh)
+
     # ---- the scheduler backend's stateless RPCs
     backend_rows, backend_runs = run_backend(torch, kernels)
 
     runs = {"cold_ticks": launches, "warm_chain": launches_warm,
             "matcher_dense": launches_dense, "matcher_torch": launches_torch, **phase_runs,
-            **backend_runs}
+            **route_runs, **backend_runs}
 
     # K1's forward launch: the cold pass over every task id; its call on
     # the warm repair's dirty rows rides along as "repair_call"
     fwd_row = row("candidates_forward_rows", SRC_K1, "protocol_tpu/ops/sparse.py:131",
                   k1_default["fwd_max_abs_err"], fwd_ms, fwd_plain_ms, fwd_bytes, k1_ops)
     fwd_row["repair_call"] = fwd_repair
+    fwd_row["offset_ms"] = fwd_off_ms  # task_offset (B1o), held bit for bit above
+    rev_row = row("candidates_reverse", SRC_K1, "protocol_tpu/ops/sparse.py:172",
+                  k1_default["rev_max_abs_err"], rev_ms, rev_plain_ms, rev_bytes, k1_ops)
+    rev_row["offset_ms"] = rev_off_ms
     rows = [
         fwd_row,
-        row("candidates_reverse", SRC_K1, "protocol_tpu/ops/sparse.py:172",
-            k1_default["rev_max_abs_err"], rev_ms, rev_plain_ms, rev_bytes, k1_ops),
+        rev_row,
         row("auction_phase", "protocol_tpu_torch/csrc/auction.cu",
             "protocol_tpu/ops/sparse.py:418", 0.0, k2_ms, k2_plain_ms, k2_bytes, k2_ops),
     ]

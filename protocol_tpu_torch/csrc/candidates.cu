@@ -19,7 +19,9 @@
 //            costs (lax.top_k's order); admitted costs are buffered and
 //            merged 16 at a time, and the lanes' lists are merged by
 //            shuffles, so that a few rows still fill the card. Writes
-//            [R, k], provider -1 where cost >= 5e8.
+//            [R, k], provider -1 where cost >= 5e8. A jitter offset
+//            (the reference's task_offset) shifts each task's jitter key,
+//            not the requirement row it reads.
 //   reverse  per provider, four threads each take a quarter of the task
 //            tiles: the first argmin of each tile goes to pool_t / pool_c
 //            [P, n_tiles]; then the pools are folded in tile order into a
@@ -30,6 +32,7 @@
 //            the pools are [P, n_tiles * rt] in tile order, and the fold
 //            takes their entries in that order: the stable top-r of
 //            concat(carry, tile's top-rt) per tile, the reference's step.
+//            It takes the same jitter offset as the forward launch.
 //            Blocks variant (k1_reverse_blocks; replaces parallel/sparse.py
 //            _build_repair_tile at rt = 1): one thread per flagged
 //            (provider, tile) block of a flat list, writing that block's
@@ -148,6 +151,7 @@ __global__ void __launch_bounds__(128) forward_rows_kernel(Prov prov, Req req, A
                                                            int P, int n_rows,
                                                            const int32_t* __restrict__ t_ids,
                                                            int K, int W, int k, int lanes,
+                                                           uint32_t offset,
                                                            int32_t* __restrict__ out_p,
                                                            float* __restrict__ out_c) {
   // every thread of a warp takes part in the shuffles: no early return
@@ -159,7 +163,7 @@ __global__ void __launch_bounds__(128) forward_rows_kernel(Prov prov, Req req, A
   int32_t bp[kMaxK];
   if (active) {
     const int t = t_ids[i];
-    const TaskRow tr = load_task(req, aux, t, K);
+    const TaskRow tr = load_task(req, aux, t, K, offset);
     const int part = (P + lanes - 1) / lanes;
     const int p0 = min(P, lane * part);
     walk_topk(prov, req, aux, w, tr, t, K, W, k, p0, min(P, p0 + part), bc, bp);
@@ -206,7 +210,8 @@ constexpr int kRows = 32;
 template <bool kMulti>
 __global__ void __launch_bounds__(kRows * kParts) reverse_kernel(
     Prov prov, Req req, Aux aux, Weights w, int P, int T, int K, int W, int tile, int r, int rt,
-    int32_t* pool_t, float* pool_c, int32_t* __restrict__ rev_t, float* __restrict__ rev_c) {
+    uint32_t offset, int32_t* pool_t, float* pool_c, int32_t* __restrict__ rev_t,
+    float* __restrict__ rev_c) {
   // pool_t / pool_c are written by every part and read back by part 0
   const int lane = threadIdx.x % kRows;
   const int part = threadIdx.x / kRows;
@@ -225,7 +230,7 @@ __global__ void __launch_bounds__(kRows * kParts) reverse_kernel(
         int32_t bt = -1;
         for (int j = 0; j < tile; ++j) {
           const int t = t0 + j;
-          const TaskRow tr = load_task(req, aux, t, K);
+          const TaskRow tr = load_task(req, aux, t, K, offset);
           const float c = cell_cost(pr, p, tr, t, req, K, W, w);
           if (c < best) {  // strict: the first index among ties
             best = c;
@@ -246,7 +251,7 @@ __global__ void __launch_bounds__(kRows * kParts) reverse_kernel(
         }
         for (int j = 0; j < tile; ++j) {
           const int t = t0 + j;
-          const TaskRow tr = load_task(req, aux, t, K);
+          const TaskRow tr = load_task(req, aux, t, K, offset);
           float c = cell_cost(pr, p, tr, t, req, K, W, w);
           int32_t ct = t;
           bool moved = false;
@@ -328,11 +333,12 @@ extern "C" int k1_limits(int* max_k, int* max_r, int* max_opts) {
 }
 
 // The forward walk for the n_rows global task ids t_ids, `lanes` threads
-// per row.
+// per row, the jitter keyed on (id + offset) mod 2^32.
 extern "C" int k1_forward_rows(const void* const* prov_cols, const void* const* req_cols, int P,
                                int T, int K, int W, float w_price, float w_load, float w_prox,
                                float w_prio, int k, const int32_t* t_ids, int n_rows, int lanes,
-                               float* aux, int32_t* out_p, float* out_c, void* stream) {
+                               unsigned int offset, float* aux, int32_t* out_p, float* out_c,
+                               void* stream) {
   if (k < 1 || k > kMaxK || K > kMaxOpts || k > P || n_rows < 1 || lanes < 1 || lanes > 32 ||
       (lanes & (lanes - 1)) != 0)
     return (int)cudaErrorInvalidValue;
@@ -343,16 +349,17 @@ extern "C" int k1_forward_rows(const void* const* prov_cols, const void* const* 
   const Req req = make_req(req_cols);
   launch_prep(prov, req, w, P, T, aux, (cudaStream_t)stream);
   forward_rows_kernel<<<(int)((total + threads - 1) / threads), threads, 0, (cudaStream_t)stream>>>(
-      prov, req, make_aux(aux, P, T), w, P, n_rows, t_ids, K, W, k, lanes, out_p, out_c);
+      prov, req, make_aux(aux, P, T), w, P, n_rows, t_ids, K, W, k, lanes, offset, out_p, out_c);
   return (int)cudaGetLastError();
 }
 
 // rt tasks per tile (1 <= rt <= r, rt <= tile, n_tiles * rt >= r): pools
-// [P, n_tiles * rt].
+// [P, n_tiles * rt]; the jitter keyed on (task id + offset) mod 2^32.
 extern "C" int k1_reverse(const void* const* prov_cols, const void* const* req_cols, int P,
                           int T, int K, int W, float w_price, float w_load, float w_prox,
-                          float w_prio, int tile, int r, int rt, float* aux, int32_t* pool_t,
-                          float* pool_c, int32_t* rev_t, float* rev_c, void* stream) {
+                          float w_prio, int tile, int r, int rt, unsigned int offset, float* aux,
+                          int32_t* pool_t, float* pool_c, int32_t* rev_t, float* rev_c,
+                          void* stream) {
   if (r < 1 || r > kMaxR || K > kMaxOpts || tile < 1 || T % tile != 0 || rt < 1 || rt > r ||
       rt > tile || (T / tile) * rt < r)
     return (int)cudaErrorInvalidValue;
@@ -365,10 +372,10 @@ extern "C" int k1_reverse(const void* const* prov_cols, const void* const* req_c
   launch_prep(prov, req, w, P, T, aux, (cudaStream_t)stream);
   if (rt == 1)
     reverse_kernel<false><<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        prov, req, ax, w, P, T, K, W, tile, r, 1, pool_t, pool_c, rev_t, rev_c);
+        prov, req, ax, w, P, T, K, W, tile, r, 1, offset, pool_t, pool_c, rev_t, rev_c);
   else
     reverse_kernel<true><<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        prov, req, ax, w, P, T, K, W, tile, r, rt, pool_t, pool_c, rev_t, rev_c);
+        prov, req, ax, w, P, T, K, W, tile, r, rt, offset, pool_t, pool_c, rev_t, rev_c);
   return (int)cudaGetLastError();
 }
 

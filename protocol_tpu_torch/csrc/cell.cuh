@@ -9,7 +9,10 @@
 //
 // Jitter is keyed on the global provider and task ids the caller passes
 // (a kernel that walks a gathered subset reads its columns at the global
-// ids), so a subset lands on the exact cells of the full pass.
+// ids), so a subset lands on the exact cells of the full pass. A task's
+// jitter key may be shifted by a runtime offset (the candidate launches'
+// task_offset: delta batches generated under a persistent cursor), added
+// once where the task row is loaded.
 
 #pragma once
 
@@ -75,6 +78,7 @@ struct ProvRow {
 
 // One requirement's scalar columns, with its per-row terms hoisted.
 struct TaskRow {
+  uint32_t jkey;  // the jitter's task key: (row id + offset) mod 2^32
   int32_t cores, ram, storage;
   bool cpu_required, any_opt, has_loc, valid;
   float lat, lon, coslat, prio;
@@ -116,8 +120,10 @@ __device__ __forceinline__ ProvRow load_prov(const Prov& P, const Aux& x, int p)
   return r;
 }
 
-__device__ __forceinline__ TaskRow load_task(const Req& R, const Aux& x, int t, int K) {
+__device__ __forceinline__ TaskRow load_task(const Req& R, const Aux& x, int t, int K,
+                                             uint32_t jitter_offset = 0) {
   TaskRow r;
+  r.jkey = (uint32_t)t + jitter_offset;
   r.cores = R.cpu_cores[t];
   r.ram = R.ram_mb[t];
   r.storage = R.storage_gb[t];
@@ -197,8 +203,9 @@ __device__ __forceinline__ bool compat(const ProvRow& p, const TaskRow& t, const
 
 // The exact cost of cell (p, t): cost_matrix's terms in its order,
 // INFEASIBLE off the mask, plus tie_jitter on feasible cells when kJitter
-// (the candidate, repair and dense auction kernels); without it for the
-// swarm phase's argmin (dense.cu), which the reference scores unjittered.
+// (the candidate, repair and dense auction kernels), keyed on provider id
+// pi and the task's jkey; without it for the swarm phase's argmin
+// (dense.cu), which the reference scores unjittered.
 template <bool kJitter = true>
 __device__ __forceinline__ float cell_cost(const ProvRow& p, int pi, const TaskRow& t, int ti,
                                            const Req& R, int K, int W, const Weights& w) {
@@ -219,7 +226,7 @@ __device__ __forceinline__ float cell_cost(const ProvRow& p, int pi, const TaskR
   cost = __fadd_rn(cost, near);
   cost = __fsub_rn(cost, t.prio);
   if (kJitter && cost < kHalfInfeasible) {
-    const uint32_t h = ((uint32_t)pi * 2654435761u) ^ ((uint32_t)ti * 40503u);
+    const uint32_t h = ((uint32_t)pi * 2654435761u) ^ (t.jkey * 40503u);
     cost = __fadd_rn(cost, __fmul_rn((float)(h & 1023u), 1e-7f));
   }
   return cost;

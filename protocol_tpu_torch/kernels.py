@@ -51,6 +51,7 @@ BUILD_LOG: dict[str, str] = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_U = ctypes.c_uint
 
 
 def reset_launches() -> None:
@@ -113,10 +114,10 @@ def _lib(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_lib_path(name)))
         if name == "candidates":
             lib.k1_reverse.argtypes = [
-                _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _I, _I, _U, _P, _P, _P, _P, _P, _P,
             ]
             lib.k1_forward_rows.argtypes = [
-                _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P, _I, _I, _P, _P, _P, _P,
+                _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P, _I, _I, _U, _P, _P, _P, _P,
             ]
             lib.k1_reverse_blocks.argtypes = [
                 _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P, _P, _I, _P, _P, _P, _P,
@@ -214,11 +215,22 @@ def _k1_setup(ep, er, weights):
     return dev, pcols, rcols, shape, w, aux
 
 
-def candidates_reverse(ep, er, weights, tile: int, r: int, rt: int):
+def jitter_offset(offset: int) -> int:
+    """The jitter offset as K1 takes it, a uint32: ``offset`` mod 2^32.
+    An offset outside the int32 range is refused with OverflowError, as
+    the reference's jitted call refuses it."""
+    offset = int(offset)
+    if not -(1 << 31) <= offset < (1 << 31):
+        raise OverflowError(f"jitter offset {offset} does not fit in int32")
+    return offset & 0xFFFFFFFF
+
+
+def candidates_reverse(ep, er, weights, tile: int, r: int, rt: int, offset: int = 0):
     """K1, reverse launch (``csrc/candidates.cu``): each tile's stable
     top-rt tasks per provider (the pools), folded into each provider's
-    best r. Returns (rev_t [P, r] unmasked, rev_c, pool_t [P, n_tiles *
-    rt], pool_c)."""
+    best r, the jitter keyed on (task id + ``offset``) mod 2^32. Returns
+    (rev_t [P, r] unmasked, rev_c, pool_t [P, n_tiles * rt], pool_c)."""
+    offset = jitter_offset(offset)
     dev, pcols, rcols, (P, T, K, W), w, aux = _k1_setup(ep, er, weights)
     if not 1 <= r <= 8 or tile < 1 or T % tile != 0:
         raise ValueError(f"K1 reverse takes r <= 8 and T % tile == 0 (r={r}, T={T}, tile={tile})")
@@ -231,7 +243,7 @@ def candidates_reverse(ep, er, weights, tile: int, r: int, rt: int):
     rev_t = torch.empty((P, r), dtype=torch.int32, device=dev)
     rev_c = torch.empty((P, r), dtype=torch.float32, device=dev)
     _check(_lib("candidates").k1_reverse(
-        pcols, rcols, P, T, K, W, *w, tile, r, rt, aux.data_ptr(),
+        pcols, rcols, P, T, K, W, *w, tile, r, rt, offset, aux.data_ptr(),
         pool_t.data_ptr(), pool_c.data_ptr(), rev_t.data_ptr(), rev_c.data_ptr(),
         _stream(pool_t),
     ), "candidates_reverse")
@@ -301,14 +313,18 @@ def _ids(ids: torch.Tensor, n: int, dev, what: str) -> torch.Tensor:
 ROWS_TARGET_THREADS = 65_536
 
 
-def candidates_forward_rows(ep, er, weights, k: int, t_ids: torch.Tensor, lanes: int | None = None):
+def candidates_forward_rows(ep, er, weights, k: int, t_ids: torch.Tensor,
+                            lanes: int | None = None, offset: int = 0):
     """K1, forward launch (``csrc/candidates.cu``): the k cheapest
-    providers of each task in ``t_ids`` (global ids, also the jitter's),
-    (p [R, k] i32, c [R, k] f32), row i for task t_ids[i]. Each row is
-    walked by ``lanes`` threads (a power of two <= 32; by default the least
-    that brings R x lanes to :data:`ROWS_TARGET_THREADS`)."""
+    providers of each task in ``t_ids`` (global ids; the jitter is keyed
+    on (id + ``offset``) mod 2^32), (p [R, k] i32, c [R, k] f32), row i for
+    task t_ids[i]. Each row is walked by ``lanes`` threads (a power of two
+    <= 32; by default the least that brings R x lanes to
+    :data:`ROWS_TARGET_THREADS`)."""
     if not 1 <= k <= 64 or k > ep.num:
-        raise ValueError(f"K1 forward takes 1 <= k <= min(64, P), got k={k}")
+        raise ValueError(f"K1 forward takes 1 <= k <= min(64, P) candidates a task, "
+                         f"got k={k} with P={ep.num}")
+    offset = jitter_offset(offset)
     dev, pcols, rcols, (P, T, K, W), w, aux = _k1_setup(ep, er, weights)
     t_ids = _ids(t_ids, T, dev, "candidates_forward_rows")
     R = t_ids.numel()
@@ -319,7 +335,7 @@ def candidates_forward_rows(ep, er, weights, k: int, t_ids: torch.Tensor, lanes:
     out_p = torch.empty((R, k), dtype=torch.int32, device=dev)
     out_c = torch.empty((R, k), dtype=torch.float32, device=dev)
     _check(_lib("candidates").k1_forward_rows(
-        pcols, rcols, P, T, K, W, *w, k, t_ids.data_ptr(), R, lanes,
+        pcols, rcols, P, T, K, W, *w, k, t_ids.data_ptr(), R, lanes, offset,
         aux.data_ptr(), out_p.data_ptr(), out_c.data_ptr(), _stream(out_p),
     ), "candidates_forward_rows")
     LAUNCHES["candidates_forward_rows"] += 1

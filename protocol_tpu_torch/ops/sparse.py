@@ -1,5 +1,8 @@
 """Sparse (top-K candidate) assignment (``protocol_tpu/ops/sparse.py``).
 
+  candidates_topk
+        one pass over the [P, T] cost in task tiles: each task's k cheapest
+        providers (the candidate cache's delta passes).
   candidates_topk_reverse
         one pass over the [P, T] cost in task tiles, never materialising
         [P, T]: each task's k cheapest providers (forward lists) and each
@@ -14,6 +17,14 @@
   assign_auction_sparse_warm
         the delta-frontier auction from carried duals (prices, matching,
         retirement): one fine-eps phase through the same kernel K2.
+  assign_auction_sparse, assign_topk
+        one auction phase at a fixed eps; candidates_topk followed by it.
+
+The candidate passes take the reference's ``task_offset``: the jitter's
+task key is (row + task_offset) mod 2^32 while the requirement row read
+stays the row, so delta batches generated under a persistent cursor stay
+decorrelated. Its ``provider_offset`` (a selection bias) is not ported
+and raises.
 
 Three functions hold hand kernels for Hopper (``csrc/``); each dispatches
 on the device of its inputs, with no fallback:
@@ -64,20 +75,21 @@ def frontier_bids(cand_safe, value_base, price, f_idx, f_ok, num_options: int):
     return p1, v1, v2
 
 
-def _jittered_tile_cost(ep, er, weights, t0: int, tile: int):
-    """The jittered [P, tile] cost block of tasks [t0, t0 + tile)."""
+def _jittered_tile_cost(ep, er, weights, t0: int, tile: int, task_offset: int = 0):
+    """The jittered [P, tile] cost block of tasks [t0, t0 + tile), the
+    jitter keyed on task t0 + j + task_offset."""
     P = ep.gpu_count.shape[0]
     r_tile = slice_requirements(er, t0, tile)
     cost, _mask = cost_matrix(ep, r_tile, weights)  # [P, tile]
-    jitter = tie_jitter(P, tile, task_offset=t0, device=cost.device)
+    jitter = tie_jitter(P, tile, task_offset=t0 + task_offset, device=cost.device)
     return torch.where(cost < INFEASIBLE * 0.5, cost + jitter, cost)
 
 
-def _forward_tile_select(ep, er, weights, t0: int, tile: int, k: int):
+def _forward_tile_select(ep, er, weights, t0: int, tile: int, k: int, task_offset: int = 0):
     """One [P, tile] step of forward candidate selection. Returns
     (provider [tile, k], true cost_k [tile, k], the jittered [P, tile]
     cost block)."""
-    cost = _jittered_tile_cost(ep, er, weights, t0, tile)
+    cost = _jittered_tile_cost(ep, er, weights, t0, tile, task_offset)
     # lax.top_k(-cost.T, k): the k smallest, lower index first among ties
     idx = _smallest_stable(cost.T, k)
     cost_k = torch.gather(cost.T, 1, idx)
@@ -91,14 +103,15 @@ def _smallest_stable(c: torch.Tensor, n: int) -> torch.Tensor:
     return torch.sort(c, dim=1, stable=True).indices[:, :n]
 
 
-def _forward_plain(ep, er, weights, k: int, tile: int):
+def _forward_plain(ep, er, weights, k: int, tile: int, task_offset: int = 0):
     """Plain torch version of K1's forward launch: (fwd_p, fwd_c) [T, k]."""
     T = er.cpu_cores.shape[0]
-    parts = [_forward_tile_select(ep, er, weights, t0, tile, k)[:2] for t0 in range(0, T, tile)]
+    parts = [_forward_tile_select(ep, er, weights, t0, tile, k, task_offset)[:2]
+             for t0 in range(0, T, tile)]
     return torch.cat([p for p, _ in parts]), torch.cat([c for _, c in parts])
 
 
-def _reverse_plain(ep, er, weights, tile: int, r: int, rt: int):
+def _reverse_plain(ep, er, weights, tile: int, r: int, rt: int, task_offset: int = 0):
     """Plain torch version of K1's reverse launch: per tile, each
     provider's rt cheapest tasks (the pools, first index among ties),
     folded into a running best r where the carry wins ties. Returns
@@ -110,7 +123,7 @@ def _reverse_plain(ep, er, weights, tile: int, r: int, rt: int):
     rev_t = torch.full((P, r), -1, dtype=torch.int32, device=dev)
     pool_t, pool_c = [], []
     for t0 in range(0, T, tile):
-        cost = _jittered_tile_cost(ep, er, weights, t0, tile)
+        cost = _jittered_tile_cost(ep, er, weights, t0, tile, task_offset)
         tid = t0 + torch.arange(tile, dtype=torch.int32, device=dev)
         if rt == 1:
             j = torch.argmin(cost, dim=1)[:, None]  # first index among ties
@@ -128,28 +141,85 @@ def _reverse_plain(ep, er, weights, tile: int, r: int, rt: int):
     return rev_t, rev_c, torch.cat(pool_t, dim=1), torch.cat(pool_c, dim=1)
 
 
-def candidates_forward(ep, er, weights, k: int, tile: int):
+def candidates_forward(ep, er, weights, k: int, tile: int, task_offset: int = 0):
     """Each task's k cheapest providers, lower index first among ties:
     (fwd_p [T, k] i32 with -1 where infeasible, fwd_c [T, k]). On a CUDA
     tensor this is K1's forward launch over every task id (one to 32
     lanes per task), else :func:`_forward_plain`."""
+    from protocol_tpu_torch import kernels
+
+    kernels.jitter_offset(task_offset)  # refuses what does not fit in int32
     if ep.gpu_count.is_cuda:
-        from protocol_tpu_torch import kernels
-
         ids = torch.arange(er.num, dtype=torch.int32, device=ep.gpu_count.device)
-        return kernels.candidates_forward_rows(ep, er, weights, k, ids)
-    return _forward_plain(ep, er, weights, k, tile)
+        return kernels.candidates_forward_rows(ep, er, weights, k, ids, offset=task_offset)
+    return _forward_plain(ep, er, weights, k, tile, task_offset)
 
 
-def candidates_reverse(ep, er, weights, tile: int, r: int, rt: int):
+def candidates_reverse(ep, er, weights, tile: int, r: int, rt: int, task_offset: int = 0):
     """The tile-pooled reverse selection: (rev_t, rev_c, pool_t, pool_c).
     On a CUDA tensor this is K1's reverse launch, else
     :func:`_reverse_plain`."""
-    if ep.gpu_count.is_cuda:
-        from protocol_tpu_torch import kernels
+    from protocol_tpu_torch import kernels
 
-        return kernels.candidates_reverse(ep, er, weights, tile=tile, r=r, rt=rt)
-    return _reverse_plain(ep, er, weights, tile, r, rt)
+    kernels.jitter_offset(task_offset)
+    if ep.gpu_count.is_cuda:
+        return kernels.candidates_reverse(ep, er, weights, tile=tile, r=r, rt=rt,
+                                          offset=task_offset)
+    return _reverse_plain(ep, er, weights, tile, r, rt, task_offset)
+
+
+def _refuse_unported(provider_offset, approx_recall) -> None:
+    if provider_offset is not None:
+        raise NotImplementedError(
+            "provider_offset (a selection bias) is not ported yet "
+            "(ROADMAP.md queue B, B1o bias (Bk))"
+        )
+    if approx_recall is not None:
+        raise NotImplementedError(
+            "approx_recall: lax.approx_max_k (the TPU's PartialReduce) has "
+            "no Hopper counterpart; the port selects exactly"
+        )
+
+
+def _tiles(T: int, tile: int) -> int:
+    if T % tile != 0:
+        raise ValueError(f"T={T} not divisible by tile={tile}; pad requirements")
+    return T // tile
+
+
+def candidates_topk(
+    ep: EncodedProviders,
+    er: EncodedRequirements,
+    weights: CostWeights | None = None,
+    k: int = 64,
+    tile: int = 1024,
+    provider_offset: torch.Tensor | None = None,
+    task_offset: int = 0,
+    approx_recall: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each task's top-k cheapest compatible providers (k clamped to P):
+    (cand_provider i32 [T, k] with -1 padding, cand_cost f32 [T, k]). T
+    must be divisible by ``tile``. ``task_offset`` shifts the jitter's
+    task index (a delta batch's persistent cursor). On a CUDA tensor this
+    is K1's forward launch (``csrc/candidates.cu``)."""
+    _refuse_unported(provider_offset, approx_recall)
+    if weights is None:
+        weights = CostWeights()
+    _tiles(er.cpu_cores.shape[0], tile)
+    k = min(k, int(ep.gpu_count.shape[0]))
+    return candidates_forward(ep, er, weights, k, tile, task_offset)
+
+
+def reverse_candidates(ep, er, weights, tile: int, reverse_r: int, task_offset: int = 0):
+    """The reverse half of :func:`candidates_topk_reverse`: each provider's
+    best ``reverse_r`` tasks from per-tile pools of ceil(r / n_tiles)
+    tasks. Returns (rev_t [P, r] with -1 where infeasible, rev_c [P, r],
+    pool_t, pool_c)."""
+    n_tiles = _tiles(er.cpu_cores.shape[0], tile)
+    r = min(reverse_r, er.cpu_cores.shape[0])
+    rt = max(1, -(-r // n_tiles))  # per-tile contribution (ceil div)
+    rev_t, rev_c, pool_t, pool_c = candidates_reverse(ep, er, weights, tile, r, rt, task_offset)
+    return torch.where(rev_c < INFEASIBLE * 0.5, rev_t, -1), rev_c, pool_t, pool_c
 
 
 def candidates_topk_reverse(
@@ -159,6 +229,8 @@ def candidates_topk_reverse(
     k: int = 64,
     tile: int = 1024,
     reverse_r: int = 8,
+    provider_offset: torch.Tensor | None = None,
+    task_offset: int = 0,
     approx_recall: float | None = None,
     with_pools: bool = False,
 ):
@@ -172,26 +244,16 @@ def candidates_topk_reverse(
     rev_t [P,r] i32 with -1 padding, rev_c [P,r]) and, with
     ``with_pools``, (pool_t, pool_c) [P, n_tiles*rt] in tile order.
 
-    On a CUDA tensor this is kernel K1 (``csrc/candidates.cu``).
+    On a CUDA tensor this is kernel K1 (``csrc/candidates.cu``), both
+    launches keyed on ``task_offset``.
     """
-    if approx_recall is not None:
-        raise NotImplementedError(
-            "approx_recall: lax.approx_max_k (the TPU's PartialReduce) has "
-            "no Hopper counterpart; the port selects exactly"
-        )
     if weights is None:
         weights = CostWeights()
-    T = er.cpu_cores.shape[0]
-    if T % tile != 0:
-        raise ValueError(f"T={T} not divisible by tile={tile}; pad requirements")
-    n_tiles = T // tile
-    P = ep.gpu_count.shape[0]
-    k = min(k, int(P))
-    r = min(reverse_r, T)
-    rt = max(1, -(-r // n_tiles))  # per-tile contribution (ceil div)
-    fwd_p, fwd_c = candidates_forward(ep, er, weights, k, tile)
-    rev_t, rev_c, pool_t, pool_c = candidates_reverse(ep, er, weights, tile, r, rt)
-    rev_t = torch.where(rev_c < INFEASIBLE * 0.5, rev_t, -1)
+    fwd_p, fwd_c = candidates_topk(
+        ep, er, weights, k=k, tile=tile, provider_offset=provider_offset,
+        task_offset=task_offset, approx_recall=approx_recall,
+    )
+    rev_t, rev_c, pool_t, pool_c = reverse_candidates(ep, er, weights, tile, reverse_r, task_offset)
     res = (fwd_p, fwd_c, rev_t, rev_c)
     if with_pools:
         res = res + (pool_t, pool_c)
@@ -402,6 +464,43 @@ def _sparse_auction_phase(
         cand_safe, value_base, task_feasible, give_up, state,
         P, eps, max_iters, B, stall_limit,
     )
+
+
+def assign_auction_sparse(
+    cand_provider: torch.Tensor,
+    cand_cost: torch.Tensor,
+    num_providers: int,
+    eps: float = 0.01,
+    max_iters: int = 10000,
+    frontier: int = 4096,
+    retire: bool = True,
+) -> AssignResult:
+    """The frontier auction on the candidate graph at one eps, from
+    scratch duals: one :func:`_sparse_auction_phase` (K2 on a card), no
+    stall breaker. ``frontier >= T`` with ``retire=False`` is the dense
+    Jacobi schedule."""
+    state, _stall = _sparse_auction_phase(
+        cand_provider, cand_cost, num_providers, None,
+        eps=eps, max_iters=max_iters, frontier=frontier, retire=retire,
+    )
+    p4t = state[3]
+    return AssignResult(p4t, _invert(p4t, num_providers))
+
+
+def assign_topk(
+    ep: EncodedProviders,
+    er: EncodedRequirements,
+    weights: CostWeights | None = None,
+    k: int = 64,
+    tile: int = 1024,
+    eps: float = 0.01,
+    max_iters: int = 1000,
+) -> AssignResult:
+    """The forward-only sparse pipeline: :func:`candidates_topk` then
+    :func:`assign_auction_sparse`."""
+    cand_p, cand_c = candidates_topk(ep, er, weights, k=k, tile=tile)
+    return assign_auction_sparse(cand_p, cand_c, num_providers=ep.num, eps=eps,
+                                 max_iters=max_iters)
 
 
 def _unassign_unhappy(cand_provider, cand_cost, price, owner, p4t, eps_next):

@@ -21,15 +21,24 @@ with ``ops/binpack.py::assign_binpack_ffd`` (K11 on a card).
 Phase 1 routes:
   ``native_engine="native"`` (the default): the dense auction for pools
       with p_bucket x s_bucket <= ``dense_cell_budget``
-      (:func:`solve_bounded`: K6 then K7 on a card);
+      (:func:`solve_bounded`: K6 then K7 on a card); above it the sparse
+      top-k route (``kernel == "sparse_topk"``):
+      - with ``warm_start`` (the default) over the persistent
+        :class:`~protocol_tpu_torch.sched.cand_cache.CandidateCache`,
+        which owns the provider rows (phases 0, 0.5 and 2 run over them,
+        dead rows invalid): its delta passes (K1 under the cache's jitter
+        cursor), then the warm auction from the carried prices, matching
+        and retirement (K2, K9), or the eps-scaled ladder when cold;
+      - without it, stateless: bidirectional candidates through the
+        :class:`~protocol_tpu_torch.sched.cand_cache.CandidateMemo` (K1)
+        and the scaled ladder (K2, K9);
   ``native_engine="torch"`` / ``"torch:1"``: every size through one
       persistent :class:`~protocol_tpu_torch.parallel.torch_arena.
       TorchSolveArena` (the twin of the reference's ``"jax[:D]"``).
 Phase 2 is :func:`solve_unbounded` (K8 on a card).
 
 What the port does not carry yet raises ``NotImplementedError`` naming
-its ROADMAP.md item, never a silently different solve: the candidate-cache
-and stateless sparse routes above the dense budget, node groups, the
+its ROADMAP.md item, never a silently different solve: node groups, the
 reference's native C++ engines, multi-card engines, ``approx_recall``, and
 the trace and profile hooks.
 """
@@ -58,8 +67,17 @@ from protocol_tpu_torch.ops.encoding import (
     providers_from_numpy,
     requirements_from_numpy,
 )
-from protocol_tpu_torch.ops.sparse import candidates_forward
-from protocol_tpu_torch.sched.cand_cache import CandidateMemo
+from protocol_tpu_torch.ops.sparse import (
+    assign_auction_sparse_scaled,
+    assign_auction_sparse_warm,
+    candidates_forward,
+)
+from protocol_tpu_torch.sched.cand_cache import (
+    CandidateCache,
+    CandidateMemo,
+    ProviderItem,
+    TaskItem,
+)
 from protocol_tpu_torch.store.node_store import NodeStatus
 
 # compared by value, so either package's NodeStatus (a str enum) passes
@@ -200,8 +218,12 @@ def solve_unbounded(ep, er, weights) -> torch.Tensor:
 class TorchBatchMatcher:
     """The reference's ``TpuBatchMatcher`` on one card: the same
     constructor arguments, names and defaults, plus ``device``.
-    ``warm_start`` and ``native_threads`` are taken for the reference's
-    signature: only its unported routes read them."""
+    ``native_threads`` is taken for the reference's signature: only its
+    unported native engines read it."""
+
+    # the candidate cache is an in-process structure; a matcher whose
+    # candidates live behind a wire turns it off
+    use_candidate_cache = True
 
     def __init__(
         self,
@@ -260,9 +282,25 @@ class TorchBatchMatcher:
         # [providers x slots] cost cells up to which phase 1 solves dense:
         # 2^24 cells = 64 MB f32
         self.dense_cell_budget = dense_cell_budget
-        self.top_k = top_k  # candidates per slot of phases 0 and 0.5
-        self._cand_memo = CandidateMemo()
+        self.top_k = top_k  # candidates per slot of the sparse route and phases 0, 0.5
+        # carry auction prices and the previous matching across solves, so
+        # population churn re-bids only the delta frontier
+        self.warm_start = warm_start
+        self._warm_price_by_addr: dict[str, float] = {}
+        # retirement mask carried between warm solves, keyed to the slot
+        # layout it was computed under (see _solve_slots_cached)
+        self._warm_retired: np.ndarray | None = None
+        self._warm_retired_fp: tuple | None = None
+        # claim-masked slot rows (phases 0 and 0.5) of the current and the
+        # previous solve: both dirty the carried retirement mask
+        self._claim_rows_now: np.ndarray | None = None
+        self._claim_rows_prev: np.ndarray | None = None
+        # the schedule backstop of the warm chain: forward auctions never
+        # lower prices, so after cold_every warm solves the cache and the
+        # prices are re-grounded
         self.cold_every = 256
+        self._warm_solves_since_cold = 0
+        self._cand_memo = CandidateMemo()
         self.native_engine = native_engine
         self._arena_engine = name == "torch"
         self._native_arena = None
@@ -278,6 +316,10 @@ class TorchBatchMatcher:
         # and makes (_assignment, _covered) swaps atomic
         self._solve_lock = threading.Lock()
         self.encoder = FeatureEncoder()
+        self._cache = CandidateCache(self.encoder, self.weights, k=top_k, device=self.device)
+        self._last_warm_used = False
+        self._last_warm_seeded = 0
+        self._last_stall: dict = {}
         self.last_solve_stats: dict = {}
         self._solve_seq = 0
         # per-solve counters of phases 0 and 0.5
@@ -355,6 +397,140 @@ class TorchBatchMatcher:
         seated = p4s >= 0
         t4p[p4s[seated]] = np.flatnonzero(seated)
         return t4p
+
+    def _tensor(self, a: np.ndarray) -> torch.Tensor:
+        """A copy of a host array on the matcher's device."""
+        return torch.tensor(a, device=self.device)
+
+    def _warm_gate(self, seeded: int, rebuilt: bool = False) -> bool:
+        """Warm eligibility and the periodic-cold counter, for both sparse
+        routes."""
+        warm = (
+            self.warm_start
+            and seeded > 0
+            and not rebuilt
+            and self._warm_solves_since_cold < self.cold_every
+        )
+        if warm:
+            self._warm_solves_since_cold += 1
+        else:
+            self._warm_solves_since_cold = 0
+        return warm
+
+    def _seed_slots(self, p4s0: np.ndarray, row_of_addr: dict, tasks, bounded, slot_range) -> int:
+        """Seat the previous solve's holders back into their task's replica
+        slots (rows in ``row_of_addr``'s space). Seeds that no longer meet
+        eps-CS are evicted by the warm auction's repair. Returns the seeds."""
+        tidx_by_id = {tasks[i].id: i for i, _ in bounded}
+        prev_by_task: dict[int, list[int]] = {}
+        for addr, tid in self._assignment.items():
+            row = row_of_addr.get(addr)
+            i = tidx_by_id.get(tid)
+            if row is not None and i is not None and i in slot_range:
+                prev_by_task.setdefault(i, []).append(row)
+        for i, holders in prev_by_task.items():
+            start, take = slot_range[i]
+            for j, row in enumerate(holders[:take]):
+                p4s0[start + j] = row
+        return int((p4s0 >= 0).sum())
+
+    def _sparse_solve(self, cand_p, cand_c, num_providers: int, warm: bool, price0, p4t0,
+                      stats_out=None, retired0=None):
+        """Phase 1's sparse solve on one card: the warm auction from the
+        carried duals, else the eps-scaled ladder. Returns (result,
+        prices, retired)."""
+        if warm:
+            return assign_auction_sparse_warm(
+                cand_p, cand_c, num_providers, price0=price0, p4t0=p4t0,
+                stats_out=stats_out, retired0=retired0, with_state=True,
+            )
+        return assign_auction_sparse_scaled(
+            cand_p, cand_c, num_providers, stats_out=stats_out, with_state=True
+        )
+
+    def _bounded_t4p_sparse(self, ep, er, price0: np.ndarray, p4s0: np.ndarray,
+                            warm: bool) -> tuple[np.ndarray, np.ndarray]:
+        """The stateless sparse route: bidirectional candidates (memoised on
+        the encoded bytes; K1 on a card), then the auction. Returns (slot
+        per provider [P_pad], prices [P_pad])."""
+        cand_p, cand_c = self._cand_memo.get(
+            ep, er, self.weights, k=self.top_k, tile=min(1024, er.num), reverse_r=8, extra=16,
+        )
+        res, price, _retired = self._sparse_solve(
+            cand_p, cand_c, ep.num, warm, self._tensor(price0), self._tensor(p4s0)
+        )
+        return res.task_for_provider.cpu().numpy(), price.cpu().numpy()
+
+    def _solve_slots_stateless(self, ep, er, addrs, tasks, bounded, slot_range,
+                               p_bucket: int, s_bucket: int) -> tuple[np.ndarray, bool, int]:
+        """Phase 1 on the stateless sparse route: with ``warm_start`` the
+        prices (by address) and the matching of the previous solve seed it.
+        Returns (slot per provider [P], warm, seeds)."""
+        P = len(addrs)
+        price0 = np.zeros(p_bucket, np.float32)
+        p4s0 = np.full(s_bucket, -1, np.int32)
+        seeded = 0
+        if self.warm_start:
+            get_price = self._warm_price_by_addr.get
+            price0[:P] = np.fromiter((get_price(a, 0.0) for a in addrs), np.float32, count=P)
+            seeded = self._seed_slots(
+                p4s0, {a: i for i, a in enumerate(addrs)}, tasks, bounded, slot_range
+            )
+        warm = self._warm_gate(seeded)
+        t4p, price = self._bounded_t4p_sparse(ep, er, price0, p4s0, warm=warm)
+        if self.warm_start:
+            self._warm_price_by_addr = dict(zip(addrs, np.asarray(price[:P], np.float64).tolist()))
+        return t4p[:P], warm, seeded
+
+    def _solve_slots_cached(self, prepared, tasks, bounded, slot_range) -> np.ndarray:
+        """Phase 1 over the candidate cache: the warm auction when seeds
+        exist, the scaled ladder otherwise; the prices go back to the cache
+        by row, so the next solve re-bids only its delta."""
+        p4s0 = np.full(prepared.cand_p.shape[0], -1, np.int32)
+        seeded = self._seed_slots(p4s0, prepared.row_of_addr, tasks, bounded, slot_range)
+        warm = self._warm_gate(seeded, rebuilt=prepared.rebuilt)
+        # the retirement carry holds only while the slot layout (task ids ->
+        # slot ranges) is unchanged
+        slot_fp = (
+            tuple(sorted((tasks[i].id,) + tuple(slot_range[i]) for i, _ in bounded)),
+            int(p4s0.shape[0]),
+        )
+        retired0 = None
+        if warm and self._warm_retired is not None and self._warm_retired_fp == slot_fp:
+            carried = np.asarray(self._warm_retired)
+            if prepared.dirty_slots is None:
+                carried = None  # unknown provenance: drop the whole mask
+            else:
+                # rows whose candidates changed are cleared (the warm
+                # auction's contract); claim masking of this solve and the
+                # last edits lists after the cache compared them
+                dirty = prepared.dirty_slots.copy()
+                for claim_rows in (self._claim_rows_now, self._claim_rows_prev):
+                    if claim_rows is not None:
+                        if claim_rows.shape == dirty.shape:
+                            dirty |= claim_rows
+                        else:
+                            carried = None
+                if carried is not None and dirty.shape == carried.shape:
+                    carried = carried & ~dirty
+                else:
+                    carried = None
+            if carried is not None:
+                retired0 = self._tensor(carried)
+        self._claim_rows_prev = self._claim_rows_now
+        stall_stats: dict = {}
+        res, price, retired = self._sparse_solve(
+            self._tensor(prepared.cand_p), self._tensor(prepared.cand_c), prepared.p_bucket,
+            warm, self._tensor(prepared.price0), self._tensor(p4s0),
+            stats_out=stall_stats, retired0=retired0,
+        )
+        self._cache.store_prices(price.cpu().numpy())
+        self._warm_retired = retired.cpu().numpy()
+        self._warm_retired_fp = slot_fp
+        self._last_warm_used = warm
+        self._last_warm_seeded = seeded
+        self._last_stall = stall_stats
+        return res.task_for_provider.cpu().numpy()[: prepared.num_rows]
 
     def _gather_rows(self, ep, rows: np.ndarray):
         """The provider rows ``rows`` (sorted global ids) as new columns,
@@ -643,12 +819,14 @@ class TorchBatchMatcher:
 
         # ---- replica-slot expansion for bounded tasks (host-side)
         slot_task: list[int] = []
+        slot_range: dict[int, tuple[int, int]] = {}  # task idx -> (start, n)
         req_by_task: dict[int, ComputeRequirements] = {}
         if bounded:
             req_by_task = {i: task_requirements(tasks[i]) for i, _ in bounded}
             slot_cap = self.max_replica_slots
             for i, r in bounded:
                 take = min(min(r, P), slot_cap - len(slot_task))
+                slot_range[i] = (len(slot_task), take)
                 slot_task.extend([i] * take)
                 if len(slot_task) >= slot_cap:
                     break
@@ -662,29 +840,65 @@ class TorchBatchMatcher:
                     self.max_replica_slots,
                     truncated_slots,
                 )
-        s_bucket = _pow2_bucket(len(slot_task)) if slot_task else 0
-        if slot_task and not self._arena_engine and p_bucket * s_bucket > self.dense_cell_budget:
-            self._dirty = True
-            raise _not_ported(
-                f"the default route above dense_cell_budget ({p_bucket} x {s_bucket} "
-                f"cells > {self.dense_cell_budget}: the CandidateCache and stateless "
-                "sparse routes)",
-                "queue A, M1",
-            )
         self._last_arena_stats = {}
+        self._claim_rows_now = None  # set by the claim masking below
+        s_bucket = _pow2_bucket(len(slot_task)) if slot_task else 0
+        use_sparse = (
+            bool(slot_task) and not self._arena_engine
+            and p_bucket * s_bucket > self.dense_cell_budget
+        )
+        # the candidate cache owns the provider rows on the cached route:
+        # stable across solves (dead rows masked invalid), so a solve
+        # encodes O(churn) providers and the candidates persist
+        cached_path = use_sparse and self.warm_start and self.use_candidate_cache
 
         t_enc = time.perf_counter()
-        p_arrays = self.encoder.provider_arrays(
-            [n.compute_specs for n in nodes],
-            locations=[n.location for n in nodes],
-            prices=[n.price or 0.0 for n in nodes],
-            loads=[n.load or 0.0 for n in nodes],
-            pad_to=p_bucket,
-        )
-        ep = providers_from_numpy(p_arrays, self.device)
-        idx_addrs = [n.address for n in nodes]
-        assigned = np.zeros(P, bool)
-        encode_ms = (time.perf_counter() - t_enc) * 1e3
+        prepared = None
+        p_arrays = None
+        cache_stats: dict = {}
+        if cached_path:
+            if self._warm_solves_since_cold >= self.cold_every:
+                # periodic re-ground: fresh selection and fresh prices
+                self._cache.invalidate()
+            pitems = [
+                ProviderItem(addr=n.address, specs=n.compute_specs, location=n.location,
+                             price=n.price or 0.0, load=n.load or 0.0)
+                for n in nodes
+            ]
+            titems = [
+                TaskItem(task_id=tasks[i].id, requirement=req_by_task[i],
+                         take=slot_range[i][1], prio=float(prio[i]))
+                for i, _ in bounded
+                if i in slot_range and slot_range[i][1] > 0
+            ]
+            prepared = self._cache.prepare(pitems, titems)
+            ep = prepared.ep
+            idx_addrs = prepared.addr_of_row
+            N = prepared.num_rows
+            cache_stats = {
+                "cache_rebuilt": prepared.rebuilt,
+                "cache_delta_rows": prepared.delta_rows,
+                "cache_delta_tasks": prepared.delta_tasks,
+                "cache_uncovered_rows": prepared.uncovered_rows,
+                "cache_stale_frac": round(prepared.stale_frac, 4),
+                # the port's: the cache's host work and its candidate
+                # launches, up to their readbacks
+                "prepare_ms": (time.perf_counter() - t_enc) * 1e3,
+            }
+            encode_ms = 0.0
+        else:
+            p_arrays = self.encoder.provider_arrays(
+                [n.compute_specs for n in nodes],
+                locations=[n.location for n in nodes],
+                prices=[n.price or 0.0 for n in nodes],
+                loads=[n.load or 0.0 for n in nodes],
+                pad_to=p_bucket,
+            )
+            ep = providers_from_numpy(p_arrays, self.device)
+            idx_addrs = [n.address for n in nodes]
+            N = P
+            encode_ms = (time.perf_counter() - t_enc) * 1e3
+        assigned = np.zeros(N, bool)
 
         # ---- phase 0: anti-affinity replicas spread over providers or
         # location classes by the bin-pack; the providers they claim leave
@@ -695,7 +909,7 @@ class TorchBatchMatcher:
         if aa:
             loc_by_addr = {n.address: n.location for n in nodes}
             claims, enc_ms = self._solve_anti_affinity(
-                ep, P, aa, tasks, prio, idx_addrs, loc_by_addr
+                ep, N, aa, tasks, prio, idx_addrs, loc_by_addr
             )
             for row, i in claims.items():
                 assignment[idx_addrs[row]] = tasks[i].id
@@ -735,38 +949,59 @@ class TorchBatchMatcher:
         arena_p_arrays = p_arrays
         if claimed_rows:
             # the auction and phase 2 must not re-assign a claimed
-            # provider: drop it from the compatibility domain. The arena
-            # gets a NEW valid array: it keeps the arrays it is given as
-            # its baseline, so an edit in place would read as no change.
-            claimed = np.zeros(p_bucket, bool)
+            # provider: drop it from the compatibility domain and from the
+            # cache's assembled lists. The arena gets a NEW valid array: it
+            # keeps the arrays it is given as its baseline, so an edit in
+            # place would read as no change.
+            claimed = np.zeros(ep.num, bool)
             claimed[claimed_rows] = True
-            arena_p_arrays = dict(p_arrays, valid=p_arrays["valid"] & ~claimed)
+            if p_arrays is not None:
+                arena_p_arrays = dict(p_arrays, valid=p_arrays["valid"] & ~claimed)
             keep = torch.from_numpy((~claimed).astype(np.uint8)).to(self.device)
             ep = dataclasses.replace(ep, valid=ep.valid & keep)
+            if prepared is not None:
+                cp = prepared.cand_p
+                masked = (cp >= 0) & claimed[np.maximum(cp, 0)]
+                prepared.cand_p = np.where(masked, -1, cp)
+                self._claim_rows_now = masked.any(axis=1)
 
         # ---- phase 1: bounded tasks -> replica slots -> auction
         kernel_used = "none"
+        warm_used = False
+        warm_seeded = 0
         solve_stats: dict = {}
         phase1_ms = 0.0
         if slot_task:
-            t_enc = time.perf_counter()
-            r_arrays = self.encoder.requirement_arrays(
-                [req_by_task[i] for i in slot_task],
-                priorities=[prio[i] for i in slot_task],
-                pad_to=s_bucket,
-            )
             t1 = time.perf_counter()
-            encode_ms += (t1 - t_enc) * 1e3
-            if self._arena_engine:
-                kernel_used = "torch_arena"
-                t4p = self._bounded_t4p_arena(
-                    types.SimpleNamespace(**arena_p_arrays), types.SimpleNamespace(**r_arrays)
-                )
+            if cached_path:
+                kernel_used = "sparse_topk"
+                t4p = self._solve_slots_cached(prepared, tasks, bounded, slot_range)
+                warm_used = self._last_warm_used
+                warm_seeded = self._last_warm_seeded
             else:
-                kernel_used = "dense_auction"
-                er = requirements_from_numpy(r_arrays, self.device)
-                t4p = solve_bounded(ep, er, self.weights, solve_stats).cpu().numpy()
-            for p_idx, s_idx in enumerate(t4p[:P]):
+                r_arrays = self.encoder.requirement_arrays(
+                    [req_by_task[i] for i in slot_task],
+                    priorities=[prio[i] for i in slot_task],
+                    pad_to=s_bucket,
+                )
+                t_enc, t1 = t1, time.perf_counter()
+                encode_ms += (t1 - t_enc) * 1e3
+                if use_sparse:
+                    kernel_used = "sparse_topk"
+                    t4p, warm_used, warm_seeded = self._solve_slots_stateless(
+                        ep, requirements_from_numpy(r_arrays, self.device), idx_addrs,
+                        tasks, bounded, slot_range, p_bucket, s_bucket,
+                    )
+                elif self._arena_engine:
+                    kernel_used = "torch_arena"
+                    t4p = self._bounded_t4p_arena(
+                        types.SimpleNamespace(**arena_p_arrays), types.SimpleNamespace(**r_arrays)
+                    )
+                else:
+                    kernel_used = "dense_auction"
+                    er = requirements_from_numpy(r_arrays, self.device)
+                    t4p = solve_bounded(ep, er, self.weights, solve_stats).cpu().numpy()
+            for p_idx, s_idx in enumerate(t4p[:N]):
                 if 0 <= s_idx < len(slot_task):
                     assignment[idx_addrs[p_idx]] = tasks[slot_task[s_idx]].id
                     assigned[p_idx] = True
@@ -784,8 +1019,8 @@ class TorchBatchMatcher:
             )
             t2 = time.perf_counter()
             encode_ms += (t2 - t_enc) * 1e3
-            best = solve_unbounded(ep, er, self.weights).cpu().numpy()[:P]
-            for p_idx in range(P):
+            best = solve_unbounded(ep, er, self.weights).cpu().numpy()[:N]
+            for p_idx in range(N):
                 if not assigned[p_idx] and 0 <= best[p_idx] < len(unbounded):
                     assignment[idx_addrs[p_idx]] = tasks[unbounded[best[p_idx]]].id
             phase2_ms = (time.perf_counter() - t2) * 1e3
@@ -806,16 +1041,19 @@ class TorchBatchMatcher:
             "truncated_colocate_slots": self._colo_truncated,
             "solve_ms": (time.perf_counter() - t_start) * 1e3,
             "truncated_replica_slots": truncated_slots,
-            "kernel": kernel_used,  # dense_auction | torch_arena | none
+            "kernel": kernel_used,  # dense_auction | sparse_topk | torch_arena | none
             "mesh_sharded": False,
             "mesh_gen_sharded": False,
-            "warm": False,
-            "warm_seeded_slots": 0,
-            "stall_exit": False,
+            "warm": warm_used,
+            "warm_seeded_slots": warm_seeded,
+            # the binding phase's stall breaker: True means the tail fell
+            # to the greedy cleanup (the cached route's last solve)
+            "stall_exit": self._last_stall.get("stall_exit", False),
             "anti_affinity_assigned": len(claims),
             "truncated_aa_slots": self._aa_truncated,
             "group_assignments": 0,
             "seq": self._solve_seq,
+            **cache_stats,
             # the port's split of solve_ms: host encoding (every phase's),
             # then each phase's solve up to its readback and dict build
             "encode_ms": encode_ms,

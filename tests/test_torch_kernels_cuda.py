@@ -223,6 +223,92 @@ def test_greedy_cleanup_kernel_matches_plain_bits(card):
     assert same_bits(got, ref.to(torch.int32))
 
 
+@pytest.mark.parametrize("offset", [123_456_789, 2**31 - 1, -5])
+@pytest.mark.parametrize("tile", [256, 1024])
+def test_candidate_kernel_with_a_jitter_offset_matches_plain_bits(card, offset, tile):
+    """K1's forward and reverse launches with the jitter keyed on (task id
+    + offset) mod 2^32, as the candidate cache's delta passes launch them;
+    at 1,024-task tiles the reverse takes several tasks per tile."""
+    from protocol_tpu_torch import kernels
+
+    ep = synth_providers(np.random.default_rng(25), 3000, device=card)
+    er = synth_requirements(np.random.default_rng(26), 2048, device=card)
+    w = CostWeights(proximity=0.0)
+    rt = -(-8 // (2048 // tile))
+    before = dict(kernels.LAUNCHES)
+    got = (*sp.candidates_forward(ep, er, w, 64, tile, task_offset=offset),
+           *sp.candidates_reverse(ep, er, w, tile, 8, rt, task_offset=offset))
+    assert kernels.LAUNCHES["candidates_forward_rows"] == before["candidates_forward_rows"] + 1
+    assert kernels.LAUNCHES["candidates_reverse"] == before["candidates_reverse"] + 1
+    ref = (*sp._forward_plain(ep, er, w, 64, tile, task_offset=offset),
+           *sp._reverse_plain(ep, er, w, tile, 8, rt, task_offset=offset))
+    assert all(same_bits(a, b) for a, b in zip(got, ref))
+    plain0 = sp._forward_plain(ep, er, w, 64, tile)
+    assert not same_bits(got[1], plain0[1])  # the offset moved the jitter
+
+
+def test_card_cached_route_matches_cpu(card):
+    """The default route above dense_cell_budget (the candidate cache, K1
+    at the cache's cursor, K2, K9) on the card equals the CPU's along a
+    cold, a churned and a task-replaced refresh, with its prepared lists."""
+    import random
+
+    from protocol_tpu_torch.models.node import ComputeSpecs, CpuSpecs, GpuSpecs
+    from protocol_tpu_torch.models.task import SchedulingConfig, Task
+    from protocol_tpu_torch.sched.torch_backend import TorchBatchMatcher
+    from protocol_tpu_torch.store.node_store import NodeStatus, OrchestratorNode
+
+    rng = random.Random(3)
+    models = ["H100", "A100", "L40S", "RTX 4090"]
+
+    def node(i):
+        return OrchestratorNode(
+            address=f"0x{i:04d}", status=NodeStatus.HEALTHY, price=rng.uniform(0.5, 4),
+            compute_specs=ComputeSpecs(gpu=GpuSpecs(count=rng.choice([1, 2, 4, 8]),
+                                                    model=rng.choice(models), memory_mb=80000),
+                                       cpu=CpuSpecs(cores=32), ram_mb=65536, storage_gb=1000))
+
+    def task(j):
+        return Task(name=f"b{j}", created_at=j, scheduling_config=SchedulingConfig(plugins={
+            "tpu_scheduler": {"replicas": [str(rng.randint(1, 30))], "compute_requirements": [
+                f"gpu:count={rng.choice([1, 2, 4, 8])};gpu:model={rng.choice(models)}"]}}))
+
+    nodes = [node(i) for i in range(300)]
+    tasks = {t.id: t for t in [task(j) for j in range(20)] + [Task(name="swarm", created_at=0)]}
+    store = type("S", (), {})()
+    store.node_store = type("N", (), {"get_nodes": lambda s: list(nodes)})()
+    store.task_store = type("T", (), {"get_all_tasks": lambda s: list(tasks.values()),
+                                      "get_task": lambda s, i: tasks[i]})()
+    w = CostWeights(priority=1.0, proximity=0.0)
+    pair = [TorchBatchMatcher(store, weights=w, dense_cell_budget=0, top_k=16, device=d)
+            for d in (card, "cpu")]
+    prepared = {id(m): [] for m in pair}
+    for m in pair:
+        orig = m._cache.prepare
+        m._cache.prepare = lambda *a, _o=orig, _k=id(m): prepared[_k].append(_o(*a)) or \
+            prepared[_k][-1]
+    for step in range(3):
+        if step == 1:
+            nodes[:3] = []
+            nodes.extend(node(1000 + i) for i in range(4))
+            for n in rng.sample(nodes, 6):
+                n.price *= 1.02
+        elif step == 2:
+            old = next(iter(tasks))
+            del tasks[old]
+            t = task(99)
+            tasks[t.id] = t
+        for m in pair:
+            m.refresh()
+        a, b = pair
+        assert a.last_solve_stats["kernel"] == "sparse_topk"
+        assert a._assignment == b._assignment, step
+        pa, pb = prepared[id(a)][-1], prepared[id(b)][-1]
+        assert np.array_equal(pa.cand_p, pb.cand_p) and np.array_equal(
+            pa.cand_c.view(np.uint32), pb.cand_c.view(np.uint32)), step
+    assert pair[0].last_solve_stats["warm"] and pair[0]._cache._jitter_cursor > 0
+
+
 def test_card_matcher_matches_cpu(card):
     """TorchBatchMatcher on the card (K6, K7, K8) equals the CPU's on a
     mixed pool, on the dense route and on the torch route (K9 in it)."""

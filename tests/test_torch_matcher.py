@@ -265,11 +265,21 @@ def test_unknown_engines_are_refused(engine):
 
 
 def test_default_route_above_the_dense_budget_raises():
+    """The default route above ``dense_cell_budget`` no longer raises (it
+    was refused, naming ROADMAP.md queue A M1, until the port had the
+    candidate cache): it runs the sparse top-k route and equals the
+    reference; at the budget the dense route still runs."""
     ctx = sc_identical_nodes()  # 512 x 512 bucketed cells
-    m = TorchBatchMatcher(ctx, dense_cell_budget=512 * 256, device="cpu")
-    with pytest.raises(NotImplementedError, match="dense_cell_budget.*M1"):
-        m.refresh()
-    TorchBatchMatcher(ctx, dense_cell_budget=512 * 512, device="cpu").refresh()
+    ref = TpuBatchMatcher(ctx, dense_cell_budget=512 * 256)
+    ref.refresh()
+    got = TorchBatchMatcher(ctx, dense_cell_budget=512 * 256, device="cpu")
+    got.refresh()
+    assert got.last_solve_stats["kernel"] == ref.last_solve_stats["kernel"] == "sparse_topk"
+    assert got._assignment == ref._assignment
+    assert got.last_solve_stats["assigned"] == 350
+    dense = TorchBatchMatcher(ctx, dense_cell_budget=512 * 512, device="cpu")
+    dense.refresh()
+    assert dense.last_solve_stats["kernel"] == "dense_auction"
 
 
 def test_groups_and_hooks_raise(monkeypatch):
