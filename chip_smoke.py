@@ -99,6 +99,20 @@ plain version bit for bit on its first call, and K13 (the Sinkhorn) its
 plain version within the stated tolerances, its rounding the plain one's
 wherever no decision is closer than the plan tolerance (the ties it
 excluded are printed).
+Then stage S, BASELINE ladder #3 (protocol_tpu_torch/stage_s.py): the
+blocked Sinkhorn's potentials on the card against the CPU's at 2,048^2
+(tile 256, 20 iterations, proximity 0; masks equal, finite entries within
+BLOCKED_ATOL) and the plan-guided rounding of both fed the card's u
+(identical matchings); then, in one more run with the counts set to 0
+just before it, stage S at P = T = 100,000 (tile 2,500, 20 iterations):
+the potentials (K14), the rounding (K1's biased forward launch, K2, K9)
+and the auction referee (K1, K2, K9), each measured through cost_pairs
+(K15). Both matchings must be injective with no infeasible pair, and u
+and v finite on every row and column with a feasible cell. K14's three
+launches are then held against their plain passes at full width on the
+arguments of their first calls (feasibility exactly, the logsumexps
+within BLOCKED_ATOL), K1's biased launch on the rounding's call and K15
+on the referee's matching bit for bit.
 Prints:
 
   - the card's name and power limit (nvidia-smi),
@@ -189,6 +203,18 @@ GPU_CLASSES = (  # 12 model classes with their per-card memory (MB)
 ALL_CLASSES = tuple(range(len(GPU_CLASSES)))
 SPREAD_CLASSES, COLO_CLASSES = ALL_CLASSES[:6], ALL_CLASSES[6:]
 COST_TOL = 1e-3  # |cost| tolerance at default weights (haversine ulps)
+# stage S (BASELINE ladder #3): the blocked Sinkhorn at the reference's
+# shape, and the card against the CPU at (size, tile, iterations)
+STAGE_S = (100_000, 2_500, 20)
+STAGE_S_SMALL = (2_048, 256, 20)
+STAGE_S_KERNELS = ("blocked_feasibility", "blocked_row_lse", "blocked_col_lse",
+                   "candidates_forward_rows_biased", "candidates_forward_rows",
+                   "candidates_reverse", "auction_phase", "pair_cost")
+# K14's passes against their plain versions, and the card's potentials
+# against the CPU's, on the finite entries (the masks exactly): the sums
+# run in another order, as K13's, so K13's bound
+BLOCKED_ATOL = 1e-3
+SRC_BLOCKED = "protocol_tpu_torch/csrc/blocked.cu"
 DEVICE = "cuda"
 
 # published H100 SXM peaks (NVIDIA data sheet), full 700 W power limit
@@ -1405,6 +1431,214 @@ def run_backend(torch, kernels) -> tuple[list, dict]:
     return rows, {"backend": launches}
 
 
+def finite_err(torch, got, ref, keep) -> float:
+    """Largest |got - ref| over ``keep`` (0 where it is empty)."""
+    return float((got - ref)[keep].abs().max()) if bool(keep.any()) else 0.0
+
+
+def run_stage_s(torch, kernels) -> tuple[list, dict]:
+    """BASELINE ladder #3 on the card (protocol_tpu_torch/stage_s.py): the
+    blocked Sinkhorn's potentials and rounding against the CPU's at
+    STAGE_S_SMALL, then stage S at STAGE_S with the counts set to 0 just
+    before; K14's three launches, K1's biased forward launch and K15 are
+    then held against their plain versions at full width on the
+    arguments of the run's calls. Returns (the kernels-line rows of K14,
+    K1 biased and K15, {"stage_s": launches})."""
+    import numpy as np
+
+    from protocol_tpu_torch import stage_s
+    from protocol_tpu_torch.ops import blocked as bl
+    from protocol_tpu_torch.ops import cost as oc
+    from protocol_tpu_torch.ops import sparse as sp
+    from protocol_tpu_torch.ops.cost import CostWeights
+    from protocol_tpu_torch.ops.encoding import compat_mask, slice_requirements
+    from protocol_tpu_torch.trace.synth import synth_providers, synth_requirements
+
+    eps = stage_s.EPS
+
+    # ---- the card against the CPU (the CPU run is the plain torch path
+    # the CPU tests hold against the reference), proximity 0
+    n, tile, iters = STAGE_S_SMALL
+    zero = CostWeights(proximity=0.0)
+
+    def instance(device):  # stage S's own draws: one generator, providers first
+        rng = np.random.default_rng(42)
+        return synth_providers(rng, n, device=device), synth_requirements(rng, n, device=device)
+
+    (ep_c, er_c), (ep_g, er_g) = instance("cpu"), instance(DEVICE)
+    gu, gv = bl.sinkhorn_potentials_blocked(ep_g, er_g, zero, eps=eps, num_iters=iters, tile=tile)
+    cu, cv = bl.sinkhorn_potentials_blocked(ep_c, er_c, zero, eps=eps, num_iters=iters, tile=tile)
+    gu, gv = gu.cpu(), gv.cpu()
+    small = {}
+    for name, g, c in (("u", gu, cu), ("v", gv, cv)):
+        keep = c > -5e17
+        if not torch.equal(g > -5e17, keep) or not bool((g[~keep] == c[~keep]).all()):
+            raise AssertionError(f"stage S {n}^2: the card's {name} mask differs from the CPU's")
+        small[name] = finite_err(torch, g, c, keep)
+    res_g = bl.plan_guided_rounding(ep_g, er_g, gu.to(DEVICE), zero, eps=eps, tile=tile, k=32)
+    res_c = bl.plan_guided_rounding(ep_c, er_c, gu, zero, eps=eps, tile=tile, k=32)
+    same = bool(torch.equal(res_g.provider_for_task.cpu(), res_c.provider_for_task))
+    print(f"stage S {n}x{n} (tile {tile}, {iters} iterations, proximity 0) card vs cpu: "
+          f"u/v max_abs_err {json.dumps(small)} (tolerance {BLOCKED_ATOL}), masks equal; "
+          f"rounding on the card's u identical {same}, assigned "
+          f"{int((res_g.provider_for_task >= 0).sum())}", flush=True)
+    if max(small.values()) > BLOCKED_ATOL or not same:
+        raise AssertionError(f"stage S {n}^2: the card differs from the CPU")
+    del ep_g, er_g, res_g, res_c
+
+    # ---- stage S at full width, the counts set to 0 just before
+    size, tile, iters = STAGE_S
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    recorded, originals = record_first_calls(kernels, {
+        "blocked_feasibility": (), "blocked_row_lse": (), "blocked_col_lse": (),
+        "candidates_forward_rows": (),
+    })
+    keep: dict = {}
+    t0 = time.perf_counter()
+    summary = stage_s.run(size=size, tile=tile, iters=iters, device=DEVICE, keep=keep,
+                          emit=lambda row_: print(f"stage S: {json.dumps(row_)}", flush=True))
+    wall = time.perf_counter() - t0
+    for name, fn in originals.items():
+        setattr(kernels, name, fn)
+    launches = dict(kernels.LAUNCHES)
+    print(f"kernels (stage S): {json.dumps(launches)}", flush=True)
+    missing = [k_ for k_ in STAGE_S_KERNELS if launches[k_] == 0]
+    if missing:
+        raise AssertionError(f"stage S launched no {missing}")
+    s_row, a_row = summary["rows"]
+    for prefix, r_ in (("sinkhorn", s_row), ("auction", a_row)):
+        if not r_[f"{prefix}_injective"] or r_[f"{prefix}_infeasible_pairs"] != 0:
+            raise AssertionError(f"stage S: the {prefix} matching is not injective or pairs "
+                                 f"an infeasible cell: {r_}")
+    ep, er, w, u, v = keep["ep"], keep["er"], keep["weights"], keep["u"], keep["v"]
+    row_any, col_any = kernels.blocked_feasibility(ep, er, w)
+    if not (bool(torch.isfinite(u[row_any]).all()) and bool(torch.isfinite(v[col_any]).all())):
+        raise AssertionError("stage S: a potential on a row or column with a feasible cell "
+                             "is not finite")
+    timings = summary["timings_s"]
+    print(f"stage S at {size}x{size} (tile {tile}, {iters} iterations): potentials_s "
+          f"{timings['potentials']:.3f} end_to_end_s {timings['end_to_end']:.3f} gen_s "
+          f"{timings['gen']:.3f} solve_s {timings['solve']:.3f}; assigned "
+          f"{s_row['sinkhorn_assigned']} / {a_row['auction_assigned']}, mean cost "
+          f"{s_row['sinkhorn_mean_cost']} / {a_row['auction_mean_cost']}, delta "
+          f"{summary['sinkhorn_vs_auction_mean_cost_delta_pct']} %; wall {wall:.3f} s",
+          flush=True)
+
+    # ---- the kernels against their plain versions at full width, on the
+    # arguments of the run's calls
+    (f_ep, f_er, f_w), _ = recorded["blocked_feasibility"]
+    k_block = bl.make_k_block(f_ep, f_er, f_w, eps, tile)
+    starts = range(0, size, tile)
+    p_row, p_col = bl.feasibility_scan(k_block, size, starts)
+    if not (torch.equal(row_any, p_row) and torch.equal(col_any, p_col.reshape(size))):
+        raise AssertionError("K14 feasibility: the masks differ from the plain scan")
+    (r_ep, r_er, r_w, r_eps, r_v), _ = recorded["blocked_row_lse"]
+    (c_ep, c_er, c_w, c_eps, c_u), _ = recorded["blocked_col_lse"]
+    got_r = kernels.blocked_row_lse(r_ep, r_er, r_w, r_eps, r_v)
+    ref_r = bl.streaming_row_logsumexp(k_block, r_v, starts, size, tile)
+    got_c = kernels.blocked_col_lse(c_ep, c_er, c_w, c_eps, c_u)
+    ref_c = bl.column_logsumexp(k_block, c_u, starts)
+    torch.cuda.synchronize()
+    k14_err = {"row": finite_err(torch, got_r, ref_r, row_any),
+               "col": finite_err(torch, got_c, ref_c, col_any)}
+    print(f"K14 at {size}x{size} against the plain passes (first calls): feasibility equal, "
+          f"lse max_abs_err {json.dumps(k14_err)} (tolerance {BLOCKED_ATOL})", flush=True)
+    if max(k14_err.values()) > BLOCKED_ATOL:
+        raise AssertionError(f"K14: lse error {k14_err} > {BLOCKED_ATOL}")
+    (b_ep, b_er, b_w, b_k, b_ids), b_kw = recorded["candidates_forward_rows"]
+    bias = b_kw.get("bias")
+    if bias is None:
+        raise AssertionError("stage S: K1's first forward call was not the biased rounding's")
+    got_b = kernels.candidates_forward_rows(b_ep, b_er, b_w, b_k, b_ids, bias=bias)
+    ref_b = sp._forward_plain(b_ep, b_er, b_w, b_k, tile, provider_offset=bias)
+    torch.cuda.synchronize()
+    if not all(bits_equal(torch, a, b) for a, b in zip(got_b, ref_b)):
+        raise AssertionError("K1 biased: not bit-identical to the plain biased selection")
+    p4t_a = keep["auction"].provider_for_task
+    got_p = kernels.pair_cost(ep, er, w, p4t_a)
+    ref_p = oc._cost_pairs_plain(ep, er, p4t_a, w)
+    torch.cuda.synchronize()
+    if not bits_equal(torch, got_p, ref_p):
+        raise AssertionError("K15: not bit-identical to the plain cost_pairs on the referee's p4t")
+    print("K1 biased (the rounding's call) and K15 (the referee's p4t) at full width: "
+          "bit-identical", flush=True)
+    del got_r, ref_r, got_c, ref_c, got_b, ref_b, got_p, ref_p
+
+    # ---- times on those arguments, the plain versions' and the nearest
+    # library call's: torch.logsumexp over a materialised [P, tile] block,
+    # once per task tile
+    feas_ms = cuda_ms(torch, lambda: kernels.blocked_feasibility(f_ep, f_er, f_w), 3)
+    row_ms = cuda_ms(torch, lambda: kernels.blocked_row_lse(r_ep, r_er, r_w, r_eps, r_v), 3)
+    col_ms = cuda_ms(torch, lambda: kernels.blocked_col_lse(c_ep, c_er, c_w, c_eps, c_u), 3)
+    bias_ms = cuda_ms(torch, lambda: kernels.candidates_forward_rows(
+        b_ep, b_er, b_w, b_k, b_ids, bias=bias), 3)
+    unbiased_ms = cuda_ms(torch, lambda: kernels.candidates_forward_rows(
+        b_ep, b_er, b_w, b_k, b_ids), 3)
+    pair_ms = cuda_ms(torch, lambda: kernels.pair_cost(ep, er, w, p4t_a), 10)
+    feas_plain = cuda_ms(torch, lambda: bl.feasibility_scan(k_block, size, starts), 1)
+    row_plain = cuda_ms(torch, lambda: bl.streaming_row_logsumexp(k_block, r_v, starts, size,
+                                                                   tile), 1)
+    col_plain = cuda_ms(torch, lambda: bl.column_logsumexp(k_block, c_u, starts), 1)
+    bias_plain = cuda_ms(torch, lambda: sp._forward_plain(b_ep, b_er, b_w, b_k, tile,
+                                                          provider_offset=bias), 1)
+    pair_plain = cuda_ms(torch, lambda: oc._cost_pairs_plain(ep, er, p4t_a, w), 1)
+    # the library pass: one materialised [P, tile] block (1 GB, far above
+    # L2, so each call reads it from memory) reduced once per task tile
+    n_tiles = size // tile
+    x = k_block(0) + r_v[None, :tile]
+    lse_row_ms = cuda_ms(torch, lambda: [torch.logsumexp(x, dim=1) for _ in range(n_tiles)], 1)
+    x = k_block(0) + c_u[:, None]
+    lse_col_ms = cuda_ms(torch, lambda: [torch.logsumexp(x, dim=0) for _ in range(n_tiles)], 1)
+    del x
+    print(f"K14 at {size}x{size}: feasibility {feas_ms:.3f} ms, row pass {row_ms:.3f} ms, "
+          f"column pass {col_ms:.3f} ms (plain {feas_plain:.3f} / {row_plain:.3f} / "
+          f"{col_plain:.3f}; {n_tiles} torch.logsumexp calls over a materialised [P, {tile}] "
+          f"block, timed as one pass "
+          f"{lse_row_ms:.3f} / {lse_col_ms:.3f}); K1 forward at {size}x{size} biased "
+          f"{bias_ms:.3f} ms, unbiased {unbiased_ms:.3f} ms; K15 {pair_ms:.4f} ms", flush=True)
+
+    # bounds: the cells of the pass (feasible ones counted on this run's data)
+    feasible = sum(int(compat_mask(ep, slice_requirements(er, t, tile)).sum())
+                   for t in range(0, size, tile))
+    cells = size * size
+    p_row_b, r_row_b = row_bytes(ep), row_bytes(er)
+    cols_bytes = size * p_row_b + size * r_row_b
+    ops_scan = cells * OPS_PER_CELL + feasible * OPS_PER_FEASIBLE_CELL
+    ops_lse = ops_scan + feasible * 5  # the division, the add, the exp and the online sum
+    assigned = int((p4t_a >= 0).sum())
+    print(f"stage S cells {cells}, feasible {feasible} ({feasible / cells:.4f})", flush=True)
+    rows = [
+        row("blocked_feasibility", SRC_BLOCKED, "protocol_tpu/ops/blocked.py:54", 0.0,
+            feas_ms, feas_plain, cols_bytes + size + size // 8, ops_scan),
+        row("blocked_row_lse", SRC_BLOCKED, "protocol_tpu/ops/blocked.py:64",
+            k14_err["row"], row_ms, row_plain, cols_bytes + size * 8, ops_lse),
+        row("blocked_col_lse", SRC_BLOCKED, "protocol_tpu/ops/blocked.py:133",
+            k14_err["col"], col_ms, col_plain, cols_bytes + size * 8, ops_lse),
+        row("candidates_forward_rows_biased", SRC_K1, "protocol_tpu/ops/sparse.py:150", 0.0,
+            bias_ms, bias_plain, cols_bytes + size * 8 + size * b_k * 8,
+            ops_scan + feasible),
+        row("pair_cost", SRC_BLOCKED, "protocol_tpu/ops/cost.py:137", 0.0, pair_ms, pair_plain,
+            size * (r_row_b + 8) + assigned * p_row_b,
+            size * OPS_PER_CELL + assigned * OPS_PER_FEASIBLE_CELL),
+    ]
+    for r_, lib in ((rows[1], lse_row_ms), (rows[2], lse_col_ms)):
+        r_["library_ms"] = lib
+        r_["library_call"] = (f"{n_tiles} calls of torch.logsumexp over a materialised "
+                              f"[P, {tile}] block of K + the potential, timed as one pass "
+                              f"(the nearest call: the block is not recomputed)")
+    rows[4]["plain_cells"] = (f"the plain cost_pairs scores a [{oc._PAIR_CHUNK}, "
+                              f"{oc._PAIR_CHUNK}] block per chunk of tasks and keeps its "
+                              f"diagonal: {oc._PAIR_CHUNK}x the {size} cells K15 scores")
+    rows[3]["unbiased_ms"] = unbiased_ms
+    rows[0]["stage_s"] = {"size": size, "tile": tile, "iters": iters, **timings,
+                          "wall_s": wall, "card_vs_cpu_small": small,
+                          "mean_cost_delta_pct": summary["sinkhorn_vs_auction_mean_cost_delta_pct"],
+                          "rows": summary["rows"]}
+    del keep, k_block, ep, er, u, v
+    return rows, {"stage_s": launches}
+
+
 def main() -> int:
     try:
         import torch
@@ -1996,9 +2230,12 @@ def main() -> int:
     # ---- the scheduler backend's stateless RPCs
     backend_rows, backend_runs = run_backend(torch, kernels)
 
+    # ---- stage S: the blocked Sinkhorn at 100,000^2 (BASELINE ladder #3)
+    stage_rows, stage_runs = run_stage_s(torch, kernels)
+
     runs = {"cold_ticks": launches, "warm_chain": launches_warm,
             "matcher_dense": launches_dense, "matcher_torch": launches_torch, **phase_runs,
-            **route_runs, **backend_runs}
+            **route_runs, **backend_runs, **stage_runs}
 
     # K1's forward launch: the cold pass over every task id; its call on
     # the warm repair's dirty rows rides along as "repair_call"
@@ -2027,7 +2264,7 @@ def main() -> int:
             k8_plain_ms, k8_bytes, k8_ops),
         row("greedy_cleanup", SRC_K9, "protocol_tpu/ops/sparse.py:545", 0.0, k9_ms,
             k9_plain_ms, k9_bytes, 0),
-    ] + phase_rows + backend_rows
+    ] + phase_rows + backend_rows + stage_rows
     for r_ in rows:
         for run, counts in runs.items():
             r_[f"launches_{run}"] = counts[r_["name"]]

@@ -21,7 +21,14 @@
 //            shuffles, so that a few rows still fill the card. Writes
 //            [R, k], provider -1 where cost >= 5e8. A jitter offset
 //            (the reference's task_offset) shifts each task's jitter key,
-//            not the requirement row it reads.
+//            not the requirement row it reads. An optional [P] bias (the
+//            reference's provider_offset; the blocked Sinkhorn's rounding
+//            passes -eps * u) is added to the feasible cells' cost for the
+//            selection only: that instantiation keys the walk, its buffer
+//            and the lane merge on (selection, provider), carries each
+//            entry's true cost beside the key, writes the true costs, and
+//            sets the provider to -1 where the selection is >= 5e8. The
+//            unbiased instantiation is the code it was, bit for bit.
 //   reverse  per provider, four threads each take a quarter of the task
 //            tiles: the first argmin of each tile goes to pool_t / pool_c
 //            [P, n_tiles]; then the pools are folded in tile order into a
@@ -71,71 +78,93 @@ constexpr int kBuf = 16;
 
 // Merge the first nq buffered entries into the sorted top-k (bc, bp).
 // Every list entry has a lower provider index than every buffered one,
-// so the list wins ties; the buffer is sorted stably first.
-__device__ __forceinline__ void flush_topk(float* bc, int32_t* bp, float* qc, int32_t* qp,
-                                           int nq, int k) {
+// so the list wins ties; the buffer is sorted stably first. The key bc /
+// qc is the cost, or on the biased path the selection value (cost plus
+// the provider's bias); there bx / qx carry each entry's true cost along.
+template <bool kBias>
+__device__ __forceinline__ void flush_topk(float* bc, int32_t* bp, float* bx, float* qc,
+                                           int32_t* qp, float* qx, int nq, int k) {
   for (int i = 1; i < nq; ++i) {
     const float x = qc[i];
     const int32_t xp = qp[i];
+    float xx = 0.0f;
+    if constexpr (kBias) xx = qx[i];
     int j = i;
     while (j > 0 && qc[j - 1] > x) {
       qc[j] = qc[j - 1];
       qp[j] = qp[j - 1];
+      if constexpr (kBias) qx[j] = qx[j - 1];
       --j;
     }
     qc[j] = x;
     qp[j] = xp;
+    if constexpr (kBias) qx[j] = xx;
   }
   float mc[kMaxK];
   int32_t mp[kMaxK];
+  float mx[kBias ? kMaxK : 1];
   int a = 0, b = 0;
   for (int i = 0; i < k; ++i) {  // a <= i < k: the list never runs out
     if (b >= nq || bc[a] <= qc[b]) {
       mc[i] = bc[a];
       mp[i] = bp[a];
+      if constexpr (kBias) mx[i] = bx[a];
       ++a;
     } else {
       mc[i] = qc[b];
       mp[i] = qp[b];
+      if constexpr (kBias) mx[i] = qx[b];
       ++b;
     }
   }
   for (int i = 0; i < k; ++i) {
     bc[i] = mc[i];
     bp[i] = mp[i];
+    if constexpr (kBias) bx[i] = mx[i];
   }
 }
 
 // Walk providers [p0, p1) in index order for task row tr (global id t),
-// keeping the running top-k (bc, bp) under the key (cost, provider).
+// keeping the running top-k (bc, bp) under the key (cost, provider). On
+// the biased path (the reference's provider_offset) the key is the
+// selection value where(cost < INFEASIBLE/2, cost + bias[p], cost) and bx
+// holds each entry's true cost, as the walk computed it.
+template <bool kBias>
 __device__ __forceinline__ void walk_topk(const Prov& prov, const Req& req, const Aux& aux,
                                           const Weights& w, const TaskRow& tr, int t, int K,
-                                          int W, int k, int p0, int p1, float* bc, int32_t* bp) {
+                                          int W, int k, int p0, int p1,
+                                          const float* __restrict__ bias, float* bc,
+                                          int32_t* bp, float* bx) {
   for (int j = 0; j < k; ++j) {
     bc[j] = INFINITY;
     bp[j] = -1;
+    if constexpr (kBias) bx[j] = INFINITY;
   }
   float qc[kBuf];
   int32_t qp[kBuf];
+  float qx[kBias ? kBuf : 1];
   int nq = 0;
-  // the list's k-th cost as of the last merge: never below the exact
-  // running threshold, so every cost that belongs in the top-k is
+  // the list's k-th key as of the last merge: never below the exact
+  // running threshold, so every key that belongs in the top-k is
   // admitted (the merge drops the rest)
   float worst = INFINITY;
   for (int p = p0; p < p1; ++p) {
     const ProvRow pr = load_prov(prov, aux, p);
     const float c = cell_cost(pr, p, tr, t, req, K, W, w);
-    if (c < worst) {
-      qc[nq] = c;
+    float s = c;
+    if constexpr (kBias) s = c < kHalfInfeasible ? __fadd_rn(c, bias[p]) : c;
+    if (s < worst) {
+      qc[nq] = s;
       qp[nq] = p;
+      if constexpr (kBias) qx[nq] = c;
       if (++nq == kBuf) {
-        flush_topk(bc, bp, qc, qp, nq, k);
+        flush_topk<kBias>(bc, bp, bx, qc, qp, qx, nq, k);
         nq = 0;
         worst = bc[k - 1];
       }
     }
   }
-  flush_topk(bc, bp, qc, qp, nq, k);
+  flush_topk<kBias>(bc, bp, bx, qc, qp, qx, nq, k);
 }
 
 // Row i is task t_ids[i], shared by `lanes` threads of one warp (a power
@@ -147,11 +176,13 @@ __device__ __forceinline__ void walk_topk(const Prov& prov, const Req& req, cons
 // ~1%, a matcher phase's few thousand slots) still spread over the card
 // this way; lanes = 1 is one walk per row, as the cold pass over 65,536
 // tasks takes.
+template <bool kBias>
 __global__ void __launch_bounds__(128) forward_rows_kernel(Prov prov, Req req, Aux aux, Weights w,
                                                            int P, int n_rows,
                                                            const int32_t* __restrict__ t_ids,
                                                            int K, int W, int k, int lanes,
                                                            uint32_t offset,
+                                                           const float* __restrict__ bias,
                                                            int32_t* __restrict__ out_p,
                                                            float* __restrict__ out_c) {
   // every thread of a warp takes part in the shuffles: no early return
@@ -161,16 +192,18 @@ __global__ void __launch_bounds__(128) forward_rows_kernel(Prov prov, Req req, A
   const bool active = i < n_rows;
   float bc[kMaxK];
   int32_t bp[kMaxK];
+  float bx[kBias ? kMaxK : 1];
   if (active) {
     const int t = t_ids[i];
     const TaskRow tr = load_task(req, aux, t, K, offset);
     const int part = (P + lanes - 1) / lanes;
     const int p0 = min(P, lane * part);
-    walk_topk(prov, req, aux, w, tr, t, K, W, k, p0, min(P, p0 + part), bc, bp);
+    walk_topk<kBias>(prov, req, aux, w, tr, t, K, W, k, p0, min(P, p0 + part), bias, bc, bp, bx);
   } else {
     for (int j = 0; j < k; ++j) {
       bc[j] = INFINITY;
       bp[j] = -1;
+      if constexpr (kBias) bx[j] = INFINITY;
     }
   }
   int head = 0;
@@ -180,17 +213,23 @@ __global__ void __launch_bounds__(128) forward_rows_kernel(Prov prov, Req req, A
     if (p < 0) p = INT_MAX;  // an empty slot sorts last
     float best_c = c;
     int32_t best_p = p;
+    // the biased path's key is the selection value: its true cost rides along
+    float best_x = 0.0f;
+    if constexpr (kBias) best_x = head < k ? bx[head] : INFINITY;
     for (int off = lanes >> 1; off > 0; off >>= 1) {
       const float oc = __shfl_xor_sync(0xffffffffu, best_c, off);
       const int32_t op = __shfl_xor_sync(0xffffffffu, best_p, off);
+      float ox = 0.0f;
+      if constexpr (kBias) ox = __shfl_xor_sync(0xffffffffu, best_x, off);
       if (oc < best_c || (oc == best_c && op < best_p)) {
         best_c = oc;
         best_p = op;
+        if constexpr (kBias) best_x = ox;
       }
     }
     if (p == best_p) ++head;  // provider ids are unique across the lanes
     if (active && lane == 0) {
-      out_c[(size_t)i * k + j] = best_c;
+      out_c[(size_t)i * k + j] = kBias ? best_x : best_c;
       out_p[(size_t)i * k + j] = best_c < kHalfInfeasible ? best_p : -1;
     }
   }
@@ -333,12 +372,14 @@ extern "C" int k1_limits(int* max_k, int* max_r, int* max_opts) {
 }
 
 // The forward walk for the n_rows global task ids t_ids, `lanes` threads
-// per row, the jitter keyed on (id + offset) mod 2^32.
+// per row, the jitter keyed on (id + offset) mod 2^32. With a [P] bias
+// (not null) the selection is biased per provider and out_c holds the
+// true costs; null takes the unbiased instantiation.
 extern "C" int k1_forward_rows(const void* const* prov_cols, const void* const* req_cols, int P,
                                int T, int K, int W, float w_price, float w_load, float w_prox,
                                float w_prio, int k, const int32_t* t_ids, int n_rows, int lanes,
-                               unsigned int offset, float* aux, int32_t* out_p, float* out_c,
-                               void* stream) {
+                               unsigned int offset, const float* bias, float* aux,
+                               int32_t* out_p, float* out_c, void* stream) {
   if (k < 1 || k > kMaxK || K > kMaxOpts || k > P || n_rows < 1 || lanes < 1 || lanes > 32 ||
       (lanes & (lanes - 1)) != 0)
     return (int)cudaErrorInvalidValue;
@@ -348,8 +389,15 @@ extern "C" int k1_forward_rows(const void* const* prov_cols, const void* const* 
   const Prov prov = make_prov(prov_cols);
   const Req req = make_req(req_cols);
   launch_prep(prov, req, w, P, T, aux, (cudaStream_t)stream);
-  forward_rows_kernel<<<(int)((total + threads - 1) / threads), threads, 0, (cudaStream_t)stream>>>(
-      prov, req, make_aux(aux, P, T), w, P, n_rows, t_ids, K, W, k, lanes, offset, out_p, out_c);
+  const int blocks = (int)((total + threads - 1) / threads);
+  if (bias == nullptr)
+    forward_rows_kernel<false><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        prov, req, make_aux(aux, P, T), w, P, n_rows, t_ids, K, W, k, lanes, offset, nullptr,
+        out_p, out_c);
+  else
+    forward_rows_kernel<true><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        prov, req, make_aux(aux, P, T), w, P, n_rows, t_ids, K, W, k, lanes, offset, bias,
+        out_p, out_c);
   return (int)cudaGetLastError();
 }
 

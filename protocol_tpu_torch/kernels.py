@@ -30,7 +30,8 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / "kernels"
-SOURCES = ("candidates", "auction", "repair", "dense", "cleanup", "binpack", "greedy", "sinkhorn")
+SOURCES = ("candidates", "auction", "repair", "dense", "cleanup", "binpack", "greedy", "sinkhorn",
+           "blocked")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -38,11 +39,13 @@ NVCC_FLAGS = (
 
 # launches per kernel since the last reset_launches()
 LAUNCHES = {
-    "candidates_forward_rows": 0, "candidates_reverse": 0, "auction_phase": 0,
+    "candidates_forward_rows": 0, "candidates_forward_rows_biased": 0,
+    "candidates_reverse": 0, "auction_phase": 0,
     "candidates_reverse_blocks": 0,
     "repair_enter": 0, "repair_tile_min": 0, "repair_refold": 0,
     "dense_value_base": 0, "dense_auction": 0, "unbounded_best": 0, "greedy_cleanup": 0,
     "cost_block": 0, "binpack_ffd": 0, "greedy_assign": 0, "sinkhorn": 0,
+    "blocked_feasibility": 0, "blocked_row_lse": 0, "blocked_col_lse": 0, "pair_cost": 0,
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -117,7 +120,7 @@ def _lib(name: str) -> ctypes.CDLL:
                 _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _I, _I, _U, _P, _P, _P, _P, _P, _P,
             ]
             lib.k1_forward_rows.argtypes = [
-                _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P, _I, _I, _U, _P, _P, _P, _P,
+                _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P, _I, _I, _U, _P, _P, _P, _P, _P,
             ]
             lib.k1_reverse_blocks.argtypes = [
                 _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P, _P, _I, _P, _P, _P, _P,
@@ -155,6 +158,14 @@ def _lib(name: str) -> ctypes.CDLL:
         elif name == "greedy":
             lib.k12_greedy.argtypes = [_P, _I, _I, _P, _I, _P, _P]
             lib.k12_greedy.restype = _I
+        elif name == "blocked":
+            lib.k14_feasibility.argtypes = [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P, _P]
+            lib.k14_lse.argtypes = [
+                _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _I, _P, _P, _P, _P,
+            ]
+            lib.k15_pair_cost.argtypes = [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P, _P]
+            for fn in ("k14_feasibility", "k14_lse", "k15_pair_cost"):
+                getattr(lib, fn).restype = _I
         elif name == "sinkhorn":
             lib.k13_sinkhorn.argtypes = [_P, _I, _I, _F, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P]
             lib.k13_sinkhorn.restype = _I
@@ -314,19 +325,27 @@ ROWS_TARGET_THREADS = 65_536
 
 
 def candidates_forward_rows(ep, er, weights, k: int, t_ids: torch.Tensor,
-                            lanes: int | None = None, offset: int = 0):
+                            lanes: int | None = None, offset: int = 0,
+                            bias: torch.Tensor | None = None):
     """K1, forward launch (``csrc/candidates.cu``): the k cheapest
     providers of each task in ``t_ids`` (global ids; the jitter is keyed
     on (id + ``offset``) mod 2^32), (p [R, k] i32, c [R, k] f32), row i for
     task t_ids[i]. Each row is walked by ``lanes`` threads (a power of two
     <= 32; by default the least that brings R x lanes to
-    :data:`ROWS_TARGET_THREADS`)."""
+    :data:`ROWS_TARGET_THREADS`). With ``bias`` ([P] f32, the reference's
+    ``provider_offset``) the selection runs on cost + bias[p] over the
+    feasible cells, c holds the true costs and p is -1 where the
+    selection is >= INFEASIBLE/2."""
     if not 1 <= k <= 64 or k > ep.num:
         raise ValueError(f"K1 forward takes 1 <= k <= min(64, P) candidates a task, "
                          f"got k={k} with P={ep.num}")
     offset = jitter_offset(offset)
     dev, pcols, rcols, (P, T, K, W), w, aux = _k1_setup(ep, er, weights)
     t_ids = _ids(t_ids, T, dev, "candidates_forward_rows")
+    if bias is not None and (bias.device != dev or bias.dtype != torch.float32
+                             or bias.shape != (P,) or not bias.is_contiguous()):
+        raise ValueError(f"candidates_forward_rows: bias must be a contiguous [{P}] f32 "
+                         f"tensor on {dev}")
     R = t_ids.numel()
     if lanes is None:
         lanes = 1
@@ -336,9 +355,11 @@ def candidates_forward_rows(ep, er, weights, k: int, t_ids: torch.Tensor,
     out_c = torch.empty((R, k), dtype=torch.float32, device=dev)
     _check(_lib("candidates").k1_forward_rows(
         pcols, rcols, P, T, K, W, *w, k, t_ids.data_ptr(), R, lanes, offset,
-        aux.data_ptr(), out_p.data_ptr(), out_c.data_ptr(), _stream(out_p),
+        None if bias is None else bias.data_ptr(), aux.data_ptr(), out_p.data_ptr(),
+        out_c.data_ptr(), _stream(out_p),
     ), "candidates_forward_rows")
-    LAUNCHES["candidates_forward_rows"] += 1
+    # the biased instantiation is a kernel of its own, counted apart
+    LAUNCHES["candidates_forward_rows" if bias is None else "candidates_forward_rows_biased"] += 1
     return out_p, out_c
 
 
@@ -625,3 +646,71 @@ def sinkhorn(cost_tp, eps: float, num_iters: int):
     ), "sinkhorn")
     LAUNCHES["sinkhorn"] += 1
     return plan, rcost, colmax, u, v
+
+
+def blocked_feasibility(ep, er, weights):
+    """K14, feasibility launch (``csrc/blocked.cu``): whether each provider
+    and each task has a cell with cost < INFEASIBLE/2. Returns (row_any
+    [P] bool, col_any [T] bool)."""
+    dev, pcols, rcols, (P, T, K, W), w, aux = _k1_setup(ep, er, weights)
+    if P < 1 or T < 1 or T > 1_600_000:
+        raise ValueError(f"K14 takes 1 <= P and 1 <= T <= 1,600,000, got P={P}, T={T}")
+    row_any = torch.empty(P, dtype=torch.uint8, device=dev)
+    col_bits = torch.zeros((T + 31) // 32, dtype=torch.int32, device=dev)
+    _check(_lib("blocked").k14_feasibility(
+        pcols, rcols, P, T, K, W, *w, aux.data_ptr(), row_any.data_ptr(), col_bits.data_ptr(),
+        _stream(row_any),
+    ), "blocked_feasibility")
+    LAUNCHES["blocked_feasibility"] += 1
+    t = torch.arange(T, dtype=torch.int64, device=dev)
+    col_any = ((col_bits[t >> 5] >> (t & 31).to(torch.int32)) & 1).bool()
+    return row_any.bool(), col_any
+
+
+def _blocked_lse(ep, er, weights, eps: float, pot: torch.Tensor, rows: bool, name: str):
+    dev, pcols, rcols, (P, T, K, W), w, aux = _k1_setup(ep, er, weights)
+    n_pot, n_out = (T, P) if rows else (P, T)
+    if pot.device != dev or pot.dtype != torch.float32 or pot.shape != (n_pot,):
+        raise ValueError(f"{name}: the potential must be a [{n_pot}] f32 tensor on {dev}")
+    if not eps > 0 or P < 1 or T < 1:
+        raise ValueError(f"{name} takes eps > 0 and P, T >= 1, got {eps}, {P}, {T}")
+    pot = pot.contiguous()
+    lse = torch.empty(n_out, dtype=torch.float32, device=dev)
+    _check(_lib("blocked").k14_lse(
+        pcols, rcols, P, T, K, W, *w, eps, int(rows), pot.data_ptr(), aux.data_ptr(),
+        lse.data_ptr(), _stream(lse),
+    ), name)
+    LAUNCHES[name] += 1
+    return lse
+
+
+def blocked_row_lse(ep, er, weights, eps: float, v: torch.Tensor):
+    """K14, row pass (``csrc/blocked.cu``): per provider, the logsumexp
+    over all tasks of K[p, t] + v[t], K = -cost/eps on the feasible cells
+    (the rest skipped; a provider without one gets -inf). Returns [P] f32."""
+    return _blocked_lse(ep, er, weights, eps, v, True, "blocked_row_lse")
+
+
+def blocked_col_lse(ep, er, weights, eps: float, u: torch.Tensor):
+    """K14, column pass (``csrc/blocked.cu``): per task, the logsumexp over
+    all providers of K[p, t] + u[p] (feasible cells only; a task without
+    one gets -inf). Returns [T] f32."""
+    return _blocked_lse(ep, er, weights, eps, u, False, "blocked_col_lse")
+
+
+def pair_cost(ep, er, weights, p4t: torch.Tensor):
+    """K15 (``csrc/blocked.cu``): per task t, the unjittered cost of the
+    cell (p4t[t], t), INFEASIBLE where p4t[t] < 0. Returns [T] f32."""
+    dev, pcols, rcols, (P, T, K, W), w, aux = _k1_setup(ep, er, weights)
+    if p4t.device != dev or p4t.dim() != 1 or p4t.shape[0] != T or P < 1 or T < 1:
+        raise ValueError(f"pair_cost: p4t must be a [{T}] tensor on {dev}")
+    p4t = p4t.to(torch.int32).contiguous()
+    if int(p4t.max()) >= P:
+        raise ValueError(f"pair_cost: provider ids out of range [-1, {P})")
+    out = torch.empty(T, dtype=torch.float32, device=dev)
+    _check(_lib("blocked").k15_pair_cost(
+        pcols, rcols, P, T, K, W, *w, p4t.data_ptr(), aux.data_ptr(), out.data_ptr(),
+        _stream(out),
+    ), "pair_cost")
+    LAUNCHES["pair_cost"] += 1
+    return out

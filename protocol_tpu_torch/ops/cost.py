@@ -19,7 +19,13 @@ from dataclasses import dataclass
 
 import torch
 
-from protocol_tpu_torch.ops.encoding import EncodedProviders, EncodedRequirements, compat_mask
+from protocol_tpu_torch.ops.encoding import (
+    EncodedProviders,
+    EncodedRequirements,
+    compat_mask,
+    gather_providers,
+    slice_requirements,
+)
 
 # large-but-finite infeasibility penalty (exact in f32)
 INFEASIBLE = 1e9
@@ -113,3 +119,44 @@ def cost_matrix(
     cost = cost - weights.priority * r.priority[None, :]
     cost = torch.where(mask, cost, INFEASIBLE)
     return cost, mask
+
+
+# tasks a chunk of the plain cost_pairs scores at once ([C, C] cells)
+_PAIR_CHUNK = 512
+
+
+def _cost_pairs_plain(p: EncodedProviders, r: EncodedRequirements, p4t: torch.Tensor,
+                      weights: CostWeights) -> torch.Tensor:
+    """Plain torch version of K15: the reference's gather of the chosen
+    provider rows (at max(p4t, 0)) and :func:`cost_matrix` of each pair,
+    a chunk of tasks at a time as the diagonal of the chunk's [C, C]
+    block; INFEASIBLE where p4t < 0."""
+    T = p4t.shape[0]
+    parts = []
+    for lo in range(0, T, _PAIR_CHUNK):
+        n = min(_PAIR_CHUNK, T - lo)
+        rows = gather_providers(p, torch.clamp(p4t[lo:lo + n], min=0).long())
+        parts.append(torch.diagonal(cost_matrix(rows, slice_requirements(r, lo, n), weights)[0]))
+    cost = torch.cat(parts) if parts else torch.empty(0, dtype=torch.float32, device=p4t.device)
+    return torch.where(p4t >= 0, cost, INFEASIBLE)
+
+
+def cost_pairs(
+    p: EncodedProviders,
+    r: EncodedRequirements,
+    provider_for_task,
+    weights: CostWeights | None = None,
+) -> torch.Tensor:
+    """Per-pair cost of an assignment (``protocol_tpu/ops/cost.py:149``):
+    [T] f32, INFEASIBLE where the task is unassigned or the pair is
+    incompatible; O(T) cells, so assignment quality is measurable at
+    shapes where [P, T] cannot exist. On a CUDA tensor this is K15
+    (``csrc/blocked.cu``), else :func:`_cost_pairs_plain`."""
+    from protocol_tpu_torch import kernels
+
+    if weights is None:
+        weights = CostWeights()
+    p4t = torch.as_tensor(provider_for_task, device=p.gpu_count.device).to(torch.int32)
+    if p4t.is_cuda:
+        return kernels.pair_cost(p, r, weights, p4t)
+    return _cost_pairs_plain(p, r, p4t, weights)

@@ -23,8 +23,10 @@
 The candidate passes take the reference's ``task_offset``: the jitter's
 task key is (row + task_offset) mod 2^32 while the requirement row read
 stays the row, so delta batches generated under a persistent cursor stay
-decorrelated. Its ``provider_offset`` (a selection bias) is not ported
-and raises.
+decorrelated. The forward pass also takes its ``provider_offset`` [P], a
+selection bias (the blocked Sinkhorn's rounding passes -eps * u): the
+selection runs on cost + offset[p] over the feasible cells while the
+returned costs stay the true (jittered) costs.
 
 Three functions hold hand kernels for Hopper (``csrc/``); each dispatches
 on the device of its inputs, with no fallback:
@@ -85,15 +87,22 @@ def _jittered_tile_cost(ep, er, weights, t0: int, tile: int, task_offset: int = 
     return torch.where(cost < INFEASIBLE * 0.5, cost + jitter, cost)
 
 
-def _forward_tile_select(ep, er, weights, t0: int, tile: int, k: int, task_offset: int = 0):
-    """One [P, tile] step of forward candidate selection. Returns
+def _forward_tile_select(ep, er, weights, t0: int, tile: int, k: int, task_offset: int = 0,
+                         provider_offset: torch.Tensor | None = None):
+    """One [P, tile] step of forward candidate selection, selecting on
+    cost + ``provider_offset`` over the feasible cells when given. Returns
     (provider [tile, k], true cost_k [tile, k], the jittered [P, tile]
     cost block)."""
     cost = _jittered_tile_cost(ep, er, weights, t0, tile, task_offset)
-    # lax.top_k(-cost.T, k): the k smallest, lower index first among ties
-    idx = _smallest_stable(cost.T, k)
-    cost_k = torch.gather(cost.T, 1, idx)
-    provider = torch.where(cost_k < INFEASIBLE * 0.5, idx.to(torch.int32), -1)
+    if provider_offset is None:
+        selection = cost
+    else:
+        selection = torch.where(cost < INFEASIBLE * 0.5, cost + provider_offset[:, None], cost)
+    # lax.top_k(-selection.T, k): the k smallest, lower index first among ties
+    idx = _smallest_stable(selection.T, k)
+    cost_k = torch.gather(cost.T, 1, idx)  # true costs
+    sel_k = torch.gather(selection.T, 1, idx)
+    provider = torch.where(sel_k < INFEASIBLE * 0.5, idx.to(torch.int32), -1)
     return provider, cost_k, cost
 
 
@@ -103,10 +112,11 @@ def _smallest_stable(c: torch.Tensor, n: int) -> torch.Tensor:
     return torch.sort(c, dim=1, stable=True).indices[:, :n]
 
 
-def _forward_plain(ep, er, weights, k: int, tile: int, task_offset: int = 0):
+def _forward_plain(ep, er, weights, k: int, tile: int, task_offset: int = 0,
+                   provider_offset: torch.Tensor | None = None):
     """Plain torch version of K1's forward launch: (fwd_p, fwd_c) [T, k]."""
     T = er.cpu_cores.shape[0]
-    parts = [_forward_tile_select(ep, er, weights, t0, tile, k, task_offset)[:2]
+    parts = [_forward_tile_select(ep, er, weights, t0, tile, k, task_offset, provider_offset)[:2]
              for t0 in range(0, T, tile)]
     return torch.cat([p for p, _ in parts]), torch.cat([c for _, c in parts])
 
@@ -141,18 +151,27 @@ def _reverse_plain(ep, er, weights, tile: int, r: int, rt: int, task_offset: int
     return rev_t, rev_c, torch.cat(pool_t, dim=1), torch.cat(pool_c, dim=1)
 
 
-def candidates_forward(ep, er, weights, k: int, tile: int, task_offset: int = 0):
+def candidates_forward(ep, er, weights, k: int, tile: int, task_offset: int = 0,
+                       provider_offset: torch.Tensor | None = None):
     """Each task's k cheapest providers, lower index first among ties:
-    (fwd_p [T, k] i32 with -1 where infeasible, fwd_c [T, k]). On a CUDA
-    tensor this is K1's forward launch over every task id (one to 32
-    lanes per task), else :func:`_forward_plain`."""
+    (fwd_p [T, k] i32 with -1 where infeasible, fwd_c [T, k]); with
+    ``provider_offset`` [P] the selection is biased by it and fwd_c holds
+    the true costs. On a CUDA tensor this is K1's forward launch over
+    every task id (one to 32 lanes per task; the biased instantiation
+    with an offset), else :func:`_forward_plain`."""
     from protocol_tpu_torch import kernels
 
     kernels.jitter_offset(task_offset)  # refuses what does not fit in int32
+    if provider_offset is not None:
+        provider_offset = provider_offset.to(torch.float32).contiguous()
+        if provider_offset.shape != (ep.num,) or provider_offset.device != ep.gpu_count.device:
+            raise ValueError(f"provider_offset must be a [{ep.num}] tensor on "
+                             f"{ep.gpu_count.device}")
     if ep.gpu_count.is_cuda:
         ids = torch.arange(er.num, dtype=torch.int32, device=ep.gpu_count.device)
-        return kernels.candidates_forward_rows(ep, er, weights, k, ids, offset=task_offset)
-    return _forward_plain(ep, er, weights, k, tile, task_offset)
+        return kernels.candidates_forward_rows(ep, er, weights, k, ids, offset=task_offset,
+                                               bias=provider_offset)
+    return _forward_plain(ep, er, weights, k, tile, task_offset, provider_offset)
 
 
 def candidates_reverse(ep, er, weights, tile: int, r: int, rt: int, task_offset: int = 0):
@@ -168,12 +187,7 @@ def candidates_reverse(ep, er, weights, tile: int, r: int, rt: int, task_offset:
     return _reverse_plain(ep, er, weights, tile, r, rt, task_offset)
 
 
-def _refuse_unported(provider_offset, approx_recall) -> None:
-    if provider_offset is not None:
-        raise NotImplementedError(
-            "provider_offset (a selection bias) is not ported yet "
-            "(ROADMAP.md queue B, B1o bias (Bk))"
-        )
+def _refuse_unported(approx_recall) -> None:
     if approx_recall is not None:
         raise NotImplementedError(
             "approx_recall: lax.approx_max_k (the TPU's PartialReduce) has "
@@ -199,15 +213,17 @@ def candidates_topk(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Each task's top-k cheapest compatible providers (k clamped to P):
     (cand_provider i32 [T, k] with -1 padding, cand_cost f32 [T, k]). T
-    must be divisible by ``tile``. ``task_offset`` shifts the jitter's
-    task index (a delta batch's persistent cursor). On a CUDA tensor this
-    is K1's forward launch (``csrc/candidates.cu``)."""
-    _refuse_unported(provider_offset, approx_recall)
+    must be divisible by ``tile``. ``provider_offset`` [P] biases the
+    selection (the returned costs stay the true costs; a provider is -1
+    where its selection value is >= INFEASIBLE/2). ``task_offset`` shifts
+    the jitter's task index (a delta batch's persistent cursor). On a CUDA
+    tensor this is K1's forward launch (``csrc/candidates.cu``)."""
+    _refuse_unported(approx_recall)
     if weights is None:
         weights = CostWeights()
     _tiles(er.cpu_cores.shape[0], tile)
     k = min(k, int(ep.gpu_count.shape[0]))
-    return candidates_forward(ep, er, weights, k, tile, task_offset)
+    return candidates_forward(ep, er, weights, k, tile, task_offset, provider_offset)
 
 
 def reverse_candidates(ep, er, weights, tile: int, reverse_r: int, task_offset: int = 0):

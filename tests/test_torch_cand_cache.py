@@ -119,13 +119,21 @@ def test_tile_divisibility_enforced():
         candidates_topk(tp, tr, k=4, tile=4)
 
 
-def test_provider_offset_is_refused_naming_its_roadmap_item():
+def test_provider_offset_is_accepted_and_equals_the_reference():
+    """Both candidate passes take a provider offset (a selection bias) and
+    return the reference's bits at proximity 0; the reverse half ignores
+    it, as the reference's does."""
     ep, er = synth(16, 16)
     tp, tr = to_port(ep, er)
-    bias = torch.zeros(16)
-    for fn in (candidates_topk, candidates_topk_reverse):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue B, B1o bias"):
-            fn(tp, tr, k=4, tile=8, provider_offset=bias)
+    bias = np.random.default_rng(3).normal(0.0, 1.0, 16).astype(np.float32)
+    w, jw = CostWeights(proximity=0.0), JCostWeights(proximity=0.0)
+    for fn, j_fn in ((candidates_topk, j_candidates_topk),
+                     (candidates_topk_reverse, j_candidates_topk_reverse)):
+        got = fn(tp, tr, w, k=4, tile=8, provider_offset=torch.from_numpy(bias))
+        ref = j_fn(ep, er, jw, k=4, tile=8, provider_offset=jnp.asarray(bias))
+        assert len(got) == len(ref)
+        for a, b in zip(got, ref):
+            np.testing.assert_array_equal(bits(a.numpy()), bits(b))
 
 
 @pytest.mark.parametrize("offset", [2**31, 2**32 - 1, -(2**31) - 1])

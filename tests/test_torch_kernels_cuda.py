@@ -494,3 +494,94 @@ def test_sinkhorn_kernel_matches_plain(card, P, T, eps):
     seated = p4t >= 0
     assert int(seated.sum()) > 0 and bool((cost[p4t[seated].long(), seated.nonzero()[:, 0]]
                                            < 5e8).all())
+
+
+BLOCKED_ATOL = 1e-3  # K14's lse against the plain passes: another summation order
+
+
+@pytest.mark.parametrize("P,T,tile", [(1500, 1024, 256), (700, 2000, 400)])
+@pytest.mark.parametrize("proximity", [0.0, 0.001])
+def test_blocked_sinkhorn_kernels_match_plain(card, P, T, tile, proximity):
+    """K14's three launches against the plain passes on the card: the
+    masks exactly, the row and column logsumexps within BLOCKED_ATOL on the
+    rows and columns with a feasible cell; then, at proximity 0, the
+    card's potentials against the CPU's end to end."""
+    from protocol_tpu_torch import kernels
+    from protocol_tpu_torch.ops import blocked as bl
+
+    ep = synth_providers(np.random.default_rng(P), P, device=card)
+    er = synth_requirements(np.random.default_rng(T), T, device=card)
+    ep_c = synth_providers(np.random.default_rng(P), P, device="cpu")
+    er_c = synth_requirements(np.random.default_rng(T), T, device="cpu")
+    w = CostWeights(proximity=proximity)
+    kb = bl.make_k_block(ep, er, w, 0.05, tile)
+    starts = range(0, T, tile)
+    row_any, col_any = kernels.blocked_feasibility(ep, er, w)
+    p_row, p_col = bl.feasibility_scan(kb, P, starts)
+    assert torch.equal(row_any, p_row) and torch.equal(col_any, p_col.reshape(T))
+    rng = np.random.default_rng(1)
+    v = torch.from_numpy(rng.normal(0, 3, T).astype(np.float32)).to(card)
+    v = torch.where(col_any, v, -1e18)
+    got = kernels.blocked_row_lse(ep, er, w, 0.05, v)
+    ref = bl.streaming_row_logsumexp(kb, v, starts, P, tile)
+    assert float((got - ref)[row_any].abs().max()) <= BLOCKED_ATOL
+    u = torch.from_numpy(rng.normal(0, 3, P).astype(np.float32)).to(card)
+    u = torch.where(row_any, u, -1e18)
+    got = kernels.blocked_col_lse(ep, er, w, 0.05, u)
+    ref = bl.column_logsumexp(kb, u, starts)
+    assert float((got - ref)[col_any].abs().max()) <= BLOCKED_ATOL
+    if proximity != 0.0:  # the CPU's haversine differs from the card's by ulps
+        return
+    gu, gv = bl.sinkhorn_potentials_blocked(ep, er, w, eps=0.05, num_iters=10, tile=tile)
+    pu, pv = bl.sinkhorn_potentials_blocked(ep_c, er_c, w, eps=0.05, num_iters=10, tile=tile)
+    for g, r in ((gu.cpu(), pu), (gv.cpu(), pv)):
+        masked = r < -1e17
+        assert torch.equal(g < -1e17, masked) and bool((g[masked] == -1e18).all())
+        assert float((g - r)[~masked].abs().max()) <= BLOCKED_ATOL
+
+
+@pytest.mark.parametrize("lanes", [None, 1, 8])
+def test_candidate_kernel_with_a_provider_bias_matches_plain_bits(card, lanes):
+    """K1's biased forward launch against the plain biased selection, bit
+    for bit at proximity 0, with ties made by a bias of -1000 on a third
+    of the providers; the unbiased launch keeps its bits."""
+    from protocol_tpu_torch import kernels
+
+    P, T, tile = 3000, 1024, 256
+    ep = synth_providers(np.random.default_rng(5), P, device=card)
+    er = synth_requirements(np.random.default_rng(6), T, device=card)
+    w = CostWeights(proximity=0.0)
+    ids = torch.arange(T, dtype=torch.int32, device=card)
+    rng = np.random.default_rng(2)
+    for bias in (rng.normal(0, 1, P), np.where(np.arange(P) % 3 == 0, -1000.0, 0.0)):
+        bias = torch.from_numpy(bias.astype(np.float32)).to(card)
+        got = kernels.candidates_forward_rows(ep, er, w, 64, ids, lanes=lanes, offset=77,
+                                              bias=bias)
+        ref = sp._forward_plain(ep, er, w, 64, tile, task_offset=77, provider_offset=bias)
+        assert all(same_bits(a, b) for a, b in zip(got, ref))
+    got = kernels.candidates_forward_rows(ep, er, w, 64, ids, lanes=lanes)
+    ref = sp._forward_plain(ep, er, w, 64, tile)
+    assert all(same_bits(a, b) for a, b in zip(got, ref))
+
+
+@pytest.mark.parametrize("proximity", [0.0, 0.001])
+def test_pair_cost_kernel_matches_plain(card, proximity):
+    """K15 against the plain cost_pairs: bit for bit at proximity 0,
+    within the haversine tolerance (1e-3) otherwise."""
+    from protocol_tpu_torch import kernels
+    from protocol_tpu_torch.ops import cost as oc
+
+    P, T = 2000, 3000
+    ep = synth_providers(np.random.default_rng(8), P, device=card)
+    er = synth_requirements(np.random.default_rng(9), T, device=card)
+    p4t = torch.from_numpy(np.random.default_rng(0).integers(-1, P, T).astype(np.int32)).to(card)
+    w = CostWeights(proximity=proximity)
+    got = kernels.pair_cost(ep, er, w, p4t)
+    ref = oc._cost_pairs_plain(ep, er, p4t, w)
+    if proximity == 0.0:
+        assert same_bits(got, ref)
+    else:
+        assert float((got - ref).abs().max()) <= 1e-3
+    before = kernels.LAUNCHES["pair_cost"]
+    oc.cost_pairs(ep, er, p4t, w)  # the public entry point launches K15 on a card
+    assert kernels.LAUNCHES["pair_cost"] == before + 1
