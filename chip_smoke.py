@@ -113,6 +113,25 @@ launches are then held against their plain passes at full width on the
 arguments of their first calls (feasibility exactly, the logsumexps
 within BLOCKED_ATOL), K1's biased launch on the rounding's call and K15
 on the referee's matching bit for bit.
+Then the provider mesh (parallel/mesh.py) at D = 4 views of the one card
+(utils/platform.py's virtual count; NCCL puts no two ranks on one card,
+so every D = 4 time is four shards sharing one card, not a multi-card
+speed): sharded generation at 65,536^2 bit for bit equal to D = 1 and to
+the one-device pass (candidate lists, forward lists, pools); then, in two
+more runs with the counts set to 0 just before each, a
+TorchSolveArena(devices=4) chain (cold, 3 x 1% requirement churn, 1%
+provider churn), after every tick equal to TorchSolveArena(devices=1)
+(matching, prices, every part) and to a fresh cold pass at D = 4
+(repaired == regen), sharded, with at least 0.99 assigned; and
+TorchBatchMatcher(use_mesh=True) on the torch route's pool, the stateless
+route and the cached default route each cold and after 1% node churn,
+every refresh sharded (mesh_sharded; mesh_gen_sharded on the stateless
+route), its matching checked, the cold cached refresh seating at least
+98% of the one-device cached route's bounded slots. K1 per shard at its
+offset (proximity 0, bit for bit), K3 at shard 3's offset 49,152 and K5
+at 4 and 8 lanes on the chain's calls, and K16 over one 256-round segment
+of the sharded scaled ladder (the whole state) are held against their
+plain versions.
 Prints:
 
   - the card's name and power limit (nvidia-smi),
@@ -297,11 +316,36 @@ def check_k1(torch, sp, ep, er, weights, tile, k, r, exact: bool, label: str,
 
 
 @contextlib.contextmanager
-def uncounted(kernels):
-    """Launches made inside (the checks of the warm chain) do not count."""
-    saved = dict(kernels.LAUNCHES)
+def uncounted(kernels, *counts: dict):
+    """Launches made inside (the checks of the warm chain) do not count, in
+    kernels.LAUNCHES nor in the further ``counts``."""
+    saved = [dict(c) for c in (kernels.LAUNCHES, *counts)]
     yield
-    kernels.LAUNCHES.update(saved)
+    for c, old in zip((kernels.LAUNCHES, *counts), saved):
+        c.update(old)
+
+
+@contextlib.contextmanager
+def count_inside(kernels, modules, fn_name: str, names, into: dict, key: str):
+    """While open, every call of ``fn_name`` (looked up in each of
+    ``modules`` at call time) adds the launches of the wrappers ``names``
+    made inside it to ``into[key]``: the launches of a kernel at the
+    arguments one pass gives it, counted at their source."""
+    orig = getattr(modules[0], fn_name)
+
+    def wrapped(*args, **kw):
+        before = sum(kernels.LAUNCHES[n] for n in names)
+        out = orig(*args, **kw)
+        into[key] += sum(kernels.LAUNCHES[n] for n in names) - before
+        return out
+
+    for m in modules:
+        setattr(m, fn_name, wrapped)
+    try:
+        yield
+    finally:
+        for m in modules:
+            setattr(m, fn_name, orig)
 
 
 # wrappers whose first call in the warm chain is recorded, and the
@@ -1639,6 +1683,363 @@ def run_stage_s(torch, kernels) -> tuple[list, dict]:
     return rows, {"stage_s": launches}
 
 
+# the provider mesh: D = 4 views of the one card (utils/platform.py)
+MESH_D = 4
+MESH_SHARD_OFFSET = 16_384 * 3  # shard 3's first row at N / 4 tasks a shard
+MESH_KERNELS = ("candidates_forward_rows", "candidates_reverse", "repair_enter",
+                "repair_refold", "mesh_round_bid", "mesh_round_resolve", "mesh_round_apply")
+K16 = ("mesh_round_bid", "mesh_round_resolve", "mesh_round_apply")
+MESH_MATCHER_KERNELS = ("candidates_forward_rows", "candidates_reverse") + K16
+SRC_K16 = "protocol_tpu_torch/csrc/mesh_auction.cu"
+
+
+def run_mesh(torch, kernels, refresh) -> tuple[list, dict]:
+    """The provider mesh on the card at D = 4 views of it: sharded
+    generation at 65,536^2 against D = 1 and the one-device pass; then, in
+    two runs with the counts set to 0 just before each, a
+    TorchSolveArena(devices=4) chain (cold, 3 x 1% requirement churn, 1%
+    provider churn) held tick by tick against TorchSolveArena(devices=1)
+    and a fresh cold pass at D = 4 (repaired == regen), and
+    TorchBatchMatcher(use_mesh=True) on the torch route's pool, the
+    stateless route and the cached default route, each cold and after 1%
+    node churn; then K1 per shard, K3 at a shard's offset, K5 at 4 and 8
+    lanes and K16 over a 256-round segment against their plain versions.
+    Returns (rows, {run name: launches}); raises on any failed check."""
+    import numpy as np
+
+    from protocol_tpu_torch.ops import sparse as sp
+    from protocol_tpu_torch.ops.cost import CostWeights
+    from protocol_tpu_torch.ops.encoding import (
+        compat_mask,
+        gather_providers,
+        gather_requirements,
+        providers_from_numpy,
+        requirements_from_numpy,
+        slice_requirements,
+    )
+    from protocol_tpu_torch.parallel import sparse as ps
+    from protocol_tpu_torch.parallel import torch_arena
+    from protocol_tpu_torch.parallel.mesh import make_mesh
+    from protocol_tpu_torch.parallel.torch_arena import TorchSolveArena
+    from protocol_tpu_torch.sched import torch_backend as tb
+    from protocol_tpu_torch.trace.synth import synth_provider_arrays, synth_requirement_arrays
+    from protocol_tpu_torch.utils import platform
+
+    dev = DEVICE
+    default, zero_prox = CostWeights(), CostWeights(proximity=0.0)
+    k, r, extra = 64, 8, 16
+    prev = platform.force_virtual_devices(MESH_D, torch.device(dev).type)
+    # K1's launches inside the sharded pass, wherever the arena or the
+    # matcher calls it (the cached route's and the repair's unsharded K1
+    # calls are not among them)
+    gen_count = {"candidates_sharded": 0}
+    counting = count_inside(kernels, (ps, torch_arena, tb), "candidates_topk_bidir_sharded",
+                            ("candidates_forward_rows", "candidates_reverse"), gen_count,
+                            "candidates_sharded")
+    counting.__enter__()
+    try:
+        mesh = make_mesh(MESH_D, dev)
+        pa = synth_provider_arrays(np.random.default_rng(SEED + 60), N)
+        ra = synth_requirement_arrays(np.random.default_rng(SEED + 61), N)
+        ep, er = providers_from_numpy(pa, dev), requirements_from_numpy(ra, dev)
+        tile = sp.pick_tile(N, cap=min(1024, max(1, N // 8)))
+        Tl = N // MESH_D
+
+        # ---- sharded generation: D = 4 against D = 1 and the one-device pass
+        names = ("cand_p", "cand_c", "fwd_p", "fwd_c", "pool_t", "pool_c")
+        g4 = ps.candidates_topk_bidir_sharded(ep, er, default, mesh=mesh, k=k, tile=tile,
+                                              reverse_r=r, extra=extra, with_parts=True)
+        g1 = ps.candidates_topk_bidir_sharded(ep, er, default, mesh=make_mesh(1, dev), k=k,
+                                              tile=tile, reverse_r=r, extra=extra,
+                                              with_parts=True)
+        fp, fc, rt_, rc, pt, pc = sp.candidates_topk_reverse(ep, er, default, k=k, tile=tile,
+                                                             reverse_r=r, with_pools=True)
+        one = (*sp.merge_reverse_candidates(fp, fc, rt_, rc, extra=extra), fp, fc, pt, pc)
+        torch.cuda.synchronize()
+        bad = [n for n, a, b, c in zip(names, g4, g1, one)
+               if not (bits_equal(torch, a, b) and bits_equal(torch, a, c))]
+        print(f"mesh generation at {N}x{N}, D={MESH_D} vs D=1 vs one device: bit-identical "
+              f"{not bad}", flush=True)
+        if bad:
+            raise AssertionError(f"sharded generation differs at D={MESH_D}: {bad}")
+        gen4_ms = cuda_ms(torch, lambda: ps.candidates_topk_bidir_sharded(
+            ep, er, default, mesh=mesh, k=k, tile=tile, reverse_r=r, extra=extra), 2)
+        gen1_ms = cuda_ms(torch, lambda: sp.merge_reverse_candidates(
+            *sp.candidates_topk_reverse(ep, er, default, k=k, tile=tile, reverse_r=r),
+            extra=extra), 2)
+        print(f"mesh generation: {gen4_ms:.3f} ms at D={MESH_D} (four shards on one card), "
+              f"{gen1_ms:.3f} ms on one device", flush=True)
+        cand_p, cand_c = g4[0], g4[1]
+        del g1, one, fp, fc, rt_, rc, pt, pc
+
+        # ---- the arena chain at D = 4 against D = 1 and a fresh regen
+        def ns(cols):
+            return types.SimpleNamespace(**cols)
+
+        churn = np.random.default_rng(SEED + 62)
+        n_churn = int(N * CHURN)
+        cols = {"pa": dict(pa), "ra": dict(ra)}
+
+        def req_churn():
+            rows = churn.choice(N, n_churn, replace=False)
+            ram = cols["ra"]["ram_mb"].copy()
+            ram[rows] = np.maximum(256, (ram[rows] * churn.uniform(0.8, 1.25, rows.size))
+                                   .astype(np.int32))
+            cols["ra"]["ram_mb"] = ram
+
+        def prov_churn():
+            rows = churn.choice(N, n_churn, replace=False)
+            price, load = cols["pa"]["price"].copy(), cols["pa"]["load"].copy()
+            price[rows] = churn.uniform(0.5, 4.0, rows.size).astype(np.float32)
+            load[rows] = churn.uniform(0, 1, rows.size).astype(np.float32)
+            cols["pa"]["price"], cols["pa"]["load"] = price, load
+
+        a4 = TorchSolveArena(devices=MESH_D, device=dev)
+        a1 = TorchSolveArena(devices=1, device=dev)
+        parts = ("cand_p", "cand_c", "fwd_p", "fwd_c", "pool_t", "pool_c")
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        gen_count["candidates_sharded"] = 0
+        calls, originals = record_calls(kernels, ("repair_enter", "repair_refold"))
+        arena_ticks = []
+        for label, step in (("prime", None), ("req-churn-0", req_churn),
+                            ("req-churn-1", req_churn), ("req-churn-2", req_churn),
+                            ("prov-churn", prov_churn)):
+            if step is not None:
+                step()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p4 = a4.solve(ns(cols["pa"]), ns(cols["ra"]), default)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            st = dict(a4.last_stats)
+            with uncounted(kernels, gen_count):
+                t0 = time.perf_counter()
+                p1 = a1.solve(ns(cols["pa"]), ns(cols["ra"]), default)
+                torch.cuda.synchronize()
+                wall_1 = (time.perf_counter() - t0) * 1e3
+                st_1 = a1.last_stats
+                fresh = TorchSolveArena(devices=MESH_D, cold_every=0, device=dev)
+                fresh.solve(ns(a4._p_fields), ns(a4._r_fields), default)
+                torch.cuda.synchronize()
+            same_1 = bool(np.array_equal(p4, p1)) and a4.price.tobytes() == a1.price.tobytes() \
+                and all(getattr(a4, f"_{n}").tobytes() == getattr(a1, f"_{n}").tobytes()
+                        for n in parts)
+            regen = all(getattr(a4, f"_{n}").tobytes() == getattr(fresh, f"_{n}").tobytes()
+                        for n in parts)
+            seated = p4[p4 >= 0]
+            print(f"mesh arena {label}: wall_ms {wall:.1f} gen_ms {st.get('gen_ms')} solve_ms "
+                  f"{st.get('solve_ms')} torch_devices {st['torch_devices']} gen_sharded "
+                  f"{st['gen_sharded']} cand_cold_passes {st['cand_cold_passes']} repair_rows "
+                  f"{st.get('repair_rows')} assigned {st['assigned']}/{N}; D=1: wall_ms "
+                  f"{wall_1:.1f} gen_ms {st_1.get('gen_ms')} solve_ms {st_1.get('solve_ms')}; "
+                  f"equal to D=1 {same_1}, repaired == regen {regen}", flush=True)
+            arena_ticks.append(st)
+            if not (same_1 and regen) or st["torch_devices"] != MESH_D or not st["gen_sharded"]:
+                raise AssertionError(f"mesh arena {label}: D={MESH_D} differs from D=1 or regen, "
+                                     "or did not shard")
+            if (label == "prime") != bool(st["cold"]) or np.unique(seated).size != seated.size:
+                raise AssertionError(f"mesh arena {label}: cold/warm or matching wrong")
+            if st["assigned"] / N < 0.99:
+                raise AssertionError(f"mesh arena {label}: only {st['assigned']} of {N} assigned")
+            del fresh
+        for name, fn in originals.items():
+            setattr(kernels, name, fn)
+        launches_arena = dict(kernels.LAUNCHES, **gen_count)
+        print(f"kernels (mesh arena): {json.dumps(launches_arena)}", flush=True)
+        missing = [n for n in MESH_KERNELS[:4] + ("candidates_sharded",) if launches_arena[n] == 0]
+        if missing:
+            raise AssertionError(f"the mesh arena launched no {missing}")
+        del a1
+
+        # ---- the matcher over the mesh on the torch route's pool
+        nodes, tasks = make_pool(np.random.default_rng(SEED + 30), *ARENA_POOL, sites=SITES)
+        store = mem_store(nodes, tasks)
+        rng = np.random.default_rng(SEED + 63)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        gen_count["candidates_sharded"] = 0
+        matcher_stats = []
+        for warm_start in (False, True):
+            m = tb.TorchBatchMatcher(store, use_mesh=True, warm_start=warm_start, device=dev)
+            route = "cached" if warm_start else "stateless"
+            if warm_start:
+                with uncounted(kernels, gen_count):  # the one-device cached route's cold seats
+                    single = tb.TorchBatchMatcher(store, device=dev)
+                    single_seats = refresh(single, store, "mesh-reference-one-device-cold",
+                                           "sparse_topk")["checked"]["bounded_seats"]
+                    del single
+            for step in ("cold", "node-churn"):
+                if step == "node-churn":
+                    churn_nodes(rng, store, CHURN, first=N * (2 + int(warm_start)))
+                st = refresh(m, store, f"mesh-{route}-{step}", "sparse_topk")
+                print(f"matcher mesh-{route}-{step}: mesh_sharded {st['mesh_sharded']} "
+                      f"mesh_gen_sharded {st['mesh_gen_sharded']}", flush=True)
+                matcher_stats.append(st)
+                if not st["mesh_sharded"] or (not warm_start and not st["mesh_gen_sharded"]):
+                    raise AssertionError(f"mesh-{route}-{step}: the mesh did not engage")
+                if warm_start and step == "cold":
+                    seats = st["checked"]["bounded_seats"]
+                    print(f"mesh cached cold: {seats} bounded seats, one device {single_seats}",
+                          flush=True)
+                    if seats < ROUTE_SEATS_FLOOR * single_seats:
+                        raise AssertionError(f"the mesh's cold cached refresh seats {seats}, "
+                                             f"under {ROUTE_SEATS_FLOOR} x {single_seats}")
+            del m
+        launches_matcher = dict(kernels.LAUNCHES, **gen_count)
+        print(f"kernels (mesh matcher): {json.dumps(launches_matcher)}", flush=True)
+        missing = [n for n in MESH_MATCHER_KERNELS + ("candidates_sharded",)
+                   if launches_matcher[n] == 0]
+        if missing:
+            raise AssertionError(f"the mesh matcher launched no {missing}")
+        del store, nodes, tasks
+
+        # ---- the kernels against their plain versions (uncounted)
+        rows_out = []
+        p_row, r_row = row_bytes(ep), row_bytes(er)
+        with uncounted(kernels):
+            # K1 per shard, at proximity 0 bit for bit, at the shard's offset
+            for s_ in range(MESH_D):
+                er_s = slice_requirements(er, s_ * Tl, Tl)
+                check_k1(torch, sp, ep, er_s, zero_prox, tile, k, r, True,
+                         f"shard {s_} of {MESH_D} ({N}x{Tl}) proximity=0", offset=s_ * Tl)
+            shards_s = [slice_requirements(er, s_ * Tl, Tl) for s_ in range(MESH_D)]
+
+            def k1_shards():
+                for s_, er_s in enumerate(shards_s):
+                    sp.candidates_forward(ep, er_s, default, k, tile, task_offset=s_ * Tl)
+                    sp.candidates_reverse(ep, er_s, default, tile, r, 1, task_offset=s_ * Tl)
+
+            def k1_shards_plain():
+                for s_, er_s in enumerate(shards_s):
+                    sp._forward_plain(ep, er_s, default, k, tile, task_offset=s_ * Tl)
+                    sp._reverse_plain(ep, er_s, default, tile, r, 1, task_offset=s_ * Tl)
+
+            k1_ms = cuda_ms(torch, k1_shards, 2)
+            k1_plain_ms = cuda_ms(torch, k1_shards_plain, 1)
+            feas = sum(int(compat_mask(ep, slice_requirements(er, t0, tile)).sum())
+                       for t0 in range(0, N, tile))
+            k1_row = row("candidates_sharded", SRC_K1, "protocol_tpu/parallel/sparse.py:533",
+                         0.0, k1_ms, k1_plain_ms,
+                         MESH_D * N * p_row + N * r_row + N * k * 8 + N * (N // tile + r * MESH_D) * 8,
+                         N * N * OPS_PER_CELL + feas * OPS_PER_FEASIBLE_CELL)
+            k1_row.update(runs=("mesh_arena", "mesh_matcher"),
+                          note=f"K1 forward + reverse over {MESH_D} shards of {Tl} tasks at "
+                               f"their offsets, four shards on one card; launches: K1's "
+                               f"launches inside the sharded pass only")
+            rows_out.append(k1_row)
+
+            # K3 at shard 3's offset, on the chain's call
+            k3 = [c for c in calls["repair_enter"] if c[1].get("offset") == MESH_SHARD_OFFSET]
+            if not k3:
+                raise AssertionError(f"no K3 launch at offset {MESH_SHARD_OFFSET} in the chain")
+            (en_ep, en_er, _, en_ids, en_th), en_kw, _ = k3[0]
+            err = 0.0
+            for w in (zero_prox, default):
+                got = kernels.repair_enter(en_ep, en_er, w, en_ids, en_th, **en_kw)
+                ref = ps._enter_plain(en_ep, en_er, w, en_ids.long(), en_th,
+                                      en_kw["offset"])
+                torch.cuda.synchronize()
+                if not bool(torch.equal(got, ref)):
+                    raise AssertionError(f"K3 at offset {MESH_SHARD_OFFSET} (proximity "
+                                         f"{w.proximity}): not identical to its plain version")
+            print(f"K3 at offset {MESH_SHARD_OFFSET}: {en_ids.numel()} dirty providers x "
+                  f"{en_er.num} tasks, identical to its plain version", flush=True)
+            ms = cuda_ms(torch, lambda: kernels.repair_enter(en_ep, en_er, default, en_ids, en_th,
+                                                             **en_kw), 5)
+            plain = cuda_ms(torch, lambda: ps._enter_plain(en_ep, en_er, default, en_ids.long(),
+                                                           en_th, en_kw["offset"]), 1)
+            feas = feasible_cells(torch, compat_mask, gather_providers, gather_requirements,
+                                  en_ep, en_er, p_ids=en_ids.long())
+            k3_row = row("repair_enter_sharded", SRC_REPAIR, "protocol_tpu/parallel/sparse.py:740",
+                         err, ms, plain, en_ids.numel() * (p_row + 4) + en_er.num * (r_row + 5),
+                         en_ids.numel() * en_er.num * OPS_PER_CELL + feas * OPS_PER_FEASIBLE_CELL)
+            k3_row.update(counter="repair_enter", runs=("mesh_arena",),
+                          note=f"one shard: {en_ids.numel()} providers x {en_er.num} tasks at "
+                               f"offset {MESH_SHARD_OFFSET}")
+            rows_out.append(k3_row)
+
+            # K5 at 4 and 8 lanes, on the chain's pools
+            lanes = [c for c in calls["repair_refold"] if c[1].get("d_fold") == MESH_D]
+            if not lanes:
+                raise AssertionError(f"the chain's refold never ran at {MESH_D} lanes")
+            (rf_pt, rf_pc, rf_r), rf_kw, _ = lanes[0]
+            for d in (4, 8):
+                got = kernels.repair_refold(rf_pt, rf_pc, rf_r, d_fold=d)
+                ref = ps._refold_plain(rf_pt, rf_pc, rf_r, 1, d)
+                torch.cuda.synchronize()
+                if not all(bits_equal(torch, a, b) for a, b in zip(got, ref)):
+                    raise AssertionError(f"K5 at {d} lanes: not bit-identical to its plain version")
+            print("K5 at 4 and 8 lanes: bit-identical to its plain version", flush=True)
+            ms = cuda_ms(torch, lambda: kernels.repair_refold(rf_pt, rf_pc, rf_r, d_fold=MESH_D), 10)
+            plain = cuda_ms(torch, lambda: ps._refold_plain(rf_pt, rf_pc, rf_r, 1, MESH_D), 1)
+            n_tiles_rf = rf_pc.shape[1]
+            k5_row = row("repair_refold_lanes", SRC_REPAIR, "protocol_tpu/parallel/sparse.py:835",
+                         0.0, ms, plain, N * n_tiles_rf * 8 + N * rf_r * 8,
+                         N * (n_tiles_rf + MESH_D * rf_r) * rf_r)
+            k5_row.update(counter="repair_refold", runs=("mesh_arena",),
+                          note=f"{N} providers x {n_tiles_rf} tiles in {MESH_D} lanes")
+            rows_out.append(k5_row)
+
+            # K16: one 256-round segment of the sharded scaled ladder (its
+            # first phase, eps 4.0) at D = 4, the whole state compared
+            T = N
+            B = min(4096, T // MESH_D)
+            zeros = (torch.zeros(N, device=dev), torch.full((N,), -1, dtype=torch.int32, device=dev),
+                     torch.full((T,), -1, dtype=torch.int32, device=dev),
+                     torch.zeros(T, dtype=torch.bool, device=dev))
+
+            def shards():
+                return ps._make_shards(mesh, cand_p, cand_c, True, *zeros, B)
+
+            got_sh, ref_sh = shards(), shards()
+            out_k = ps._segment(mesh, *got_sh, T, 4.0, B, 256, 0)
+            out_p = ps._segment(mesh, *ref_sh, T, 4.0, B, 256, 0, plain=True)
+            torch.cuda.synchronize()
+            bad = [n for n in ("price", "owner", "p4t", "retired", "ctl", "win_key", "win_task")
+                   if not bits_equal(torch, getattr(got_sh[1], n), getattr(ref_sh[1], n))]
+            rows_k16 = int(got_sh[1].ctl[:, kernels.CTL_ROWS].sum())
+            print(f"K16 one segment at D={MESH_D}: (it, stall, open) kernel {out_k} plain {out_p}; "
+                  f"frontier rows {rows_k16}, assigned {int((got_sh[1].p4t >= 0).sum())}; "
+                  f"differing {bad}", flush=True)
+            if bad or out_k != out_p:
+                raise AssertionError(f"K16: the segment differs from the plain rounds: {bad}")
+            seg = []
+            for _ in range(3):
+                sh = shards()
+                torch.cuda.synchronize()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                ps._segment(mesh, *sh, T, 4.0, B, 256, 0)
+                end.record()
+                torch.cuda.synchronize()
+                seg.append(start.elapsed_time(end))
+            sh = shards()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ps._segment(mesh, *sh, T, 4.0, B, 256, 0, plain=True)
+            torch.cuda.synchronize()
+            k16_plain_ms = (time.perf_counter() - t0) * 1e3
+            K = cand_c.shape[1]
+            rounds = out_k[0]
+            k16_bytes = (N * K * 8 + MESH_D * rounds * (Tl * 6 + N * 24)
+                         + rows_k16 * (K * 12 + 16))
+            k16_row = row("mesh_auction_round", SRC_K16, "protocol_tpu/parallel/sparse.py:81",
+                          0.0, sum(seg) / len(seg), k16_plain_ms, k16_bytes, rows_k16 * K * 3)
+            k16_row.update(counter=K16, runs=("mesh_matcher",),
+                           note=f"one 256-round segment ({rounds} live rounds) at eps 4.0, "
+                                f"B {B}, over {MESH_D} shards on one card; ms the mean of "
+                                f"{len(seg)} (CUDA events), plain ms host clock")
+            rows_out.append(k16_row)
+            print(f"K16 segment: {k16_row['ms']:.3f} ms (kernels), plain {k16_plain_ms:.1f} ms",
+                  flush=True)
+    finally:
+        counting.__exit__(None, None, None)
+        platform.force_virtual_devices(prev, torch.device(dev).type)
+    return rows_out, {"mesh_arena": launches_arena, "mesh_matcher": launches_matcher}
+
+
 def main() -> int:
     try:
         import torch
@@ -2233,9 +2634,12 @@ def main() -> int:
     # ---- stage S: the blocked Sinkhorn at 100,000^2 (BASELINE ladder #3)
     stage_rows, stage_runs = run_stage_s(torch, kernels)
 
+    # ---- the provider mesh: four views of the card
+    mesh_rows, mesh_runs = run_mesh(torch, kernels, refresh)
+
     runs = {"cold_ticks": launches, "warm_chain": launches_warm,
             "matcher_dense": launches_dense, "matcher_torch": launches_torch, **phase_runs,
-            **route_runs, **backend_runs, **stage_runs}
+            **route_runs, **backend_runs, **stage_runs, **mesh_runs}
 
     # K1's forward launch: the cold pass over every task id; its call on
     # the warm repair's dirty rows rides along as "repair_call"
@@ -2264,11 +2668,19 @@ def main() -> int:
             k8_plain_ms, k8_bytes, k8_ops),
         row("greedy_cleanup", SRC_K9, "protocol_tpu/ops/sparse.py:545", 0.0, k9_ms,
             k9_plain_ms, k9_bytes, 0),
-    ] + phase_rows + backend_rows + stage_rows
+    ] + phase_rows + backend_rows + stage_rows + mesh_rows
     for r_ in rows:
+        # a row may count another wrapper's launches (a kernel at new
+        # arguments: the mesh's rows), or several, in some runs only; the
+        # mesh runs also carry "candidates_sharded", K1's launches inside
+        # the sharded pass (count_inside)
+        counter = r_.pop("counter", r_["name"])
+        counter = (counter,) if isinstance(counter, str) else counter
+        only = r_.pop("runs", runs)
         for run, counts in runs.items():
-            r_[f"launches_{run}"] = counts[r_["name"]]
-        r_["launches"] = sum(counts[r_["name"]] for counts in runs.values())
+            if run in only:
+                r_[f"launches_{run}"] = sum(counts[c] for c in counter)
+        r_["launches"] = sum(r_[f"launches_{run}"] for run in runs if run in only)
     print(f"K2 timed launch: eps 4.0, B 4096, {k2_rounds} rounds, {k2_rows} frontier rows", flush=True)
     print(f"K7 timed launch: {Td} slots x {Pd} providers, eps 0.05, {k7_rounds} rounds, "
           f"{k7_open_rows} open rows; K9 timed on {cut_open.numel()} open tasks", flush=True)

@@ -401,15 +401,17 @@ extern "C" int k1_forward_rows(const void* const* prov_cols, const void* const* 
   return (int)cudaGetLastError();
 }
 
-// rt tasks per tile (1 <= rt <= r, rt <= tile, n_tiles * rt >= r): pools
-// [P, n_tiles * rt]; the jitter keyed on (task id + offset) mod 2^32.
+// rt tasks per tile (1 <= rt <= r, rt <= tile): pools [P, n_tiles * rt];
+// the jitter keyed on (task id + offset) mod 2^32. Fewer pool entries than
+// r (a shard of the provider mesh holds few tiles) leave the carry's
+// (INFEASIBLE, -1) entries in place, as the reference's fold does.
 extern "C" int k1_reverse(const void* const* prov_cols, const void* const* req_cols, int P,
                           int T, int K, int W, float w_price, float w_load, float w_prox,
                           float w_prio, int tile, int r, int rt, unsigned int offset, float* aux,
                           int32_t* pool_t, float* pool_c, int32_t* rev_t, float* rev_c,
                           void* stream) {
   if (r < 1 || r > kMaxR || K > kMaxOpts || tile < 1 || T % tile != 0 || rt < 1 || rt > r ||
-      rt > tile || (T / tile) * rt < r)
+      rt > tile)
     return (int)cudaErrorInvalidValue;
   const Weights w{w_price, w_load, w_prox, w_prio};
   const int threads = kRows * kParts;

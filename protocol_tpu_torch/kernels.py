@@ -10,14 +10,16 @@ source is rebuilt and never mixed with an old build.
 Flags: ``-O3 -fmad=false`` and no fast-math, so every f32 operation in a
 kernel rounds once, as PyTorch's eager ops do.
 
-Every wrapper checks its inputs, launches on PyTorch's current stream,
-raises if the launch was refused, and adds one to its entry in
+Every wrapper checks its inputs, launches on PyTorch's current stream of
+its inputs' card with that card as the current device, raises if the
+launch was refused, and adds one to its entry in
 :data:`LAUNCHES` per kernel launch; nothing else counts there.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
@@ -31,7 +33,7 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / "kernels"
 SOURCES = ("candidates", "auction", "repair", "dense", "cleanup", "binpack", "greedy", "sinkhorn",
-           "blocked")
+           "blocked", "mesh_auction")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -46,6 +48,7 @@ LAUNCHES = {
     "dense_value_base": 0, "dense_auction": 0, "unbounded_best": 0, "greedy_cleanup": 0,
     "cost_block": 0, "binpack_ffd": 0, "greedy_assign": 0, "sinkhorn": 0,
     "blocked_feasibility": 0, "blocked_row_lse": 0, "blocked_col_lse": 0, "pair_cost": 0,
+    "mesh_round_bid": 0, "mesh_round_resolve": 0, "mesh_round_apply": 0,
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -129,12 +132,12 @@ def _lib(name: str) -> ctypes.CDLL:
                 getattr(lib, fn).restype = _I
         elif name == "repair":
             lib.k3_repair_enter.argtypes = [
-                _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P, _I, _P, _P, _P, _P,
+                _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P, _I, _U, _P, _P, _P, _P,
             ]
             lib.k4_repair_tile_min.argtypes = [
                 _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P, _I, _P, _P, _P,
             ]
-            lib.k5_repair_refold.argtypes = [_P, _P, _I, _I, _I, _P, _P, _P]
+            lib.k5_repair_refold.argtypes = [_P, _P, _I, _I, _I, _I, _P, _P, _P]
             for fn in ("k3_repair_enter", "k4_repair_tile_min", "k5_repair_refold"):
                 getattr(lib, fn).restype = _I
         elif name == "dense":
@@ -166,6 +169,16 @@ def _lib(name: str) -> ctypes.CDLL:
             lib.k15_pair_cost.argtypes = [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P, _P]
             for fn in ("k14_feasibility", "k14_lse", "k15_pair_cost"):
                 getattr(lib, fn).restype = _I
+        elif name == "mesh_auction":
+            lib.k16_round_bid.argtypes = [
+                _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+            ]
+            lib.k16_round_resolve.argtypes = [_I, _I, _P, _P, _P, _P, _P, _P]
+            lib.k16_round_apply.argtypes = [
+                _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+            ]
+            for fn in ("k16_round_bid", "k16_round_resolve", "k16_round_apply"):
+                getattr(lib, fn).restype = _I
         elif name == "sinkhorn":
             lib.k13_sinkhorn.argtypes = [_P, _I, _I, _F, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P]
             lib.k13_sinkhorn.restype = _I
@@ -186,6 +199,26 @@ def _check(rc: int, what: str) -> None:
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _on_device(wrapper):
+    """Run a launch wrapper with its inputs' card as the current device (the
+    first argument's: a tensor, or encoded columns), so its launches and
+    the launchers' device queries go to that card's stream. A mesh's shards
+    on several cards launch in turn from one thread, and CUDA refuses a
+    launch into a stream of another device than the current one. The
+    device is switched only when it differs: a launch on the current card
+    (every launch of a one-card run) pays one device query."""
+
+    @functools.wraps(wrapper)
+    def run(first, *args, **kwargs):
+        dev = first.gpu_count.device if hasattr(first, "gpu_count") else first.device
+        if dev.type != "cuda" or dev.index == torch.cuda.current_device():
+            return wrapper(first, *args, **kwargs)
+        with torch.cuda.device(dev):
+            return wrapper(first, *args, **kwargs)
+
+    return run
 
 
 def _cols(obj, spec, device) -> ctypes.Array:
@@ -236,19 +269,21 @@ def jitter_offset(offset: int) -> int:
     return offset & 0xFFFFFFFF
 
 
+@_on_device
 def candidates_reverse(ep, er, weights, tile: int, r: int, rt: int, offset: int = 0):
     """K1, reverse launch (``csrc/candidates.cu``): each tile's stable
     top-rt tasks per provider (the pools), folded into each provider's
-    best r, the jitter keyed on (task id + ``offset``) mod 2^32. Returns
-    (rev_t [P, r] unmasked, rev_c, pool_t [P, n_tiles * rt], pool_c)."""
+    best r from an (INFEASIBLE, -1) carry, the jitter keyed on (task id +
+    ``offset``) mod 2^32. The task ids written are the rows of ``er``.
+    Returns (rev_t [P, r] unmasked, rev_c, pool_t [P, n_tiles * rt],
+    pool_c)."""
     offset = jitter_offset(offset)
     dev, pcols, rcols, (P, T, K, W), w, aux = _k1_setup(ep, er, weights)
     if not 1 <= r <= 8 or tile < 1 or T % tile != 0:
         raise ValueError(f"K1 reverse takes r <= 8 and T % tile == 0 (r={r}, T={T}, tile={tile})")
     n_tiles = T // tile
-    if not 1 <= rt <= min(r, tile) or n_tiles * rt < r:
-        raise ValueError(f"K1 reverse takes 1 <= rt <= min(r, tile), n_tiles * rt >= r "
-                         f"(rt={rt}, r={r}, tile={tile}, n_tiles={n_tiles})")
+    if not 1 <= rt <= min(r, tile):
+        raise ValueError(f"K1 reverse takes 1 <= rt <= min(r, tile) (rt={rt}, r={r}, tile={tile})")
     pool_t = torch.empty((P, n_tiles * rt), dtype=torch.int32, device=dev)
     pool_c = torch.empty((P, n_tiles * rt), dtype=torch.float32, device=dev)
     rev_t = torch.empty((P, r), dtype=torch.int32, device=dev)
@@ -262,6 +297,7 @@ def candidates_reverse(ep, er, weights, tile: int, r: int, rt: int, offset: int 
     return rev_t, rev_c, pool_t, pool_c
 
 
+@_on_device
 def auction_phase(
     cand_safe, value_base, task_feasible, give_up, state,
     P: int, eps: float, max_iters: int, B: int, stall_limit: int,
@@ -324,6 +360,7 @@ def _ids(ids: torch.Tensor, n: int, dev, what: str) -> torch.Tensor:
 ROWS_TARGET_THREADS = 65_536
 
 
+@_on_device
 def candidates_forward_rows(ep, er, weights, k: int, t_ids: torch.Tensor,
                             lanes: int | None = None, offset: int = 0,
                             bias: torch.Tensor | None = None):
@@ -369,6 +406,7 @@ def _pools(pool_t, pool_c, P: int, n_tiles: int, dev, what: str) -> None:
             raise ValueError(f"{what}: pools must be contiguous [{P}, {n_tiles}] tensors on {dev}")
 
 
+@_on_device
 def candidates_reverse_blocks(ep, er, weights, tile: int, blk_p, blk_j, pool_t, pool_c) -> None:
     """K1 reverse, blocks variant (``csrc/candidates.cu``): rescores the
     (provider blk_p[b], tile blk_j[b]) blocks and writes each block's first
@@ -389,10 +427,13 @@ def candidates_reverse_blocks(ep, er, weights, tile: int, blk_p, blk_j, pool_t, 
     LAUNCHES["candidates_reverse_blocks"] += 1
 
 
-def repair_enter(ep, er, weights, p_ids, thresh):
+@_on_device
+def repair_enter(ep, er, weights, p_ids, thresh, offset: int = 0):
     """K3 (``csrc/repair.cu``): per task, whether some dirty provider
     (global ids ``p_ids``) has a feasible fresh cost <= ``thresh`` [T] (the
-    stored k-th forward cost). Returns enter [T] bool."""
+    stored k-th forward cost), the jitter keyed on (row + ``offset``) mod
+    2^32. Returns enter [T] bool."""
+    offset = jitter_offset(offset)
     dev, pcols, rcols, (P, T, K, W), w, aux = _k1_setup(ep, er, weights)
     p_ids = _ids(p_ids, P, dev, "repair_enter")
     if thresh.device != dev or thresh.dtype != torch.float32 or thresh.shape != (T,):
@@ -400,13 +441,14 @@ def repair_enter(ep, er, weights, p_ids, thresh):
     thresh = thresh.contiguous()
     enter = torch.empty(T, dtype=torch.uint8, device=dev)
     _check(_lib("repair").k3_repair_enter(
-        pcols, rcols, P, T, K, W, *w, p_ids.data_ptr(), p_ids.numel(), thresh.data_ptr(),
-        aux.data_ptr(), enter.data_ptr(), _stream(enter),
+        pcols, rcols, P, T, K, W, *w, p_ids.data_ptr(), p_ids.numel(), offset,
+        thresh.data_ptr(), aux.data_ptr(), enter.data_ptr(), _stream(enter),
     ), "repair_enter")
     LAUNCHES["repair_enter"] += 1
     return enter.bool()
 
 
+@_on_device
 def repair_tile_min(ep, er, weights, t_ids, tile: int, pad: float):
     """K4 (``csrc/repair.cu``): per (provider, tile), the least fresh cost
     over the tasks ``t_ids`` (global ids, ascending, unique) of that tile;
@@ -426,26 +468,30 @@ def repair_tile_min(ep, er, weights, t_ids, tile: int, pad: float):
     return min_tile
 
 
-def repair_refold(pool_t, pool_c, r: int):
+@_on_device
+def repair_refold(pool_t, pool_c, r: int, d_fold: int = 1):
     """K5 (``csrc/repair.cu``): each provider's pools [P, n_tiles] (one
-    contribution per tile) folded in tile order into its best r, the carry
-    first among ties. Returns (rev_t [P, r] with -1 where the cost is
-    >= INFEASIBLE/2, rev_c [P, r])."""
+    contribution per tile) folded in ``d_fold`` lanes of n_tiles / d_fold
+    consecutive tiles, each in tile order into a best r (the carry first
+    among ties), the lanes then merged in lane order (stable). Returns
+    (rev_t [P, r] with -1 where the cost is >= INFEASIBLE/2, rev_c [P, r])."""
     dev = pool_c.device
     P, n_tiles = pool_c.shape
     _pools(pool_t, pool_c, P, n_tiles, dev, "repair_refold")
-    if not 1 <= r <= 8 or n_tiles < r:
-        raise ValueError(f"K5 takes 1 <= r <= min(8, n_tiles), got r={r}, n_tiles={n_tiles}")
+    if not 1 <= r <= 8 or d_fold < 1 or n_tiles % d_fold != 0:
+        raise ValueError(f"K5 takes 1 <= r <= 8 and d_fold dividing n_tiles, got r={r}, "
+                         f"d_fold={d_fold}, n_tiles={n_tiles}")
     rev_t = torch.empty((P, r), dtype=torch.int32, device=dev)
     rev_c = torch.empty((P, r), dtype=torch.float32, device=dev)
     _check(_lib("repair").k5_repair_refold(
-        pool_t.data_ptr(), pool_c.data_ptr(), P, n_tiles, r,
+        pool_t.data_ptr(), pool_c.data_ptr(), P, n_tiles, r, d_fold,
         rev_t.data_ptr(), rev_c.data_ptr(), _stream(rev_c),
     ), "repair_refold")
     LAUNCHES["repair_refold"] += 1
     return rev_t, rev_c
 
 
+@_on_device
 def dense_value_base(ep, er, weights):
     """K6 (``csrc/dense.cu``): the dense auction's value rows, (value_base
     [T, P] f32 = -(jittered cost), -1e18 where the cost is >= INFEASIBLE/2;
@@ -463,6 +509,7 @@ def dense_value_base(ep, er, weights):
     return value_base, feasible.bool()
 
 
+@_on_device
 def dense_auction(value_base, task_feasible, eps: float, max_iters: int,
                   work_out: dict | None = None):
     """K7 (``csrc/dense.cu``): the dense Jacobi auction from scratch duals,
@@ -498,6 +545,7 @@ def dense_auction(value_base, task_feasible, eps: float, max_iters: int,
     return p4t, owner, price, out[0]
 
 
+@_on_device
 def unbounded_best(ep, er, weights):
     """K8 (``csrc/dense.cu``): per provider, the first argmin over the
     tasks of the unjittered cost, -1 where it is >= INFEASIBLE/2. Returns
@@ -513,6 +561,7 @@ def unbounded_best(ep, er, weights):
     return best
 
 
+@_on_device
 def greedy_cleanup(cand_provider, cand_cost, owner, p4t, open_idx):
     """K9 (``csrc/cleanup.cu``): the open tasks ``open_idx`` (ascending) in
     order each take their cheapest still-free candidate. Returns the new
@@ -538,6 +587,7 @@ def greedy_cleanup(cand_provider, cand_cost, owner, p4t, open_idx):
     return out
 
 
+@_on_device
 def cost_block(ep, er, weights):
     """K10 (``csrc/dense.cu``): the unjittered cost of every cell, INFEASIBLE
     off the mask, slot-major: cost [T, P] f32 (``cost_matrix(ep, er,
@@ -553,6 +603,7 @@ def cost_block(ep, er, weights):
     return cost
 
 
+@_on_device
 def binpack_ffd(cost_tp, demand, capacity, task_order, anti_group, loc_id, L: int, G: int):
     """K11 (``csrc/binpack.cu``): the FFD vector bin-pack over the slot-major
     cost ``cost_tp`` [T, P]; ``task_order`` None = the FFD demand order,
@@ -594,6 +645,7 @@ def binpack_ffd(cost_tp, demand, capacity, task_order, anti_group, loc_id, L: in
     return pft, cap
 
 
+@_on_device
 def greedy_assign(cost_tp, task_order):
     """K12 (``csrc/greedy.cu``): the sequential greedy over the slot-major
     cost ``cost_tp`` [T, P], tasks in ``task_order`` (ids in [0, T)).
@@ -618,6 +670,7 @@ def greedy_assign(cost_tp, task_order):
     return p4t
 
 
+@_on_device
 def sinkhorn(cost_tp, eps: float, num_iters: int):
     """K13 (``csrc/sinkhorn.cu``): the log-domain Sinkhorn over the
     slot-major cost ``cost_tp`` [T, P]. Returns (plan [T, P] with
@@ -648,6 +701,7 @@ def sinkhorn(cost_tp, eps: float, num_iters: int):
     return plan, rcost, colmax, u, v
 
 
+@_on_device
 def blocked_feasibility(ep, er, weights):
     """K14, feasibility launch (``csrc/blocked.cu``): whether each provider
     and each task has a cell with cost < INFEASIBLE/2. Returns (row_any
@@ -684,6 +738,7 @@ def _blocked_lse(ep, er, weights, eps: float, pot: torch.Tensor, rows: bool, nam
     return lse
 
 
+@_on_device
 def blocked_row_lse(ep, er, weights, eps: float, v: torch.Tensor):
     """K14, row pass (``csrc/blocked.cu``): per provider, the logsumexp
     over all tasks of K[p, t] + v[t], K = -cost/eps on the feasible cells
@@ -691,6 +746,7 @@ def blocked_row_lse(ep, er, weights, eps: float, v: torch.Tensor):
     return _blocked_lse(ep, er, weights, eps, v, True, "blocked_row_lse")
 
 
+@_on_device
 def blocked_col_lse(ep, er, weights, eps: float, u: torch.Tensor):
     """K14, column pass (``csrc/blocked.cu``): per task, the logsumexp over
     all providers of K[p, t] + u[p] (feasible cells only; a task without
@@ -698,6 +754,7 @@ def blocked_col_lse(ep, er, weights, eps: float, u: torch.Tensor):
     return _blocked_lse(ep, er, weights, eps, u, False, "blocked_col_lse")
 
 
+@_on_device
 def pair_cost(ep, er, weights, p4t: torch.Tensor):
     """K15 (``csrc/blocked.cu``): per task t, the unjittered cost of the
     cell (p4t[t], t), INFEASIBLE where p4t[t] < 0. Returns [T] f32."""
@@ -714,3 +771,91 @@ def pair_cost(ep, er, weights, p4t: torch.Tensor):
     ), "pair_cost")
     LAUNCHES["pair_cost"] += 1
     return out
+
+
+# K16's per-shard int32 state, one word each, and its size MESH_CTL: the
+# loop's it, best and stall, whether this round runs (go) and has counts
+# to fold (pending), the frontier size nb, the frontier rows bid so far,
+# and the shard's open and assigned counts. The one definition of the
+# layout: csrc/mesh_auction.cu's Ctl enum follows it.
+(CTL_IT, CTL_BEST, CTL_STALL, CTL_GO, CTL_PENDING, CTL_NB, CTL_ROWS, CTL_OPEN, CTL_ASSIGNED,
+ MESH_CTL) = range(10)
+
+
+def _mesh_tensors(dev, what: str, **named) -> None:
+    for name, (t, dtype, n) in named.items():
+        if t.device != dev or t.dtype != dtype or t.numel() != n or not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be a contiguous {dtype} tensor of {n} "
+                             f"elements on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+@_on_device
+def mesh_round_bid(cand_safe, value_base, feasible, give_up, price, retired, p4t, tot, ctl,
+                   front, front_bid, win_key, eps: float, B: int, max_iters: int,
+                   stall_limit: int) -> None:
+    """K16, the bid step of one shard's round (``csrc/mesh_auction.cu``): the
+    loop control from the combined counts ``tot`` [2], the frontier of the
+    first B open rows, its bids, retirement, and the scatter-max of the
+    bids into ``win_key`` [P] (order-preserving int32 keys). Updates
+    ``ctl``, ``retired``, ``front``, ``front_bid`` and ``win_key`` in place."""
+    Tl, K = value_base.shape
+    P = price.shape[0]
+    dev = value_base.device
+    if not 1 <= B <= Tl or K > 128:
+        raise ValueError(f"K16 takes 1 <= B <= Tl and K <= 128, got B={B}, Tl={Tl}, K={K}")
+    _mesh_tensors(dev, "mesh_round_bid", cand_safe=(cand_safe, torch.int32, Tl * K),
+                  value_base=(value_base, torch.float32, Tl * K),
+                  feasible=(feasible, torch.uint8, Tl), give_up=(give_up, torch.float32, 1),
+                  price=(price, torch.float32, P), retired=(retired, torch.uint8, Tl),
+                  p4t=(p4t, torch.int32, Tl), tot=(tot, torch.int32, 2),
+                  ctl=(ctl, torch.int32, MESH_CTL), front=(front, torch.int32, 2 * B),
+                  front_bid=(front_bid, torch.float32, B), win_key=(win_key, torch.int32, P))
+    _check(_lib("mesh_auction").k16_round_bid(
+        cand_safe.data_ptr(), value_base.data_ptr(), feasible.data_ptr(), give_up.data_ptr(),
+        Tl, K, B, max_iters, stall_limit, eps, price.data_ptr(), retired.data_ptr(),
+        p4t.data_ptr(), tot.data_ptr(), ctl.data_ptr(), front.data_ptr(), front_bid.data_ptr(),
+        win_key.data_ptr(), _stream(ctl),
+    ), "mesh_round_bid")
+    LAUNCHES["mesh_round_bid"] += 1
+
+
+@_on_device
+def mesh_round_resolve(ctl, front, front_bid, win_key, win_task, offset: int) -> None:
+    """K16, the resolve step: each bid equal to its provider's combined best
+    ``win_key`` [P] writes its global task id (``offset`` + row) into
+    ``win_task`` [P] by atomicMin, in place."""
+    dev = ctl.device
+    B = front_bid.numel()
+    P = win_key.numel()
+    _mesh_tensors(dev, "mesh_round_resolve", ctl=(ctl, torch.int32, MESH_CTL),
+                  front=(front, torch.int32, 2 * B), front_bid=(front_bid, torch.float32, B),
+                  win_key=(win_key, torch.int32, P), win_task=(win_task, torch.int32, P))
+    _check(_lib("mesh_auction").k16_round_resolve(
+        B, offset, ctl.data_ptr(), front.data_ptr(), front_bid.data_ptr(), win_key.data_ptr(),
+        win_task.data_ptr(), _stream(ctl),
+    ), "mesh_round_resolve")
+    LAUNCHES["mesh_round_resolve"] += 1
+
+
+@_on_device
+def mesh_round_apply(win_key, win_task, feasible, retired, ctl, price, owner, p4t, key_local,
+                     task_local, offset: int, T: int) -> None:
+    """K16, the apply step: per provider with a combined winner, the
+    eviction and the seat on the shard's rows [offset, offset + Tl), the
+    replica's owner and price, the shard's counts in ``ctl``; resets the
+    shard's ``key_local`` / ``task_local`` [P]. In place."""
+    dev = ctl.device
+    P = price.numel()
+    Tl = p4t.numel()
+    _mesh_tensors(dev, "mesh_round_apply", win_key=(win_key, torch.int32, P),
+                  win_task=(win_task, torch.int32, P), feasible=(feasible, torch.uint8, Tl),
+                  retired=(retired, torch.uint8, Tl), ctl=(ctl, torch.int32, MESH_CTL),
+                  price=(price, torch.float32, P), owner=(owner, torch.int32, P),
+                  p4t=(p4t, torch.int32, Tl), key_local=(key_local, torch.int32, P),
+                  task_local=(task_local, torch.int32, P))
+    _check(_lib("mesh_auction").k16_round_apply(
+        P, T, Tl, offset, win_key.data_ptr(), win_task.data_ptr(), feasible.data_ptr(),
+        retired.data_ptr(), ctl.data_ptr(), price.data_ptr(), owner.data_ptr(), p4t.data_ptr(),
+        key_local.data_ptr(), task_local.data_ptr(), _stream(ctl),
+    ), "mesh_round_apply")
+    LAUNCHES["mesh_round_apply"] += 1

@@ -2,7 +2,19 @@
 
 The arena keeps the reference's duck-typed surface (solve / apply_rows /
 reconcile / export_state / restore_state / invalidate, ``.price`` /
-``.retired`` / ``.last_stats``) on one device.
+``.retired`` / ``.last_stats``).
+
+``devices`` is the reference's D: generation and the warm repair's enter
+scan shard the tasks over a 1xD provider mesh
+(:mod:`~protocol_tpu_torch.parallel.mesh`) of the visible devices of the
+arena's device type (0 = all of them). Sharded generation is bit-identical
+to one device's, so the structure, the warm carry and every solve are the
+same at every D; the auctions run on the mesh's first device, as the
+reference's do. Asking for more devices than are visible clamps to what
+exists, flagged (``device_degraded``) and counted
+(``device_degraded_events``), never a change of engine; a shape whose
+per-shard task count is not a whole number of tiles generates at one
+device, with the same tile, and says so (``gen_sharded``).
 
 A cold tick (first solve, a shape or weights change, ``cold_every``, or
 churn above ``max_dirty_frac``) runs
@@ -50,7 +62,9 @@ from protocol_tpu_torch.ops.sparse import (
     merge_reverse_candidates,
     pick_tile,
 )
-from protocol_tpu_torch.parallel.sparse import repair_topk_bidir
+from protocol_tpu_torch.parallel.mesh import make_mesh
+from protocol_tpu_torch.parallel.sparse import candidates_topk_bidir_sharded, repair_topk_bidir
+from protocol_tpu_torch.utils.platform import visible_devices
 
 # persisted candidate-structure dtypes: the reference's on-disk contract
 # (``_JAX_STATE_DTYPES``), so checkpoints carry the same arrays
@@ -82,6 +96,7 @@ class TorchSolveArena:
         eps_start: float = 4.0,
         eps_end: float = 0.02,
         dual_refresh_every: int = 16,
+        devices: int = 0,
         approx_recall: Optional[float] = None,
         device: str | torch.device = "cuda",
     ):
@@ -99,6 +114,13 @@ class TorchSolveArena:
         self.eps_start = eps_start
         self.eps_end = eps_end
         self.dual_refresh_every = dual_refresh_every
+        # the requested mesh size, resolved against the visible devices at
+        # the first solve: 0 = all of them
+        self.devices = int(devices)
+        self.device_degraded = False
+        self.device_degraded_events = 0
+        self._mesh = None
+        self._devices_effective: Optional[int] = None
         self.engine = "torch"
         self.last_stats: dict = {}
         self.invalidate()
@@ -245,6 +267,31 @@ class TorchSolveArena:
         pass and the repair so a repair never runs under another tiling."""
         return pick_tile(T, cap=min(1024, max(1, T // 8)))
 
+    def _ensure_devices(self) -> int:
+        """The mesh size, resolved once against the visible devices of the
+        arena's type. Over-asking clamps to what exists, counted and
+        flagged, never fatal."""
+        if self._devices_effective is None:
+            avail = len(visible_devices(self.device.type))
+            want = avail if self.devices <= 0 else self.devices
+            if want > avail:
+                self.device_degraded = True
+                self.device_degraded_events += 1
+                want = max(avail, 1)
+            self._devices_effective = want
+            if want > 1:
+                self._mesh = make_mesh(want, self.device)
+        return self._devices_effective
+
+    def _gen_plan(self, T: int) -> tuple[int, bool]:
+        """(tile, use_mesh) for T tasks: one decision shared by generation
+        and the repair, so a repair never runs under another tiling or
+        mesh than the pass that made its parts."""
+        tile = self._tile(T)
+        D = self._ensure_devices()
+        use_mesh = self._mesh is not None and T % D == 0 and (T // D) % tile == 0
+        return tile, use_mesh
+
     def _columns(self, pf: dict, rf: dict):
         return providers_from_numpy(pf, self.device), requirements_from_numpy(rf, self.device)
 
@@ -277,23 +324,31 @@ class TorchSolveArena:
             }
         return self._dev
 
-    def _gen(self, pf: dict, rf: dict, weights) -> None:
-        """One candidate-generation pass on the arena's device: stores the
-        generation parts (forward lists, per-tile reverse pools) and the
-        merged lists."""
+    def _gen(self, pf: dict, rf: dict, weights) -> bool:
+        """One candidate-generation pass, sharded over the mesh when the plan
+        says so: stores the generation parts (forward lists, per-tile
+        reverse pools) and the merged lists. Returns whether it sharded."""
         ep, er = self._columns(pf, rf)
         T = rf["cpu_cores"].shape[0]
-        fwd_p, fwd_c, rev_t, rev_c, pool_t, pool_c = candidates_topk_reverse(
-            ep, er, weights, k=self.k, tile=self._tile(T),
-            reverse_r=self.reverse_r, with_pools=True,
-        )
-        cand_p, cand_c = merge_reverse_candidates(
-            fwd_p, fwd_c, rev_t, rev_c, extra=self.extra
-        )
+        tile, use_mesh = self._gen_plan(T)
+        if use_mesh:
+            cand_p, cand_c, fwd_p, fwd_c, pool_t, pool_c = candidates_topk_bidir_sharded(
+                ep, er, weights, mesh=self._mesh, k=self.k, tile=tile,
+                reverse_r=self.reverse_r, extra=self.extra, with_parts=True,
+            )
+        else:
+            fwd_p, fwd_c, rev_t, rev_c, pool_t, pool_c = candidates_topk_reverse(
+                ep, er, weights, k=self.k, tile=tile,
+                reverse_r=self.reverse_r, with_pools=True,
+            )
+            cand_p, cand_c = merge_reverse_candidates(
+                fwd_p, fwd_c, rev_t, rev_c, extra=self.extra
+            )
         self._set_parts(dict(
             cand_p=cand_p, cand_c=cand_c, fwd_p=fwd_p, fwd_c=fwd_c,
             pool_t=pool_t, pool_c=pool_c,
         ))
+        return use_mesh
 
     def _repair(self, pf: dict, rf: dict, weights, dirty_p, dirty_t):
         """Churn-masked repair of the parts for the dirty global rows and
@@ -302,12 +357,13 @@ class TorchSolveArena:
         repair-scope stats)."""
         ep, er = self._columns(pf, rf)
         T = rf["cpu_cores"].shape[0]
+        tile, use_mesh = self._gen_plan(T)
         d = self._dev_parts()
         cand_p, cand_c, fwd_p, fwd_c, pool_t, pool_c, stats = repair_topk_bidir(
             ep, er, weights,
             fwd_p=d["fwd_p"], fwd_c=d["fwd_c"], pool_t=d["pool_t"], pool_c=d["pool_c"],
             dirty_p=dirty_p, dirty_t=dirty_t, reverse_r=self.reverse_r,
-            tile=self._tile(T), extra=self.extra,
+            mesh=self._mesh if use_mesh else None, tile=tile, extra=self.extra,
         )
         changed = (
             (cand_p != d["cand_p"]).any(dim=1) | (cand_c != d["cand_c"]).any(dim=1)
@@ -366,20 +422,20 @@ class TorchSolveArena:
         self._last_quality = stats
         return stats
 
-    def _base_stats(self, T: int) -> dict:
+    def _base_stats(self, T: int, gen_sharded: bool) -> dict:
         return {
             "native_isa": torch_isa(self.device),
             "engine": self.engine,
-            "torch_devices": 1,
-            "gen_sharded": False,
-            "device_degraded": False,
+            "torch_devices": int(self._devices_effective or 1),
+            "gen_sharded": gen_sharded,
+            "device_degraded": self.device_degraded,
             "rows": T,
         }
 
     def _cold(self, weights, pf, rf, P, T) -> np.ndarray:
         eng: Optional[dict] = {} if obs.enabled() else None
         t0 = time.perf_counter()
-        self._gen(pf, rf, weights)
+        sharded = self._gen(pf, rf, weights)
         t_gen = time.perf_counter()
         p4t, price, retired = self._ladder(P, eng)
         t_solve = time.perf_counter()
@@ -392,7 +448,7 @@ class TorchSolveArena:
         self._starve_age = None
         qual = self._quality_pass(rf, p4t, price, None, eng) if obs.enabled() else {}
         self.last_stats = {
-            **self._base_stats(T),
+            **self._base_stats(T, sharded),
             **qual,
             "cold": True,
             "cand_cold_passes": 1,
@@ -487,7 +543,7 @@ class TorchSolveArena:
         if n_dp == 0 and n_dt == 0:
             self.last_repair_mask = None
             self.last_stats = {
-                **self._base_stats(T),
+                **self._base_stats(T, False),
                 "cold": False, "event": True,
                 "cand_cold_passes": 0, "dirty_providers": 0,
                 "dirty_tasks": 0, "changed_rows": 0,
@@ -507,7 +563,7 @@ class TorchSolveArena:
         self._price, self._retired, self._p4t = price, retired, p4t
         self.last_repair_mask = changed
         self.last_stats = {
-            **self._base_stats(T),
+            **self._base_stats(T, self._gen_plan(T)[1]),
             "cold": False,
             "event": True,
             "cand_cold_passes": 0,
@@ -548,7 +604,7 @@ class TorchSolveArena:
             if obs.enabled() else {}
         )
         self.last_stats = {
-            **self._base_stats(T),
+            **self._base_stats(T, False),
             **qual,
             "cold": False,
             "reconcile": True,
@@ -623,7 +679,7 @@ class TorchSolveArena:
         self._warm_solves += 1
         qual = self._quality_pass(rf, p4t, price, prev_p4t, eng) if obs.enabled() else {}
         self.last_stats = {
-            **self._base_stats(T),
+            **self._base_stats(T, self._gen_plan(T)[1]),
             **qual,
             "cold": False,
             "cand_cold_passes": 0,
@@ -660,7 +716,7 @@ class TorchSolveArena:
             qual["quality_ms"] = round((time.perf_counter() - t_q) * 1e3, 3)
             self._last_quality = qual
         self.last_stats = {
-            **self._base_stats(T),
+            **self._base_stats(T, False),
             **qual,
             "cold": False,
             "cand_cold_passes": 0,

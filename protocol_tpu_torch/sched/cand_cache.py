@@ -595,8 +595,10 @@ class CandidateMemo:
             h.update(col.view(torch.uint8).numpy().tobytes())
         return h.digest()
 
-    def get(self, ep, er, weights, *, k, tile, reverse_r, extra):
-        """The memoised ``candidates_topk_bidir(ep, er, weights, ...)``."""
+    def get(self, ep, er, weights, *, k, tile, reverse_r, extra, gen=None):
+        """The memoised ``candidates_topk_bidir(ep, er, weights, ...)``.
+        ``gen`` replaces the generator (the mesh's sharded pass); it shares
+        the key, since it is bit-identical to the one-device pass."""
         from protocol_tpu_torch.ops.sparse import candidates_topk_bidir
 
         key = (
@@ -609,7 +611,7 @@ class CandidateMemo:
             self._slots[key] = hit  # re-insert: LRU order
             return hit
         self.misses += 1
-        out = candidates_topk_bidir(
+        out = (gen or candidates_topk_bidir)(
             ep, er, weights, k=k, tile=tile, reverse_r=reverse_r, extra=extra
         )
         self._slots[key] = out

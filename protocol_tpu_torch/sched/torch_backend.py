@@ -32,15 +32,21 @@ Phase 1 routes:
       - without it, stateless: bidirectional candidates through the
         :class:`~protocol_tpu_torch.sched.cand_cache.CandidateMemo` (K1)
         and the scaled ladder (K2, K9);
-  ``native_engine="torch"`` / ``"torch:1"``: every size through one
-      persistent :class:`~protocol_tpu_torch.parallel.torch_arena.
-      TorchSolveArena` (the twin of the reference's ``"jax[:D]"``).
+      with ``use_mesh`` over several visible devices, the sparse route's
+      auctions shard the slots over the provider mesh (K16) where the slot
+      count divides by D, and the stateless route's generation shards too
+      (K1 per shard); otherwise they solve on one device, as the
+      reference does (``mesh_sharded`` / ``mesh_gen_sharded`` say which);
+  ``native_engine="torch[:D]"``: every size through one persistent
+      :class:`~protocol_tpu_torch.parallel.torch_arena.TorchSolveArena`
+      with ``devices=D`` (0 or none = every visible device), the twin of
+      the reference's ``"jax[:D]"``.
 Phase 2 is :func:`solve_unbounded` (K8 on a card).
 
 What the port does not carry yet raises ``NotImplementedError`` naming
 its ROADMAP.md item, never a silently different solve: node groups, the
-reference's native C++ engines, multi-card engines, ``approx_recall``, and
-the trace and profile hooks.
+reference's native C++ engines, ``approx_recall``, and the trace and
+profile hooks.
 """
 
 from __future__ import annotations
@@ -72,6 +78,12 @@ from protocol_tpu_torch.ops.sparse import (
     assign_auction_sparse_warm,
     candidates_forward,
 )
+from protocol_tpu_torch.parallel.mesh import make_mesh
+from protocol_tpu_torch.parallel.sparse import (
+    assign_auction_sparse_scaled_sharded,
+    assign_auction_sparse_warm_sharded,
+    candidates_topk_bidir_sharded,
+)
 from protocol_tpu_torch.sched.cand_cache import (
     CandidateCache,
     CandidateMemo,
@@ -79,6 +91,7 @@ from protocol_tpu_torch.sched.cand_cache import (
     TaskItem,
 )
 from protocol_tpu_torch.store.node_store import NodeStatus
+from protocol_tpu_torch.utils.platform import visible_devices
 
 # compared by value, so either package's NodeStatus (a str enum) passes
 SCHEDULABLE = (NodeStatus.HEALTHY.value, NodeStatus.WAITING_FOR_HEARTBEAT.value)
@@ -252,29 +265,41 @@ class TorchBatchMatcher:
                 f"native_engine={native_engine!r} (the reference's native C++ engines)",
                 "queue A, M5",
             )
+        # "torch[:D]": the arena over D devices of the mesh (0 or none =
+        # every visible device), the twin of the reference's "jax[:D]"
+        self._torch_devices = 0
         if name == "torch":
             try:
-                cards = int(suffix) if suffix else 1
+                self._torch_devices = int(suffix) if suffix else 0
             except ValueError:
                 raise ValueError(
-                    f"bad torch card suffix in {native_engine!r} (want torch[:1])"
+                    f"bad torch device suffix in {native_engine!r} (want torch[:D])"
                 ) from None
-            if cards != 1:
-                raise _not_ported(
-                    f"native_engine={native_engine!r} (a solve over several cards)",
-                    "queue A item 5, queue B9",
-                )
         elif native_engine != "native":
             raise ValueError(
-                f"native_engine must be native|torch[:1], got {native_engine!r}"
+                f"native_engine must be native|torch[:D], got {native_engine!r}"
             )
-        if use_mesh:
-            raise _not_ported("use_mesh (the sharded mesh solve)", "queue A item 5, queue B9")
         if approx_recall is not None:
             raise _not_ported("approx_recall (approximate top-k)", "queue A item 4")
         if os.environ.get("PROTOCOL_TPU_TRACE"):
             raise _not_ported("PROTOCOL_TPU_TRACE (the solve flight recorder)", "queue A, M6")
         self.device = resolve_device(device)
+        # phase 1's sparse route over the provider mesh of every visible
+        # device (opt-in: the sharded frontier is a different, equally
+        # valid auction order)
+        self.use_mesh = use_mesh
+        self._mesh = None
+        self._last_sharded = False
+        self._last_gen_sharded = False
+        self._mesh_fallback_logged = False
+        if use_mesh:
+            n_dev = len(visible_devices(self.device.type))
+            if n_dev > 1:
+                self._mesh = make_mesh(n_dev, self.device)
+            else:
+                logging.getLogger(__name__).warning(
+                    "use_mesh requested but only one device is visible; solving single-device"
+                )
         self.store = store
         self.weights = weights or CostWeights(priority=1.0)
         self.min_solve_interval = min_solve_interval
@@ -388,7 +413,9 @@ class TorchBatchMatcher:
 
         n_providers = int(ep_host.gpu_count.shape[0])
         if self._native_arena is None:
-            self._native_arena = TorchSolveArena(cold_every=self.cold_every, device=self.device)
+            self._native_arena = TorchSolveArena(
+                cold_every=self.cold_every, devices=self._torch_devices, device=self.device,
+            )
         p4s = self._native_arena.solve(ep_host, er_host, self.weights)
         self._last_arena_stats = {
             f"arena_{k}": v for k, v in self._native_arena.last_stats.items()
@@ -436,9 +463,30 @@ class TorchBatchMatcher:
 
     def _sparse_solve(self, cand_p, cand_c, num_providers: int, warm: bool, price0, p4t0,
                       stats_out=None, retired0=None):
-        """Phase 1's sparse solve on one card: the warm auction from the
-        carried duals, else the eps-scaled ladder. Returns (result,
-        prices, retired)."""
+        """Phase 1's sparse solve: the warm auction from the carried duals,
+        else the eps-scaled ladder; over the mesh (K16) when ``use_mesh``
+        found devices and the slot count divides by D, else on one device.
+        Returns (result, prices, retired)."""
+        D = self._mesh.size if self._mesh is not None else 0
+        self._last_sharded = D > 1 and cand_p.shape[0] % D == 0
+        if self._last_sharded:
+            if warm:
+                return assign_auction_sparse_warm_sharded(
+                    cand_p, cand_c, num_providers, self._mesh, price0=price0, p4t0=p4t0,
+                    stats_out=stats_out, frontier_ladder=True, retired0=retired0,
+                    with_state=True,
+                )
+            return assign_auction_sparse_scaled_sharded(
+                cand_p, cand_c, num_providers, self._mesh, stats_out=stats_out,
+                frontier_ladder=True, with_state=True,
+            )
+        if D > 1 and not self._mesh_fallback_logged:
+            # a mesh that was asked for and does not engage is logged once
+            self._mesh_fallback_logged = True
+            logging.getLogger(__name__).warning(
+                "mesh solve requested but slot count %d is not divisible by the %d-device "
+                "mesh; solving single-device", int(cand_p.shape[0]), D,
+            )
         if warm:
             return assign_auction_sparse_warm(
                 cand_p, cand_c, num_providers, price0=price0, p4t0=p4t0,
@@ -451,11 +499,27 @@ class TorchBatchMatcher:
     def _bounded_t4p_sparse(self, ep, er, price0: np.ndarray, p4s0: np.ndarray,
                             warm: bool) -> tuple[np.ndarray, np.ndarray]:
         """The stateless sparse route: bidirectional candidates (memoised on
-        the encoded bytes; K1 on a card), then the auction. Returns (slot
-        per provider [P_pad], prices [P_pad])."""
+        the encoded bytes; K1 on a card, per shard over the mesh when the
+        slot count divides by D), then the auction. Returns (slot per
+        provider [P_pad], prices [P_pad])."""
+        s_bucket = er.num
+        tile = min(1024, s_bucket)
+        gen = None
+        D = self._mesh.size if self._mesh is not None else 0
+        if D > 1 and s_bucket % D == 0:
+            # bit-identical to one device's pass at the same tile: it shares
+            # the memo key
+            tile = min(tile, s_bucket // D)
+
+            def gen(ep_, er_, w_, **kw):
+                return candidates_topk_bidir_sharded(ep_, er_, w_, mesh=self._mesh, **kw)
+
+        misses_before = self._cand_memo.misses
         cand_p, cand_c = self._cand_memo.get(
-            ep, er, self.weights, k=self.top_k, tile=min(1024, er.num), reverse_r=8, extra=16,
+            ep, er, self.weights, k=self.top_k, tile=tile, reverse_r=8, extra=16, gen=gen,
         )
+        # sharded generation ran (a memo hit generates nothing)
+        self._last_gen_sharded = gen is not None and self._cand_memo.misses > misses_before
         res, price, _retired = self._sparse_solve(
             cand_p, cand_c, ep.num, warm, self._tensor(price0), self._tensor(p4s0)
         )
@@ -840,6 +904,7 @@ class TorchBatchMatcher:
                     self.max_replica_slots,
                     truncated_slots,
                 )
+        self._last_sharded = False  # set by _sparse_solve when it engages
         self._last_arena_stats = {}
         self._claim_rows_now = None  # set by the claim masking below
         s_bucket = _pow2_bucket(len(slot_task)) if slot_task else 0
@@ -1042,8 +1107,9 @@ class TorchBatchMatcher:
             "solve_ms": (time.perf_counter() - t_start) * 1e3,
             "truncated_replica_slots": truncated_slots,
             "kernel": kernel_used,  # dense_auction | sparse_topk | torch_arena | none
-            "mesh_sharded": False,
-            "mesh_gen_sharded": False,
+            # phase 1 ran the sharded kernels (engaged, not merely asked for)
+            "mesh_sharded": self._last_sharded,
+            "mesh_gen_sharded": self._last_gen_sharded,
             "warm": warm_used,
             "warm_seeded_slots": warm_seeded,
             # the binding phase's stall breaker: True means the tail fell

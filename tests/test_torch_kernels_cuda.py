@@ -585,3 +585,94 @@ def test_pair_cost_kernel_matches_plain(card, proximity):
     before = kernels.LAUNCHES["pair_cost"]
     oc.cost_pairs(ep, er, p4t, w)  # the public entry point launches K15 on a card
     assert kernels.LAUNCHES["pair_cost"] == before + 1
+
+
+# ---------------- the provider mesh: four views of the card ----------------
+
+
+@pytest.fixture
+def mesh4(card):
+    """A mesh of four views of the card (utils/platform.py), restored after."""
+    from protocol_tpu_torch.parallel.mesh import make_mesh
+    from protocol_tpu_torch.utils import platform
+
+    prev = platform.force_virtual_devices(4, "cuda")
+    yield make_mesh(4, card)
+    platform.force_virtual_devices(prev, "cuda")
+
+
+def test_enter_kernel_at_a_jitter_offset_matches_plain_bits(card):
+    """K3 over one shard's rows at its offset (the sharded enter scan)."""
+    from protocol_tpu_torch import kernels
+    from protocol_tpu_torch.parallel import sparse as ps
+
+    w = CostWeights(proximity=0.0)
+    ep, er, (fp, fc, pt, pc), dirty_p, _ = churned_parts(card, w, T=4096)
+    p_ids = torch.from_numpy(dirty_p).to(card)
+    for off in (1024, 3072):
+        er_s = sp.slice_requirements(er, off, 1024)
+        thresh = fc[off:off + 1024, -1].contiguous()
+        got = kernels.repair_enter(ep, er_s, w, p_ids, thresh, offset=off)
+        assert same_bits(got, ps._enter_plain(ep, er_s, w, p_ids, thresh, off))
+        assert same_bits(got, kernels.repair_enter(ep, er, w, p_ids, fc[:, -1].contiguous())
+                         [off:off + 1024])
+
+
+@pytest.mark.parametrize("d_fold", [2, 4, 8])
+def test_refold_kernel_with_lanes_matches_plain_bits(card, d_fold):
+    """K5 at D lanes, 8 tiles a lane at D = 8: at 2,048 tasks / tile 256
+    one tile a lane, fewer than r."""
+    from protocol_tpu_torch import kernels
+    from protocol_tpu_torch.parallel import sparse as ps
+
+    for T in (2048, 16384):
+        _, _, (fp, fc, pt, pc), _, _ = churned_parts(card, CostWeights(proximity=0.0), T=T)
+        got = kernels.repair_refold(pt, pc, 8, d_fold)
+        assert all(same_bits(a, b) for a, b in zip(got, ps._refold_plain(pt, pc, 8, 1, d_fold)))
+
+
+def test_sharded_generation_on_the_card_matches_plain_and_one_device(card, mesh4):
+    """K1 per shard at the shards' offsets: the sharded pass on the card,
+    its plain version on the card and the one-device pass, bit for bit."""
+    from protocol_tpu_torch.parallel import sparse as ps
+
+    ep = synth_providers(np.random.default_rng(5), 3000, device=card)
+    er = synth_requirements(np.random.default_rng(6), 4096, device=card)
+    w = CostWeights(proximity=0.0)
+    got = ps.candidates_topk_bidir_sharded(ep, er, w, mesh=mesh4, k=64, tile=256, with_parts=True)
+    fp, fc, rt_, rc, pt, pc = sp.candidates_topk_reverse(ep, er, w, k=64, tile=256,
+                                                         with_pools=True)
+    one = (*sp.merge_reverse_candidates(fp, fc, rt_, rc), fp, fc, pt, pc)
+    assert all(same_bits(a, b) for a, b in zip(got, one))
+    for s in range(4):
+        er_s = sp.slice_requirements(er, s * 1024, 1024)
+        k_rev = sp.candidates_reverse(ep, er_s, w, 256, 8, 1, task_offset=s * 1024)
+        p_rev = sp._reverse_plain(ep, er_s, w, 256, 8, 1, task_offset=s * 1024)
+        assert all(same_bits(a, b) for a, b in zip(k_rev, p_rev))
+
+
+def test_mesh_round_kernels_match_plain_bits(card, mesh4):
+    """K16 over 256-round segments of the sharded phase at D = 4 views (a
+    cold segment, then one from the carried state at a smaller frontier),
+    the whole state compared with the plain rounds on the same inputs."""
+    from protocol_tpu_torch import kernels
+    from protocol_tpu_torch.parallel import sparse as ps
+
+    n = 4096
+    ep = synth_providers(np.random.default_rng(2), n, device=card)
+    er = synth_requirements(np.random.default_rng(3), n, device=card)
+    cp, cc = sp.candidates_topk_bidir(ep, er, CostWeights(), k=64, tile=512)
+    state = (torch.zeros(n, device=card), torch.full((n,), -1, dtype=torch.int32, device=card),
+             torch.full((n,), -1, dtype=torch.int32, device=card),
+             torch.zeros(n, dtype=torch.bool, device=card))
+    got = ps._make_shards(mesh4, cp, cc, True, *state, 1024)
+    ref = ps._make_shards(mesh4, cp, cc, True, *state, 1024)
+    before = kernels.LAUNCHES["mesh_round_bid"]
+    for eps, B in ((4.0, 1024), (1.0, 256)):
+        out_k = ps._segment(mesh4, *got, n, eps, B, 256, 0)
+        out_p = ps._segment(mesh4, *ref, n, eps, B, 256, 0, plain=True)
+        assert out_k == out_p
+        for name in ("price", "owner", "p4t", "retired", "ctl", "win_key", "win_task"):
+            assert same_bits(getattr(got[1], name), getattr(ref[1], name)), (eps, name)
+    assert kernels.LAUNCHES["mesh_round_bid"] > before
+    assert int((got[1].p4t >= 0).sum()) > 0

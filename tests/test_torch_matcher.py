@@ -248,14 +248,53 @@ def test_torch_route_takes_every_size(engine):
     ({"native_fallback": True}, "M5"),
     ({"native_engine": "native-mt"}, "M5"),
     ({"native_engine": "sinkhorn-mt:4"}, "M5"),
-    ({"native_engine": "torch:4"}, "B9"),
-    ({"native_engine": "torch:0"}, "B9"),
-    ({"use_mesh": True}, "B9"),
     ({"approx_recall": 0.95}, "item 4"),
 ])
 def test_unported_options_raise_naming_their_roadmap_item(kwargs, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md .*{item}"):
         TorchBatchMatcher(StoreContext.new_test(), device="cpu", **kwargs)
+
+
+@pytest.fixture
+def eight_cpu_views():
+    """The port's mesh over eight views of the CPU, as the reference's
+    conftest gives JAX eight host devices; restored after the test."""
+    from protocol_tpu_torch.utils import platform
+
+    prev = platform.force_virtual_devices(8, "cpu")
+    yield
+    platform.force_virtual_devices(prev, "cpu")
+
+
+@pytest.mark.parametrize("ref_kwargs,kwargs", [
+    ({"native_engine": "jax:4"}, {"native_engine": "torch:4"}),
+    ({"native_engine": "jax:0"}, {"native_engine": "torch:0"}),
+    ({"use_mesh": True, "dense_cell_budget": 1}, {"use_mesh": True, "dense_cell_budget": 1}),
+])
+def test_mesh_options_run_and_equal_the_reference(eight_cpu_views, ref_kwargs, kwargs):
+    """The arena over D devices, over every visible device, and the
+    sharded sparse route run over the port's mesh and equal the
+    reference's over its own, on a mixed marketplace and after a churn
+    step."""
+    ctx = sc_mixed(seed=21, n_nodes=96, n_bounded=8, n_unbounded=3)
+    jw = JCostWeights(priority=1.0, proximity=0.0)
+    ref = TpuBatchMatcher(ctx, weights=jw, **ref_kwargs)
+    got = TorchBatchMatcher(ctx, weights=port_weights(jw), device="cpu", **kwargs)
+    rng = random.Random(4)
+    for step in range(2):
+        if step:
+            churn(ctx, rng, step)
+        ref.refresh()
+        got.refresh()
+        assert got._assignment == ref._assignment, step
+        rs, gs = ref.last_solve_stats, got.last_solve_stats
+        if "use_mesh" in kwargs:
+            assert gs["kernel"] == rs["kernel"] == "sparse_topk"
+            assert gs["mesh_sharded"] is rs["mesh_sharded"] is True
+        else:
+            assert gs["arena_torch_devices"] == rs["arena_jax_devices"] > 1
+            assert gs["arena_gen_sharded"] == rs["arena_gen_sharded"]
+            assert gs["arena_cold"] == rs["arena_cold"]
 
 
 @pytest.mark.parametrize("engine", ["jax:1", "bogus", "torch:x"])
