@@ -132,6 +132,22 @@ offset (proximity 0, bit for bit), K3 at shard 3's offset 49,152 and K5
 at 4 and 8 lanes on the chain's calls, and K16 over one 256-round segment
 of the sharded scaled ladder (the whole state) are held against their
 plain versions.
+Then, at D = 4 views of the card again, the provider-sharded dense
+auction and blocked Sinkhorn (parallel/auction.py, parallel/sinkhorn.py),
+in two more runs with the counts set to 0 just before each:
+
+  - mesh_dense: assign_auction_sharded on the jittered cost of the
+    synthetic marketplace at 32,768 x 32,768 (eps 0.05, 500 rounds, the
+    settings of the reference's dryrun_multichip dense path), whose
+    matching must be injective, pair only feasible cells and equal K7's
+    one-device assign_auction on the same cost bit for bit; K17 is first
+    held bit for bit against its plain rounds at 4,096^2;
+  - mesh_sinkhorn: sinkhorn_potentials_sharded on stage S's instance at
+    100,000^2 (tile 2,500, 20 iterations), u and v within BLOCKED_ATOL of
+    stage S's one-device potentials with equal masks, and the plan-guided
+    rounding from the sharded u within stage S's 2% mean-cost bar of the
+    referee; K14's partial column mode is held against its plain
+    per-shard version at 2,048^2 and at full width on its first call.
 Prints:
 
   - the card's name and power limit (nvidia-smi),
@@ -1480,14 +1496,16 @@ def finite_err(torch, got, ref, keep) -> float:
     return float((got - ref)[keep].abs().max()) if bool(keep.any()) else 0.0
 
 
-def run_stage_s(torch, kernels) -> tuple[list, dict]:
+def run_stage_s(torch, kernels) -> tuple[list, dict, dict]:
     """BASELINE ladder #3 on the card (protocol_tpu_torch/stage_s.py): the
     blocked Sinkhorn's potentials and rounding against the CPU's at
     STAGE_S_SMALL, then stage S at STAGE_S with the counts set to 0 just
     before; K14's three launches, K1's biased forward launch and K15 are
     then held against their plain versions at full width on the
     arguments of the run's calls. Returns (the kernels-line rows of K14,
-    K1 biased and K15, {"stage_s": launches})."""
+    K1 biased and K15, {"stage_s": launches}, the one-device reference
+    for run_mesh_sinkhorn: the instance, u, v and the referee's mean
+    cost)."""
     import numpy as np
 
     from protocol_tpu_torch import stage_s
@@ -1666,6 +1684,8 @@ def run_stage_s(torch, kernels) -> tuple[list, dict]:
             size * (r_row_b + 8) + assigned * p_row_b,
             size * OPS_PER_CELL + assigned * OPS_PER_FEASIBLE_CELL),
     ]
+    for r_ in rows[:3]:  # the sharded run's launches are a shard's: their own rows
+        r_["runs"] = ("stage_s",)
     for r_, lib in ((rows[1], lse_row_ms), (rows[2], lse_col_ms)):
         r_["library_ms"] = lib
         r_["library_call"] = (f"{n_tiles} calls of torch.logsumexp over a materialised "
@@ -1679,8 +1699,11 @@ def run_stage_s(torch, kernels) -> tuple[list, dict]:
                           "wall_s": wall, "card_vs_cpu_small": small,
                           "mean_cost_delta_pct": summary["sinkhorn_vs_auction_mean_cost_delta_pct"],
                           "rows": summary["rows"]}
-    del keep, k_block, ep, er, u, v
-    return rows, {"stage_s": launches}
+    reference = {"ep": ep, "er": er, "weights": w, "u": u, "v": v,
+                 "referee_mean_cost": a_row["auction_mean_cost"],
+                 "sinkhorn_mean_cost": s_row["sinkhorn_mean_cost"]}
+    del keep, k_block
+    return rows, {"stage_s": launches}, reference
 
 
 # the provider mesh: D = 4 views of the one card (utils/platform.py)
@@ -1923,10 +1946,10 @@ def run_mesh(torch, kernels, refresh) -> tuple[list, dict]:
                          0.0, k1_ms, k1_plain_ms,
                          MESH_D * N * p_row + N * r_row + N * k * 8 + N * (N // tile + r * MESH_D) * 8,
                          N * N * OPS_PER_CELL + feas * OPS_PER_FEASIBLE_CELL)
-            k1_row.update(runs=("mesh_arena", "mesh_matcher"),
+            k1_row.update(runs=("mesh_arena", "mesh_matcher"), launches_timed=2 * MESH_D,
                           note=f"K1 forward + reverse over {MESH_D} shards of {Tl} tasks at "
-                               f"their offsets, four shards on one card; launches: K1's "
-                               f"launches inside the sharded pass only")
+                               f"their offsets ({2 * MESH_D} launches), four shards on one "
+                               f"card; launches: K1's launches inside the sharded pass only")
             rows_out.append(k1_row)
 
             # K3 at shard 3's offset, on the chain's call
@@ -2010,11 +2033,13 @@ def run_mesh(torch, kernels, refresh) -> tuple[list, dict]:
                 torch.cuda.synchronize()
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
+                before = sum(kernels.LAUNCHES[k_] for k_ in K16)
                 start.record()
                 ps._segment(mesh, *sh, T, 4.0, B, 256, 0)
                 end.record()
                 torch.cuda.synchronize()
                 seg.append(start.elapsed_time(end))
+                seg_launches = sum(kernels.LAUNCHES[k_] for k_ in K16) - before
             sh = shards()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2027,7 +2052,7 @@ def run_mesh(torch, kernels, refresh) -> tuple[list, dict]:
                          + rows_k16 * (K * 12 + 16))
             k16_row = row("mesh_auction_round", SRC_K16, "protocol_tpu/parallel/sparse.py:81",
                           0.0, sum(seg) / len(seg), k16_plain_ms, k16_bytes, rows_k16 * K * 3)
-            k16_row.update(counter=K16, runs=("mesh_matcher",),
+            k16_row.update(counter=K16, runs=("mesh_matcher",), launches_timed=seg_launches,
                            note=f"one 256-round segment ({rounds} live rounds) at eps 4.0, "
                                 f"B {B}, over {MESH_D} shards on one card; ms the mean of "
                                 f"{len(seg)} (CUDA events), plain ms host clock")
@@ -2038,6 +2063,361 @@ def run_mesh(torch, kernels, refresh) -> tuple[list, dict]:
         counting.__exit__(None, None, None)
         platform.force_virtual_devices(prev, torch.device(dev).type)
     return rows_out, {"mesh_arena": launches_arena, "mesh_matcher": launches_matcher}
+
+
+# the provider-sharded dense auction (B9 dense) at D = 4 views of the card
+MESH_DENSE_N = 32_768  # P = T: the f32 cost is 64 x the dense route's 2^24-cell budget
+MESH_DENSE_SMALL = 4_096  # K17 against its plain rounds
+MESH_DENSE_EPS, MESH_DENSE_ITERS = 0.05, 500  # dryrun_multichip's dense path
+K17 = ("mesh_dense_scan", "mesh_dense_combine", "mesh_dense_resolve", "mesh_dense_apply",
+       "mesh_dense_finish")
+SRC_K17 = "protocol_tpu_torch/csrc/mesh_dense.cu"
+# the provider-sharded blocked Sinkhorn (B9 Sinkhorn) on stage S's instance
+MESH_SINKHORN_KERNELS = ("blocked_feasibility", "blocked_row_lse", "blocked_col_partial")
+STAGE_S_BAR_PCT = 2.0  # stage S's mean-cost bar against the referee (SCALING.md:75)
+
+
+def mesh_dense_cost(torch, n: int, seed: int):
+    """The jittered cost [n, n] of the synthetic marketplace (what
+    _solve_bounded feeds assign_auction), built shard by shard on the card:
+    cost_matrix over each shard's provider rows plus the tie jitter keyed
+    on the global ids."""
+    import numpy as np
+
+    from protocol_tpu_torch.ops.cost import INFEASIBLE, CostWeights, cost_matrix, tie_jitter_ids
+    from protocol_tpu_torch.ops.encoding import (
+        gather_providers,
+        providers_from_numpy,
+        requirements_from_numpy,
+    )
+    from protocol_tpu_torch.trace.synth import synth_provider_arrays, synth_requirement_arrays
+
+    ep = providers_from_numpy(synth_provider_arrays(np.random.default_rng(seed), n), DEVICE)
+    er = requirements_from_numpy(synth_requirement_arrays(np.random.default_rng(seed + 1), n),
+                                 DEVICE)
+    pl = n // MESH_D
+    t_ids = torch.arange(n, device=DEVICE)
+    cost = torch.empty((n, n), dtype=torch.float32, device=DEVICE)
+    for s in range(MESH_D):
+        p_ids = torch.arange(s * pl, (s + 1) * pl, device=DEVICE)
+        c, _ = cost_matrix(gather_providers(ep, p_ids), er, CostWeights())
+        cost[s * pl:(s + 1) * pl] = torch.where(c < INFEASIBLE * 0.5,
+                                                c + tie_jitter_ids(p_ids, t_ids), c)
+        del c
+    return cost
+
+
+def run_mesh_dense(torch, kernels) -> tuple[list, dict]:
+    """The provider-sharded dense auction (parallel/auction.py) at D = 4
+    views of the card: K17 against its plain rounds at MESH_DENSE_SMALL^2
+    (every state array, bit for bit); then, with the counts set to 0 just
+    before, assign_auction_sharded at MESH_DENSE_N^2 (eps 0.05, 500
+    rounds), whose matching must be injective, pair only feasible cells
+    and equal K7's one-device assign_auction on the same cost bit for bit;
+    then K17's timed rounds on that cost against the plain rounds timed
+    beside them, every state array bit for bit. Returns (the K17 row, {"mesh_dense": launches}); raises on any failed
+    check."""
+    from protocol_tpu_torch.ops.assign import assign_auction
+    from protocol_tpu_torch.ops.cost import INFEASIBLE
+    from protocol_tpu_torch.parallel import assign_auction_sharded
+    from protocol_tpu_torch.parallel import auction as pa
+    from protocol_tpu_torch.parallel.mesh import make_mesh
+    from protocol_tpu_torch.utils import platform
+
+    eps, iters = MESH_DENSE_EPS, MESH_DENSE_ITERS
+    prev = platform.force_virtual_devices(MESH_D, torch.device(DEVICE).type)
+    try:
+        mesh = make_mesh(MESH_D, DEVICE)
+
+        # ---- K17 against its plain rounds (uncounted)
+        with uncounted(kernels):
+            small = mesh_dense_cost(torch, MESH_DENSE_SMALL, SEED + 70)
+            got, ref = pa._make_shards(mesh, small), pa._make_shards(mesh, small)
+            p_k, c_k = pa._rounds(mesh, *got, eps, iters)
+            p_p, c_p = pa._rounds(mesh, *ref, eps, iters, plain=True)
+            torch.cuda.synchronize()
+        bad = [n for n, a, b in (("p4t", p_k, p_p), ("ctl", c_k, c_p))
+               if not bits_equal(torch, a, b)]
+        bad += [n for n in ("price", "owner", "win_key")
+                if not bits_equal(torch, getattr(got[1], n), getattr(ref[1], n))]
+        print(f"K17 at {MESH_DENSE_SMALL}^2, D={MESH_D}: (rounds, go, open, open rows) kernel "
+              f"{c_k.tolist()} plain {c_p.tolist()}; differing {bad}", flush=True)
+        if bad:
+            raise AssertionError(f"K17: the rounds differ from the plain rounds: {bad}")
+        del got, ref, small
+
+        # ---- the main path, the counts set to 0 just before
+        n = MESH_DENSE_N
+        cost = mesh_dense_cost(torch, n, SEED + 72)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        res = assign_auction_sharded(cost, mesh, eps=eps, max_iters=iters)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = dict(kernels.LAUNCHES)
+        print(f"kernels (mesh dense): {json.dumps(launches)}", flush=True)
+        missing = [k_ for k_ in K17 if launches[k_] == 0]
+        if missing:
+            raise AssertionError(f"the sharded dense auction launched no {missing}")
+        p4t = res.provider_for_task
+        seated = torch.nonzero(p4t >= 0).flatten()
+        pos = p4t[seated].long()
+        injective = torch.unique(pos).numel() == pos.numel()
+        feasible = bool((cost[pos, seated] < INFEASIBLE * 0.5).all())
+        with uncounted(kernels):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            one = assign_auction(cost, eps=eps, max_iters=iters)
+            torch.cuda.synchronize()
+            one_wall = (time.perf_counter() - t0) * 1e3
+            same = bits_equal(torch, p4t, one.provider_for_task)
+            shards = pa._make_shards(mesh, cost)
+            _, ctl = pa._rounds(mesh, *shards, eps, iters)
+            rounds, _, n_open, open_rows = ctl.tolist()
+        print(f"mesh dense at {n}x{n}, D={MESH_D} (four shards on one card), eps {eps}: "
+              f"{rounds} rounds, {seated.numel()} assigned, {n_open} feasible rows open, "
+              f"{open_rows} open rows summed over the rounds; injective {injective}, pairs "
+              f"feasible {feasible}, equal to K7 bit for bit {same}; wall {wall:.1f} ms "
+              f"(K7 one device {one_wall:.1f} ms)", flush=True)
+        if not (injective and feasible and same):
+            raise AssertionError("the sharded dense auction's matching is wrong or differs "
+                                 "from K7's")
+        del one, res
+
+        # ---- times on that cost (uncounted): K17's rounds, their plain
+        # version, K7 on one device; the last timed K17 run held against
+        # the plain run bit for bit (every state array), at the main path's
+        # shapes
+        with uncounted(kernels):
+            seg = []
+            for _ in range(2):
+                got = pa._make_shards(mesh, cost)
+                torch.cuda.synchronize()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                before = sum(kernels.LAUNCHES[k_] for k_ in K17)
+                start.record()
+                p_k, c_k = pa._rounds(mesh, *got, eps, iters)
+                end.record()
+                torch.cuda.synchronize()
+                seg.append(start.elapsed_time(end))
+                run_launches = sum(kernels.LAUNCHES[k_] for k_ in K17) - before
+            ref = pa._make_shards(mesh, cost)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p_p, c_p = pa._rounds(mesh, *ref, eps, iters, plain=True)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            bad = [n_ for n_, a, b in (("p4t", p_k, p_p), ("ctl", c_k, c_p))
+                   if not bits_equal(torch, a, b)]
+            bad += [n_ for n_ in ("price", "owner", "win_key")
+                    if not bits_equal(torch, getattr(got[1], n_), getattr(ref[1], n_))]
+            print(f"K17 at {n}^2, D={MESH_D}: (rounds, go, open, open rows) kernel "
+                  f"{c_k.tolist()} plain {c_p.tolist()}; differing {bad}", flush=True)
+            if bad:
+                raise AssertionError(f"K17 at {n}^2: the rounds differ from the plain rounds: "
+                                     f"{bad}")
+            del got, ref
+            k7_ms = cuda_ms(torch, lambda: assign_auction(cost, eps=eps, max_iters=iters), 2)
+        # the scan reads each open task's value row of every shard (open
+        # rows x P x 4 bytes over the run); the combine reads the D scan
+        # buffers and the finish the D deltas and p4t, once a round
+        k17_bytes = open_rows * n * 4 + rounds * (MESH_D * 5 * 4 * n + 8 * n)
+        k17_row = row("mesh_dense_round", SRC_K17, "protocol_tpu/parallel/auction.py:38", 0.0,
+                      sum(seg) / len(seg), plain_ms, k17_bytes, open_rows * n * 2)
+        k17_row.update(counter=K17, runs=("mesh_dense",), launches_timed=run_launches,
+                       one_device_k7_ms=k7_ms,
+                       note=f"the whole run at {n}x{n}: {rounds} rounds of {3 * MESH_D + 2} "
+                            f"launches, {open_rows} open rows, over {MESH_D} shards on one "
+                            f"card; ms the mean of {len(seg)} (CUDA events), plain ms host "
+                            f"clock; K7 on one device beside it")
+        print(f"K17 at {n}x{n}: {k17_row['ms']:.3f} ms, plain {plain_ms:.1f} ms, K7 one device "
+              f"{k7_ms:.3f} ms, bound {k17_row['bound_ms']:.3f} ms", flush=True)
+        del cost
+    finally:
+        platform.force_virtual_devices(prev, torch.device(DEVICE).type)
+    return [k17_row], {"mesh_dense": launches}
+
+
+def run_mesh_sinkhorn(torch, kernels, reference: dict) -> tuple[list, dict]:
+    """The provider-sharded blocked Sinkhorn (parallel/sinkhorn.py) at D = 4
+    views of the card: K14's partial column mode against its plain
+    per-shard version at STAGE_S_SMALL (empty columns exact, the logsumexp
+    within BLOCKED_ATOL); then, with the counts set to 0 just before,
+    stage S's instance (``reference``, from run_stage_s) at STAGE_S: the
+    sharded potentials within BLOCKED_ATOL of the one-device ones with equal
+    masks, and the plan-guided rounding from the sharded u within stage S's
+    2% mean-cost bar of the referee. Returns (the partial mode's row,
+    {"mesh_sinkhorn": launches}); raises on any failed check."""
+    import numpy as np
+
+    from protocol_tpu_torch import stage_s
+    from protocol_tpu_torch.ops import blocked as bl
+    from protocol_tpu_torch.ops.encoding import compat_mask, slice_requirements
+    from protocol_tpu_torch.parallel import sinkhorn as psk
+    from protocol_tpu_torch.parallel.mesh import make_mesh
+    from protocol_tpu_torch.trace.synth import synth_providers, synth_requirements
+    from protocol_tpu_torch.utils import platform
+
+    eps = stage_s.EPS
+    w = reference["weights"]
+    prev = platform.force_virtual_devices(MESH_D, torch.device(DEVICE).type)
+    try:
+        mesh = make_mesh(MESH_D, DEVICE)
+
+        def partial_err(ep_l, er_l, u_l, starts, tile, label):
+            """The partial mode against its plain version on one shard: the
+            empty columns exactly, m + log(s) within BLOCKED_ATOL."""
+            m, sm = kernels.blocked_col_partial(ep_l, er_l, w, eps, u_l)
+            pm_, ps_ = psk._col_partial_plain(bl.make_k_block(ep_l, er_l, w, eps, tile), u_l,
+                                             starts)
+            torch.cuda.synchronize()
+            empty = torch.isneginf(pm_)
+            if not (torch.equal(torch.isneginf(m), empty) and bool((sm[empty] == 0).all())):
+                raise AssertionError(f"K14 partial, {label}: the empty columns differ")
+            d = (m + torch.log(torch.clamp(sm, min=1e-30))
+                 - pm_ - torch.log(torch.clamp(ps_, min=1e-30)))
+            err_ = finite_err(torch, d, 0.0, ~empty)
+            if err_ > BLOCKED_ATOL:
+                raise AssertionError(f"K14 partial, {label}: lse error {err_} > {BLOCKED_ATOL}")
+            return err_
+
+        # ---- the partial mode against its plain per-shard version (uncounted)
+        n, tile, _ = STAGE_S_SMALL
+        rng = np.random.default_rng(42)
+        ep_s = synth_providers(rng, n, device=DEVICE)
+        er_s = synth_requirements(rng, n, device=DEVICE)
+        pl = n // MESH_D
+        with uncounted(kernels):
+            row_any, _ = kernels.blocked_feasibility(ep_s, er_s, w)
+            u = torch.from_numpy(np.random.default_rng(1).normal(0, 3, n).astype(np.float32))
+            u = torch.where(row_any, u.to(DEVICE), -1e18)
+            err = max(partial_err(ep_l, er_s, u[s_ * pl:(s_ + 1) * pl], range(0, n, tile), tile,
+                                  f"shard {s_} at {n}x{n}")
+                      for s_, ep_l in enumerate(psk._shard_providers(ep_s, mesh)))
+        print(f"K14 partial at {n}x{n}, {MESH_D} shards: empty columns equal, lse max_abs_err "
+              f"{err} (tolerance {BLOCKED_ATOL})", flush=True)
+        del ep_s, er_s
+
+        # ---- the main path on stage S's instance, the counts set to 0 just before
+        size, tile, iters = STAGE_S
+        ep, er, u1, v1 = reference["ep"], reference["er"], reference["u"], reference["v"]
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        recorded, originals = record_first_calls(kernels, {
+            "blocked_feasibility": (), "blocked_row_lse": (), "blocked_col_partial": ()})
+        t0 = time.perf_counter()
+        u, v = psk.sinkhorn_potentials_sharded(ep, er, mesh, w, eps=eps, num_iters=iters,
+                                               tile=tile)
+        torch.cuda.synchronize()
+        pot_s = time.perf_counter() - t0
+        res = bl.plan_guided_rounding(ep, er, u, w, eps=eps, tile=tile, k=32)
+        q = stage_s.quality(ep, er, res.provider_for_task, w)
+        wall = time.perf_counter() - t0
+        for name, fn in originals.items():
+            setattr(kernels, name, fn)
+        launches = dict(kernels.LAUNCHES)
+        print(f"kernels (mesh sinkhorn): {json.dumps(launches)}", flush=True)
+        missing = [k_ for k_ in MESH_SINKHORN_KERNELS if launches[k_] == 0]
+        if missing:
+            raise AssertionError(f"the sharded Sinkhorn launched no {missing}")
+        diff = {}
+        for name, g, o in (("u", u, u1), ("v", v, v1)):
+            keep = o > -5e17
+            if not torch.equal(g > -5e17, keep) or not bool((g[~keep] == o[~keep]).all()):
+                raise AssertionError(f"mesh sinkhorn: the {name} mask differs from one device's")
+            diff[name] = finite_err(torch, g, o, keep)
+        referee = reference["referee_mean_cost"]
+        delta = 100.0 * (q["mean_cost"] - referee) / referee
+        print(f"mesh sinkhorn at {size}x{size}, D={MESH_D} (four shards on one card; tile "
+              f"{tile}, {iters} iterations): potentials {pot_s:.3f} s, with the rounding "
+              f"{wall:.3f} s; against one device: masks equal, max_abs_err {json.dumps(diff)} "
+              f"(tolerance {BLOCKED_ATOL}); rounding from the sharded u: {json.dumps(q)}, mean "
+              f"cost {delta:+.3f}% against the referee's {referee} (one device's rounding "
+              f"{reference['sinkhorn_mean_cost']})", flush=True)
+        if max(diff.values()) > BLOCKED_ATOL:
+            raise AssertionError(f"mesh sinkhorn: the potentials differ from one device's by "
+                                 f"{diff} > {BLOCKED_ATOL}")
+        if not q["injective"] or q["infeasible_pairs"] or delta > STAGE_S_BAR_PCT:
+            raise AssertionError(f"mesh sinkhorn: the rounding fails stage S's bar: {q}, "
+                                 f"{delta:+.3f}%")
+        del res
+
+        # ---- K14's three launches at one shard's shape, on their first
+        # calls' arguments (shard 0): the checks, their times, the plain
+        # versions' and the library passes'
+        (p_ep, p_er, p_w, p_eps, p_u), _ = recorded["blocked_col_partial"]
+        (r_ep, r_er, r_w, r_eps, r_v), _ = recorded["blocked_row_lse"]
+        (f_ep, f_er, f_w), _ = recorded["blocked_feasibility"]
+        k_block = bl.make_k_block(p_ep, p_er, p_w, p_eps, tile)
+        starts = range(0, size, tile)
+        pl = p_ep.num
+        n_tiles = size // tile
+        with uncounted(kernels):
+            full_err = partial_err(p_ep, p_er, p_u, starts, tile, f"shard 0 at {size}x{size}")
+            f_row, f_col = kernels.blocked_feasibility(f_ep, f_er, f_w)
+            pf_row, pf_col = bl.feasibility_scan(k_block, pl, starts)
+            got_r = kernels.blocked_row_lse(r_ep, r_er, r_w, r_eps, r_v)
+            ref_r = bl.streaming_row_logsumexp(k_block, r_v, starts, pl, tile)
+            torch.cuda.synchronize()
+            if not (torch.equal(f_row, pf_row) and torch.equal(f_col, pf_col.reshape(size))):
+                raise AssertionError("K14 feasibility on shard 0: the masks differ")
+            row_err = finite_err(torch, got_r, ref_r, f_row)
+            if row_err > BLOCKED_ATOL:
+                raise AssertionError(f"K14 row pass on shard 0: lse error {row_err}")
+            del got_r, ref_r
+            ms = cuda_ms(torch, lambda: kernels.blocked_col_partial(p_ep, p_er, p_w, p_eps, p_u),
+                         3)
+            plain = cuda_ms(torch, lambda: psk._col_partial_plain(k_block, p_u, starts), 1)
+            x = k_block(0) + p_u[:, None]
+            lib_ms = cuda_ms(torch, lambda: [torch.logsumexp(x, dim=0) for _ in range(n_tiles)],
+                             1)
+            row_ms = cuda_ms(torch, lambda: kernels.blocked_row_lse(r_ep, r_er, r_w, r_eps, r_v),
+                             3)
+            row_plain = cuda_ms(torch, lambda: bl.streaming_row_logsumexp(k_block, r_v, starts,
+                                                                           pl, tile), 1)
+            x = k_block(0) + r_v[None, :tile]
+            row_lib = cuda_ms(torch, lambda: [torch.logsumexp(x, dim=1) for _ in range(n_tiles)],
+                              1)
+            del x
+            feas_ms = cuda_ms(torch, lambda: kernels.blocked_feasibility(f_ep, f_er, f_w), 3)
+            feas_plain = cuda_ms(torch, lambda: bl.feasibility_scan(k_block, pl, starts), 1)
+        feasible = sum(int(compat_mask(p_ep, slice_requirements(p_er, t_, tile)).sum())
+                       for t_ in starts)
+        cols_bytes = pl * row_bytes(p_ep) + size * row_bytes(p_er)
+        ops_scan = pl * size * OPS_PER_CELL + feasible * OPS_PER_FEASIBLE_CELL
+        shard = f"one shard's launch ({pl} providers x {size} tasks, its first call)"
+        part_row = row("blocked_col_partial", SRC_BLOCKED, "protocol_tpu/parallel/sinkhorn.py:42",
+                       full_err, ms, plain, cols_bytes + pl * 4 + size * 8,
+                       ops_scan + feasible * 5)
+        row_row = row("blocked_row_lse_sharded", SRC_BLOCKED,
+                      "protocol_tpu/parallel/sinkhorn.py:95", row_err, row_ms, row_plain,
+                      cols_bytes + size * 4 + pl * 4, ops_scan + feasible * 5)
+        feas_row = row("blocked_feasibility_sharded", SRC_BLOCKED,
+                       "protocol_tpu/parallel/sinkhorn.py:75", 0.0, feas_ms, feas_plain,
+                       cols_bytes + pl + size // 8, ops_scan)
+        for r_, lib, what in ((part_row, lib_ms, "K + u, dim 0"), (row_row, row_lib, "K + v, dim 1")):
+            r_["library_ms"] = lib
+            r_["library_call"] = (f"{n_tiles} calls of torch.logsumexp over a materialised "
+                                  f"[{pl}, {tile}] block of {what} (one shard), timed as one "
+                                  f"pass (the nearest call: the block is not recomputed)")
+        for r_, counter in ((row_row, "blocked_row_lse"), (feas_row, "blocked_feasibility")):
+            r_.update(counter=counter, runs=("mesh_sinkhorn",))
+        for r_ in (part_row, row_row, feas_row):
+            r_["note"] = (f"{shard}; the sharded potentials at {size}x{size}: {pot_s:.3f} s over "
+                          f"{MESH_D} shards on one card")
+        part_row["mesh_sinkhorn"] = {"potentials_s": pot_s, "wall_s": wall, "max_abs_err": diff,
+                                     "rounding": q, "mean_cost_delta_pct": delta,
+                                     "partial_small_err": err}
+        print(f"K14 at {pl}x{size} (one shard): partial {ms:.3f} ms (plain {plain:.3f}, library "
+              f"pass {lib_ms:.3f}, bound {part_row['bound_ms']:.3f}); row pass {row_ms:.3f} ms "
+              f"(plain {row_plain:.3f}, library pass {row_lib:.3f}); feasibility {feas_ms:.3f} "
+              f"ms (plain {feas_plain:.3f})", flush=True)
+        del k_block
+    finally:
+        platform.force_virtual_devices(prev, torch.device(DEVICE).type)
+    return [part_row, row_row, feas_row], {"mesh_sinkhorn": launches}
 
 
 def main() -> int:
@@ -2632,14 +3012,19 @@ def main() -> int:
     backend_rows, backend_runs = run_backend(torch, kernels)
 
     # ---- stage S: the blocked Sinkhorn at 100,000^2 (BASELINE ladder #3)
-    stage_rows, stage_runs = run_stage_s(torch, kernels)
+    stage_rows, stage_runs, stage_ref = run_stage_s(torch, kernels)
 
     # ---- the provider mesh: four views of the card
     mesh_rows, mesh_runs = run_mesh(torch, kernels, refresh)
 
+    # ---- the provider-sharded dense auction and blocked Sinkhorn
+    dense_rows, dense_runs = run_mesh_dense(torch, kernels)
+    sink_rows, sink_runs = run_mesh_sinkhorn(torch, kernels, stage_ref)
+    del stage_ref
+
     runs = {"cold_ticks": launches, "warm_chain": launches_warm,
             "matcher_dense": launches_dense, "matcher_torch": launches_torch, **phase_runs,
-            **route_runs, **backend_runs, **stage_runs, **mesh_runs}
+            **route_runs, **backend_runs, **stage_runs, **mesh_runs, **dense_runs, **sink_runs}
 
     # K1's forward launch: the cold pass over every task id; its call on
     # the warm repair's dirty rows rides along as "repair_call"
@@ -2668,7 +3053,7 @@ def main() -> int:
             k8_plain_ms, k8_bytes, k8_ops),
         row("greedy_cleanup", SRC_K9, "protocol_tpu/ops/sparse.py:545", 0.0, k9_ms,
             k9_plain_ms, k9_bytes, 0),
-    ] + phase_rows + backend_rows + stage_rows + mesh_rows
+    ] + phase_rows + backend_rows + stage_rows + mesh_rows + dense_rows + sink_rows
     for r_ in rows:
         # a row may count another wrapper's launches (a kernel at new
         # arguments: the mesh's rows), or several, in some runs only; the
@@ -2681,6 +3066,16 @@ def main() -> int:
             if run in only:
                 r_[f"launches_{run}"] = sum(counts[c] for c in counter)
         r_["launches"] = sum(r_[f"launches_{run}"] for run in runs if run in only)
+        # an estimate of the time the main path spent above the bound in
+        # this kernel: its launches over the launches one timed ms covers
+        # (a K16 segment, a K17 run: many), times (ms - bound_ms). The ms
+        # is timed at one shape per row; a row whose launches run at other
+        # shapes (most of the matcher's and the mesh's) is scaled from it
+        r_["excess_ms"] = (r_["launches"] / r_.get("launches_timed", 1)
+                           * (r_["ms"] - r_["bound_ms"]))
+    order = sorted(rows, key=lambda r_: -r_["excess_ms"])
+    print("kernels by launches x (ms - bound_ms), ms at one timed shape a row: " + "; ".join(
+        f"{r_['name']} {r_['excess_ms']:.1f}" for r_ in order), flush=True)
     print(f"K2 timed launch: eps 4.0, B 4096, {k2_rounds} rounds, {k2_rows} frontier rows", flush=True)
     print(f"K7 timed launch: {Td} slots x {Pd} providers, eps 0.05, {k7_rounds} rounds, "
           f"{k7_open_rows} open rows; K9 timed on {cut_open.numel()} open tasks", flush=True)

@@ -8,12 +8,23 @@
 // XLA, twice per iteration. Here no [P, T] or [P, tile] block exists:
 // every launch rescores its cells from the encoded columns with K1's cell
 // function (cell_cost<false>, cell.cuh: the unjittered cost, as
-// cost_matrix gives it) and keeps K in registers. Three launches:
+// cost_matrix gives it) and keeps K in registers. Three launches, the
+// third with a partial mode:
 //   feasibility  row_any[p] (u8) and col_bits (a [ceil(T/32)] u32 bitmap
 //                of col_any): whether each provider / task has a cell
 //                with cost < INFEASIBLE/2;
 //   row pass     lse_u[p] = logsumexp over all T of K[p, t] + v[t];
-//   column pass  lse_v[t] = logsumexp over all P of K[p, t] + u[p].
+//   column pass  lse_v[t] = logsumexp over all P of K[p, t] + u[p];
+//                or, in its partial mode, the pair itself, m[t] and s[t],
+//                over the P rows it is given (one shard's providers).
+// The partial mode replaces the v step of protocol_tpu/parallel/
+// sinkhorn.py::_build_sharded_sinkhorn (:100-110), which takes each
+// shard's per-tile column max, a pmax, then each shard's sum of exp(k -
+// gmax) (recomputing the block) and a psum: here each shard's cells are
+// scored once, and the shards' pairs combine on the host side as
+// gmax = max m_s, gsum = sum of s_s * exp(m_s - gmax) in shard order
+// (protocol_tpu_torch/parallel/sinkhorn.py). A column with no feasible
+// cell in the shard keeps m = -inf, s = 0; the combine adds 0 for it.
 // The marginals, the masks (where(row_any, log_a - lse_u, -1e18), ...)
 // and the loop over the iterations stay torch glue on the card
 // (protocol_tpu_torch/ops/blocked.py).
@@ -25,7 +36,8 @@
 // reverse launch has this shape). Each thread keeps an online (max,
 // sum-exp) pair; the parts merge theirs at the end,
 //   (m, s) + (m', s') = (M, s * exp(m - M) + s' * exp(m' - M)),  M = max,
-// and the result is m + log(max(s, 1e-30)), the reference's epilogue.
+// and the result is m + log(max(s, 1e-30)), the reference's epilogue (the
+// partial mode stops before it).
 // This is not the reference's summation order (a per-tile max, then a sum
 // over the tile, carried tile to tile), so the passes agree with the plain
 // version within a tolerance, not bit for bit.
@@ -144,10 +156,13 @@ __global__ void __launch_bounds__(kLanes * kParts) feasibility_kernel(
 
 // kRows: own = provider, lse over the tasks of K + v (the u pass);
 // otherwise own = task, lse over the providers of K + u (the v pass).
-template <bool kRows>
+// kPartial (a column pass only): write the pair (m into lse, s into
+// sum) instead of m + log(max(s, 1e-30)).
+template <bool kRows, bool kPartial = false>
 __global__ void __launch_bounds__(kLanes * kParts) lse_kernel(
     Prov prov, Req req, Aux aux, Weights w, int P, int T, int K, int W, float eps,
-    const float* __restrict__ pot, float* __restrict__ lse) {
+    const float* __restrict__ pot, float* __restrict__ lse, float* __restrict__ sum) {
+  static_assert(!(kRows && kPartial), "the partial mode is a column pass");
   __shared__ float s_m[kParts][kLanes];
   __shared__ float s_s[kParts][kLanes];
   const int lane = threadIdx.x % kLanes;
@@ -180,7 +195,12 @@ __global__ void __launch_bounds__(kLanes * kParts) lse_kernel(
   __syncthreads();
   if (part != 0 || !active) return;
   for (int q = 1; q < kParts; ++q) lse_merge(m, s, s_m[q][lane], s_s[q][lane]);
-  lse[own] = __fadd_rn(m, logf(fmaxf(s, kTiny)));
+  if constexpr (kPartial) {
+    lse[own] = m;
+    sum[own] = s;
+  } else {
+    lse[own] = __fadd_rn(m, logf(fmaxf(s, kTiny)));
+  }
 }
 
 __global__ void __launch_bounds__(kThreads) pair_cost_kernel(Prov prov, Req req, Aux aux,
@@ -243,10 +263,27 @@ extern "C" int k14_lse(const void* const* prov_cols, const void* const* req_cols
   launch_prep(prov, req, w, P, T, aux, (cudaStream_t)stream);
   if (rows)
     lse_kernel<true><<<own_blocks(P), kLanes * kParts, 0, (cudaStream_t)stream>>>(
-        prov, req, ax, w, P, T, K, W, eps, pot, lse);
+        prov, req, ax, w, P, T, K, W, eps, pot, lse, nullptr);
   else
     lse_kernel<false><<<own_blocks(T), kLanes * kParts, 0, (cudaStream_t)stream>>>(
-        prov, req, ax, w, P, T, K, W, eps, pot, lse);
+        prov, req, ax, w, P, T, K, W, eps, pot, lse, nullptr);
+  return (int)cudaGetLastError();
+}
+
+// K14 column pass, partial mode: m [T] and s [T], the online (max,
+// sum-exp) pair over the P providers given of K + pot[p], pot = u [P];
+// m = -inf and s = 0 where a column has no feasible cell among them.
+extern "C" int k14_col_partial(const void* const* prov_cols, const void* const* req_cols, int P,
+                               int T, int K, int W, float w_price, float w_load, float w_prox,
+                               float w_prio, float eps, const float* pot, float* aux, float* m,
+                               float* s, void* stream) {
+  if (P < 1 || T < 1 || K > kMaxOpts || !(eps > 0.0f)) return (int)cudaErrorInvalidValue;
+  const Weights w{w_price, w_load, w_prox, w_prio};
+  const Prov prov = make_prov(prov_cols);
+  const Req req = make_req(req_cols);
+  launch_prep(prov, req, w, P, T, aux, (cudaStream_t)stream);
+  lse_kernel<false, true><<<own_blocks(T), kLanes * kParts, 0, (cudaStream_t)stream>>>(
+      prov, req, make_aux(aux, P, T), w, P, T, K, W, eps, pot, m, s);
   return (int)cudaGetLastError();
 }
 

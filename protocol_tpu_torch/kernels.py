@@ -33,7 +33,7 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / "kernels"
 SOURCES = ("candidates", "auction", "repair", "dense", "cleanup", "binpack", "greedy", "sinkhorn",
-           "blocked", "mesh_auction")
+           "blocked", "mesh_auction", "mesh_dense")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -47,8 +47,11 @@ LAUNCHES = {
     "repair_enter": 0, "repair_tile_min": 0, "repair_refold": 0,
     "dense_value_base": 0, "dense_auction": 0, "unbounded_best": 0, "greedy_cleanup": 0,
     "cost_block": 0, "binpack_ffd": 0, "greedy_assign": 0, "sinkhorn": 0,
-    "blocked_feasibility": 0, "blocked_row_lse": 0, "blocked_col_lse": 0, "pair_cost": 0,
+    "blocked_feasibility": 0, "blocked_row_lse": 0, "blocked_col_lse": 0,
+    "blocked_col_partial": 0, "pair_cost": 0,
     "mesh_round_bid": 0, "mesh_round_resolve": 0, "mesh_round_apply": 0,
+    "mesh_dense_scan": 0, "mesh_dense_combine": 0, "mesh_dense_resolve": 0,
+    "mesh_dense_apply": 0, "mesh_dense_finish": 0,
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -166,8 +169,11 @@ def _lib(name: str) -> ctypes.CDLL:
             lib.k14_lse.argtypes = [
                 _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _I, _P, _P, _P, _P,
             ]
+            lib.k14_col_partial.argtypes = [
+                _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P, _P, _P, _P, _P,
+            ]
             lib.k15_pair_cost.argtypes = [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P, _P]
-            for fn in ("k14_feasibility", "k14_lse", "k15_pair_cost"):
+            for fn in ("k14_feasibility", "k14_lse", "k14_col_partial", "k15_pair_cost"):
                 getattr(lib, fn).restype = _I
         elif name == "mesh_auction":
             lib.k16_round_bid.argtypes = [
@@ -178,6 +184,14 @@ def _lib(name: str) -> ctypes.CDLL:
                 _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
             ]
             for fn in ("k16_round_bid", "k16_round_resolve", "k16_round_apply"):
+                getattr(lib, fn).restype = _I
+        elif name == "mesh_dense":
+            lib.k17_scan.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P]
+            lib.k17_combine.argtypes = [_P, _P, _P, _P, _I, _I, _F, _P, _P]
+            lib.k17_resolve.argtypes = [_P, _P, _I, _I, _I, _P, _P]
+            lib.k17_apply.argtypes = [_P, _P, _I, _I, _P, _P, _P, _P]
+            lib.k17_finish.argtypes = [_P, _P, _P, _I, _I, _I, _P, _P]
+            for fn in ("k17_scan", "k17_combine", "k17_resolve", "k17_apply", "k17_finish"):
                 getattr(lib, fn).restype = _I
         elif name == "sinkhorn":
             lib.k13_sinkhorn.argtypes = [_P, _I, _I, _F, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P]
@@ -721,15 +735,20 @@ def blocked_feasibility(ep, er, weights):
     return row_any.bool(), col_any
 
 
-def _blocked_lse(ep, er, weights, eps: float, pot: torch.Tensor, rows: bool, name: str):
+def _blocked_setup(ep, er, weights, eps: float, pot: torch.Tensor, rows: bool, name: str):
     dev, pcols, rcols, (P, T, K, W), w, aux = _k1_setup(ep, er, weights)
-    n_pot, n_out = (T, P) if rows else (P, T)
+    n_pot = T if rows else P
     if pot.device != dev or pot.dtype != torch.float32 or pot.shape != (n_pot,):
         raise ValueError(f"{name}: the potential must be a [{n_pot}] f32 tensor on {dev}")
     if not eps > 0 or P < 1 or T < 1:
         raise ValueError(f"{name} takes eps > 0 and P, T >= 1, got {eps}, {P}, {T}")
-    pot = pot.contiguous()
-    lse = torch.empty(n_out, dtype=torch.float32, device=dev)
+    return dev, pcols, rcols, (P, T, K, W), w, aux, pot.contiguous()
+
+
+def _blocked_lse(ep, er, weights, eps: float, pot: torch.Tensor, rows: bool, name: str):
+    dev, pcols, rcols, (P, T, K, W), w, aux, pot = _blocked_setup(ep, er, weights, eps, pot,
+                                                                  rows, name)
+    lse = torch.empty(P if rows else T, dtype=torch.float32, device=dev)
     _check(_lib("blocked").k14_lse(
         pcols, rcols, P, T, K, W, *w, eps, int(rows), pot.data_ptr(), aux.data_ptr(),
         lse.data_ptr(), _stream(lse),
@@ -755,6 +774,25 @@ def blocked_col_lse(ep, er, weights, eps: float, u: torch.Tensor):
 
 
 @_on_device
+def blocked_col_partial(ep_local, er, weights, eps: float, u_local: torch.Tensor):
+    """K14, column pass in its partial mode (``csrc/blocked.cu``): per task,
+    the online (max, sum-exp) pair of K[p, t] + u_local[p] over the
+    providers of ``ep_local`` (one shard's rows; feasible cells only).
+    Returns (m [T], s [T]) f32, with m = -inf and s = 0 where a task has
+    no feasible cell among them."""
+    dev, pcols, rcols, (P, T, K, W), w, aux, u_local = _blocked_setup(
+        ep_local, er, weights, eps, u_local, False, "blocked_col_partial")
+    m = torch.empty(T, dtype=torch.float32, device=dev)
+    s = torch.empty(T, dtype=torch.float32, device=dev)
+    _check(_lib("blocked").k14_col_partial(
+        pcols, rcols, P, T, K, W, *w, eps, u_local.data_ptr(), aux.data_ptr(), m.data_ptr(),
+        s.data_ptr(), _stream(m),
+    ), "blocked_col_partial")
+    LAUNCHES["blocked_col_partial"] += 1
+    return m, s
+
+
+@_on_device
 def pair_cost(ep, er, weights, p4t: torch.Tensor):
     """K15 (``csrc/blocked.cu``): per task t, the unjittered cost of the
     cell (p4t[t], t), INFEASIBLE where p4t[t] < 0. Returns [T] f32."""
@@ -771,6 +809,12 @@ def pair_cost(ep, er, weights, p4t: torch.Tensor):
     ), "pair_cost")
     LAUNCHES["pair_cost"] += 1
     return out
+
+
+# rounds the mesh's auctions (K16's segments, K17's rounds) enqueue between
+# two reads of their loop's go flag: every launch after the stop does
+# nothing, so a segment costs one read-back
+CARD_CHECK_EVERY = 256
 
 
 # K16's per-shard int32 state, one word each, and its size MESH_CTL: the
@@ -859,3 +903,100 @@ def mesh_round_apply(win_key, win_task, feasible, retired, ctl, price, owner, p4
         key_local.data_ptr(), task_local.data_ptr(), _stream(ctl),
     ), "mesh_round_apply")
     LAUNCHES["mesh_round_apply"] += 1
+
+
+# K17's loop state, int64 words on the mesh's first device (a copy on each
+# shard's): the round count, whether the next round runs (go), the open
+# tasks and the open rows summed over the rounds, and its size DENSE_CTL.
+# The one definition of the layout: csrc/mesh_dense.cu's Ctl enum follows
+# it.
+DCTL_IT, DCTL_GO, DCTL_OPEN, DCTL_ROWS, DENSE_CTL = range(5)
+
+
+@_on_device
+def mesh_dense_scan(value_base, price, p4t, feasible, ctl, scan, delta, offset: int) -> None:
+    """K17, one shard's scan (``csrc/mesh_dense.cu``): for each open task
+    (p4t < 0, feasible) the best value v1 over the shard's row of
+    ``value_base`` [T, Pl] minus ``price`` [Pl] at the first maximum p1, v2
+    with only p1 masked, the global p1 (``offset`` + p1, -1 where v1 <=
+    -5e17) and price[p1], into ``scan`` [4, T] (row 2 as int32 bits);
+    ``delta`` [T] is reset to -2. In place."""
+    T, Pl = value_base.shape
+    _mesh_tensors(value_base.device, "mesh_dense_scan",
+                  value_base=(value_base, torch.float32, T * Pl), price=(price, torch.float32, Pl),
+                  p4t=(p4t, torch.int32, T), feasible=(feasible, torch.uint8, T),
+                  ctl=(ctl, torch.int64, DENSE_CTL), scan=(scan, torch.float32, 4 * T),
+                  delta=(delta, torch.int32, T))
+    _check(_lib("mesh_dense").k17_scan(
+        value_base.data_ptr(), price.data_ptr(), p4t.data_ptr(), feasible.data_ptr(),
+        ctl.data_ptr(), T, Pl, offset, scan.data_ptr(), delta.data_ptr(), _stream(scan),
+    ), "mesh_dense_scan")
+    LAUNCHES["mesh_dense_scan"] += 1
+
+
+@_on_device
+def mesh_dense_combine(gathered, p4t, feasible, ctl, eps: float, bt) -> None:
+    """K17, the combine on the mesh's first device: from the shards' scan
+    buffers ``gathered`` [D, 4, T], per open task the best shard (the first
+    maximum of v1), the runner-up over the rest floored at -1e8, and the
+    bid (price1 + (v1 - v2)) + eps with its global target, into ``bt``
+    [2, T] (row 1 as int32 bits, -1 where the task does not bid). In place."""
+    D = gathered.shape[0]
+    T = p4t.numel()
+    _mesh_tensors(gathered.device, "mesh_dense_combine",
+                  gathered=(gathered, torch.float32, D * 4 * T), p4t=(p4t, torch.int32, T),
+                  feasible=(feasible, torch.uint8, T), ctl=(ctl, torch.int64, DENSE_CTL),
+                  bt=(bt, torch.float32, 2 * T))
+    _check(_lib("mesh_dense").k17_combine(
+        gathered.data_ptr(), p4t.data_ptr(), feasible.data_ptr(), ctl.data_ptr(), D, T, eps,
+        bt.data_ptr(), _stream(bt),
+    ), "mesh_dense_combine")
+    LAUNCHES["mesh_dense_combine"] += 1
+
+
+@_on_device
+def mesh_dense_resolve(bt, ctl, win_key, offset: int) -> None:
+    """K17, one shard's resolve: each bid of ``bt`` [2, T] whose target lies
+    in [offset, offset + Pl) scatter-maxes (order-preserving bid bits << 32
+    | ~task) into ``win_key`` [Pl] (int64 bits; 0 = no bid). In place."""
+    T = bt.numel() // 2
+    Pl = win_key.numel()
+    _mesh_tensors(bt.device, "mesh_dense_resolve", bt=(bt, torch.float32, 2 * T),
+                  ctl=(ctl, torch.int64, DENSE_CTL), win_key=(win_key, torch.int64, Pl))
+    _check(_lib("mesh_dense").k17_resolve(
+        bt.data_ptr(), ctl.data_ptr(), T, Pl, offset, win_key.data_ptr(), _stream(win_key),
+    ), "mesh_dense_resolve")
+    LAUNCHES["mesh_dense_resolve"] += 1
+
+
+@_on_device
+def mesh_dense_apply(win_key, ctl, price, owner, delta, offset: int) -> None:
+    """K17, one shard's apply: each provider with a key evicts its owner
+    (delta -1), seats the winner (delta = its global id ``offset`` + p),
+    takes the bid as its price and resets its key. In place."""
+    Pl = win_key.numel()
+    T = delta.numel()
+    _mesh_tensors(win_key.device, "mesh_dense_apply", win_key=(win_key, torch.int64, Pl),
+                  ctl=(ctl, torch.int64, DENSE_CTL), price=(price, torch.float32, Pl),
+                  owner=(owner, torch.int32, Pl), delta=(delta, torch.int32, T))
+    _check(_lib("mesh_dense").k17_apply(
+        win_key.data_ptr(), ctl.data_ptr(), Pl, offset, price.data_ptr(), owner.data_ptr(),
+        delta.data_ptr(), _stream(delta),
+    ), "mesh_dense_apply")
+    LAUNCHES["mesh_dense_apply"] += 1
+
+
+@_on_device
+def mesh_dense_finish(deltas, feasible, ctl, p4t, max_iters: int) -> None:
+    """K17, the end of a round on the mesh's first device: the max of the
+    shards' ``deltas`` [D, T] applied to ``p4t`` where it is > -2, then the
+    loop state (round count, open tasks, open rows, go). In place."""
+    D, T = deltas.shape
+    _mesh_tensors(deltas.device, "mesh_dense_finish", deltas=(deltas, torch.int32, D * T),
+                  feasible=(feasible, torch.uint8, T), ctl=(ctl, torch.int64, DENSE_CTL),
+                  p4t=(p4t, torch.int32, T))
+    _check(_lib("mesh_dense").k17_finish(
+        deltas.data_ptr(), feasible.data_ptr(), ctl.data_ptr(), D, T, max_iters, p4t.data_ptr(),
+        _stream(p4t),
+    ), "mesh_dense_finish")
+    LAUNCHES["mesh_dense_finish"] += 1

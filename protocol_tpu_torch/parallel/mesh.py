@@ -10,10 +10,13 @@ The collectives of the sharded bodies live here, each once: a sharded
 body holds one tensor per shard (a list in shard order) and combines them
 by copying every part to the mesh's first device and reducing there into
 a fresh tensor, so two shards on one device never alias an input with an
-output. Every reduction is exact in any order: max, min, integer sums
-and concatenation. The combined result of ``pmax`` / ``pmin`` / ``psum``
-comes back once per shard, on the shard's device; shards that share a
-device share that tensor, so it is read-only.
+output. Every reduction but one is exact in any order: max, min, integer
+sums and concatenation. The one whose bits depend on the order is the
+float sum ``psum_float``, so it always adds the parts in shard order and
+gives the same bits on every run. The combined result of ``pmax`` /
+``pmin`` / ``psum`` / ``psum_float`` and a ``broadcast`` tensor come back
+once per shard, on the shard's device; shards that share a device share
+that tensor, so it is read-only.
 
 Shards on distinct cards are written for (torch orders a cross-device
 copy after both cards' current streams, and every kernel wrapper makes
@@ -90,8 +93,7 @@ def all_gather(parts: Sequence[torch.Tensor], mesh: Mesh) -> torch.Tensor:
 
 
 def _combine(parts: Sequence[torch.Tensor], mesh: Mesh, reduce) -> list[torch.Tensor]:
-    out = reduce(torch.stack([p.to(mesh.devices[0]) for p in parts]))
-    return [out.to(d) for d in mesh.devices]
+    return broadcast(reduce(torch.stack([p.to(mesh.devices[0]) for p in parts])), mesh)
 
 
 def pmax(parts: Sequence[torch.Tensor], mesh: Mesh) -> list[torch.Tensor]:
@@ -106,5 +108,24 @@ def pmin(parts: Sequence[torch.Tensor], mesh: Mesh) -> list[torch.Tensor]:
 
 def psum(parts: Sequence[torch.Tensor], mesh: Mesh) -> list[torch.Tensor]:
     """Elementwise integer sum over the shards, in the parts' dtype, once
-    per shard (read-only)."""
+    per shard (read-only). A float sum is ``psum_float``'s."""
+    if parts[0].is_floating_point():
+        raise TypeError("psum sums integers; a float sum is psum_float (in shard order)")
     return _combine(parts, mesh, lambda s: s.sum(0, dtype=s.dtype))
+
+
+def psum_float(parts: Sequence[torch.Tensor], mesh: Mesh) -> list[torch.Tensor]:
+    """Elementwise float sum over the shards, added in shard order (((p0 +
+    p1) + p2) + ...), so its bits do not depend on a reduction's order;
+    once per shard (read-only)."""
+    dev0 = mesh.devices[0]
+    out = parts[0].to(dev0, copy=True)
+    for p in parts[1:]:
+        out += p.to(dev0)
+    return broadcast(out, mesh)
+
+
+def broadcast(t: torch.Tensor, mesh: Mesh) -> list[torch.Tensor]:
+    """``t`` once per shard, on the shard's device (read-only: shards on
+    ``t``'s device share it)."""
+    return [t.to(d) for d in mesh.devices]

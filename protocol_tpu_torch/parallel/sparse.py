@@ -66,8 +66,8 @@ import numpy as np
 import torch
 
 from protocol_tpu_torch.kernels import (
-    CTL_ASSIGNED, CTL_BEST, CTL_GO, CTL_IT, CTL_NB, CTL_OPEN, CTL_PENDING, CTL_ROWS, CTL_STALL,
-    MESH_CTL,
+    CARD_CHECK_EVERY, CTL_ASSIGNED, CTL_BEST, CTL_GO, CTL_IT, CTL_NB, CTL_OPEN, CTL_PENDING,
+    CTL_ROWS, CTL_STALL, MESH_CTL,
 )
 from protocol_tpu_torch.ops.assign import _NEG, AssignResult, _invert
 from protocol_tpu_torch.ops.cost import INFEASIBLE, CostWeights, cost_matrix, tie_jitter_ids
@@ -706,11 +706,6 @@ def _round_apply_plain(st: _Shard, win_key, win_task, T: int) -> None:
 # ---- the phase: rounds in segments
 
 
-# rounds a card runs between two reads of the loop's go flag (a round
-# after the stop does nothing); the CPU reads it every round
-_CARD_CHECK_EVERY = 256
-
-
 def _segment(mesh: Mesh, shards: list, stacked, T: int, eps: float, B: int, max_iters: int,
              stall_limit: int, plain: bool = False) -> tuple[int, int, int]:
     """Up to ``max_iters`` rounds of the sharded phase from the shards'
@@ -743,7 +738,7 @@ def _segment(mesh: Mesh, shards: list, stacked, T: int, eps: float, B: int, max_
         else:
             _round_bid_plain(stacked, torch.stack(tot), eps, B, max_iters, stall_limit)
 
-    check = _CARD_CHECK_EVERY if on_card else 1
+    check = CARD_CHECK_EVERY if on_card else 1
     for rnd in range(max_iters):
         bid()
         if (rnd + 1) % check == 0 and rnd + 1 < max_iters and not int(shards[0].ctl[CTL_GO]):

@@ -676,3 +676,107 @@ def test_mesh_round_kernels_match_plain_bits(card, mesh4):
             assert same_bits(getattr(got[1], name), getattr(ref[1], name)), (eps, name)
     assert kernels.LAUNCHES["mesh_round_bid"] > before
     assert int((got[1].p4t >= 0).sum()) > 0
+
+
+@pytest.fixture
+def views(card):
+    """A function giving a mesh of D views of the card (utils/platform.py);
+    the count is restored after."""
+    from protocol_tpu_torch.parallel.mesh import make_mesh
+    from protocol_tpu_torch.utils import platform
+
+    prev = platform.force_virtual_devices(8, "cuda")
+    yield lambda D: make_mesh(D, card)
+    platform.force_virtual_devices(prev, "cuda")
+
+
+def jittered_cost(card, P, T, seed=11):
+    from protocol_tpu_torch.ops.cost import cost_matrix, with_tie_jitter
+
+    ep = synth_providers(np.random.default_rng(seed), P, device=card)
+    er = synth_requirements(np.random.default_rng(seed + 1), T, device=card)
+    return with_tie_jitter(cost_matrix(ep, er, CostWeights())[0])
+
+
+@pytest.mark.parametrize("D", [2, 4])
+def test_mesh_dense_kernels_match_plain_bits(card, views, D):
+    """K17 over the provider-sharded dense auction at D views: the run ends
+    inside its first 256-round segment and the second segment's launches
+    do nothing; the whole state compared with the plain rounds on the same
+    inputs."""
+    from protocol_tpu_torch import kernels
+    from protocol_tpu_torch.parallel import auction as pa
+
+    mesh = views(D)
+    cost = jittered_cost(card, 2048, 1536)
+    got, ref = pa._make_shards(mesh, cost), pa._make_shards(mesh, cost)
+    before = kernels.LAUNCHES["mesh_dense_scan"]
+    p_k, c_k = pa._rounds(mesh, *got, 0.05, 500)
+    p_p, c_p = pa._rounds(mesh, *ref, 0.05, 500, plain=True)
+    assert same_bits(p_k, p_p) and same_bits(c_k, c_p)
+    for name in ("price", "owner", "win_key"):
+        assert same_bits(getattr(got[1], name), getattr(ref[1], name)), name
+    assert 0 < int(c_k[kernels.DCTL_IT]) < 256 and int(c_k[kernels.DCTL_GO]) == 0
+    assert kernels.LAUNCHES["mesh_dense_scan"] - before == 256 * D
+    assert int((p_k >= 0).sum()) > 0
+
+
+def test_sharded_dense_auction_matches_k7_bits(card, views):
+    """The provider-sharded auction at D = 4 views against the one-device
+    dense auction (K7) on the same cost: the same matching, bit for bit."""
+    from protocol_tpu_torch import kernels
+    from protocol_tpu_torch.ops.assign import assign_auction
+    from protocol_tpu_torch.parallel import assign_auction_sharded
+
+    cost = jittered_cost(card, 4096, 3072, seed=13)
+    before = kernels.LAUNCHES["dense_auction"]
+    one = assign_auction(cost, eps=0.05, max_iters=500)
+    assert kernels.LAUNCHES["dense_auction"] == before + 1
+    got = assign_auction_sharded(cost, views(4), eps=0.05, max_iters=500)
+    assert same_bits(got.provider_for_task, one.provider_for_task)
+    assert same_bits(got.task_for_provider, one.task_for_provider)
+
+
+@pytest.mark.parametrize("P,T,tile", [(1536, 1024, 256), (800, 2000, 400)])
+@pytest.mark.parametrize("proximity", [0.0, 0.001])
+def test_blocked_col_partial_matches_plain(card, views, P, T, tile, proximity):
+    """K14's partial column mode over each of four shards' rows against the
+    plain partials: m = -inf exactly where the shard has no feasible cell
+    in the column, m + log(s) within BLOCKED_ATOL elsewhere; combined, the
+    partials give the one-device column pass within BLOCKED_ATOL. Then the
+    sharded potentials on the card against the one-device ones (K14)."""
+    from protocol_tpu_torch import kernels
+    from protocol_tpu_torch.ops import blocked as bl
+    from protocol_tpu_torch.parallel import sinkhorn as psk
+
+    mesh = views(4)
+    ep = synth_providers(np.random.default_rng(P), P, device=card)
+    er = synth_requirements(np.random.default_rng(T), T, device=card)
+    w = CostWeights(proximity=proximity)
+    starts = range(0, T, tile)
+    row_any, col_any = kernels.blocked_feasibility(ep, er, w)
+    u = torch.from_numpy(np.random.default_rng(1).normal(0, 3, P).astype(np.float32)).to(card)
+    u = torch.where(row_any, u, -1e18)
+    Pl = P // 4
+    ms, ss = [], []
+    for s, ep_s in enumerate(psk._shard_providers(ep, mesh)):
+        m, sm = kernels.blocked_col_partial(ep_s, er, w, 0.05, u[s * Pl:(s + 1) * Pl])
+        pm_, ps_ = psk._col_partial_plain(bl.make_k_block(ep_s, er, w, 0.05, tile),
+                                         u[s * Pl:(s + 1) * Pl], starts)
+        empty = torch.isneginf(pm_)
+        assert torch.equal(torch.isneginf(m), empty) and bool((sm[empty] == 0).all())
+        lse_k = m + torch.log(torch.clamp(sm, min=1e-30))
+        lse_p = pm_ + torch.log(torch.clamp(ps_, min=1e-30))
+        assert float((lse_k - lse_p)[~empty].abs().max()) <= BLOCKED_ATOL
+        ms.append(m)
+        ss.append(sm)
+    lse = psk._combine_col_partials(ms, ss, mesh)
+    ref = bl.column_logsumexp(bl.make_k_block(ep, er, w, 0.05, tile), u, starts)
+    assert float((lse - ref)[col_any].abs().max()) <= BLOCKED_ATOL
+    assert bool(torch.isneginf(lse[~col_any]).all())
+    gu, gv = psk.sinkhorn_potentials_sharded(ep, er, mesh, w, eps=0.05, num_iters=10, tile=tile)
+    ou, ov = bl.sinkhorn_potentials_blocked(ep, er, w, eps=0.05, num_iters=10, tile=tile)
+    for g, o in ((gu, ou), (gv, ov)):
+        masked = o < -1e17
+        assert torch.equal(g < -1e17, masked) and bool((g[masked] == -1e18).all())
+        assert float((g - o)[~masked].abs().max()) <= BLOCKED_ATOL
