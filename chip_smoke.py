@@ -108,11 +108,14 @@ just before it, stage S at P = T = 100,000 (tile 2,500, 20 iterations):
 the potentials (K14), the rounding (K1's biased forward launch, K2, K9)
 and the auction referee (K1, K2, K9), each measured through cost_pairs
 (K15). Both matchings must be injective with no infeasible pair, and u
-and v finite on every row and column with a feasible cell. K14's three
-launches are then held against their plain passes at full width on the
-arguments of their first calls (feasibility exactly, the logsumexps
-within BLOCKED_ATOL), K1's biased launch on the rounding's call and K15
-on the referee's matching bit for bit.
+and v finite on every row and column with a feasible cell; the
+potentials' peak device memory is printed. K14's three launches are then
+held against their plain versions at full width on the arguments of
+their first calls: the feasibility launch's masks exactly and its two
+bitmaps word for word against the plain packer's (built a chunk of tasks
+at a time), the passes within BLOCKED_ATOL of the plain passes on the
+run's bitmaps; K1's biased launch on the rounding's call and K15 on the
+referee's matching bit for bit.
 Then the provider mesh (parallel/mesh.py) at D = 4 views of the one card
 (utils/platform.py's virtual count; NCCL puts no two ranks on one card,
 so every D = 4 time is four shards sharing one card, not a multi-card
@@ -147,7 +150,8 @@ in two more runs with the counts set to 0 just before each:
     stage S's one-device potentials with equal masks, and the plan-guided
     rounding from the sharded u within stage S's 2% mean-cost bar of the
     referee; K14's partial column mode is held against its plain
-    per-shard version at 2,048^2 and at full width on its first call.
+    per-shard version at 2,048^2 and at full width on its first call,
+    and shard 0's bitmaps against the plain packer's word for word.
 Prints:
 
   - the card's name and power limit (nvidia-smi),
@@ -1496,6 +1500,18 @@ def finite_err(torch, got, ref, keep) -> float:
     return float((got - ref)[keep].abs().max()) if bool(keep.any()) else 0.0
 
 
+def check_bitmaps(torch, bl, bits, ep, er, w, label: str) -> None:
+    """K14's feasibility bitmaps against the plain packer's, word for word;
+    the packer builds its mask a chunk of tasks at a time, so no [P, T]
+    mask exists."""
+    ref = bl.pack_feasibility(ep, er, w)
+    same = torch.equal(bits.rows, ref.rows) and torch.equal(bits.cols, ref.cols)
+    print(f"K14 bitmaps at {label} ({bl.FeasibilityBits.nbytes(*bits.shape)} bytes) against "
+          f"the plain packer: equal word for word {same}", flush=True)
+    if not same:
+        raise AssertionError(f"K14 bitmaps at {label}: not the plain packer's words")
+
+
 def run_stage_s(torch, kernels) -> tuple[list, dict, dict]:
     """BASELINE ladder #3 on the card (protocol_tpu_torch/stage_s.py): the
     blocked Sinkhorn's potentials and rounding against the CPU's at
@@ -1557,9 +1573,24 @@ def run_stage_s(torch, kernels) -> tuple[list, dict, dict]:
         "candidates_forward_rows": (),
     })
     keep: dict = {}
+    peak: dict = {}
+    potentials = stage_s.sinkhorn_potentials_blocked
+
+    def measured_potentials(*args, **kw):  # the potentials' peak device memory
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = potentials(*args, **kw)
+        torch.cuda.synchronize()
+        peak["bytes"] = torch.cuda.max_memory_allocated()
+        return out
+
+    stage_s.sinkhorn_potentials_blocked = measured_potentials
     t0 = time.perf_counter()
-    summary = stage_s.run(size=size, tile=tile, iters=iters, device=DEVICE, keep=keep,
-                          emit=lambda row_: print(f"stage S: {json.dumps(row_)}", flush=True))
+    try:
+        summary = stage_s.run(size=size, tile=tile, iters=iters, device=DEVICE, keep=keep,
+                              emit=lambda row_: print(f"stage S: {json.dumps(row_)}", flush=True))
+    finally:
+        stage_s.sinkhorn_potentials_blocked = potentials
     wall = time.perf_counter() - t0
     for name, fn in originals.items():
         setattr(kernels, name, fn)
@@ -1574,7 +1605,7 @@ def run_stage_s(torch, kernels) -> tuple[list, dict, dict]:
             raise AssertionError(f"stage S: the {prefix} matching is not injective or pairs "
                                  f"an infeasible cell: {r_}")
     ep, er, w, u, v = keep["ep"], keep["er"], keep["weights"], keep["u"], keep["v"]
-    row_any, col_any = kernels.blocked_feasibility(ep, er, w)
+    row_any, col_any, bits = kernels.blocked_feasibility(ep, er, w)
     if not (bool(torch.isfinite(u[row_any]).all()) and bool(torch.isfinite(v[col_any]).all())):
         raise AssertionError("stage S: a potential on a row or column with a feasible cell "
                              "is not finite")
@@ -1586,6 +1617,9 @@ def run_stage_s(torch, kernels) -> tuple[list, dict, dict]:
           f"{s_row['sinkhorn_mean_cost']} / {a_row['auction_mean_cost']}, delta "
           f"{summary['sinkhorn_vs_auction_mean_cost_delta_pct']} %; wall {wall:.3f} s",
           flush=True)
+    print(f"stage S potentials at {size}x{size}: peak device memory {peak['bytes']} bytes "
+          f"(torch.cuda.max_memory_allocated; K14's bitmaps "
+          f"{bl.FeasibilityBits.nbytes(size, size)} bytes of it) on {card_line()}", flush=True)
 
     # ---- the kernels against their plain versions at full width, on the
     # arguments of the run's calls
@@ -1595,17 +1629,21 @@ def run_stage_s(torch, kernels) -> tuple[list, dict, dict]:
     p_row, p_col = bl.feasibility_scan(k_block, size, starts)
     if not (torch.equal(row_any, p_row) and torch.equal(col_any, p_col.reshape(size))):
         raise AssertionError("K14 feasibility: the masks differ from the plain scan")
-    (r_ep, r_er, r_w, r_eps, r_v), _ = recorded["blocked_row_lse"]
-    (c_ep, c_er, c_w, c_eps, c_u), _ = recorded["blocked_col_lse"]
-    got_r = kernels.blocked_row_lse(r_ep, r_er, r_w, r_eps, r_v)
-    ref_r = bl.streaming_row_logsumexp(k_block, r_v, starts, size, tile)
-    got_c = kernels.blocked_col_lse(c_ep, c_er, c_w, c_eps, c_u)
-    ref_c = bl.column_logsumexp(k_block, c_u, starts)
+    check_bitmaps(torch, bl, bits, f_ep, f_er, f_w, f"{size}x{size}")
+    (r_ep, r_er, r_w, r_eps, r_v, r_bits), _ = recorded["blocked_row_lse"]
+    (c_ep, c_er, c_w, c_eps, c_u, c_bits), _ = recorded["blocked_col_lse"]
+    kb_rows = bl.make_k_block_bits(r_ep, r_er, r_w, r_eps, tile, r_bits, "rows")
+    kb_cols = bl.make_k_block_bits(c_ep, c_er, c_w, c_eps, tile, c_bits, "cols")
+    got_r = kernels.blocked_row_lse(r_ep, r_er, r_w, r_eps, r_v, r_bits)
+    ref_r = bl.streaming_row_logsumexp(kb_rows, r_v, starts, size, tile)
+    got_c = kernels.blocked_col_lse(c_ep, c_er, c_w, c_eps, c_u, c_bits)
+    ref_c = bl.column_logsumexp(kb_cols, c_u, starts)
     torch.cuda.synchronize()
     k14_err = {"row": finite_err(torch, got_r, ref_r, row_any),
                "col": finite_err(torch, got_c, ref_c, col_any)}
-    print(f"K14 at {size}x{size} against the plain passes (first calls): feasibility equal, "
-          f"lse max_abs_err {json.dumps(k14_err)} (tolerance {BLOCKED_ATOL})", flush=True)
+    print(f"K14 at {size}x{size} against the plain passes on the run's bitmaps (first calls): "
+          f"feasibility equal, lse max_abs_err {json.dumps(k14_err)} (tolerance "
+          f"{BLOCKED_ATOL})", flush=True)
     if max(k14_err.values()) > BLOCKED_ATOL:
         raise AssertionError(f"K14: lse error {k14_err} > {BLOCKED_ATOL}")
     (b_ep, b_er, b_w, b_k, b_ids), b_kw = recorded["candidates_forward_rows"]
@@ -1631,17 +1669,19 @@ def run_stage_s(torch, kernels) -> tuple[list, dict, dict]:
     # library call's: torch.logsumexp over a materialised [P, tile] block,
     # once per task tile
     feas_ms = cuda_ms(torch, lambda: kernels.blocked_feasibility(f_ep, f_er, f_w), 3)
-    row_ms = cuda_ms(torch, lambda: kernels.blocked_row_lse(r_ep, r_er, r_w, r_eps, r_v), 3)
-    col_ms = cuda_ms(torch, lambda: kernels.blocked_col_lse(c_ep, c_er, c_w, c_eps, c_u), 3)
+    row_ms = cuda_ms(torch, lambda: kernels.blocked_row_lse(r_ep, r_er, r_w, r_eps, r_v, r_bits),
+                     3)
+    col_ms = cuda_ms(torch, lambda: kernels.blocked_col_lse(c_ep, c_er, c_w, c_eps, c_u, c_bits),
+                     3)
     bias_ms = cuda_ms(torch, lambda: kernels.candidates_forward_rows(
         b_ep, b_er, b_w, b_k, b_ids, bias=bias), 3)
     unbiased_ms = cuda_ms(torch, lambda: kernels.candidates_forward_rows(
         b_ep, b_er, b_w, b_k, b_ids), 3)
     pair_ms = cuda_ms(torch, lambda: kernels.pair_cost(ep, er, w, p4t_a), 10)
     feas_plain = cuda_ms(torch, lambda: bl.feasibility_scan(k_block, size, starts), 1)
-    row_plain = cuda_ms(torch, lambda: bl.streaming_row_logsumexp(k_block, r_v, starts, size,
+    row_plain = cuda_ms(torch, lambda: bl.streaming_row_logsumexp(kb_rows, r_v, starts, size,
                                                                    tile), 1)
-    col_plain = cuda_ms(torch, lambda: bl.column_logsumexp(k_block, c_u, starts), 1)
+    col_plain = cuda_ms(torch, lambda: bl.column_logsumexp(kb_cols, c_u, starts), 1)
     bias_plain = cuda_ms(torch, lambda: sp._forward_plain(b_ep, b_er, b_w, b_k, tile,
                                                           provider_offset=bias), 1)
     pair_plain = cuda_ms(torch, lambda: oc._cost_pairs_plain(ep, er, p4t_a, w), 1)
@@ -1667,16 +1707,19 @@ def run_stage_s(torch, kernels) -> tuple[list, dict, dict]:
     p_row_b, r_row_b = row_bytes(ep), row_bytes(er)
     cols_bytes = size * p_row_b + size * r_row_b
     ops_scan = cells * OPS_PER_CELL + feasible * OPS_PER_FEASIBLE_CELL
-    ops_lse = ops_scan + feasible * 5  # the division, the add, the exp and the online sum
+    # a pass scores the feasible cells only: the cost, the division, the
+    # add, the exp and the online sum; it reads one of the two bitmaps
+    ops_lse = feasible * (OPS_PER_FEASIBLE_CELL + 5)
+    bitmaps = bl.FeasibilityBits.nbytes(size, size)
     assigned = int((p4t_a >= 0).sum())
     print(f"stage S cells {cells}, feasible {feasible} ({feasible / cells:.4f})", flush=True)
     rows = [
         row("blocked_feasibility", SRC_BLOCKED, "protocol_tpu/ops/blocked.py:54", 0.0,
-            feas_ms, feas_plain, cols_bytes + size + size // 8, ops_scan),
+            feas_ms, feas_plain, cols_bytes + size + size // 8 + bitmaps, ops_scan),
         row("blocked_row_lse", SRC_BLOCKED, "protocol_tpu/ops/blocked.py:64",
-            k14_err["row"], row_ms, row_plain, cols_bytes + size * 8, ops_lse),
+            k14_err["row"], row_ms, row_plain, cols_bytes + size * 8 + bitmaps // 2, ops_lse),
         row("blocked_col_lse", SRC_BLOCKED, "protocol_tpu/ops/blocked.py:133",
-            k14_err["col"], col_ms, col_plain, cols_bytes + size * 8, ops_lse),
+            k14_err["col"], col_ms, col_plain, cols_bytes + size * 8 + bitmaps // 2, ops_lse),
         row("candidates_forward_rows_biased", SRC_K1, "protocol_tpu/ops/sparse.py:150", 0.0,
             bias_ms, bias_plain, cols_bytes + size * 8 + size * b_k * 8,
             ops_scan + feasible),
@@ -1684,8 +1727,9 @@ def run_stage_s(torch, kernels) -> tuple[list, dict, dict]:
             size * (r_row_b + 8) + assigned * p_row_b,
             size * OPS_PER_CELL + assigned * OPS_PER_FEASIBLE_CELL),
     ]
-    for r_ in rows[:3]:  # the sharded run's launches are a shard's: their own rows
-        r_["runs"] = ("stage_s",)
+    for r_, b_ in zip(rows[:3], (bitmaps, bitmaps // 2, bitmaps // 2)):
+        r_["runs"] = ("stage_s",)  # the sharded run's launches are a shard's: their own rows
+        r_["bitmap_bytes"] = b_  # of bytes_ in the bound: written (feasibility) or read
     for r_, lib in ((rows[1], lse_row_ms), (rows[2], lse_col_ms)):
         r_["library_ms"] = lib
         r_["library_call"] = (f"{n_tiles} calls of torch.logsumexp over a materialised "
@@ -1697,12 +1741,13 @@ def run_stage_s(torch, kernels) -> tuple[list, dict, dict]:
     rows[3]["unbiased_ms"] = unbiased_ms
     rows[0]["stage_s"] = {"size": size, "tile": tile, "iters": iters, **timings,
                           "wall_s": wall, "card_vs_cpu_small": small,
+                          "potentials_peak_bytes": peak["bytes"],
                           "mean_cost_delta_pct": summary["sinkhorn_vs_auction_mean_cost_delta_pct"],
                           "rows": summary["rows"]}
     reference = {"ep": ep, "er": er, "weights": w, "u": u, "v": v,
                  "referee_mean_cost": a_row["auction_mean_cost"],
                  "sinkhorn_mean_cost": s_row["sinkhorn_mean_cost"]}
-    del keep, k_block
+    del keep, k_block, kb_rows, kb_cols, bits
     return rows, {"stage_s": launches}, reference
 
 
@@ -2266,12 +2311,13 @@ def run_mesh_sinkhorn(torch, kernels, reference: dict) -> tuple[list, dict]:
     try:
         mesh = make_mesh(MESH_D, DEVICE)
 
-        def partial_err(ep_l, er_l, u_l, starts, tile, label):
-            """The partial mode against its plain version on one shard: the
-            empty columns exactly, m + log(s) within BLOCKED_ATOL."""
-            m, sm = kernels.blocked_col_partial(ep_l, er_l, w, eps, u_l)
-            pm_, ps_ = psk._col_partial_plain(bl.make_k_block(ep_l, er_l, w, eps, tile), u_l,
-                                             starts)
+        def partial_err(ep_l, er_l, u_l, bits_l, starts, tile, label):
+            """The partial mode against its plain version on one shard's
+            bitmaps: the empty columns exactly, m + log(s) within
+            BLOCKED_ATOL."""
+            m, sm = kernels.blocked_col_partial(ep_l, er_l, w, eps, u_l, bits_l)
+            pm_, ps_ = psk._col_partial_plain(
+                bl.make_k_block_bits(ep_l, er_l, w, eps, tile, bits_l, "cols"), u_l, starts)
             torch.cuda.synchronize()
             empty = torch.isneginf(pm_)
             if not (torch.equal(torch.isneginf(m), empty) and bool((sm[empty] == 0).all())):
@@ -2290,11 +2336,12 @@ def run_mesh_sinkhorn(torch, kernels, reference: dict) -> tuple[list, dict]:
         er_s = synth_requirements(rng, n, device=DEVICE)
         pl = n // MESH_D
         with uncounted(kernels):
-            row_any, _ = kernels.blocked_feasibility(ep_s, er_s, w)
+            row_any = kernels.blocked_feasibility(ep_s, er_s, w)[0]
             u = torch.from_numpy(np.random.default_rng(1).normal(0, 3, n).astype(np.float32))
             u = torch.where(row_any, u.to(DEVICE), -1e18)
-            err = max(partial_err(ep_l, er_s, u[s_ * pl:(s_ + 1) * pl], range(0, n, tile), tile,
-                                  f"shard {s_} at {n}x{n}")
+            err = max(partial_err(ep_l, er_s, u[s_ * pl:(s_ + 1) * pl],
+                                  kernels.blocked_feasibility(ep_l, er_s, w)[2],
+                                  range(0, n, tile), tile, f"shard {s_} at {n}x{n}")
                       for s_, ep_l in enumerate(psk._shard_providers(ep_s, mesh)))
         print(f"K14 partial at {n}x{n}, {MESH_D} shards: empty columns equal, lse max_abs_err "
               f"{err} (tolerance {BLOCKED_ATOL})", flush=True)
@@ -2347,35 +2394,40 @@ def run_mesh_sinkhorn(torch, kernels, reference: dict) -> tuple[list, dict]:
         # ---- K14's three launches at one shard's shape, on their first
         # calls' arguments (shard 0): the checks, their times, the plain
         # versions' and the library passes'
-        (p_ep, p_er, p_w, p_eps, p_u), _ = recorded["blocked_col_partial"]
-        (r_ep, r_er, r_w, r_eps, r_v), _ = recorded["blocked_row_lse"]
+        (p_ep, p_er, p_w, p_eps, p_u, p_bits), _ = recorded["blocked_col_partial"]
+        (r_ep, r_er, r_w, r_eps, r_v, r_bits), _ = recorded["blocked_row_lse"]
         (f_ep, f_er, f_w), _ = recorded["blocked_feasibility"]
         k_block = bl.make_k_block(p_ep, p_er, p_w, p_eps, tile)
+        kb_cols = bl.make_k_block_bits(p_ep, p_er, p_w, p_eps, tile, p_bits, "cols")
+        kb_rows = bl.make_k_block_bits(r_ep, r_er, r_w, r_eps, tile, r_bits, "rows")
         starts = range(0, size, tile)
         pl = p_ep.num
         n_tiles = size // tile
         with uncounted(kernels):
-            full_err = partial_err(p_ep, p_er, p_u, starts, tile, f"shard 0 at {size}x{size}")
-            f_row, f_col = kernels.blocked_feasibility(f_ep, f_er, f_w)
+            full_err = partial_err(p_ep, p_er, p_u, p_bits, starts, tile,
+                                   f"shard 0 at {size}x{size}")
+            f_row, f_col, f_bits = kernels.blocked_feasibility(f_ep, f_er, f_w)
             pf_row, pf_col = bl.feasibility_scan(k_block, pl, starts)
-            got_r = kernels.blocked_row_lse(r_ep, r_er, r_w, r_eps, r_v)
-            ref_r = bl.streaming_row_logsumexp(k_block, r_v, starts, pl, tile)
+            got_r = kernels.blocked_row_lse(r_ep, r_er, r_w, r_eps, r_v, r_bits)
+            ref_r = bl.streaming_row_logsumexp(kb_rows, r_v, starts, pl, tile)
             torch.cuda.synchronize()
             if not (torch.equal(f_row, pf_row) and torch.equal(f_col, pf_col.reshape(size))):
                 raise AssertionError("K14 feasibility on shard 0: the masks differ")
+            check_bitmaps(torch, bl, f_bits, f_ep, f_er, f_w, f"shard 0, {pl}x{size}")
+            del f_bits
             row_err = finite_err(torch, got_r, ref_r, f_row)
             if row_err > BLOCKED_ATOL:
                 raise AssertionError(f"K14 row pass on shard 0: lse error {row_err}")
             del got_r, ref_r
-            ms = cuda_ms(torch, lambda: kernels.blocked_col_partial(p_ep, p_er, p_w, p_eps, p_u),
-                         3)
-            plain = cuda_ms(torch, lambda: psk._col_partial_plain(k_block, p_u, starts), 1)
+            ms = cuda_ms(torch, lambda: kernels.blocked_col_partial(p_ep, p_er, p_w, p_eps, p_u,
+                                                                     p_bits), 3)
+            plain = cuda_ms(torch, lambda: psk._col_partial_plain(kb_cols, p_u, starts), 1)
             x = k_block(0) + p_u[:, None]
             lib_ms = cuda_ms(torch, lambda: [torch.logsumexp(x, dim=0) for _ in range(n_tiles)],
                              1)
-            row_ms = cuda_ms(torch, lambda: kernels.blocked_row_lse(r_ep, r_er, r_w, r_eps, r_v),
-                             3)
-            row_plain = cuda_ms(torch, lambda: bl.streaming_row_logsumexp(k_block, r_v, starts,
+            row_ms = cuda_ms(torch, lambda: kernels.blocked_row_lse(r_ep, r_er, r_w, r_eps, r_v,
+                                                                     r_bits), 3)
+            row_plain = cuda_ms(torch, lambda: bl.streaming_row_logsumexp(kb_rows, r_v, starts,
                                                                            pl, tile), 1)
             x = k_block(0) + r_v[None, :tile]
             row_lib = cuda_ms(torch, lambda: [torch.logsumexp(x, dim=1) for _ in range(n_tiles)],
@@ -2387,16 +2439,20 @@ def run_mesh_sinkhorn(torch, kernels, reference: dict) -> tuple[list, dict]:
                        for t_ in starts)
         cols_bytes = pl * row_bytes(p_ep) + size * row_bytes(p_er)
         ops_scan = pl * size * OPS_PER_CELL + feasible * OPS_PER_FEASIBLE_CELL
+        ops_pass = feasible * (OPS_PER_FEASIBLE_CELL + 5)  # feasible cells only
+        row_bits = 4 * pl * ((size + 31) // 32)  # the row-major bitmap a row pass reads
+        col_bits = 4 * size * ((pl + 31) // 32)  # the column-major one the partial mode reads
         shard = f"one shard's launch ({pl} providers x {size} tasks, its first call)"
         part_row = row("blocked_col_partial", SRC_BLOCKED, "protocol_tpu/parallel/sinkhorn.py:42",
-                       full_err, ms, plain, cols_bytes + pl * 4 + size * 8,
-                       ops_scan + feasible * 5)
+                       full_err, ms, plain, cols_bytes + pl * 4 + size * 8 + col_bits, ops_pass)
         row_row = row("blocked_row_lse_sharded", SRC_BLOCKED,
                       "protocol_tpu/parallel/sinkhorn.py:95", row_err, row_ms, row_plain,
-                      cols_bytes + size * 4 + pl * 4, ops_scan + feasible * 5)
+                      cols_bytes + size * 4 + pl * 4 + row_bits, ops_pass)
         feas_row = row("blocked_feasibility_sharded", SRC_BLOCKED,
                        "protocol_tpu/parallel/sinkhorn.py:75", 0.0, feas_ms, feas_plain,
-                       cols_bytes + pl + size // 8, ops_scan)
+                       cols_bytes + pl + size // 8 + row_bits + col_bits, ops_scan)
+        for r_, b_ in ((part_row, col_bits), (row_row, row_bits), (feas_row, row_bits + col_bits)):
+            r_["bitmap_bytes"] = b_
         for r_, lib, what in ((part_row, lib_ms, "K + u, dim 0"), (row_row, row_lib, "K + v, dim 1")):
             r_["library_ms"] = lib
             r_["library_call"] = (f"{n_tiles} calls of torch.logsumexp over a materialised "
@@ -2414,7 +2470,7 @@ def run_mesh_sinkhorn(torch, kernels, reference: dict) -> tuple[list, dict]:
               f"pass {lib_ms:.3f}, bound {part_row['bound_ms']:.3f}); row pass {row_ms:.3f} ms "
               f"(plain {row_plain:.3f}, library pass {row_lib:.3f}); feasibility {feas_ms:.3f} "
               f"ms (plain {feas_plain:.3f})", flush=True)
-        del k_block
+        del k_block, kb_cols, kb_rows
     finally:
         platform.force_virtual_devices(prev, torch.device(DEVICE).type)
     return [part_row, row_row, feas_row], {"mesh_sinkhorn": launches}

@@ -201,30 +201,39 @@ __device__ __forceinline__ bool compat(const ProvRow& p, const TaskRow& t, const
   return false;
 }
 
-// The exact cost of cell (p, t): cost_matrix's terms in its order,
-// INFEASIBLE off the mask, plus tie_jitter on feasible cells when kJitter
-// (the candidate, repair and dense auction kernels), keyed on provider id
-// pi and the task's jkey; without it for the swarm phase's argmin
+// The cost terms of a compatible cell: cost_matrix's in its order,
+// base + proximity * haversine (0 unless both sides are located) - prio,
+// from the provider's (base, lat, lon, coslat) and the task's (lat, lon,
+// coslat, prio). Halving is a multiplication by 0.5, which rounds to the
+// same bits as the reference's division by 2.
+__device__ __forceinline__ float cell_terms(float base, float plat, float plon, float pcos,
+                                            bool p_loc, float tlat, float tlon, float tcos,
+                                            bool t_loc, float prio, float proximity) {
+  float near = 0.0f;
+  if (p_loc & t_loc) {
+    const float dlat = __fsub_rn(tlat, plat);
+    const float dlon = __fsub_rn(tlon, plon);
+    const float s1 = sinf(__fmul_rn(dlat, 0.5f));
+    const float s2 = sinf(__fmul_rn(dlon, 0.5f));
+    float a = __fadd_rn(__fmul_rn(s1, s1), __fmul_rn(__fmul_rn(pcos, tcos), __fmul_rn(s2, s2)));
+    a = fminf(fmaxf(a, 0.0f), 1.0f);
+    const float dist = __fmul_rn(kTwoR, asinf(__fsqrt_rn(a)));
+    near = __fmul_rn(proximity, dist);
+  }
+  return __fsub_rn(__fadd_rn(base, near), prio);
+}
+
+// The exact cost of cell (p, t): compat, then cell_terms, INFEASIBLE off
+// the mask, plus tie_jitter on feasible cells when kJitter (the
+// candidate, repair and dense auction kernels), keyed on provider id pi
+// and the task's jkey; without it for the swarm phase's argmin
 // (dense.cu), which the reference scores unjittered.
 template <bool kJitter = true>
 __device__ __forceinline__ float cell_cost(const ProvRow& p, int pi, const TaskRow& t, int ti,
                                            const Req& R, int K, int W, const Weights& w) {
   if (!compat(p, t, R, ti, K, W)) return kInfeasible;
-  float cost = p.base;
-  float near = 0.0f;
-  if (p.has_loc & t.has_loc) {
-    const float dlat = __fsub_rn(t.lat, p.lat);
-    const float dlon = __fsub_rn(t.lon, p.lon);
-    const float s1 = sinf(__fdiv_rn(dlat, 2.0f));
-    const float s2 = sinf(__fdiv_rn(dlon, 2.0f));
-    float a = __fadd_rn(__fmul_rn(s1, s1),
-                        __fmul_rn(__fmul_rn(p.coslat, t.coslat), __fmul_rn(s2, s2)));
-    a = fminf(fmaxf(a, 0.0f), 1.0f);
-    const float dist = __fmul_rn(kTwoR, asinf(__fsqrt_rn(a)));
-    near = __fmul_rn(w.proximity, dist);
-  }
-  cost = __fadd_rn(cost, near);
-  cost = __fsub_rn(cost, t.prio);
+  float cost = cell_terms(p.base, p.lat, p.lon, p.coslat, p.has_loc, t.lat, t.lon, t.coslat,
+                          t.has_loc, t.prio, w.proximity);
   if (kJitter && cost < kHalfInfeasible) {
     const uint32_t h = ((uint32_t)pi * 2654435761u) ^ (t.jkey * 40503u);
     cost = __fadd_rn(cost, __fmul_rn((float)(h & 1023u), 1e-7f));

@@ -165,12 +165,12 @@ def _lib(name: str) -> ctypes.CDLL:
             lib.k12_greedy.argtypes = [_P, _I, _I, _P, _I, _P, _P]
             lib.k12_greedy.restype = _I
         elif name == "blocked":
-            lib.k14_feasibility.argtypes = [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P, _P]
-            lib.k14_lse.argtypes = [
-                _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _I, _P, _P, _P, _P,
+            lib.k14_feasibility.argtypes = [
+                _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P, _P, _P, _P,
             ]
+            lib.k14_lse.argtypes = [_P, _P, _I, _I, _F, _F, _F, _F, _F, _I, _P, _P, _P, _P, _P]
             lib.k14_col_partial.argtypes = [
-                _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P, _P, _P, _P, _P,
+                _P, _P, _I, _I, _F, _F, _F, _F, _F, _P, _P, _P, _P, _P, _P,
             ]
             lib.k15_pair_cost.argtypes = [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P, _P]
             for fn in ("k14_feasibility", "k14_lse", "k14_col_partial", "k15_pair_cost"):
@@ -257,7 +257,7 @@ _TORCH_DTYPES = {
 }
 
 
-def _k1_setup(ep, er, weights):
+def _k1_setup(ep, er, weights, aux_floats: int | None = None):
     from protocol_tpu_torch.native.arena import _P_SPEC, _R_SPEC
 
     dev = ep.gpu_count.device
@@ -269,7 +269,7 @@ def _k1_setup(ep, er, weights):
     shape = (ep.num, er.num, K, int(er.gpu_model_mask.shape[2]))
     w = (weights.price, weights.load, weights.proximity, weights.priority)
     # per-row cost terms the launch's prep step writes (see candidates.cu)
-    aux = torch.empty(2 * (ep.num + er.num), dtype=torch.float32, device=dev)
+    aux = torch.empty(aux_floats or 2 * (ep.num + er.num), dtype=torch.float32, device=dev)
     return dev, pcols, rcols, shape, w, aux
 
 
@@ -717,76 +717,90 @@ def sinkhorn(cost_tp, eps: float, num_iters: int):
 
 @_on_device
 def blocked_feasibility(ep, er, weights):
-    """K14, feasibility launch (``csrc/blocked.cu``): whether each provider
-    and each task has a cell with cost < INFEASIBLE/2. Returns (row_any
-    [P] bool, col_any [T] bool)."""
+    """K14, feasibility launch (``csrc/blocked.cu``): the mask of cells with
+    cost < INFEASIBLE/2. Returns (row_any [P] bool, col_any [T] bool, bits),
+    ``bits`` the mask as an ``ops.blocked.FeasibilityBits`` (row-major [P,
+    ceil(T/32)] and column-major [T, ceil(P/32)] u32 words, 4 x (P x
+    ceil(T/32) + T x ceil(P/32)) bytes), which the solve's passes read."""
+    from protocol_tpu_torch.ops.blocked import FeasibilityBits
+
     dev, pcols, rcols, (P, T, K, W), w, aux = _k1_setup(ep, er, weights)
     if P < 1 or T < 1 or T > 1_600_000:
         raise ValueError(f"K14 takes 1 <= P and 1 <= T <= 1,600,000, got P={P}, T={T}")
     row_any = torch.empty(P, dtype=torch.uint8, device=dev)
     col_bits = torch.zeros((T + 31) // 32, dtype=torch.int32, device=dev)
+    bits = FeasibilityBits.empty(P, T, dev)
     _check(_lib("blocked").k14_feasibility(
         pcols, rcols, P, T, K, W, *w, aux.data_ptr(), row_any.data_ptr(), col_bits.data_ptr(),
-        _stream(row_any),
+        bits.rows.data_ptr(), bits.cols.data_ptr(), _stream(row_any),
     ), "blocked_feasibility")
     LAUNCHES["blocked_feasibility"] += 1
     t = torch.arange(T, dtype=torch.int64, device=dev)
     col_any = ((col_bits[t >> 5] >> (t & 31).to(torch.int32)) & 1).bool()
-    return row_any.bool(), col_any
+    return row_any.bool(), col_any, bits
 
 
-def _blocked_setup(ep, er, weights, eps: float, pot: torch.Tensor, rows: bool, name: str):
-    dev, pcols, rcols, (P, T, K, W), w, aux = _k1_setup(ep, er, weights)
+def _blocked_setup(ep, er, weights, eps: float, pot: torch.Tensor, bits, rows: bool, name: str):
+    """A pass's checked arguments: the columns, the potential, aux (the
+    prep terms, then the packed rows at csrc/blocked.cu's pack_offset and
+    the row counter) and the words of ``bits`` it reads."""
+    P, T = ep.num, er.num
+    aux_floats = -(-2 * (P + T) // 4) * 4 + 4 * (P + T) + 1
+    dev, pcols, rcols, _, w, aux = _k1_setup(ep, er, weights, aux_floats)
     n_pot = T if rows else P
     if pot.device != dev or pot.dtype != torch.float32 or pot.shape != (n_pot,):
         raise ValueError(f"{name}: the potential must be a [{n_pot}] f32 tensor on {dev}")
     if not eps > 0 or P < 1 or T < 1:
         raise ValueError(f"{name} takes eps > 0 and P, T >= 1, got {eps}, {P}, {T}")
-    return dev, pcols, rcols, (P, T, K, W), w, aux, pot.contiguous()
+    bits.check(P, T, dev, name)
+    words = bits.rows if rows else bits.cols
+    return dev, pcols, rcols, (P, T), w, aux, pot.contiguous(), words
 
 
-def _blocked_lse(ep, er, weights, eps: float, pot: torch.Tensor, rows: bool, name: str):
-    dev, pcols, rcols, (P, T, K, W), w, aux, pot = _blocked_setup(ep, er, weights, eps, pot,
-                                                                  rows, name)
+def _blocked_lse(ep, er, weights, eps: float, pot: torch.Tensor, bits, rows: bool, name: str):
+    dev, pcols, rcols, (P, T), w, aux, pot, words = _blocked_setup(ep, er, weights, eps, pot,
+                                                                   bits, rows, name)
     lse = torch.empty(P if rows else T, dtype=torch.float32, device=dev)
     _check(_lib("blocked").k14_lse(
-        pcols, rcols, P, T, K, W, *w, eps, int(rows), pot.data_ptr(), aux.data_ptr(),
-        lse.data_ptr(), _stream(lse),
+        pcols, rcols, P, T, *w, eps, int(rows), pot.data_ptr(), aux.data_ptr(),
+        words.data_ptr(), lse.data_ptr(), _stream(lse),
     ), name)
     LAUNCHES[name] += 1
     return lse
 
 
 @_on_device
-def blocked_row_lse(ep, er, weights, eps: float, v: torch.Tensor):
+def blocked_row_lse(ep, er, weights, eps: float, v: torch.Tensor, bits):
     """K14, row pass (``csrc/blocked.cu``): per provider, the logsumexp
-    over all tasks of K[p, t] + v[t], K = -cost/eps on the feasible cells
-    (the rest skipped; a provider without one gets -inf). Returns [P] f32."""
-    return _blocked_lse(ep, er, weights, eps, v, True, "blocked_row_lse")
+    over its feasible tasks (``bits``, the solve's FeasibilityBits, read
+    row-major) of K[p, t] + v[t], K = -cost/eps; a provider without one
+    gets -inf. Returns [P] f32."""
+    return _blocked_lse(ep, er, weights, eps, v, bits, True, "blocked_row_lse")
 
 
 @_on_device
-def blocked_col_lse(ep, er, weights, eps: float, u: torch.Tensor):
+def blocked_col_lse(ep, er, weights, eps: float, u: torch.Tensor, bits):
     """K14, column pass (``csrc/blocked.cu``): per task, the logsumexp over
-    all providers of K[p, t] + u[p] (feasible cells only; a task without
-    one gets -inf). Returns [T] f32."""
-    return _blocked_lse(ep, er, weights, eps, u, False, "blocked_col_lse")
+    its feasible providers (``bits`` read column-major) of K[p, t] + u[p];
+    a task without one gets -inf. Returns [T] f32."""
+    return _blocked_lse(ep, er, weights, eps, u, bits, False, "blocked_col_lse")
 
 
 @_on_device
-def blocked_col_partial(ep_local, er, weights, eps: float, u_local: torch.Tensor):
+def blocked_col_partial(ep_local, er, weights, eps: float, u_local: torch.Tensor, bits):
     """K14, column pass in its partial mode (``csrc/blocked.cu``): per task,
-    the online (max, sum-exp) pair of K[p, t] + u_local[p] over the
-    providers of ``ep_local`` (one shard's rows; feasible cells only).
-    Returns (m [T], s [T]) f32, with m = -inf and s = 0 where a task has
-    no feasible cell among them."""
-    dev, pcols, rcols, (P, T, K, W), w, aux, u_local = _blocked_setup(
-        ep_local, er, weights, eps, u_local, False, "blocked_col_partial")
+    the online (max, sum-exp) pair of K[p, t] + u_local[p] over its
+    feasible providers among those of ``ep_local`` (one shard's rows;
+    ``bits`` the shard's FeasibilityBits, read column-major). Returns (m
+    [T], s [T]) f32, with m = -inf and s = 0 where a task has no feasible
+    cell among them."""
+    dev, pcols, rcols, (P, T), w, aux, u_local, words = _blocked_setup(
+        ep_local, er, weights, eps, u_local, bits, False, "blocked_col_partial")
     m = torch.empty(T, dtype=torch.float32, device=dev)
     s = torch.empty(T, dtype=torch.float32, device=dev)
     _check(_lib("blocked").k14_col_partial(
-        pcols, rcols, P, T, K, W, *w, eps, u_local.data_ptr(), aux.data_ptr(), m.data_ptr(),
-        s.data_ptr(), _stream(m),
+        pcols, rcols, P, T, *w, eps, u_local.data_ptr(), aux.data_ptr(), words.data_ptr(),
+        m.data_ptr(), s.data_ptr(), _stream(m),
     ), "blocked_col_partial")
     LAUNCHES["blocked_col_partial"] += 1
     return m, s

@@ -16,17 +16,24 @@ task are a top-k candidate generation under the provider offset -eps*u,
 which then feeds the eps-scaled sparse auction.
 
 On a CUDA tensor the passes are kernel K14 (``csrc/blocked.cu``): one
-launch for the feasibility masks, one per u pass, one per v pass, nothing
-of size [P, T] or [P, tile] allocated; the marginals, the masks and the
-loop are torch glue on the card, with no host readback inside the loop.
-The rounding runs K1's biased forward launch, K2 and K9. On a CPU tensor
-every function is the plain torch transcription below, which divides by a
-0-d tensor on the cost's device (a true f32 division, as the kernel's and
-the reference's; CUDA torch would multiply by the reciprocal of a Python
-scalar, one bit off).
+feasibility launch at the top of each solve, which writes the mask as the
+two bitmaps of a :class:`FeasibilityBits` (2 x P x T / 8 bytes: 2.5 GB at
+100,000^2), then per iteration a u pass over the row-major bitmap and a v
+pass over the column-major one, each scoring only the feasible cells. No
+[P, T] or [P, tile] block of floats is allocated; the marginals, the
+masks and the loop are torch glue on the card, with no host readback
+inside the loop. The rounding runs K1's biased forward launch, K2 and K9.
+On a CPU tensor every function is the plain torch transcription below,
+which divides by a 0-d tensor on the cost's device (a true f32 division,
+as the kernel's and the reference's; CUDA torch would multiply by the
+reciprocal of a Python scalar, one bit off). :func:`pack_feasibility` and
+:func:`make_k_block_bits` are the plain versions of the bitmaps and of
+the passes that read them.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -51,6 +58,120 @@ def make_k_block(ep, er, weights, eps, tile: int):
     def k_block(t0: int) -> torch.Tensor:
         cost, _ = cost_matrix(ep, slice_requirements(er, t0, tile), weights)
         return torch.where(cost < INFEASIBLE * 0.5, -cost / eps_t, _NEG)
+
+    return k_block
+
+
+@dataclasses.dataclass(frozen=True)
+class FeasibilityBits:
+    """The mask of one solve as two bitmaps of u32 words, held in int32
+    tensors on one device: ``rows`` [P, ceil(T/32)], bit j of word w set
+    where cell (p, 32w + j) is feasible; ``cols`` [T, ceil(P/32)], bit j of
+    word w set where cell (32w + j, t) is. Pad bits are 0. K14's
+    feasibility launch writes one (``kernels.blocked_feasibility``) and
+    every pass of the same solve reads it; :func:`pack_feasibility` builds
+    the same words. Nothing keeps one across solves: the mask depends on
+    the columns and the weights."""
+
+    rows: torch.Tensor
+    cols: torch.Tensor
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return self.rows.shape[0], self.cols.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.rows.device
+
+    @staticmethod
+    def nbytes(P: int, T: int) -> int:
+        return 4 * (P * _words(T) + T * _words(P))
+
+    @classmethod
+    def empty(cls, P: int, T: int, device) -> FeasibilityBits:
+        """Uninitialised words (the feasibility launch writes every one);
+        raises with the byte count when the device cannot hold them."""
+        try:
+            return cls(torch.empty((P, _words(T)), dtype=torch.int32, device=device),
+                       torch.empty((T, _words(P)), dtype=torch.int32, device=device))
+        except torch.OutOfMemoryError as e:
+            raise RuntimeError(f"K14's feasibility bitmaps need {cls.nbytes(P, T)} bytes on "
+                               f"{device} for P={P}, T={T}: {e}") from e
+
+    def check(self, P: int, T: int, device, what: str) -> None:
+        """Raise unless these are the bitmaps of a P x T solve on ``device``."""
+        good = (self.rows.shape == (P, _words(T)) and self.cols.shape == (T, _words(P))
+                and self.rows.device == device and self.cols.device == device
+                and self.rows.dtype == self.cols.dtype == torch.int32
+                and self.rows.is_contiguous() and self.cols.is_contiguous())
+        if not good:
+            raise ValueError(f"{what}: the feasibility bitmaps are of a {self.shape[0]} x "
+                             f"{self.shape[1]} solve on {self.device}, not of P={P}, T={T} on "
+                             f"{device}")
+
+
+def _words(n: int) -> int:
+    return (n + 31) // 32
+
+
+def pack_words(mask: torch.Tensor) -> torch.Tensor:
+    """[n, m] bool -> [n, ceil(m/32)] int32 words: bit j of word w is
+    mask[:, 32w + j], pad bits 0."""
+    n, m = mask.shape
+    pad = _words(m) * 32 - m
+    if pad:
+        mask = torch.cat([mask, mask.new_zeros((n, pad))], dim=1)
+    shift = torch.arange(32, dtype=torch.int64, device=mask.device)
+    words = (mask.reshape(n, -1, 32).to(torch.int64) << shift).sum(dim=2)
+    return torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32)
+
+
+def unpack_words(words: torch.Tensor, m: int) -> torch.Tensor:
+    """[n, W] int32 words -> [n, m] bool, the inverse of :func:`pack_words`."""
+    shift = torch.arange(32, dtype=torch.int32, device=words.device)
+    return ((words[:, :, None] >> shift) & 1).reshape(words.shape[0], -1)[:, :m].bool()
+
+
+def pack_feasibility(ep, er, weights, chunk: int = 1024) -> FeasibilityBits:
+    """The plain version of K14's bitmaps: make_k_block's mask (cost <
+    INFEASIBLE/2) over task chunks of ``chunk`` (a multiple of 32, so no
+    row-major word spans two chunks), packed in both layouts."""
+    if chunk < 32 or chunk % 32:
+        raise ValueError(f"chunk={chunk} must be a positive multiple of 32")
+    P, T = ep.gpu_count.shape[0], er.cpu_cores.shape[0]
+    dev = ep.gpu_count.device
+    bits = FeasibilityBits(torch.empty((P, _words(T)), dtype=torch.int32, device=dev),
+                           torch.empty((T, _words(P)), dtype=torch.int32, device=dev))
+    for t0 in range(0, T, chunk):
+        cost, _ = cost_matrix(ep, slice_requirements(er, t0, chunk), weights)
+        feas = cost < INFEASIBLE * 0.5
+        bits.rows[:, t0 // 32:t0 // 32 + _words(feas.shape[1])] = pack_words(feas)
+        bits.cols[t0:t0 + feas.shape[1]] = pack_words(feas.T)
+    return bits
+
+
+def make_k_block_bits(ep, er, weights, eps, tile: int, bits: FeasibilityBits,
+                      layout: str = "rows"):
+    """:func:`make_k_block` with its mask read from ``bits`` (the row-major
+    words for ``layout="rows"``, the plain row pass's input; the
+    column-major ones, transposed, for ``"cols"``, the column passes'): the
+    same bits as make_k_block wherever ``bits`` holds its mask."""
+    if layout not in ("rows", "cols"):
+        raise ValueError(f"layout must be 'rows' or 'cols', got {layout!r}")
+    P, T = ep.gpu_count.shape[0], er.cpu_cores.shape[0]
+    bits.check(P, T, ep.gpu_count.device, "make_k_block_bits")
+    eps_t = torch.tensor(eps, dtype=torch.float32, device=ep.gpu_count.device)
+
+    def k_block(t0: int) -> torch.Tensor:
+        cost, _ = cost_matrix(ep, slice_requirements(er, t0, tile), weights)
+        n = cost.shape[1]
+        if layout == "rows":
+            w0 = t0 // 32
+            feas = unpack_words(bits.rows[:, w0:_words(t0 + n)], t0 + n - 32 * w0)[:, t0 % 32:]
+        else:
+            feas = unpack_words(bits.cols[t0:t0 + n], P).T
+        return torch.where(feas, -cost / eps_t, _NEG)
 
     return k_block
 
@@ -111,7 +232,8 @@ def sinkhorn_potentials_blocked(
     Each iteration is a u pass then a v pass, from u0 = v0 = 0; the
     marginals are equalised to min(P_valid, T_valid) over the providers
     and tasks with a feasible cell, and u, v are -1e18 elsewhere. On a
-    CUDA tensor the passes are K14's launches (``csrc/blocked.cu``)."""
+    CUDA tensor the passes are K14's launches (``csrc/blocked.cu``), over
+    the bitmaps its feasibility launch writes at the top of the solve."""
     from protocol_tpu_torch import kernels
 
     if weights is None:
@@ -125,7 +247,7 @@ def sinkhorn_potentials_blocked(
 
     # feasibility pass -> balanced marginals (ops/assign.py semantics)
     if on_card:
-        row_any, col_any = kernels.blocked_feasibility(ep, er, weights)
+        row_any, col_any, bits = kernels.blocked_feasibility(ep, er, weights)
     else:
         row_any, col_tiles = feasibility_scan(k_block, P, starts)
         col_any = col_tiles.reshape(T)
@@ -139,12 +261,12 @@ def sinkhorn_potentials_blocked(
     v = torch.zeros(T, dtype=torch.float32, device=dev)
     for _ in range(num_iters):
         if on_card:
-            lse_u = kernels.blocked_row_lse(ep, er, weights, eps, v)
+            lse_u = kernels.blocked_row_lse(ep, er, weights, eps, v, bits)
         else:
             lse_u = streaming_row_logsumexp(k_block, v, starts, P, tile)
         u = torch.where(row_any, log_a - lse_u, _NEG)
         if on_card:
-            lse_v = kernels.blocked_col_lse(ep, er, weights, eps, u)
+            lse_v = kernels.blocked_col_lse(ep, er, weights, eps, u, bits)
         else:
             lse_v = column_logsumexp(k_block, u, starts)
         v = torch.where(col_any, log_b - lse_v, _NEG)

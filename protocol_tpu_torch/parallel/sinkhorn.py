@@ -9,13 +9,14 @@ the tasks and v are replicated. Per iteration:
           combined across the shards.
 
 On a CUDA tensor every pass is kernel K14 (``csrc/blocked.cu``) over one
-shard's rows: the feasibility launch and the row pass as the one-device
-potentials run them, and the column pass in its partial mode
-(``kernels.blocked_col_partial``), which writes the online (max, sum-exp)
-pair (m_s, s_s) of each column over the shard's rows. On a CPU tensor
-the plain versions run the same schedule: per shard ``make_k_block`` over
-its rows, the row pass, and the column partials (``_col_partial_plain``,
-a full column per task tile).
+shard's rows: the feasibility launch, which writes the shard's mask as
+bitmaps at the top of the solve (2 x P_s x T / 8 bytes a shard), and the
+row pass as the one-device potentials run them, and the column pass in
+its partial mode (``kernels.blocked_col_partial``), which writes the
+online (max, sum-exp) pair (m_s, s_s) of each column over the shard's
+feasible rows. On a CPU tensor the plain versions run the same schedule:
+per shard ``make_k_block`` over its rows, the row pass, and the column
+partials (``_col_partial_plain``, a full column per task tile).
 
 Either way the v step combines the partials (``_combine_col_partials``):
 gmax = ``pmax`` of the m_s, then gsum = sum_s s_s * exp(m_s - gmax) by
@@ -130,6 +131,7 @@ def sinkhorn_potentials_sharded(
     else:
         feas = [feasibility_scan(kb, Pn // D, starts) for kb in k_blocks]
     row_any = [f[0] for f in feas]
+    bits = [f[2] for f in feas] if on_card else None
     col_any = psum([f[1].reshape(T).to(torch.int32) for f in feas], mesh)[0] > 0
     np_valid = torch.clamp(psum([r.sum().to(torch.int32).reshape(1) for r in row_any], mesh)[0],
                            min=1)[0]
@@ -147,14 +149,15 @@ def sinkhorn_potentials_sharded(
         v_parts = broadcast(v, mesh)
         for s in range(D):
             if on_card:
-                lse_u = kernels.blocked_row_lse(eps_l[s], er_l[s], weights, eps, v_parts[s])
+                lse_u = kernels.blocked_row_lse(eps_l[s], er_l[s], weights, eps, v_parts[s],
+                                                bits[s])
             else:
                 lse_u = streaming_row_logsumexp(k_blocks[s], v_parts[s], starts, Pn // D, tile)
             u_parts[s] = torch.where(row_any[s], log_a[s] - lse_u, _NEG)
         # v step: the shards' column partials combined
         if on_card:
-            parts = [kernels.blocked_col_partial(e, r, weights, eps, u)
-                     for e, r, u in zip(eps_l, er_l, u_parts)]
+            parts = [kernels.blocked_col_partial(e, r, weights, eps, u, b)
+                     for e, r, u, b in zip(eps_l, er_l, u_parts, bits)]
         else:
             parts = [_col_partial_plain(kb, u, starts) for kb, u in zip(k_blocks, u_parts)]
         lse_v = _combine_col_partials([p[0] for p in parts], [p[1] for p in parts], mesh)

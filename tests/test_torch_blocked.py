@@ -35,6 +35,7 @@ from protocol_tpu.ops.cost import INFEASIBLE
 from protocol_tpu.ops.cost import CostWeights as JCostWeights
 from protocol_tpu.ops.cost import cost_matrix as j_cost_matrix
 from protocol_tpu.ops.cost import cost_pairs as j_cost_pairs
+from protocol_tpu.ops.encoding import compat_mask as j_compat_mask
 from protocol_tpu.ops.sparse import assign_auction_sparse_scaled as j_scaled
 from protocol_tpu.ops.sparse import candidates_topk as j_candidates_topk
 from protocol_tpu.ops.sparse import candidates_topk_reverse as j_candidates_topk_reverse
@@ -189,6 +190,118 @@ def test_blocked_assignment_quality():
     assert got <= opt * 1.25 + 2.0, f"blocked sinkhorn {got} vs optimal {opt}"
     ref = jb.assign_sinkhorn_blocked(ep, er, eps=0.05, num_iters=100, tile=8, k=16)
     assert (p4t >= 0).sum() == (np.asarray(ref.provider_for_task) >= 0).sum()
+
+
+# ---------------------------------------------------------------- K14's bitmaps (plain versions)
+
+# (data, seed, P, T): P and T that are not multiples of 32 among them
+BITMAP_CASES = [("marketplace", 0, 40, 48), ("marketplace", 1, 33, 70),
+                ("marketplace", 2, 96, 31), ("synth", 2, 64, 100)]
+
+
+def _instance(data, seed, P, T):
+    return encode_random_marketplace(seed, P, T) if data == "marketplace" else synth(P, T, seed)
+
+
+def _words_np(mask: np.ndarray) -> np.ndarray:
+    """[n, m] bool -> [n, ceil(m/32)] u32, bit j of word w = mask[:, 32w + j]."""
+    n, m = mask.shape
+    padded = np.zeros((n, -(-m // 32) * 32), bool)
+    padded[:, :m] = mask
+    return np.packbits(padded, axis=1, bitorder="little").view("<u4")
+
+
+@pytest.mark.parametrize("data,seed,P,T", BITMAP_CASES)
+@pytest.mark.parametrize("proximity", [0.0, 0.001])
+def test_packed_bitmaps_equal_the_reference_mask(data, seed, P, T, proximity):
+    """The plain packer's words, both layouts, against the reference's
+    make_k_block mask packed in numpy (pad bits 0), at 32- and 64-task
+    chunks; the mask is the reference's compat_mask here and its any()
+    the reference's feasibility_scan."""
+    ep, er = _instance(data, seed, P, T)
+    jw = JCostWeights(proximity=proximity)
+    mask = np.asarray(jb.make_k_block(ep, er, jw, 0.05, T)(jnp.int32(0)) > NEG * 0.5)
+    np.testing.assert_array_equal(mask, np.asarray(j_compat_mask(ep, er)))
+    assert 0 < mask.sum() < P * T
+    tp, tr = to_port(ep, er)
+    for chunk in (32, 64):
+        got = tb.pack_feasibility(tp, tr, CostWeights(proximity=proximity), chunk=chunk)
+        assert got.shape == (P, T)
+        np.testing.assert_array_equal(got.rows.numpy().view(np.uint32), _words_np(mask))
+        np.testing.assert_array_equal(got.cols.numpy().view(np.uint32), _words_np(mask.T))
+        np.testing.assert_array_equal(tb.unpack_words(got.rows, T).numpy(), mask)
+        np.testing.assert_array_equal(tb.unpack_words(got.cols, P).numpy(), mask.T)
+    j_row, j_col = jb.feasibility_scan(jb.make_k_block(ep, er, jw, 0.05, T), P,
+                                       jnp.zeros(1, dtype=jnp.int32))
+    np.testing.assert_array_equal(mask.any(axis=1), np.asarray(j_row))
+    np.testing.assert_array_equal(mask.any(axis=0), np.asarray(j_col).reshape(T))
+
+
+@pytest.mark.parametrize("tile", [16, 12, 48])
+@pytest.mark.parametrize("layout", ["rows", "cols"])
+def test_bitmap_k_block_equals_make_k_block(tile, layout):
+    """make_k_block_bits is make_k_block with the mask read from the words,
+    bit for bit, at tiles that do and do not start on a word."""
+    ep, er = synth(40, 48)
+    tp, tr = to_port(ep, er)
+    w = CostWeights()
+    words = tb.pack_feasibility(tp, tr, w, chunk=32)
+    ref = tb.make_k_block(tp, tr, w, 0.05, tile)
+    got = tb.make_k_block_bits(tp, tr, w, 0.05, tile, words, layout)
+    for t0 in range(0, 48, tile):
+        np.testing.assert_array_equal(bits(got(t0).numpy()), bits(ref(t0).numpy()))
+
+
+@pytest.mark.parametrize("proximity", [0.0, 0.001])
+def test_bitmap_passes_equal_the_plain_passes_and_the_reference(proximity):
+    """The row pass on the row-major words and the column pass on the
+    column-major ones equal the plain passes on make_k_block bit for bit
+    (the same mask, block and order); through them they agree with the
+    reference's streaming_row_logsumexp and its v step within UV_ATOL."""
+    ep, er = synth(40, 48)
+    rng = np.random.default_rng(4)
+    v = rng.normal(0, 3, 48).astype(np.float32)
+    v[::7] = NEG
+    u = rng.normal(0, 3, 40).astype(np.float32)
+    u[::5] = NEG
+    jw, w = JCostWeights(proximity=proximity), CostWeights(proximity=proximity)
+    tp, tr = to_port(ep, er)
+    bits = tb.pack_feasibility(tp, tr, w)
+    starts = range(0, 48, 16)
+    kb = tb.make_k_block(tp, tr, w, 0.05, 16)
+    row = tb.streaming_row_logsumexp(tb.make_k_block_bits(tp, tr, w, 0.05, 16, bits, "rows"),
+                                     torch.from_numpy(v), starts, 40, 16)
+    col = tb.column_logsumexp(tb.make_k_block_bits(tp, tr, w, 0.05, 16, bits, "cols"),
+                              torch.from_numpy(u), starts)
+    assert torch.equal(row, tb.streaming_row_logsumexp(kb, torch.from_numpy(v), starts, 40, 16))
+    assert torch.equal(col, tb.column_logsumexp(kb, torch.from_numpy(u), starts))
+    j_kb = jb.make_k_block(ep, er, jw, 0.05, 16)
+    j_starts = jnp.arange(3, dtype=jnp.int32) * 16
+    ref_row = jb.streaming_row_logsumexp(j_kb, jnp.asarray(v), j_starts, 40, 16)
+    ref_col = []
+    for t0 in j_starts:  # the reference's v step (protocol_tpu/ops/blocked.py:133)
+        k = j_kb(t0) + jnp.asarray(u)[:, None]
+        m = jnp.max(k, axis=0)
+        ref_col.append(m + jnp.log(jnp.maximum(jnp.sum(jnp.exp(k - m[None, :]), axis=0), 1e-30)))
+    np.testing.assert_allclose(row.numpy(), np.asarray(ref_row), rtol=0, atol=UV_ATOL)
+    np.testing.assert_allclose(col.numpy(), np.concatenate([np.asarray(c) for c in ref_col]),
+                               rtol=0, atol=UV_ATOL)
+
+
+def test_bitmaps_of_another_solve_and_bad_chunks_are_refused():
+    ep, er = synth(40, 48)
+    tp, tr = to_port(ep, er)
+    bits = tb.pack_feasibility(tp, tr, CostWeights())
+    other = tb.pack_feasibility(tp, tb.slice_requirements(tr, 0, 47), CostWeights())
+    with pytest.raises(ValueError, match="feasibility bitmaps"):
+        tb.make_k_block_bits(tp, tr, CostWeights(), 0.05, 16, other)
+    with pytest.raises(ValueError, match="layout"):
+        tb.make_k_block_bits(tp, tr, CostWeights(), 0.05, 16, bits, "diagonal")
+    for chunk in (0, 48):
+        with pytest.raises(ValueError, match="multiple of 32"):
+            tb.pack_feasibility(tp, tr, CostWeights(), chunk=chunk)
+    # 2 x 100,000 x 3,125 words at stage S's shape: 2.5 GB
+    assert tb.FeasibilityBits.nbytes(100_000, 100_000) == 2_500_000_000
 
 
 # ---------------------------------------------------------------- biased candidate passes

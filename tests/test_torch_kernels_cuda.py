@@ -516,18 +516,18 @@ def test_blocked_sinkhorn_kernels_match_plain(card, P, T, tile, proximity):
     w = CostWeights(proximity=proximity)
     kb = bl.make_k_block(ep, er, w, 0.05, tile)
     starts = range(0, T, tile)
-    row_any, col_any = kernels.blocked_feasibility(ep, er, w)
+    row_any, col_any, bits = kernels.blocked_feasibility(ep, er, w)
     p_row, p_col = bl.feasibility_scan(kb, P, starts)
     assert torch.equal(row_any, p_row) and torch.equal(col_any, p_col.reshape(T))
     rng = np.random.default_rng(1)
     v = torch.from_numpy(rng.normal(0, 3, T).astype(np.float32)).to(card)
     v = torch.where(col_any, v, -1e18)
-    got = kernels.blocked_row_lse(ep, er, w, 0.05, v)
+    got = kernels.blocked_row_lse(ep, er, w, 0.05, v, bits)
     ref = bl.streaming_row_logsumexp(kb, v, starts, P, tile)
     assert float((got - ref)[row_any].abs().max()) <= BLOCKED_ATOL
     u = torch.from_numpy(rng.normal(0, 3, P).astype(np.float32)).to(card)
     u = torch.where(row_any, u, -1e18)
-    got = kernels.blocked_col_lse(ep, er, w, 0.05, u)
+    got = kernels.blocked_col_lse(ep, er, w, 0.05, u, bits)
     ref = bl.column_logsumexp(kb, u, starts)
     assert float((got - ref)[col_any].abs().max()) <= BLOCKED_ATOL
     if proximity != 0.0:  # the CPU's haversine differs from the card's by ulps
@@ -754,13 +754,14 @@ def test_blocked_col_partial_matches_plain(card, views, P, T, tile, proximity):
     er = synth_requirements(np.random.default_rng(T), T, device=card)
     w = CostWeights(proximity=proximity)
     starts = range(0, T, tile)
-    row_any, col_any = kernels.blocked_feasibility(ep, er, w)
+    row_any, col_any, _ = kernels.blocked_feasibility(ep, er, w)
     u = torch.from_numpy(np.random.default_rng(1).normal(0, 3, P).astype(np.float32)).to(card)
     u = torch.where(row_any, u, -1e18)
     Pl = P // 4
     ms, ss = [], []
     for s, ep_s in enumerate(psk._shard_providers(ep, mesh)):
-        m, sm = kernels.blocked_col_partial(ep_s, er, w, 0.05, u[s * Pl:(s + 1) * Pl])
+        bits_s = kernels.blocked_feasibility(ep_s, er, w)[2]
+        m, sm = kernels.blocked_col_partial(ep_s, er, w, 0.05, u[s * Pl:(s + 1) * Pl], bits_s)
         pm_, ps_ = psk._col_partial_plain(bl.make_k_block(ep_s, er, w, 0.05, tile),
                                          u[s * Pl:(s + 1) * Pl], starts)
         empty = torch.isneginf(pm_)
@@ -780,3 +781,69 @@ def test_blocked_col_partial_matches_plain(card, views, P, T, tile, proximity):
         masked = o < -1e17
         assert torch.equal(g < -1e17, masked) and bool((g[masked] == -1e18).all())
         assert float((g - o)[~masked].abs().max()) <= BLOCKED_ATOL
+
+
+@pytest.mark.parametrize("P,T", [(1000, 777), (65, 2000), (32, 64)])
+@pytest.mark.parametrize("proximity", [0.0, 0.001])
+def test_blocked_feasibility_bitmaps_match_the_plain_packer(card, P, T, proximity):
+    """K14's feasibility bitmaps against the plain packer's, word for word
+    (pad bits 0), at P and T that are not multiples of 32 and at a 32-word
+    chunk of the packer; row_any / col_any are the bitmaps' any()."""
+    from protocol_tpu_torch import kernels
+    from protocol_tpu_torch.ops import blocked as bl
+
+    ep = synth_providers(np.random.default_rng(P), P, device=card)
+    er = synth_requirements(np.random.default_rng(T), T, device=card)
+    w = CostWeights(proximity=proximity)
+    row_any, col_any, bits = kernels.blocked_feasibility(ep, er, w)
+    ref = bl.pack_feasibility(ep, er, w, chunk=64)
+    assert bits.shape == (P, T) and bits.device == torch.device(card, 0)
+    assert torch.equal(bits.rows, ref.rows) and torch.equal(bits.cols, ref.cols)
+    mask = bl.unpack_words(bits.rows, T)
+    assert torch.equal(mask.T, bl.unpack_words(bits.cols, P))
+    assert torch.equal(row_any, mask.any(dim=1)) and torch.equal(col_any, mask.any(dim=0))
+    assert 0 < int(mask.sum()) < P * T
+
+
+def test_shard_bitmaps_match_the_one_device_rows(card, views):
+    """At D = 4 views of the card (shards of 200 providers, not a multiple of
+    32), each shard's bitmaps equal the plain packer's on the shard and
+    the rows at its offset of the one-device bitmaps."""
+    from protocol_tpu_torch import kernels
+    from protocol_tpu_torch.ops import blocked as bl
+    from protocol_tpu_torch.parallel import sinkhorn as psk
+
+    P, T = 800, 1000
+    ep = synth_providers(np.random.default_rng(5), P, device=card)
+    er = synth_requirements(np.random.default_rng(6), T, device=card)
+    w = CostWeights()
+    one = bl.unpack_words(kernels.blocked_feasibility(ep, er, w)[2].rows, T)
+    for s, ep_s in enumerate(psk._shard_providers(ep, views(4))):
+        bits = kernels.blocked_feasibility(ep_s, er, w)[2]
+        ref = bl.pack_feasibility(ep_s, er, w)
+        assert torch.equal(bits.rows, ref.rows) and torch.equal(bits.cols, ref.cols)
+        assert torch.equal(bl.unpack_words(bits.cols, P // 4).T, one[s * 200:(s + 1) * 200])
+
+
+def test_blocked_passes_refuse_a_mismatched_bitmap(card):
+    """A pass given the bitmaps of another shape or device raises and
+    launches nothing: it has no per-cell fallback."""
+    from protocol_tpu_torch import kernels
+    from protocol_tpu_torch.ops import blocked as bl
+
+    ep = synth_providers(np.random.default_rng(1), 96, device=card)
+    er = synth_requirements(np.random.default_rng(2), 64, device=card)
+    w = CostWeights()
+    _, _, bits = kernels.blocked_feasibility(ep, er, w)
+    other = kernels.blocked_feasibility(ep, bl.slice_requirements(er, 0, 63), w)[2]
+    on_cpu = bl.FeasibilityBits(bits.rows.cpu(), bits.cols.cpu())
+    u, v = torch.zeros(96, device=card), torch.zeros(64, device=card)
+    before = dict(kernels.LAUNCHES)
+    for wrong in (other, on_cpu):
+        with pytest.raises(ValueError, match="feasibility bitmaps"):
+            kernels.blocked_row_lse(ep, er, w, 0.05, v, wrong)
+        with pytest.raises(ValueError, match="feasibility bitmaps"):
+            kernels.blocked_col_lse(ep, er, w, 0.05, u, wrong)
+        with pytest.raises(ValueError, match="feasibility bitmaps"):
+            kernels.blocked_col_partial(ep, er, w, 0.05, u, wrong)
+    assert kernels.LAUNCHES == before

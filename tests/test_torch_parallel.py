@@ -207,6 +207,47 @@ def test_a_column_feasible_in_one_shard_only_combines_from_the_partials(mesh8):
     _finite_close(v, jv, UV_ATOL_ZERO)
 
 
+@pytest.mark.parametrize("D", [2, 4])
+def test_shard_bitmaps_equal_the_one_device_rows(mesh8, D):
+    """K14's plain bitmaps per shard (the packer on the provider rows at
+    the shard's offset; 50 and 25 rows, not multiples of 32): the
+    row-major words are the one-device rows at the offset, word for word,
+    and the column-major ones unpack to the same cells."""
+    ep, er = to_port(*encode_random_marketplace(3, 100, 70))
+    w = CostWeights()
+    one = tb.pack_feasibility(ep, er, w)
+    mask = tb.unpack_words(one.rows, 70)
+    pl = 100 // D
+    for s, ep_s in enumerate(psk._shard_providers(ep, port_mesh(D))):
+        bits = tb.pack_feasibility(ep_s, er, w, chunk=32)
+        assert bits.shape == (pl, 70)
+        assert torch.equal(bits.rows, one.rows[s * pl:(s + 1) * pl])
+        assert torch.equal(tb.unpack_words(bits.cols, pl).T, mask[s * pl:(s + 1) * pl])
+    assert 0 < int(mask.sum()) < 100 * 70
+
+
+def test_bitmap_col_partial_equals_the_plain_partial(mesh8):
+    """The partial column mode's plain version on a shard's column-major
+    words equals it on make_k_block bit for bit, the empty columns at
+    (-inf, 0)."""
+    ep, er = to_port(*encode_random_marketplace(7, 16, 24))
+    w = CostWeights(proximity=0.0)
+    starts = range(0, 24, 8)
+    u = torch.from_numpy(np.random.default_rng(0).normal(0, 2, 16).astype(np.float32))
+    n_empty = 0
+    for s, ep_s in enumerate(psk._shard_providers(ep, port_mesh(4))):
+        bits = tb.pack_feasibility(ep_s, er, w)
+        got = psk._col_partial_plain(tb.make_k_block_bits(ep_s, er, w, 0.1, 8, bits, "cols"),
+                                     u[4 * s:4 * s + 4], starts)
+        ref = psk._col_partial_plain(tb.make_k_block(ep_s, er, w, 0.1, 8), u[4 * s:4 * s + 4],
+                                     starts)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+        empty = ~tb.unpack_words(bits.cols, 4).any(dim=1)
+        assert bool(torch.isneginf(got[0][empty]).all()) and bool((got[1][empty] == 0).all())
+        n_empty += int(empty.sum())
+    assert n_empty > 0
+
+
 def test_the_float_psum_adds_in_shard_order(mesh8):
     """((p0 + p1) + p2) in f32, whose bits another order would change:
     (1e8 + 1) - 1e8 is 0 in f32, (1e8 - 1e8) + 1 is 1."""
