@@ -23,7 +23,12 @@ The kernels the warm chain adds (K1's forward launch on the dirty rows,
 its blocks variant, K3, K4, K5) and K2 from a carried state are then held against their plain
 versions on the arguments of their first call in the chain, and K9 (the
 greedy cleanup) on its first call in the cold ticks and on a state with
-thousands of open tasks.
+thousands of open tasks. Before the ticks K2, which runs a phase on one
+thread-block cluster, is held bit for bit at 65,536^2 (cold, eps 4, B
+4,096; carried, eps 0.02, B 512) at cluster sizes 1, 8 and its default
+and timed at both; during the cold ticks and the warm chain every launch
+is also timed in place (kernels.time_in_place: a CUDA event pair a
+launch, summed per kernel), and those sums are printed and ranked.
 
 Then the batch matcher (TorchBatchMatcher) on an in-memory store built
 from the port's own models, in two more runs with the counts set to 0
@@ -114,7 +119,8 @@ held against their plain versions at full width on the arguments of
 their first calls: the feasibility launch's masks exactly and its two
 bitmaps word for word against the plain packer's (built a chunk of tasks
 at a time), the passes within BLOCKED_ATOL of the plain passes on the
-run's bitmaps; K1's biased launch on the rounding's call and K15 on the
+run's bitmaps; K1's biased launch on the rounding's call, K2 on its first
+call at the referee's frontier (B 8,192, T 100,000) and K15 on the
 referee's matching bit for bit.
 Then the provider mesh (parallel/mesh.py) at D = 4 views of the one card
 (utils/platform.py's virtual count; NCCL puts no two ranks on one card,
@@ -246,6 +252,7 @@ COST_TOL = 1e-3  # |cost| tolerance at default weights (haversine ulps)
 # shape, and the card against the CPU at (size, tile, iterations)
 STAGE_S = (100_000, 2_500, 20)
 STAGE_S_SMALL = (2_048, 256, 20)
+STAGE_S_K2_B = 8_192  # the referee's frontier (stage_s.py): K2 is held on its first call
 STAGE_S_KERNELS = ("blocked_feasibility", "blocked_row_lse", "blocked_col_lse",
                    "candidates_forward_rows_biased", "candidates_forward_rows",
                    "candidates_reverse", "auction_phase", "pair_cost")
@@ -333,6 +340,22 @@ def check_k1(torch, sp, ep, er, weights, tile, k, r, exact: bool, label: str,
     print(f"K1 {label}: {json.dumps(res)}", flush=True)
     return res
 
+
+
+def in_place_run(kernels, launches: dict, label: str) -> dict:
+    """R0: switch in-place timing off and print and return the run's device
+    ms and launches per kernel; each kernel's timed launches must be the
+    launches the run counted."""
+    sums = kernels.in_place_ms()
+    kernels.time_in_place(False)
+    counted = {name: n for name, n in launches.items() if n}
+    if {name: v["launches"] for name, v in sums.items()} != counted:
+        raise AssertionError(f"in place ({label}): timed launches {sums} differ from the "
+                             f"counted {counted}")
+    print(f"in place ({label}): " + "; ".join(
+        f"{name} {v['ms']:.3f} ms ({v['launches']})"
+        for name, v in sorted(sums.items(), key=lambda kv: -kv[1]["ms"])), flush=True)
+    return sums
 
 
 @contextlib.contextmanager
@@ -1584,13 +1607,23 @@ def run_stage_s(torch, kernels) -> tuple[list, dict, dict]:
         peak["bytes"] = torch.cuda.max_memory_allocated()
         return out
 
+    k2_first: dict = {}
+    k2 = kernels.auction_phase
+
+    def k2_recorded(*args, **kw):  # the first call at the referee's frontier
+        if kw.get("B") == STAGE_S_K2_B and not k2_first:
+            k2_first["call"] = (args, dict(kw))
+        return k2(*args, **kw)
+
     stage_s.sinkhorn_potentials_blocked = measured_potentials
+    kernels.auction_phase = k2_recorded
     t0 = time.perf_counter()
     try:
         summary = stage_s.run(size=size, tile=tile, iters=iters, device=DEVICE, keep=keep,
                               emit=lambda row_: print(f"stage S: {json.dumps(row_)}", flush=True))
     finally:
         stage_s.sinkhorn_potentials_blocked = potentials
+        kernels.auction_phase = k2
     wall = time.perf_counter() - t0
     for name, fn in originals.items():
         setattr(kernels, name, fn)
@@ -1655,6 +1688,23 @@ def run_stage_s(torch, kernels) -> tuple[list, dict, dict]:
     torch.cuda.synchronize()
     if not all(bits_equal(torch, a, b) for a, b in zip(got_b, ref_b)):
         raise AssertionError("K1 biased: not bit-identical to the plain biased selection")
+    if "call" not in k2_first:
+        raise AssertionError(f"stage S: no K2 call at B = {STAGE_S_K2_B}")
+    (k_args, k_kw) = k2_first["call"]
+    k_work: dict = {}
+    got_k, g_stall = kernels.auction_phase(*k_args, **k_kw, work_out=k_work)
+    ref_k, r_stall = sp._auction_rounds_plain(*k_args, k_kw["P"], k_kw["eps"], k_kw["max_iters"],
+                                              k_kw["B"], k_kw["stall_limit"])
+    torch.cuda.synchronize()
+    same = all(bits_equal(torch, a.to(b.dtype), b) for a, b in zip(got_k, ref_k))
+    same &= int(g_stall) == int(r_stall)
+    print(f"K2 at stage S's shape (T {k_args[1].shape[0]}, K {k_args[1].shape[1]}, B "
+          f"{k_kw['B']}, eps {k_kw['eps']}; first call): rounds {int(got_k[0])} frontier rows "
+          f"{int(k_work['frontier_rows'])} assigned {int((got_k[3] >= 0).sum())} "
+          f"bit-identical {same}", flush=True)
+    if not same:
+        raise AssertionError("K2 at stage S's shape: not bit-identical to the plain version")
+    del k2_first, k_args, got_k, ref_k
     p4t_a = keep["auction"].provider_for_task
     got_p = kernels.pair_cost(ep, er, w, p4t_a)
     ref_p = oc._cost_pairs_plain(ep, er, p4t_a, w)
@@ -2509,6 +2559,9 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}", flush=True)
+    k2_c = kernels.k2_cluster(torch.device(dev, torch.cuda.current_device()))
+    print(f"K2: one cluster of {k2_c} blocks of 1,024 threads (cudaOccupancyMaxActiveClusters); "
+          f"block 0 alone from {kernels.K2_ONE_BLOCK_OPEN} open tasks", flush=True)
 
     k, r, extra = 64, 8, 16
     ep = synth_providers(np.random.default_rng(2), N, device=dev)
@@ -2558,32 +2611,48 @@ def main() -> int:
                                                            reverse_r=r)
     cand_p, cand_c = sp.merge_reverse_candidates(fwd_p, fwd_c, rev_t, rev_c, extra=extra)
     cand_safe, value_base, feas, give_up = sp._phase_inputs(cand_p, cand_c, True)
+    # the cold case (eps 4, B 4,096, from scratch) and the carried one (eps
+    # 0.02, B 512, from the cold case's state), each held at every cluster
+    # size K2 runs at here: 1, 8 and the default where the card fits them
     k2_cases = [(None, 4.0, 4096), ("carried", 0.02, 512)]
+    k2_sizes = sorted({1, 8, k2_c})
     state0 = sp._initial_state(N, N, cand_c.device)
     carried = None
     for tag, eps, B in k2_cases:
         st = state0 if tag is None else carried
-        work: dict = {}
-        got, g_stall = kernels.auction_phase(cand_safe, value_base, feas, give_up, st, P=N,
-                                             eps=eps, max_iters=256, B=B, stall_limit=0,
-                                             work_out=work)
         ref, r_stall = sp._auction_rounds_plain(cand_safe, value_base, feas, give_up, st,
                                                 N, eps, 256, B, 0)
-        torch.cuda.synchronize()
-        same = all(bits_equal(torch, a.to(b.dtype), b) for a, b in zip(got, ref))
-        same &= int(g_stall) == int(r_stall)
-        print(f"K2 eps={eps} B={B} ({tag or 'cold'}): rounds {int(got[0])} stall {int(g_stall)} "
-              f"frontier rows {int(work['frontier_rows'])} assigned {int((got[3] >= 0).sum())} "
-              f"bit-identical {same}", flush=True)
-        if not same:
-            return fail(f"K2 eps={eps}: not bit-identical to the plain version")
+        for c in k2_sizes:
+            work: dict = {}
+            got, g_stall = kernels.auction_phase(cand_safe, value_base, feas, give_up, st, P=N,
+                                                 eps=eps, max_iters=256, B=B, stall_limit=0,
+                                                 work_out=work, cluster=c)
+            torch.cuda.synchronize()
+            same = all(bits_equal(torch, a.to(b.dtype), b) for a, b in zip(got, ref))
+            same &= int(g_stall) == int(r_stall)
+            print(f"K2 eps={eps} B={B} ({tag or 'cold'}) cluster {c}: rounds {int(got[0])} "
+                  f"stall {int(g_stall)} frontier rows {int(work['frontier_rows'])} assigned "
+                  f"{int((got[3] >= 0).sum())} bit-identical {same}", flush=True)
+            if not same:
+                return fail(f"K2 eps={eps} cluster {c}: not bit-identical to the plain version")
         if tag is None:
             k2_rows = int(work["frontier_rows"])
             k2_rounds = int(got[0])
+            cold_state = got
+        else:
+            k2_rows_512 = int(work["frontier_rows"])
+            k2_rounds_512 = int(got[0])
         carried = got
     k2_ms = cuda_ms(torch, lambda: kernels.auction_phase(
         cand_safe, value_base, feas, give_up, state0, P=N, eps=4.0, max_iters=256, B=4096,
         stall_limit=0), 3)
+    k2_ms_512 = cuda_ms(torch, lambda: kernels.auction_phase(
+        cand_safe, value_base, feas, give_up, cold_state, P=N, eps=0.02, max_iters=256, B=512,
+        stall_limit=0), 3)
+    print(f"K2 timed (cluster of {k2_c}): B 4096 cold {k2_ms:.3f} ms ({k2_rounds} rounds, "
+          f"{k2_ms * 1e3 / k2_rounds:.2f} us a round); B 512 carried {k2_ms_512:.3f} ms "
+          f"({k2_rounds_512} rounds, {k2_ms_512 * 1e3 / k2_rounds_512:.2f} us a round)",
+          flush=True)
     k2_plain_ms = cuda_ms(torch, lambda: sp._auction_rounds_plain(
         cand_safe, value_base, feas, give_up, state0, N, 4.0, 256, 4096, 0), 1)
     # K9 on a state with thousands of open tasks: the cold auction cut
@@ -2606,7 +2675,7 @@ def main() -> int:
     k9_plain_ms = cuda_ms(torch, lambda: sp._greedy_cleanup_plain(cand_p, cand_c, cut_owner,
                                                                   cut_p4t, cut_open), 1)
     k9_bytes = cut_open.numel() * (cand_c.shape[1] * 8 + 4 + 4) + N * 4 + N * 8
-    del cut, cut_owner, cut_p4t, k9_got, k9_ref
+    del cut, cut_owner, cut_p4t, k9_got, k9_ref, cold_state, carried
 
     K = cand_c.shape[1]
     k2_bytes = N * K * 8 + N * 2 + N * 2 * 4 + N * 4 + 2 * (N * 2 * 4 + N * 4 + N)
@@ -2634,6 +2703,7 @@ def main() -> int:
     arena = TorchSolveArena(device=dev, cold_every=0)
     torch.cuda.synchronize()
     kernels.reset_launches()
+    kernels.time_in_place(True)
     k9_recorded, k9_originals = record_first_calls(kernels, {"greedy_cleanup": ()})
     ticks = []
     for i in range(3):
@@ -2647,6 +2717,7 @@ def main() -> int:
               f"assigned {st['assigned']}/{N} ({st['assigned'] / N:.6f}) "
               f"plan_cost {st.get('plan_cost')} gap_per_task {st.get('gap_per_task')}", flush=True)
     launches = dict(kernels.LAUNCHES)
+    in_place = {"cold_ticks": in_place_run(kernels, launches, "cold ticks")}
     for name, fn in k9_originals.items():
         setattr(kernels, name, fn)
     print(f"kernels (cold ticks): {json.dumps(launches)}", flush=True)
@@ -2710,7 +2781,7 @@ def main() -> int:
             raise AssertionError(f"{label}: a provider holds two tasks")
         if st["assigned"] / N < 0.99:
             raise AssertionError(f"{label}: only {st['assigned']} of {N} tasks assigned")
-        with uncounted(kernels):
+        with uncounted(kernels), kernels.untimed():
             fresh = TorchSolveArena(device=dev, cold_every=0)
             f_p4t = fresh.solve(ns(warm._p_fields), ns(warm._r_fields), default)
             for name in ("cand_p", "cand_c", "fwd_p", "fwd_c", "pool_t", "pool_c"):
@@ -2761,6 +2832,7 @@ def main() -> int:
 
     torch.cuda.synchronize()
     kernels.reset_launches()
+    kernels.time_in_place(True)
     warm_ticks = [warm_tick("prime", lambda: warm.solve(ns(pa), ns(ra), default))]
     recorded, originals = record_first_calls(kernels)
     for i in range(3):
@@ -2772,6 +2844,7 @@ def main() -> int:
     for name, fn in originals.items():
         setattr(kernels, name, fn)
     launches_warm = dict(kernels.LAUNCHES)
+    in_place["warm_chain"] = in_place_run(kernels, launches_warm, "warm chain")
     print(f"kernels (warm chain): {json.dumps(launches_warm)}", flush=True)
     missing = [n for n in WARM_KERNELS if launches_warm[n] == 0]
     if missing:
@@ -3091,11 +3164,15 @@ def main() -> int:
     rev_row = row("candidates_reverse", SRC_K1, "protocol_tpu/ops/sparse.py:172",
                   k1_default["rev_max_abs_err"], rev_ms, rev_plain_ms, rev_bytes, k1_ops)
     rev_row["offset_ms"] = rev_off_ms
+    k2_row = row("auction_phase", "protocol_tpu_torch/csrc/auction.cu",
+                 "protocol_tpu/ops/sparse.py:418", 0.0, k2_ms, k2_plain_ms, k2_bytes, k2_ops)
+    k2_row.update(cluster=k2_c, one_block_open=kernels.K2_ONE_BLOCK_OPEN,
+                  us_per_round=k2_ms * 1e3 / k2_rounds, ms_b512=k2_ms_512,
+                  us_per_round_b512=k2_ms_512 * 1e3 / k2_rounds_512)
     rows = [
         fwd_row,
         rev_row,
-        row("auction_phase", "protocol_tpu_torch/csrc/auction.cu",
-            "protocol_tpu/ops/sparse.py:418", 0.0, k2_ms, k2_plain_ms, k2_bytes, k2_ops),
+        k2_row,
     ]
     for name, src, repl, err, ms, plain, bytes_, ops, work in new_rows:
         rows.append(row(name, src, repl, err, ms, plain, bytes_, ops))
@@ -3132,7 +3209,21 @@ def main() -> int:
     order = sorted(rows, key=lambda r_: -r_["excess_ms"])
     print("kernels by launches x (ms - bound_ms), ms at one timed shape a row: " + "; ".join(
         f"{r_['name']} {r_['excess_ms']:.1f}" for r_ in order), flush=True)
-    print(f"K2 timed launch: eps 4.0, B 4096, {k2_rounds} rounds, {k2_rows} frontier rows", flush=True)
+    # R0: the device ms each wrapper's launches took in place, summed over
+    # the cold ticks and the warm chain
+    total: dict = {}
+    for run in in_place.values():
+        for name, v in run.items():
+            total[name] = total.get(name, 0.0) + v["ms"]
+    for r_ in rows:
+        if r_["name"] in total:
+            r_["in_place_ms"] = total[r_["name"]]
+    print("kernels by in-place device ms, the cold ticks and the warm chain: " + "; ".join(
+        f"{name} {ms:.3f}" for name, ms in sorted(total.items(), key=lambda kv: -kv[1])),
+        flush=True)
+    print(f"K2 timed launch: eps 4.0, B 4096, {k2_rounds} rounds, {k2_rows} frontier rows; "
+          f"eps 0.02, B 512 (carried), {k2_rounds_512} rounds, {k2_rows_512} frontier rows",
+          flush=True)
     print(f"K7 timed launch: {Td} slots x {Pd} providers, eps 0.05, {k7_rounds} rounds, "
           f"{k7_open_rows} open rows; K9 timed on {cut_open.numel()} open tasks", flush=True)
     print(f"elapsed: {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -14,10 +14,16 @@ Every wrapper checks its inputs, launches on PyTorch's current stream of
 its inputs' card with that card as the current device, raises if the
 launch was refused, and adds one to its entry in
 :data:`LAUNCHES` per kernel launch; nothing else counts there.
+
+In-place timing (off by default): after :func:`time_in_place` ``(True)``
+every launch is recorded between two CUDA events on its stream, and
+:func:`in_place_ms` returns the device milliseconds and launches summed
+per :data:`LAUNCHES` key: what each kernel cost the run it was part of.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -56,6 +62,12 @@ LAUNCHES = {
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 BUILD_LOG: dict[str, str] = {}
+
+# in-place timing: event pairs (key, start, end) not yet summed, None while
+# off; and the sums, key -> [device ms, launches]
+_TIMED: list | None = None
+_IN_PLACE: dict[str, list] = {}
+_FOLD_AT = 4096  # pending pairs that trigger a fold of the finished ones
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -198,10 +210,12 @@ def _lib(name: str) -> ctypes.CDLL:
             lib.k13_sinkhorn.restype = _I
         else:
             lib.k2_auction_phase.argtypes = [
-                _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
+                _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
             ]
-            lib.k2_auction_phase.restype = _I
+            lib.k2_active_clusters.argtypes = [_I, _P]
+            for fn in ("k2_auction_phase", "k2_active_clusters"):
+                getattr(lib, fn).restype = _I
         _LIBS[name] = lib
     return lib
 
@@ -209,6 +223,73 @@ def _lib(name: str) -> ctypes.CDLL:
 def _check(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what}: kernel launch refused (cudaError {rc})")
+
+
+def _launch(key: str, fn, *args, what: str | None = None) -> None:
+    """Call ``fn``, a C entry point that launches one kernel on the stream
+    it is given, raise if the launch was refused, and count it under
+    ``key``; with in-place timing on, between two events on the current
+    stream (the launch's: wrappers run on their inputs' card)."""
+    if _TIMED is None:
+        _check(fn(*args), what or key)
+    else:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        _check(fn(*args), what or key)
+        end.record()
+        _TIMED.append((key, start, end))
+        if len(_TIMED) >= _FOLD_AT:
+            _fold(wait=False)
+    LAUNCHES[key] += 1
+
+
+def _fold(wait: bool) -> None:
+    """Add the pending event pairs to the sums: all of them after waiting
+    for each (``wait``), else only those whose end has passed."""
+    keep = []
+    for key, start, end in _TIMED:
+        if wait:
+            end.synchronize()
+        elif not end.query():
+            keep.append((key, start, end))
+            continue
+        acc = _IN_PLACE.setdefault(key, [0.0, 0])
+        acc[0] += start.elapsed_time(end)
+        acc[1] += 1
+    _TIMED[:] = keep
+
+
+def time_in_place(on: bool) -> None:
+    """Switch in-place timing on, with every sum set to 0, or off (the sums
+    so far stay readable). Costs two event records a launch while on."""
+    global _TIMED
+    if on:
+        _IN_PLACE.clear()
+        _TIMED = []
+    elif _TIMED is not None:
+        _fold(wait=True)
+        _TIMED = None
+
+
+@contextlib.contextmanager
+def untimed():
+    """Launches made inside are not timed in place (a run's checks)."""
+    global _TIMED
+    saved, _TIMED = _TIMED, None
+    try:
+        yield
+    finally:
+        _TIMED = saved
+
+
+def in_place_ms() -> dict[str, dict]:
+    """The in-place sums since timing was switched on: {key: {"ms": device
+    ms over its launches, "launches": n}} for every key that launched.
+    Waits for the pending launches to end."""
+    if _TIMED:
+        _fold(wait=True)
+    return {k: {"ms": v[0], "launches": v[1]} for k, v in _IN_PLACE.items()}
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -302,24 +383,55 @@ def candidates_reverse(ep, er, weights, tile: int, r: int, rt: int, offset: int 
     pool_c = torch.empty((P, n_tiles * rt), dtype=torch.float32, device=dev)
     rev_t = torch.empty((P, r), dtype=torch.int32, device=dev)
     rev_c = torch.empty((P, r), dtype=torch.float32, device=dev)
-    _check(_lib("candidates").k1_reverse(
+    _launch("candidates_reverse", _lib("candidates").k1_reverse,
         pcols, rcols, P, T, K, W, *w, tile, r, rt, offset, aux.data_ptr(),
         pool_t.data_ptr(), pool_c.data_ptr(), rev_t.data_ptr(), rev_c.data_ptr(),
         _stream(pool_t),
-    ), "candidates_reverse")
-    LAUNCHES["candidates_reverse"] += 1
+    )
     return rev_t, rev_c, pool_t, pool_c
+
+
+# K2's cluster: the largest size of 16 (non-portable) and 8 whose
+# 1,024-thread blocks the card co-schedules, queried once a card
+K2_CLUSTERS = (16, 8)
+_K2_CLUSTER: dict[int, int] = {}
+# once at most this many tasks are open, K2's block 0 runs the rest of the
+# launch alone (one block's bid pass: two tasks a warp), with block
+# barriers and L1, which beat cluster barriers and L2 there (PERF.md)
+K2_ONE_BLOCK_OPEN = 64
+
+
+def k2_cluster(dev: torch.device) -> int:
+    """The cluster size K2 launches with on ``dev``: the first of
+    :data:`K2_CLUSTERS` of which ``cudaOccupancyMaxActiveClusters`` finds
+    room for one cluster. Raises if none fits."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _K2_CLUSTER:
+        n = ctypes.c_int(0)
+        with torch.cuda.device(idx):
+            for c in K2_CLUSTERS:
+                _check(_lib("auction").k2_active_clusters(c, ctypes.addressof(n)),
+                       f"k2_active_clusters({c})")
+                if n.value >= 1:
+                    _K2_CLUSTER[idx] = c
+                    break
+            else:
+                raise RuntimeError(f"K2: the card fits no cluster of {K2_CLUSTERS} blocks")
+    return _K2_CLUSTER[idx]
 
 
 @_on_device
 def auction_phase(
     cand_safe, value_base, task_feasible, give_up, state,
     P: int, eps: float, max_iters: int, B: int, stall_limit: int,
-    work_out: dict | None = None,
+    work_out: dict | None = None, cluster: int | None = None,
 ):
     """K2: one eps phase of the frontier auction (``csrc/auction.cu``) in one
-    launch. ``state`` = (it, price, owner, p4t, retired); returns the new
-    state (fresh tensors; ``it`` a 0-d int32) and ``stall`` (0-d int32).
+    launch of one thread-block cluster of ``cluster`` blocks (default
+    :func:`k2_cluster`; a size the card refuses raises; block 0 finishes
+    alone once :data:`K2_ONE_BLOCK_OPEN` or fewer tasks are open). ``state`` = (it,
+    price, owner, p4t, retired); returns the new state (fresh tensors;
+    ``it`` a 0-d int32) and ``stall`` (0-d int32).
     ``work_out["frontier_rows"]`` receives the frontier rows bid over all
     rounds (a 0-d tensor), the data-dependent work of the launch."""
     T, K = value_base.shape
@@ -340,20 +452,19 @@ def auction_phase(
         raise ValueError("K2: state shapes do not match the candidate arrays")
     if K > 128 or T > 1_638_400:
         raise ValueError(f"K2 takes K <= 128 candidates and T <= 1,638,400 tasks, got {K}, {T}")
+    C = k2_cluster(dev) if cluster is None else int(cluster)
     f_idx = torch.empty(B, dtype=torch.int32, device=dev)
-    fr_p1 = torch.empty(B, dtype=torch.int32, device=dev)
+    fr_p1 = torch.empty((2, B), dtype=torch.int32, device=dev)
     fr_key = torch.empty(B, dtype=torch.int64, device=dev)
-    win_key = torch.zeros(P, dtype=torch.int64, device=dev)
+    win_key = torch.zeros((2, P), dtype=torch.int64, device=dev)
     out = torch.zeros(3, dtype=torch.int32, device=dev)
-    lib = _lib("auction")
-    _check(lib.k2_auction_phase(
+    _launch("auction_phase", _lib("auction").k2_auction_phase,
         cand_safe.data_ptr(), value_base.data_ptr(), feasible.data_ptr(),
-        give_up.data_ptr(), T, K, B, max_iters, stall_limit, eps,
+        give_up.data_ptr(), T, K, B, P, max_iters, stall_limit, eps, K2_ONE_BLOCK_OPEN,
         price.data_ptr(), owner.data_ptr(), p4t.data_ptr(), retired.data_ptr(),
         f_idx.data_ptr(), fr_p1.data_ptr(), fr_key.data_ptr(), win_key.data_ptr(),
-        out.data_ptr(), _stream(out),
-    ), "auction_phase")
-    LAUNCHES["auction_phase"] += 1
+        out.data_ptr(), C, _stream(out), what=f"auction_phase (cluster of {C})",
+    )
     if work_out is not None:
         work_out["frontier_rows"] = out[2]
     return (out[0], price, owner, p4t, retired), out[1]
@@ -404,13 +515,12 @@ def candidates_forward_rows(ep, er, weights, k: int, t_ids: torch.Tensor,
             lanes *= 2
     out_p = torch.empty((R, k), dtype=torch.int32, device=dev)
     out_c = torch.empty((R, k), dtype=torch.float32, device=dev)
-    _check(_lib("candidates").k1_forward_rows(
-        pcols, rcols, P, T, K, W, *w, k, t_ids.data_ptr(), R, lanes, offset,
-        None if bias is None else bias.data_ptr(), aux.data_ptr(), out_p.data_ptr(),
-        out_c.data_ptr(), _stream(out_p),
-    ), "candidates_forward_rows")
     # the biased instantiation is a kernel of its own, counted apart
-    LAUNCHES["candidates_forward_rows" if bias is None else "candidates_forward_rows_biased"] += 1
+    _launch("candidates_forward_rows" if bias is None else "candidates_forward_rows_biased",
+            _lib("candidates").k1_forward_rows,
+            pcols, rcols, P, T, K, W, *w, k, t_ids.data_ptr(), R, lanes, offset,
+            None if bias is None else bias.data_ptr(), aux.data_ptr(), out_p.data_ptr(),
+            out_c.data_ptr(), _stream(out_p), what="candidates_forward_rows")
     return out_p, out_c
 
 
@@ -434,11 +544,10 @@ def candidates_reverse_blocks(ep, er, weights, tile: int, blk_p, blk_j, pool_t, 
     blk_j = _ids(blk_j, n_tiles, dev, "candidates_reverse_blocks")
     if blk_p.shape != blk_j.shape:
         raise ValueError("candidates_reverse_blocks: blk_p and blk_j differ in length")
-    _check(_lib("candidates").k1_reverse_blocks(
+    _launch("candidates_reverse_blocks", _lib("candidates").k1_reverse_blocks,
         pcols, rcols, P, T, K, W, *w, tile, blk_p.data_ptr(), blk_j.data_ptr(),
         blk_p.numel(), aux.data_ptr(), pool_t.data_ptr(), pool_c.data_ptr(), _stream(pool_t),
-    ), "candidates_reverse_blocks")
-    LAUNCHES["candidates_reverse_blocks"] += 1
+    )
 
 
 @_on_device
@@ -454,11 +563,10 @@ def repair_enter(ep, er, weights, p_ids, thresh, offset: int = 0):
         raise ValueError(f"repair_enter: thresh must be a [{T}] f32 tensor on {dev}")
     thresh = thresh.contiguous()
     enter = torch.empty(T, dtype=torch.uint8, device=dev)
-    _check(_lib("repair").k3_repair_enter(
+    _launch("repair_enter", _lib("repair").k3_repair_enter,
         pcols, rcols, P, T, K, W, *w, p_ids.data_ptr(), p_ids.numel(), offset,
         thresh.data_ptr(), aux.data_ptr(), enter.data_ptr(), _stream(enter),
-    ), "repair_enter")
-    LAUNCHES["repair_enter"] += 1
+    )
     return enter.bool()
 
 
@@ -474,11 +582,10 @@ def repair_tile_min(ep, er, weights, t_ids, tile: int, pad: float):
     if t_ids.numel() > 1 and not bool((t_ids[1:] > t_ids[:-1]).all()):
         raise ValueError("repair_tile_min: task ids must ascend strictly")
     min_tile = torch.full((P, T // tile), pad, dtype=torch.float32, device=dev)
-    _check(_lib("repair").k4_repair_tile_min(
+    _launch("repair_tile_min", _lib("repair").k4_repair_tile_min,
         pcols, rcols, P, T, K, W, *w, tile, t_ids.data_ptr(), t_ids.numel(),
         aux.data_ptr(), min_tile.data_ptr(), _stream(min_tile),
-    ), "repair_tile_min")
-    LAUNCHES["repair_tile_min"] += 1
+    )
     return min_tile
 
 
@@ -497,11 +604,10 @@ def repair_refold(pool_t, pool_c, r: int, d_fold: int = 1):
                          f"d_fold={d_fold}, n_tiles={n_tiles}")
     rev_t = torch.empty((P, r), dtype=torch.int32, device=dev)
     rev_c = torch.empty((P, r), dtype=torch.float32, device=dev)
-    _check(_lib("repair").k5_repair_refold(
+    _launch("repair_refold", _lib("repair").k5_repair_refold,
         pool_t.data_ptr(), pool_c.data_ptr(), P, n_tiles, r, d_fold,
         rev_t.data_ptr(), rev_c.data_ptr(), _stream(rev_c),
-    ), "repair_refold")
-    LAUNCHES["repair_refold"] += 1
+    )
     return rev_t, rev_c
 
 
@@ -515,11 +621,10 @@ def dense_value_base(ep, er, weights):
     dev, pcols, rcols, (P, T, K, W), w, aux = _k1_setup(ep, er, weights)
     value_base = torch.empty((T, P), dtype=torch.float32, device=dev)
     feasible = torch.zeros(T, dtype=torch.uint8, device=dev)
-    _check(_lib("dense").k6_value_base(
+    _launch("dense_value_base", _lib("dense").k6_value_base,
         pcols, rcols, P, T, K, W, *w, aux.data_ptr(), value_base.data_ptr(),
         feasible.data_ptr(), _stream(value_base),
-    ), "dense_value_base")
-    LAUNCHES["dense_value_base"] += 1
+    )
     return value_base, feasible.bool()
 
 
@@ -547,13 +652,12 @@ def dense_auction(value_base, task_feasible, eps: float, max_iters: int,
     win_key = torch.zeros((2, P), dtype=torch.int64, device=dev)
     ctl = torch.zeros(2, dtype=torch.int32, device=dev)  # barrier, open count
     out = torch.zeros(2, dtype=torch.int64, device=dev)
-    _check(_lib("dense").k7_dense_auction(
+    _launch("dense_auction", _lib("dense").k7_dense_auction,
         value_base.data_ptr(), feasible.data_ptr(), T, P, eps, max_iters,
         price.data_ptr(), owner.data_ptr(), p4t.data_ptr(), fr_p1.data_ptr(),
         fr_key.data_ptr(), win_key.data_ptr(), ctl.data_ptr(), ctl[1:].data_ptr(),
         out.data_ptr(), _stream(out),
-    ), "dense_auction")
-    LAUNCHES["dense_auction"] += 1
+    )
     if work_out is not None:
         work_out["open_rows"] = out[1]
     return p4t, owner, price, out[0]
@@ -568,10 +672,9 @@ def unbounded_best(ep, er, weights):
         raise ValueError("K8 takes at least one provider and one task")
     dev, pcols, rcols, (P, T, K, W), w, aux = _k1_setup(ep, er, weights)
     best = torch.empty(P, dtype=torch.int32, device=dev)
-    _check(_lib("dense").k8_unbounded_best(
+    _launch("unbounded_best", _lib("dense").k8_unbounded_best,
         pcols, rcols, P, T, K, W, *w, aux.data_ptr(), best.data_ptr(), _stream(best),
-    ), "unbounded_best")
-    LAUNCHES["unbounded_best"] += 1
+    )
     return best
 
 
@@ -593,11 +696,10 @@ def greedy_cleanup(cand_provider, cand_cost, owner, p4t, open_idx):
             raise ValueError(f"K9: every input must lie on {dev}, got {t.device}")
     if cand_p.shape != (T, K) or out.shape != (T,) or K > 128 or P > 1_638_400:
         raise ValueError(f"K9 takes [T, K <= 128] candidates and P <= 1,638,400, got {K}, {P}")
-    _check(_lib("cleanup").k9_greedy_cleanup(
+    _launch("greedy_cleanup", _lib("cleanup").k9_greedy_cleanup,
         cand_p.data_ptr(), cand_c.data_ptr(), K, P, owner.data_ptr(), open_idx.data_ptr(),
         open_idx.numel(), out.data_ptr(), _stream(out),
-    ), "greedy_cleanup")
-    LAUNCHES["greedy_cleanup"] += 1
+    )
     return out
 
 
@@ -610,10 +712,9 @@ def cost_block(ep, er, weights):
         raise ValueError("K10 takes at least one provider and one task")
     dev, pcols, rcols, (P, T, K, W), w, aux = _k1_setup(ep, er, weights)
     cost = torch.empty((T, P), dtype=torch.float32, device=dev)
-    _check(_lib("dense").k10_cost_block(
+    _launch("cost_block", _lib("dense").k10_cost_block,
         pcols, rcols, P, T, K, W, *w, aux.data_ptr(), cost.data_ptr(), _stream(cost),
-    ), "cost_block")
-    LAUNCHES["cost_block"] += 1
+    )
     return cost
 
 
@@ -650,12 +751,11 @@ def binpack_ffd(cost_tp, demand, capacity, task_order, anti_group, loc_id, L: in
         order = _ids(order, T, dev, "binpack_ffd")
     used = torch.zeros((L * G + 31) // 32, dtype=torch.int32, device=dev)
     pft = torch.empty(T, dtype=torch.int32, device=dev)
-    _check(_lib("binpack").k11_binpack_ffd(
+    _launch("binpack_ffd", _lib("binpack").k11_binpack_ffd,
         cost_tp.data_ptr(), P, T, demand.data_ptr(), R, order.data_ptr(),
         int(task_order is not None), group.data_ptr(), loc.data_ptr(), G, cap.data_ptr(),
         used.data_ptr(), pft.data_ptr(), _stream(pft),
-    ), "binpack_ffd")
-    LAUNCHES["binpack_ffd"] += 1
+    )
     return pft, cap
 
 
@@ -677,10 +777,9 @@ def greedy_assign(cost_tp, task_order):
     if order.numel() and (int(order.min()) < 0 or int(order.max()) >= T):
         raise ValueError(f"K12: task ids out of range [0, {T})")
     p4t = torch.full((T,), -1, dtype=torch.int32, device=dev)
-    _check(_lib("greedy").k12_greedy(
+    _launch("greedy_assign", _lib("greedy").k12_greedy,
         cost_tp.data_ptr(), T, P, order.data_ptr(), order.numel(), p4t.data_ptr(), _stream(p4t),
-    ), "greedy_assign")
-    LAUNCHES["greedy_assign"] += 1
+    )
     return p4t
 
 
@@ -706,12 +805,11 @@ def sinkhorn(cost_tp, eps: float, num_iters: int):
     u = torch.zeros(P, dtype=torch.float32, device=dev)
     v = torch.zeros(T, dtype=torch.float32, device=dev)
     colmax = torch.empty(T, dtype=torch.float32, device=dev)
-    _check(_lib("sinkhorn").k13_sinkhorn(
+    _launch("sinkhorn", _lib("sinkhorn").k13_sinkhorn,
         cost_tp.data_ptr(), T, P, eps, num_iters, rcost.data_ptr(), feas_row.data_ptr(),
         feas_col.data_ptr(), log_a.data_ptr(), log_b.data_ptr(), u.data_ptr(), v.data_ptr(),
         plan.data_ptr(), colmax.data_ptr(), _stream(plan),
-    ), "sinkhorn")
-    LAUNCHES["sinkhorn"] += 1
+    )
     return plan, rcost, colmax, u, v
 
 
@@ -730,11 +828,10 @@ def blocked_feasibility(ep, er, weights):
     row_any = torch.empty(P, dtype=torch.uint8, device=dev)
     col_bits = torch.zeros((T + 31) // 32, dtype=torch.int32, device=dev)
     bits = FeasibilityBits.empty(P, T, dev)
-    _check(_lib("blocked").k14_feasibility(
+    _launch("blocked_feasibility", _lib("blocked").k14_feasibility,
         pcols, rcols, P, T, K, W, *w, aux.data_ptr(), row_any.data_ptr(), col_bits.data_ptr(),
         bits.rows.data_ptr(), bits.cols.data_ptr(), _stream(row_any),
-    ), "blocked_feasibility")
-    LAUNCHES["blocked_feasibility"] += 1
+    )
     t = torch.arange(T, dtype=torch.int64, device=dev)
     col_any = ((col_bits[t >> 5] >> (t & 31).to(torch.int32)) & 1).bool()
     return row_any.bool(), col_any, bits
@@ -761,11 +858,10 @@ def _blocked_lse(ep, er, weights, eps: float, pot: torch.Tensor, bits, rows: boo
     dev, pcols, rcols, (P, T), w, aux, pot, words = _blocked_setup(ep, er, weights, eps, pot,
                                                                    bits, rows, name)
     lse = torch.empty(P if rows else T, dtype=torch.float32, device=dev)
-    _check(_lib("blocked").k14_lse(
+    _launch(name, _lib("blocked").k14_lse,
         pcols, rcols, P, T, *w, eps, int(rows), pot.data_ptr(), aux.data_ptr(),
         words.data_ptr(), lse.data_ptr(), _stream(lse),
-    ), name)
-    LAUNCHES[name] += 1
+    )
     return lse
 
 
@@ -798,11 +894,10 @@ def blocked_col_partial(ep_local, er, weights, eps: float, u_local: torch.Tensor
         ep_local, er, weights, eps, u_local, bits, False, "blocked_col_partial")
     m = torch.empty(T, dtype=torch.float32, device=dev)
     s = torch.empty(T, dtype=torch.float32, device=dev)
-    _check(_lib("blocked").k14_col_partial(
+    _launch("blocked_col_partial", _lib("blocked").k14_col_partial,
         pcols, rcols, P, T, *w, eps, u_local.data_ptr(), aux.data_ptr(), words.data_ptr(),
         m.data_ptr(), s.data_ptr(), _stream(m),
-    ), "blocked_col_partial")
-    LAUNCHES["blocked_col_partial"] += 1
+    )
     return m, s
 
 
@@ -817,11 +912,10 @@ def pair_cost(ep, er, weights, p4t: torch.Tensor):
     if int(p4t.max()) >= P:
         raise ValueError(f"pair_cost: provider ids out of range [-1, {P})")
     out = torch.empty(T, dtype=torch.float32, device=dev)
-    _check(_lib("blocked").k15_pair_cost(
+    _launch("pair_cost", _lib("blocked").k15_pair_cost,
         pcols, rcols, P, T, K, W, *w, p4t.data_ptr(), aux.data_ptr(), out.data_ptr(),
         _stream(out),
-    ), "pair_cost")
-    LAUNCHES["pair_cost"] += 1
+    )
     return out
 
 
@@ -868,13 +962,12 @@ def mesh_round_bid(cand_safe, value_base, feasible, give_up, price, retired, p4t
                   p4t=(p4t, torch.int32, Tl), tot=(tot, torch.int32, 2),
                   ctl=(ctl, torch.int32, MESH_CTL), front=(front, torch.int32, 2 * B),
                   front_bid=(front_bid, torch.float32, B), win_key=(win_key, torch.int32, P))
-    _check(_lib("mesh_auction").k16_round_bid(
+    _launch("mesh_round_bid", _lib("mesh_auction").k16_round_bid,
         cand_safe.data_ptr(), value_base.data_ptr(), feasible.data_ptr(), give_up.data_ptr(),
         Tl, K, B, max_iters, stall_limit, eps, price.data_ptr(), retired.data_ptr(),
         p4t.data_ptr(), tot.data_ptr(), ctl.data_ptr(), front.data_ptr(), front_bid.data_ptr(),
         win_key.data_ptr(), _stream(ctl),
-    ), "mesh_round_bid")
-    LAUNCHES["mesh_round_bid"] += 1
+    )
 
 
 @_on_device
@@ -888,11 +981,10 @@ def mesh_round_resolve(ctl, front, front_bid, win_key, win_task, offset: int) ->
     _mesh_tensors(dev, "mesh_round_resolve", ctl=(ctl, torch.int32, MESH_CTL),
                   front=(front, torch.int32, 2 * B), front_bid=(front_bid, torch.float32, B),
                   win_key=(win_key, torch.int32, P), win_task=(win_task, torch.int32, P))
-    _check(_lib("mesh_auction").k16_round_resolve(
+    _launch("mesh_round_resolve", _lib("mesh_auction").k16_round_resolve,
         B, offset, ctl.data_ptr(), front.data_ptr(), front_bid.data_ptr(), win_key.data_ptr(),
         win_task.data_ptr(), _stream(ctl),
-    ), "mesh_round_resolve")
-    LAUNCHES["mesh_round_resolve"] += 1
+    )
 
 
 @_on_device
@@ -911,12 +1003,11 @@ def mesh_round_apply(win_key, win_task, feasible, retired, ctl, price, owner, p4
                   price=(price, torch.float32, P), owner=(owner, torch.int32, P),
                   p4t=(p4t, torch.int32, Tl), key_local=(key_local, torch.int32, P),
                   task_local=(task_local, torch.int32, P))
-    _check(_lib("mesh_auction").k16_round_apply(
+    _launch("mesh_round_apply", _lib("mesh_auction").k16_round_apply,
         P, T, Tl, offset, win_key.data_ptr(), win_task.data_ptr(), feasible.data_ptr(),
         retired.data_ptr(), ctl.data_ptr(), price.data_ptr(), owner.data_ptr(), p4t.data_ptr(),
         key_local.data_ptr(), task_local.data_ptr(), _stream(ctl),
-    ), "mesh_round_apply")
-    LAUNCHES["mesh_round_apply"] += 1
+    )
 
 
 # K17's loop state, int64 words on the mesh's first device (a copy on each
@@ -941,11 +1032,10 @@ def mesh_dense_scan(value_base, price, p4t, feasible, ctl, scan, delta, offset: 
                   p4t=(p4t, torch.int32, T), feasible=(feasible, torch.uint8, T),
                   ctl=(ctl, torch.int64, DENSE_CTL), scan=(scan, torch.float32, 4 * T),
                   delta=(delta, torch.int32, T))
-    _check(_lib("mesh_dense").k17_scan(
+    _launch("mesh_dense_scan", _lib("mesh_dense").k17_scan,
         value_base.data_ptr(), price.data_ptr(), p4t.data_ptr(), feasible.data_ptr(),
         ctl.data_ptr(), T, Pl, offset, scan.data_ptr(), delta.data_ptr(), _stream(scan),
-    ), "mesh_dense_scan")
-    LAUNCHES["mesh_dense_scan"] += 1
+    )
 
 
 @_on_device
@@ -961,11 +1051,10 @@ def mesh_dense_combine(gathered, p4t, feasible, ctl, eps: float, bt) -> None:
                   gathered=(gathered, torch.float32, D * 4 * T), p4t=(p4t, torch.int32, T),
                   feasible=(feasible, torch.uint8, T), ctl=(ctl, torch.int64, DENSE_CTL),
                   bt=(bt, torch.float32, 2 * T))
-    _check(_lib("mesh_dense").k17_combine(
+    _launch("mesh_dense_combine", _lib("mesh_dense").k17_combine,
         gathered.data_ptr(), p4t.data_ptr(), feasible.data_ptr(), ctl.data_ptr(), D, T, eps,
         bt.data_ptr(), _stream(bt),
-    ), "mesh_dense_combine")
-    LAUNCHES["mesh_dense_combine"] += 1
+    )
 
 
 @_on_device
@@ -977,10 +1066,9 @@ def mesh_dense_resolve(bt, ctl, win_key, offset: int) -> None:
     Pl = win_key.numel()
     _mesh_tensors(bt.device, "mesh_dense_resolve", bt=(bt, torch.float32, 2 * T),
                   ctl=(ctl, torch.int64, DENSE_CTL), win_key=(win_key, torch.int64, Pl))
-    _check(_lib("mesh_dense").k17_resolve(
+    _launch("mesh_dense_resolve", _lib("mesh_dense").k17_resolve,
         bt.data_ptr(), ctl.data_ptr(), T, Pl, offset, win_key.data_ptr(), _stream(win_key),
-    ), "mesh_dense_resolve")
-    LAUNCHES["mesh_dense_resolve"] += 1
+    )
 
 
 @_on_device
@@ -993,11 +1081,10 @@ def mesh_dense_apply(win_key, ctl, price, owner, delta, offset: int) -> None:
     _mesh_tensors(win_key.device, "mesh_dense_apply", win_key=(win_key, torch.int64, Pl),
                   ctl=(ctl, torch.int64, DENSE_CTL), price=(price, torch.float32, Pl),
                   owner=(owner, torch.int32, Pl), delta=(delta, torch.int32, T))
-    _check(_lib("mesh_dense").k17_apply(
+    _launch("mesh_dense_apply", _lib("mesh_dense").k17_apply,
         win_key.data_ptr(), ctl.data_ptr(), Pl, offset, price.data_ptr(), owner.data_ptr(),
         delta.data_ptr(), _stream(delta),
-    ), "mesh_dense_apply")
-    LAUNCHES["mesh_dense_apply"] += 1
+    )
 
 
 @_on_device
@@ -1009,8 +1096,7 @@ def mesh_dense_finish(deltas, feasible, ctl, p4t, max_iters: int) -> None:
     _mesh_tensors(deltas.device, "mesh_dense_finish", deltas=(deltas, torch.int32, D * T),
                   feasible=(feasible, torch.uint8, T), ctl=(ctl, torch.int64, DENSE_CTL),
                   p4t=(p4t, torch.int32, T))
-    _check(_lib("mesh_dense").k17_finish(
+    _launch("mesh_dense_finish", _lib("mesh_dense").k17_finish,
         deltas.data_ptr(), feasible.data_ptr(), ctl.data_ptr(), D, T, max_iters, p4t.data_ptr(),
         _stream(p4t),
-    ), "mesh_dense_finish")
-    LAUNCHES["mesh_dense_finish"] += 1
+    )

@@ -36,7 +36,8 @@ on the device of its inputs, with no fallback:
         torch scans below, a CUDA tensor the fused kernel (the forward
         launch over every task id).
   _sparse_auction_phase   -> K2 (``csrc/auction.cu``): a CPU tensor takes the
-        plain round loop below, a CUDA tensor the persistent kernel.
+        plain round loop below, a CUDA tensor the kernel (every round of a
+        call in one launch of one thread-block cluster).
   _greedy_cleanup_compacted -> K9 (``csrc/cleanup.cu``): a CPU tensor takes
         the plain loop below, a CUDA tensor the one-block sweep.
 
@@ -445,9 +446,12 @@ def _sparse_auction_phase(
     frontier: int = 4096,
     retire: bool = True,
     stall_limit: int = 0,
+    inputs: tuple | None = None,
 ):
     """One eps phase of the frontier auction; ``state`` carries
-    (it, price, owner, p4t, retired) across phases for warm starts.
+    (it, price, owner, p4t, retired) across phases for warm starts;
+    ``inputs`` is ``_phase_inputs(cand_provider, cand_cost, retire)`` when
+    the caller has built it already.
     Returns (state, stall) with ``it`` and ``stall`` as 0-d int32 tensors.
 
     Each round bids for up to ``frontier`` open tasks (the first ones in
@@ -458,7 +462,7 @@ def _sparse_auction_phase(
     no net assignment progress.
 
     On a CUDA tensor this is kernel K2 (``csrc/auction.cu``): all rounds in
-    one launch of one persistent block, with no host sync per round.
+    one launch of one thread-block cluster, with no host sync per round.
     """
     T, K = cand_cost.shape
     P = num_providers
@@ -466,9 +470,9 @@ def _sparse_auction_phase(
     dev = cand_cost.device
     if state is None:
         state = _initial_state(T, P, dev)
-    cand_safe, value_base, task_feasible, give_up = _phase_inputs(
-        cand_provider, cand_cost, retire
-    )
+    if inputs is None:
+        inputs = _phase_inputs(cand_provider, cand_cost, retire)
+    cand_safe, value_base, task_feasible, give_up = inputs
     if cand_cost.is_cuda:
         from protocol_tpu_torch import kernels
 
@@ -612,6 +616,7 @@ def assign_auction_sparse_scaled(
     state = None
     eps = eps_start
     rounds_total = 0
+    inputs = _phase_inputs(cand_provider, cand_cost, True)  # the same every phase
     while True:
         final = eps <= eps_end
         state, stall = _phase_adaptive(
@@ -619,6 +624,7 @@ def assign_auction_sparse_scaled(
             eps=eps, max_iters=max_iters_per_phase, frontier=frontier,
             retire=True,
             stall_limit=stall_limit * (8 if final else 1),
+            inputs=inputs,
         )
         if stats_out is not None:
             rounds_total += int(state[0])
@@ -653,16 +659,20 @@ def _phase_adaptive(
     frontier: int,
     retire: bool,
     stall_limit: int,
+    inputs: tuple | None = None,
 ):
     """One eps phase run in segments of 256 rounds with a frontier that
     shrinks to the live open set (smallest pow2 >= 512 covering it,
     monotone). The stall circuit breaker and the phase budget act at
     segment granularity, as in the reference; each segment is one
-    ``_sparse_auction_phase`` call, and between segments the host reads
+    ``_sparse_auction_phase`` call on the phase's ``_phase_inputs``, built
+    once (or passed in as ``inputs``), and between segments the host reads
     back the round count, the stall count and the open count."""
     seg_rounds = 256
     T = cand_cost.shape[0]
-    task_feasible = (cand_provider >= 0).any(dim=1)
+    if inputs is None:
+        inputs = _phase_inputs(cand_provider, cand_cost, retire)
+    task_feasible = inputs[2]
     iters_left = max_iters
     total_it = 0
     B = min(frontier, T)
@@ -671,7 +681,7 @@ def _phase_adaptive(
         state, stall = _sparse_auction_phase(
             cand_provider, cand_cost, num_providers, state,
             eps=eps, max_iters=seg_rounds, frontier=B, retire=retire,
-            stall_limit=0,
+            stall_limit=0, inputs=inputs,
         )
         it = int(state[0])
         total_it += it

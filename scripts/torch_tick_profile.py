@@ -12,10 +12,11 @@ TorchSolveArena(cold_every=0), then one more under torch.profiler. With
 then two profiled warm ticks: one at 1% requirement churn and one at 1%
 provider churn (price U(0.5, 4.0), load U(0, 1)). For each profiled tick
 it prints the wall time and stage split (gen_ms / solve_ms / quality_ms
-and the repair scope from last_stats), the device time by kernel, and the
-device's busy and idle shares of the tick's wall time; ``--out`` also
-writes the full report (every device row) to a file. Exits non-zero
-without a CUDA device.
+and the repair scope from last_stats), the device time by kernel, the
+device's busy and idle shares of the tick's wall time, and each hand
+kernel's device ms and launches timed in place by the launch wrappers
+(``kernels.time_in_place``); ``--out`` also writes the full report
+(every device row) to a file. Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -34,18 +35,22 @@ STAT_KEYS = ("gen_ms", "solve_ms", "quality_ms", "eng_rounds_total", "assigned",
              "visited_cells_frac", "cand_cold_passes")
 
 
-def profile_tick(torch, arena, step, label: str) -> tuple[list[str], bool]:
-    """Run ``step()`` (one tick) under torch.profiler; the report lines and
-    whether any device time was recorded."""
+def profile_tick(torch, kernels, arena, step, label: str) -> tuple[list[str], bool]:
+    """Run ``step()`` (one tick) under torch.profiler, with the kernels'
+    in-place timing on; the report lines and whether any device time was
+    recorded."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    kernels.time_in_place(True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    in_place = kernels.in_place_ms()
+    kernels.time_in_place(False)
     st = arena.last_stats
 
     # device-side events only (kernels, copies, fills): a host op's row
@@ -69,6 +74,9 @@ def profile_tick(torch, arena, step, label: str) -> tuple[list[str], bool]:
         f"{'device_ms':>12} {'calls':>7}  name",
     ]
     lines += [f"{us / 1e3:12.3f} {cnt:7d}  {name[:100]}" for us, cnt, name in rows]
+    lines.append("in place (event pairs around each launch): " + "; ".join(
+        f"{name} {v['ms']:.3f} ms ({v['launches']})"
+        for name, v in sorted(in_place.items(), key=lambda kv: -kv[1]["ms"])))
     return lines, bool(rows)
 
 
@@ -127,13 +135,13 @@ def main() -> int:
         for label, churn_fn in (("warm tick, 1% requirement churn", req_churn),
                                 ("warm tick, 1% provider churn", prov_churn)):
             churn_fn()
-            part, got = profile_tick(torch, arena, lambda: solve(arena), label)
+            part, got = profile_tick(torch, kernels, arena, lambda: solve(arena), label)
             lines += part
             recorded &= got
     else:
         arena = TorchSolveArena(device="cuda", cold_every=0)
         solve(arena)  # warm-up: allocator, library loads
-        part, recorded = profile_tick(torch, arena, lambda: solve(arena), "cold tick")
+        part, recorded = profile_tick(torch, kernels, arena, lambda: solve(arena), "cold tick")
         lines += part
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

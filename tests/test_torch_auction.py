@@ -11,22 +11,30 @@ import jax.numpy as jnp
 from protocol_tpu.ops.cost import CostWeights as JCostWeights
 from protocol_tpu.ops.sparse import (
     _greedy_cleanup as j_greedy_cleanup,
+    _phase_adaptive as j_phase_adaptive,
     _sparse_auction_phase as j_sparse_auction_phase,
     _unassign_unhappy as j_unassign_unhappy,
     assign_auction_sparse_scaled as j_assign_auction_sparse_scaled,
+    assign_auction_sparse_warm as j_assign_auction_sparse_warm,
     candidates_topk_bidir as j_candidates_topk_bidir,
     frontier_bids as j_frontier_bids,
 )
 from protocol_tpu.trace import synth as j_synth
+from protocol_tpu_torch import kernels
 from protocol_tpu_torch.ops.sparse import (
     _greedy_cleanup,
+    _phase_adaptive,
     _sparse_auction_phase,
     _unassign_unhappy,
     assign_auction_sparse_scaled,
+    assign_auction_sparse_warm,
     frontier_bids,
 )
 
 from tests.test_torch_candidates import bits
+from tests.test_torch_kernels_cuda import k2_cluster_cases  # shared with the card tests
+
+K2_CASES = k2_cluster_cases()
 
 
 def cands(n_p, n_t, seed=2, k=16, r=8, extra=8):
@@ -171,3 +179,118 @@ def test_scaled_ladder_bits_and_stats(market):
     np.testing.assert_array_equal(bits(price.numpy()), bits(np.asarray(ref_price)))
     np.testing.assert_array_equal(ret.numpy(), np.asarray(ref_ret))
     assert got_stats == ref_stats
+
+
+# ---------------- K2's cluster cases (tests/test_torch_kernels_cuda.py) ----------------
+
+
+@pytest.mark.parametrize("name", sorted(K2_CASES))
+def test_k2_cluster_case_has_its_property(name):
+    case = K2_CASES[name]
+    case["check"](case)
+
+
+def _j_state(state):
+    return None if state is None else tuple(jnp.asarray(a) for a in state)
+
+
+def _t_state(state):
+    return None if state is None else to_t(*state)
+
+
+@pytest.mark.parametrize("name", sorted(K2_CASES))
+def test_k2_cluster_case_phase_bits(name):
+    """The port's plain phase against the reference's on each case: the
+    state K2 must reproduce at every cluster size."""
+    c = K2_CASES[name]
+    kw = dict(eps=c["eps"], max_iters=c["max_iters"], frontier=c["frontier"],
+              retire=c["retire"], stall_limit=0)
+    ref_state, ref_stall = j_sparse_auction_phase(
+        jnp.asarray(c["cp"]), jnp.asarray(c["cc"]), c["P"], _j_state(c["state"]), **kw)
+    state, stall = _sparse_auction_phase(*to_t(c["cp"], c["cc"]), c["P"], _t_state(c["state"]),
+                                         **kw)
+    assert_state_equal(state, ref_state)
+    assert int(stall) == int(ref_stall)
+
+
+@pytest.mark.parametrize("name", ["ragged", "retire_first", "negative_prices"])
+def test_phase_adaptive_with_hoisted_inputs_bits(name):
+    """_phase_adaptive builds _phase_inputs once a phase and hands them to
+    its 256-round segments: the reference's segments, stall and rounds."""
+    c = K2_CASES[name]
+    kw = dict(eps=c["eps"], max_iters=600, frontier=c["frontier"], retire=True, stall_limit=8)
+    ref_state, ref_stall = j_phase_adaptive(
+        jnp.asarray(c["cp"]), jnp.asarray(c["cc"]), c["P"], _j_state(c["state"]), **kw)
+    state, stall = _phase_adaptive(*to_t(c["cp"], c["cc"]), c["P"], _t_state(c["state"]), **kw)
+    assert_state_equal(state, ref_state)
+    assert int(stall) == int(ref_stall)
+
+
+@pytest.mark.parametrize("ladder", [True, False])
+def test_warm_auction_on_negative_prices_bits(ladder):
+    """The warm auction from the carried negative-price case's duals."""
+    c = K2_CASES["negative_prices"]
+    _, price, _, p4t, retired = c["state"]
+    js, ts = {}, {}
+    jres, jprice, jret = j_assign_auction_sparse_warm(
+        jnp.asarray(c["cp"]), jnp.asarray(c["cc"]), c["P"], jnp.asarray(price), jnp.asarray(p4t),
+        retired0=jnp.asarray(retired), stats_out=js, frontier_ladder=ladder, with_state=True)
+    tres, tprice, tret = assign_auction_sparse_warm(
+        *to_t(c["cp"], c["cc"]), c["P"], *to_t(price, p4t), retired0=torch.from_numpy(retired),
+        stats_out=ts, frontier_ladder=ladder, with_state=True)
+    np.testing.assert_array_equal(tres.provider_for_task.numpy(),
+                                  np.asarray(jres.provider_for_task))
+    np.testing.assert_array_equal(bits(tprice.numpy()), bits(np.asarray(jprice)))
+    np.testing.assert_array_equal(tret.numpy(), np.asarray(jret))
+    assert ts == js
+
+
+# ---------------- the launch counter and the in-place sums (kernels.py) ----------------
+
+
+def test_launch_counts_only_a_launch_and_a_refusal_raises():
+    before = kernels.LAUNCHES["auction_phase"]
+    kernels._launch("auction_phase", lambda *a: 0, 1, 2)
+    assert kernels.LAUNCHES["auction_phase"] == before + 1
+    with pytest.raises(RuntimeError, match=r"cudaError 912"):
+        kernels._launch("auction_phase", lambda *a: 912, what="auction_phase (cluster of 32)")
+    assert kernels.LAUNCHES["auction_phase"] == before + 1
+    kernels.LAUNCHES["auction_phase"] = before
+
+
+class _Event:
+    """A stand-in for a CUDA event: a time stamp, done or not yet."""
+
+    def __init__(self, t: float, done: bool = True):
+        self.t, self.done = t, done
+
+    def query(self):
+        return self.done
+
+    def synchronize(self):
+        self.done = True
+
+    def elapsed_time(self, end):
+        return end.t - self.t
+
+
+def test_in_place_sums_fold_finished_pairs_then_all():
+    assert kernels._TIMED is None  # off by default
+    kernels.time_in_place(True)
+    try:
+        kernels._TIMED.extend([
+            ("auction_phase", _Event(0.0), _Event(1.5)),
+            ("greedy_cleanup", _Event(2.0), _Event(2.25)),
+            ("auction_phase", _Event(3.0), _Event(5.0, done=False)),
+        ])
+        kernels._fold(wait=False)  # only the finished pairs
+        assert len(kernels._TIMED) == 1
+        assert kernels._IN_PLACE == {"auction_phase": [1.5, 1], "greedy_cleanup": [0.25, 1]}
+        assert kernels.in_place_ms() == {"auction_phase": {"ms": 3.5, "launches": 2},
+                                         "greedy_cleanup": {"ms": 0.25, "launches": 1}}
+    finally:
+        kernels.time_in_place(False)
+    assert kernels._TIMED is None and kernels.in_place_ms()["auction_phase"]["launches"] == 2
+    kernels.time_in_place(True)  # on again: every sum back to 0
+    assert kernels.in_place_ms() == {}
+    kernels.time_in_place(False)

@@ -32,6 +32,178 @@ def same_bits(a, b):
     return torch.equal(a, b)
 
 
+# ---------------- K2's cluster cases (shared with tests/test_torch_auction.py) ----------------
+# Each case is a phase call (candidates, state, eps, rounds, frontier) that
+# stresses one seam of K2's cluster layout: the open set's words split into
+# C contiguous slices, one a block, and the frontier, the bids and the
+# seats spread over the blocks. The CPU tests hold the port's plain phase
+# against the reference on each case; the card tests hold K2 against the
+# plain rounds at every cluster size the card runs. Defined here, in a
+# file that imports no JAX, so that the card tests can run without it.
+
+K2_CLUSTER_SIZES = (8, 16)  # the sizes the wrapper picks; the card tests add C = 1
+
+
+def k2_slice(t, T: int, C: int):
+    """The block of a C-block cluster whose shared memory holds task t's
+    open bit (t may be an array)."""
+    wpb = -(-((T + 31) // 32) // C)
+    return (np.asarray(t) // 32) // wpb
+
+
+def _market(seed: int, T: int, P: int, K: int, hi: float = 5.0):
+    rng = np.random.default_rng(seed)
+    cp = np.stack([rng.choice(P, K, replace=False) for _ in range(T)]).astype(np.int32)
+    cc = rng.uniform(0.0, hi, (T, K)).astype(np.float32)
+    return cp, cc
+
+
+def _state(P: int, T: int, price=None, owner=None, p4t=None, retired=None):
+    return (
+        np.int32(0),
+        np.zeros(P, np.float32) if price is None else price.astype(np.float32),
+        np.full(P, -1, np.int32) if owner is None else owner.astype(np.int32),
+        np.full(T, -1, np.int32) if p4t is None else p4t.astype(np.int32),
+        np.zeros(T, bool) if retired is None else retired.astype(bool),
+    )
+
+
+def _plain(case, rounds: int, state=None):
+    """The port's plain rounds on a case (CPU), from ``state`` (default the
+    case's), for ``rounds`` rounds: the state after them."""
+    cp, cc = torch.from_numpy(case["cp"]), torch.from_numpy(case["cc"])
+    st = case["state"] if state is None else state
+    if st is None:
+        st = _state(case["P"], cp.shape[0])
+    st = tuple(torch.from_numpy(np.array(a)) for a in st)
+    inputs = sp._phase_inputs(cp, cc, case["retire"])
+    B = min(case["frontier"], cp.shape[0])
+    out, _ = sp._auction_rounds_plain(*inputs, st, case["P"], case["eps"], rounds, B, 0)
+    return tuple(a.numpy() for a in out)
+
+
+def _open(case, state) -> np.ndarray:
+    """Indices of the open tasks (unassigned, with a candidate, unretired)."""
+    feasible = (case["cp"] >= 0).any(axis=1)
+    return np.flatnonzero((state[3] < 0) & feasible & ~state[4])
+
+
+def _check_ragged(case):
+    T = case["cp"].shape[0]
+    n_words = (T + 31) // 32
+    assert T % 32 != 0, "the last word is ragged"
+    for C in K2_CLUSTER_SIZES:
+        slices = k2_slice(np.arange(T), T, C)
+        assert np.unique(slices).size >= 2, f"tasks span several slices at C={C}"
+    assert n_words % -(-n_words // 8) != 0, "the last slice is short at C=8"
+    assert -(-n_words // 16) * 15 >= n_words, "some block owns no word at C=16"
+
+
+def _check_ties(case):
+    T = case["cp"].shape[0]
+    valid = case["cp"] >= 0
+    assert np.unique(case["cc"][valid]).size == 1, "every candidate at one cost"
+    # the first round: every open task bids on its first candidate (all
+    # values tie, the first argmax), all bids equal
+    front = _open(case, _state(case["P"], T))[: case["frontier"]]
+    p1 = case["cp"][front, 0]
+    for C in K2_CLUSTER_SIZES:
+        sl = k2_slice(front, T, C)
+        cross = [p for p in np.unique(p1) if np.unique(sl[p1 == p]).size > 1]
+        assert cross, f"equal bids from tasks of different slices at C={C}"
+
+
+def _check_wide(case):
+    T = case["cp"].shape[0]
+    n_open = _open(case, _state(case["P"], T))
+    for C in K2_CLUSTER_SIZES:
+        first = (k2_slice(n_open, T, C) == 0).sum()
+        assert first < min(case["frontier"], n_open.size), (
+            f"the frontier is wider than the first slice's open count at C={C}")
+
+
+def _check_evictions(case):
+    T = case["cp"].shape[0]
+    state = _state(case["P"], T)
+    crossed = {C: 0 for C in K2_CLUSTER_SIZES}
+    evictions = 0
+    for _ in range(case["max_iters"]):
+        nxt = _plain(case, 1, state)
+        owner0, owner1 = state[2], nxt[2]
+        moved = (owner0 >= 0) & (owner1 != owner0)
+        evictions += int(moved.sum())
+        for C in K2_CLUSTER_SIZES:
+            crossed[C] += int((k2_slice(owner0[moved], T, C) != k2_slice(owner1[moved], T, C)).sum())
+        state = nxt
+    assert evictions > 0, "the phase evicts"
+    for C in K2_CLUSTER_SIZES:
+        assert crossed[C] > 0, f"an evicted task lies in another slice than its evictor at C={C}"
+
+
+def _check_retire_first(case):
+    T = case["cp"].shape[0]
+    front = _open(case, case["state"])[: case["frontier"]]
+    after = _plain(case, 1)
+    newly = np.flatnonzero(after[4] & ~case["state"][4])
+    assert newly.size > 0 and np.isin(newly, front).all(), "tasks retire in the first round"
+    for C in K2_CLUSTER_SIZES:
+        assert np.unique(k2_slice(newly, T, C)).size > 1, f"in several slices at C={C}"
+
+
+def _check_negative(case):
+    price, p4t = case["state"][1], case["state"][3]
+    assert price.min() < 0 and (p4t >= 0).any() and _open(case, case["state"]).size > 0, (
+        "a carried state with negative prices, seated and open tasks")
+
+
+def k2_cluster_cases() -> dict:
+    """name -> case: ``cp`` [T, K] i32 and ``cc`` [T, K] f32 candidates, ``P``,
+    ``state`` (numpy (it, price, owner, p4t, retired), None = from
+    scratch), ``eps``, ``max_iters``, ``frontier``, ``retire``, and
+    ``check``, which asserts that the case has the property it is named
+    for. T <= 1,200."""
+    T = 32 * 16 * 2 + 7  # 1,031: 33 words, ragged last, slices of 5 / 3 words
+    cases = {}
+    cp, cc = _market(1, T, 700, 12)
+    cases["ragged"] = dict(cp=cp, cc=cc, P=700, state=None, eps=1.0, max_iters=300,
+                           frontier=512, check=_check_ragged)
+    cp, _ = _market(2, T, 64, 8)
+    cp[::9, 5:] = -1  # some shorter rows, still tied
+    cases["ties"] = dict(cp=cp, cc=np.ones(cp.shape, np.float32), P=64, state=None, eps=0.25,
+                         max_iters=200, frontier=256, check=_check_ties)
+    cp, cc = _market(3, T, 900, 10)
+    cp[:200] = -1  # the first slices' tasks have no candidate: never open
+    cases["wide"] = dict(cp=cp, cc=cc, P=900, state=None, eps=2.0, max_iters=120,
+                         frontier=512, check=_check_wide)
+    cp, cc = _market(4, T, 200, 6)
+    cases["evictions"] = dict(cp=cp, cc=cc, P=200, state=None, eps=0.05, max_iters=60,
+                              frontier=128, check=_check_evictions)
+    Tr, Pr = 600, 300
+    cp, cc = _market(5, Tr, Pr, 8)
+    pricey = np.arange(0, Tr, 12)  # tasks in every slice whose candidates are all dear
+    rng = np.random.default_rng(6)
+    cp[pricey] = np.stack([rng.choice(20, 8, replace=False) for _ in pricey])
+    price = np.zeros(Pr, np.float32)
+    price[:20] = 1000.0
+    cases["retire_first"] = dict(cp=cp, cc=cc, P=Pr, state=_state(Pr, Tr, price=price),
+                                 eps=0.5, max_iters=80, frontier=Tr, check=_check_retire_first)
+    cp, cc = _market(7, T, 1100, 16)
+    base = dict(cp=cp, cc=cc, P=1100, state=None, eps=1.0, max_iters=400, frontier=1024,
+                retire=True)
+    warm = _plain(base, 400)
+    rng = np.random.default_rng(8)
+    p4t = np.where(rng.random(T) < 0.1, -1, warm[3])
+    owner = np.full(1100, -1, np.int32)
+    owner[p4t[p4t >= 0]] = np.flatnonzero(p4t >= 0)
+    price = warm[1] - (warm[1].max() + np.float32(5.0))  # the warm auction's shift
+    cases["negative_prices"] = dict(cp=cp, cc=cc, P=1100,
+                                    state=_state(1100, T, price, owner, p4t), eps=0.02,
+                                    max_iters=200, frontier=64, check=_check_negative)
+    for c in cases.values():
+        c.setdefault("retire", True)
+    return cases
+
+
 @pytest.mark.parametrize("P,T", [(3000, 2000), (1024, 4096)])
 def test_candidate_kernel_matches_plain_bits(card, P, T):
     ep = synth_providers(np.random.default_rng(5), P, device=card)
@@ -59,6 +231,101 @@ def test_auction_kernel_matches_plain_bits(card):
         assert all(same_bits(a.to(b.dtype), b) for a, b in zip(got, ref))
         assert int(g_stall) == int(r_stall)
         state = got
+
+
+def k2_sizes():
+    """The cluster sizes K2 runs at on this card: 1, and each of
+    K2_CLUSTER_SIZES of which the card fits one cluster."""
+    import ctypes
+
+    from protocol_tpu_torch import kernels
+
+    n = ctypes.c_int(0)
+    sizes = [1]
+    for c in K2_CLUSTER_SIZES:
+        rc = kernels._lib("auction").k2_active_clusters(c, ctypes.addressof(n))
+        if rc == 0 and n.value >= 1:
+            sizes.append(c)
+    return sizes
+
+
+@pytest.mark.parametrize("name", sorted(k2_cluster_cases()))
+def test_auction_kernel_cluster_cases_match_plain_bits(card, name):
+    """K2 against the plain rounds on each cluster case, at every cluster
+    size the card runs, with the stall exit on and off, and with block 0
+    taking over small open sets and without: every state tensor and the
+    stall count bit for bit."""
+    from protocol_tpu_torch import kernels
+
+    c = k2_cluster_cases()[name]
+    cp = torch.from_numpy(c["cp"]).to(card)
+    cc = torch.from_numpy(c["cc"]).to(card)
+    T = cp.shape[0]
+    st = c["state"] if c["state"] is not None else _state(c["P"], T)
+    st = tuple(torch.from_numpy(np.array(a)).to(card) for a in st)
+    inputs = sp._phase_inputs(cp, cc, c["retire"])
+    B = min(c["frontier"], T)
+    sizes = k2_sizes()
+    assert sizes[-1] == kernels.k2_cluster(cp.device)
+    switch = kernels.K2_ONE_BLOCK_OPEN
+    try:
+        for stall_limit in (0, 8):
+            ref, r_stall = sp._auction_rounds_plain(*inputs, st, c["P"], c["eps"],
+                                                    c["max_iters"], B, stall_limit)
+            # block 0 alone from the default open count on, and never
+            for kernels.K2_ONE_BLOCK_OPEN in (switch, 0):
+                for C in sizes:
+                    got, g_stall = kernels.auction_phase(*inputs, st, P=c["P"], eps=c["eps"],
+                                                         max_iters=c["max_iters"], B=B,
+                                                         stall_limit=stall_limit, cluster=C)
+                    what = (C, stall_limit, kernels.K2_ONE_BLOCK_OPEN)
+                    assert all(same_bits(a.to(b.dtype), b) for a, b in zip(got, ref)), what
+                    assert int(g_stall) == int(r_stall), what
+    finally:
+        kernels.K2_ONE_BLOCK_OPEN = switch
+
+
+def test_auction_kernel_refused_cluster_raises(card):
+    """A cluster size the card refuses raises with its cudaError, counts no
+    launch and falls back to nothing; the next launch is unharmed."""
+    from protocol_tpu_torch import kernels
+
+    c = k2_cluster_cases()["ragged"]
+    cp = torch.from_numpy(c["cp"]).to(card)
+    cc = torch.from_numpy(c["cc"]).to(card)
+    inputs = sp._phase_inputs(cp, cc, True)
+    st = sp._initial_state(cp.shape[0], c["P"], card)
+    before = kernels.LAUNCHES["auction_phase"]
+    with pytest.raises(RuntimeError, match="cudaError"):
+        kernels.auction_phase(*inputs, st, P=c["P"], eps=1.0, max_iters=8, B=256, stall_limit=0,
+                              cluster=32)
+    assert kernels.LAUNCHES["auction_phase"] == before
+    got, _ = kernels.auction_phase(*inputs, st, P=c["P"], eps=1.0, max_iters=8, B=256,
+                                   stall_limit=0)
+    ref, _ = sp._auction_rounds_plain(*inputs, st, c["P"], 1.0, 8, 256, 0)
+    assert all(same_bits(a.to(b.dtype), b) for a, b in zip(got, ref))
+
+
+def test_in_place_sums_count_the_launches(card):
+    """In-place timing over a cold tick: one sum a launched key, with the
+    launches LAUNCHES counts and a positive device time."""
+    from protocol_tpu_torch import kernels
+
+    ep = synth_providers(np.random.default_rng(7), 1024, device="cpu")
+    er = synth_requirements(np.random.default_rng(8), 1024, device="cpu")
+    arena = TorchSolveArena(device=card, cold_every=0)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    kernels.time_in_place(True)
+    try:
+        arena.solve(ep, er, CostWeights())
+        sums = kernels.in_place_ms()
+    finally:
+        kernels.time_in_place(False)
+    launched = {k: n for k, n in kernels.LAUNCHES.items() if n}
+    assert launched["auction_phase"] > 0
+    assert {k: v["launches"] for k, v in sums.items()} == launched
+    assert all(v["ms"] > 0 for v in sums.values())
 
 
 def test_card_cold_tick_matches_cpu(card):
