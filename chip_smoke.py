@@ -4,8 +4,10 @@
     python3 chip_smoke.py
 
 Builds the hand kernels from ``protocol_tpu_torch/csrc`` (nvcc, sm_90a),
-holds each against its plain torch version on the card at the main path's
-shapes, and drives the main path at 65,536 providers x 65,536 tasks from
+prints K1's registers and local memory per instantiation, holds each
+kernel against its plain torch version on the card at the main path's
+shapes (K1's fused cold pass also against its forward and reverse
+launches, all six arrays bit for bit), and drives the main path at 65,536 providers x 65,536 tasks from
 the synthetic generators, in two runs, each with every launch counter set
 to 0 just before it and read just after:
 
@@ -186,10 +188,10 @@ SMALL = 2_048  # the CUDA-vs-CPU agreement check
 SEED = 2  # providers; requirements SEED + 1; churn rows SEED + 1 (own stream)
 CHURN = 0.01  # rows per warm tick, as the reference's warm bench
 EVENT_ROWS = 8  # providers repriced by the apply_rows event
-COLD_KERNELS = ("candidates_forward_rows", "candidates_reverse", "auction_phase",
-                "greedy_cleanup")
+COLD_KERNELS = ("candidates_bidir", "auction_phase", "greedy_cleanup")
 WARM_KERNELS = COLD_KERNELS + (
-    "candidates_reverse_blocks", "repair_enter", "repair_tile_min", "repair_refold",
+    "candidates_forward_rows", "candidates_reverse_blocks", "repair_enter", "repair_tile_min",
+    "repair_refold",
 )
 DENSE_KERNELS = ("dense_value_base", "dense_auction", "unbounded_best")
 PHASE_KERNELS = ("cost_block", "binpack_ffd")
@@ -208,8 +210,8 @@ BACKEND_TOP_K = 64
 SINKHORN_EPS, SINKHORN_ITERS = 0.05, 200
 AUCTION_EPS, AUCTION_ITERS = 0.01, 500
 BACKEND_KERNELS = ("greedy_assign", "sinkhorn", "cost_block", "dense_value_base",
-                   "dense_auction", "unbounded_best", "candidates_forward_rows",
-                   "candidates_reverse", "auction_phase", "greedy_cleanup")
+                   "dense_auction", "unbounded_best", "candidates_bidir", "auction_phase",
+                   "greedy_cleanup")
 # K13 against its plain version, as tests/test_torch_kernels_cuda.py states
 # the bounds: the sums run in another order on the card
 SINKHORN_UV_ATOL = 1e-3
@@ -232,6 +234,8 @@ ROUTE_SMALL_POOL = (2_048, 128, 16, 16)
 ROUTE_SMALL_BUDGET = 1 << 20
 ROUTE_KERNELS = ("candidates_forward_rows", "candidates_reverse", "auction_phase",
                  "greedy_cleanup", "unbounded_best")
+# the stateless route generates through CandidateMemo: K1's fused launch
+STATELESS_KERNELS = ("candidates_bidir", "auction_phase", "greedy_cleanup", "unbounded_best")
 ROUTE_SEATS_FLOOR = 0.98  # cold cached seats against the stateless route's
 K1_OFFSET = 123_456_789  # a jitter offset K1 is held at, bit for bit
 AA_REPLICAS, COLO_REPLICAS = 32, 8
@@ -254,8 +258,8 @@ STAGE_S = (100_000, 2_500, 20)
 STAGE_S_SMALL = (2_048, 256, 20)
 STAGE_S_K2_B = 8_192  # the referee's frontier (stage_s.py): K2 is held on its first call
 STAGE_S_KERNELS = ("blocked_feasibility", "blocked_row_lse", "blocked_col_lse",
-                   "candidates_forward_rows_biased", "candidates_forward_rows",
-                   "candidates_reverse", "auction_phase", "pair_cost")
+                   "candidates_forward_rows_biased", "candidates_bidir", "auction_phase",
+                   "pair_cost")
 # K14's passes against their plain versions, and the card's potentials
 # against the CPU's, on the finite entries (the masks exactly): the sums
 # run in another order, as K13's, so K13's bound
@@ -314,29 +318,42 @@ def bits_equal(torch, a, b) -> bool:
 
 def check_k1(torch, sp, ep, er, weights, tile, k, r, exact: bool, label: str,
              offset: int = 0) -> dict:
-    """K1 (both launches, the jitter keyed on task id + ``offset``) against
-    the plain scans on the same inputs."""
+    """K1 (the forward and reverse launches, the jitter keyed on task id +
+    ``offset``) against the plain scans on the same inputs, and the fused
+    launch against the two, all six arrays bit for bit at every weight,
+    and against the plain scans as the two are held."""
     fwd = sp.candidates_forward(ep, er, weights, k, tile, task_offset=offset)
     rev = sp.candidates_reverse(ep, er, weights, tile, r, 1, task_offset=offset)
+    fused = sp.candidates_fused(ep, er, weights, k, tile, r, 1, task_offset=offset)
     pf = sp._forward_plain(ep, er, weights, k, tile, task_offset=offset)
     pr = sp._reverse_plain(ep, er, weights, tile, r, 1, task_offset=offset)
     torch.cuda.synchronize()
     names = ("fwd_p", "fwd_c", "rev_t", "rev_c", "pool_t", "pool_c")
     got, ref = (*fwd, *rev), (*pf, *pr)
     res = {"label": label}
+    bad = [n for n, a, b in zip(names, fused, got) if not bits_equal(torch, a, b)]
+    if bad:
+        raise AssertionError(f"K1 {label}: the fused launch differs from the forward and "
+                             f"reverse launches: {bad}")
+    res["fused_equals_separate"] = True
     if exact:
-        bad = [n for n, a, b in zip(names, got, ref) if not bits_equal(torch, a, b)]
-        if bad:
-            raise AssertionError(f"K1 {label}: not bit-identical to the plain version: {bad}")
-        res["fwd_max_abs_err"] = res["rev_max_abs_err"] = 0.0
+        for what, out in (("separate", got), ("fused", fused)):
+            bad = [n for n, a, b in zip(names, out, ref) if not bits_equal(torch, a, b)]
+            if bad:
+                raise AssertionError(f"K1 {label}: the {what} launches are not bit-identical "
+                                     f"to the plain version: {bad}")
+        res["fwd_max_abs_err"] = res["rev_max_abs_err"] = res["bidir_max_abs_err"] = 0.0
     else:
-        fwd_err = float((fwd[1] - pf[1]).abs().max())
-        rev_err = max(float((rev[1] - pr[1]).abs().max()), float((rev[3] - pr[3]).abs().max()))
-        res["fwd_max_abs_err"], res["rev_max_abs_err"] = fwd_err, rev_err
+        def err(out, plain):  # the cost arrays: fwd_c, rev_c, pool_c
+            return max(float((a - b).abs().max()) for a, b in zip(out[1::2], plain[1::2]))
+
+        fwd_err, rev_err, bidir_err = err(fwd, pf), err(rev, pr), err(fused, ref)
+        res.update(fwd_max_abs_err=fwd_err, rev_max_abs_err=rev_err, bidir_max_abs_err=bidir_err)
         res["fwd_rows_differing"] = int((fwd[0] != pf[0]).any(dim=1).sum())
         res["pool_entries_differing"] = int((rev[2] != pr[2]).sum())
-        if max(fwd_err, rev_err) > COST_TOL:
-            raise AssertionError(f"K1 {label}: cost error {max(fwd_err, rev_err)} > {COST_TOL}")
+        if max(fwd_err, rev_err, bidir_err) > COST_TOL:
+            raise AssertionError(f"K1 {label}: cost error {max(fwd_err, rev_err, bidir_err)} "
+                                 f"> {COST_TOL}")
     print(f"K1 {label}: {json.dumps(res)}", flush=True)
     return res
 
@@ -959,7 +976,7 @@ def run_phases(torch, kernels, refresh) -> tuple[list, dict]:
     torch.cuda.synchronize()
     kernels.reset_launches()
     pt_calls, pt_originals = record_calls(
-        kernels, PHASE_KERNELS + ("candidates_reverse", "candidates_forward_rows"))
+        kernels, PHASE_KERNELS + ("candidates_bidir", "candidates_forward_rows"))
     phase_torch_stats = [refresh(arena_p, store, "phases-torch-cold", "torch_arena")]
     for name, fn in pt_originals.items():
         setattr(kernels, name, fn)
@@ -985,18 +1002,22 @@ def run_phases(torch, kernels, refresh) -> tuple[list, dict]:
           flush=True)
     check_phase_kernels(torch, kernels, bp, cost_matrix, pt_calls, "phases-torch-cold")
 
-    # K1 on the phases' calls: the colocation phase's reverse launch (rt
-    # tasks per tile) and phase 0's forward launch (2,048 rows, spread
-    # over lanes) against their plain versions
-    (rv_ep, rv_er, rv_w), rv_kw, rv_out = pt_calls["candidates_reverse"][0]
+    # K1 on the phases' calls: the colocation phase's fused launch (rt
+    # tasks per tile) and phase 0's forward launch (2,048 rows) against
+    # their plain versions
+    colo = [c for c in pt_calls["candidates_bidir"] if c[1]["rt"] > 1]
+    if not colo:
+        raise AssertionError("phase 0.5 made no fused K1 call at several tasks per tile")
+    (rv_ep, rv_er, rv_w), rv_kw, rv_out = colo[0]
     rv_tile, rv_r, rv_rt = rv_kw["tile"], rv_kw["r"], rv_kw["rt"]
-    rv_ref = sp._reverse_plain(rv_ep, rv_er, rv_w, rv_tile, rv_r, rv_rt)
+    rv_ref = sp._bidir_plain(rv_ep, rv_er, rv_w, rv_kw["k"], rv_tile, rv_r, rv_rt,
+                             rv_kw.get("offset", 0))
     (fr_ep, fr_er, fr_w, fr_k, fr_ids), _, fr_out = pt_calls["candidates_forward_rows"][0]
     fr_ref = sp._forward_plain(fr_ep, fr_er, fr_w, fr_k, min(1024, fr_er.num))
     torch.cuda.synchronize()
     k1_phase = {
-        "reverse_rt": rv_rt, "reverse_tiles": rv_er.num // rv_tile,
-        "reverse_bits": all(bits_equal(torch, a, b) for a, b in zip(rv_out, rv_ref)),
+        "fused_rt": rv_rt, "fused_tiles": rv_er.num // rv_tile,
+        "fused_bits": all(bits_equal(torch, a, b) for a, b in zip(rv_out, rv_ref)),
         "forward_rows_bits": all(bits_equal(torch, a, b) for a, b in zip(fr_out, fr_ref)),
     }
     print(f"K1 on the phases' calls ({fr_er.num} and {rv_er.num} slots x {rv_ep.num} "
@@ -1114,7 +1135,7 @@ def run_default_route(torch, kernels, refresh) -> dict:
     launches_stateless = dict(kernels.LAUNCHES)
     print(f"kernels (matcher, stateless sparse route): {json.dumps(launches_stateless)}",
           flush=True)
-    missing = [n for n in ROUTE_KERNELS if launches_stateless[n] == 0]
+    missing = [n for n in STATELESS_KERNELS if launches_stateless[n] == 0]
     if missing:
         raise AssertionError(f"the stateless sparse route launched no {missing}")
     del stateless
@@ -1804,10 +1825,10 @@ def run_stage_s(torch, kernels) -> tuple[list, dict, dict]:
 # the provider mesh: D = 4 views of the one card (utils/platform.py)
 MESH_D = 4
 MESH_SHARD_OFFSET = 16_384 * 3  # shard 3's first row at N / 4 tasks a shard
-MESH_KERNELS = ("candidates_forward_rows", "candidates_reverse", "repair_enter",
+MESH_KERNELS = ("candidates_bidir", "candidates_forward_rows", "repair_enter",
                 "repair_refold", "mesh_round_bid", "mesh_round_resolve", "mesh_round_apply")
 K16 = ("mesh_round_bid", "mesh_round_resolve", "mesh_round_apply")
-MESH_MATCHER_KERNELS = ("candidates_forward_rows", "candidates_reverse") + K16
+MESH_MATCHER_KERNELS = ("candidates_bidir",) + K16
 SRC_K16 = "protocol_tpu_torch/csrc/mesh_auction.cu"
 
 
@@ -1852,8 +1873,7 @@ def run_mesh(torch, kernels, refresh) -> tuple[list, dict]:
     # calls are not among them)
     gen_count = {"candidates_sharded": 0}
     counting = count_inside(kernels, (ps, torch_arena, tb), "candidates_topk_bidir_sharded",
-                            ("candidates_forward_rows", "candidates_reverse"), gen_count,
-                            "candidates_sharded")
+                            ("candidates_bidir",), gen_count, "candidates_sharded")
     counting.__enter__()
     try:
         mesh = make_mesh(MESH_D, dev)
@@ -2025,13 +2045,11 @@ def run_mesh(torch, kernels, refresh) -> tuple[list, dict]:
 
             def k1_shards():
                 for s_, er_s in enumerate(shards_s):
-                    sp.candidates_forward(ep, er_s, default, k, tile, task_offset=s_ * Tl)
-                    sp.candidates_reverse(ep, er_s, default, tile, r, 1, task_offset=s_ * Tl)
+                    sp.candidates_fused(ep, er_s, default, k, tile, r, 1, task_offset=s_ * Tl)
 
             def k1_shards_plain():
                 for s_, er_s in enumerate(shards_s):
-                    sp._forward_plain(ep, er_s, default, k, tile, task_offset=s_ * Tl)
-                    sp._reverse_plain(ep, er_s, default, tile, r, 1, task_offset=s_ * Tl)
+                    sp._bidir_plain(ep, er_s, default, k, tile, r, 1, task_offset=s_ * Tl)
 
             k1_ms = cuda_ms(torch, k1_shards, 2)
             k1_plain_ms = cuda_ms(torch, k1_shards_plain, 1)
@@ -2041,9 +2059,9 @@ def run_mesh(torch, kernels, refresh) -> tuple[list, dict]:
                          0.0, k1_ms, k1_plain_ms,
                          MESH_D * N * p_row + N * r_row + N * k * 8 + N * (N // tile + r * MESH_D) * 8,
                          N * N * OPS_PER_CELL + feas * OPS_PER_FEASIBLE_CELL)
-            k1_row.update(runs=("mesh_arena", "mesh_matcher"), launches_timed=2 * MESH_D,
-                          note=f"K1 forward + reverse over {MESH_D} shards of {Tl} tasks at "
-                               f"their offsets ({2 * MESH_D} launches), four shards on one "
+            k1_row.update(runs=("mesh_arena", "mesh_matcher"), launches_timed=MESH_D,
+                          note=f"K1's fused launch over {MESH_D} shards of {Tl} tasks at "
+                               f"their offsets ({MESH_D} launches), four shards on one "
                                f"card; launches: K1's launches inside the sharded pass only")
             rows_out.append(k1_row)
 
@@ -2556,9 +2574,12 @@ def main() -> int:
     build_s = kernels.build()
     print(f"build: {build_s:.1f} s (wall {time.perf_counter() - t0:.1f} s)", flush=True)
     for name, log in kernels.BUILD_LOG.items():
+        entry = ""
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}", flush=True)
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else ""
+            elif "registers" in line or "spill" in line:
+                print(f"  ptxas {name} {entry}: {line.split(':', 1)[-1].strip()}", flush=True)
     k2_c = kernels.k2_cluster(torch.device(dev, torch.cuda.current_device()))
     print(f"K2: one cluster of {k2_c} blocks of 1,024 threads (cudaOccupancyMaxActiveClusters); "
           f"block 0 alone from {kernels.K2_ONE_BLOCK_OPEN} open tasks", flush=True)
@@ -2590,10 +2611,15 @@ def main() -> int:
                                                               task_offset=K1_OFFSET), 3)
     rev_off_ms = cuda_ms(torch, lambda: sp.candidates_reverse(ep, er, default, tile, r, 1,
                                                               task_offset=K1_OFFSET), 3)
+    bidir_ms = cuda_ms(torch, lambda: sp.candidates_fused(ep, er, default, k, tile, r, 1), 3)
+    bidir_off_ms = cuda_ms(torch, lambda: sp.candidates_fused(ep, er, default, k, tile, r, 1,
+                                                              task_offset=K1_OFFSET), 3)
     print(f"K1 at {N}x{N}: forward {fwd_ms:.3f} ms, {fwd_off_ms:.3f} ms with a jitter offset; "
-          f"reverse {rev_ms:.3f} ms, {rev_off_ms:.3f} ms with a jitter offset", flush=True)
+          f"reverse {rev_ms:.3f} ms, {rev_off_ms:.3f} ms with a jitter offset; fused "
+          f"{bidir_ms:.3f} ms, {bidir_off_ms:.3f} ms with a jitter offset", flush=True)
     fwd_plain_ms = cuda_ms(torch, lambda: sp._forward_plain(ep, er, default, k, tile), 1)
     rev_plain_ms = cuda_ms(torch, lambda: sp._reverse_plain(ep, er, default, tile, r, 1), 1)
+    bidir_plain_ms = cuda_ms(torch, lambda: sp._bidir_plain(ep, er, default, k, tile, r, 1), 1)
     feasible = sum(
         int(compat_mask(ep, slice_requirements(er, t, tile)).sum()) for t in range(0, N, tile)
     )
@@ -2604,6 +2630,7 @@ def main() -> int:
     fwd_bytes = p_bytes + r_bytes + N * 4 + N * k * 8  # the task ids too
     n_tiles = N // tile
     rev_bytes = p_bytes + r_bytes + N * n_tiles * 8 + N * r * 8
+    bidir_bytes = p_bytes + r_bytes + N * k * 8 + N * n_tiles * 8 + N * r * 8
     print(f"K1 cells {cells}, feasible {feasible} ({feasible / cells:.4f}), ops {k1_ops}", flush=True)
 
     # ---- K2 against its plain version, on the main path's candidate arrays
@@ -2897,12 +2924,12 @@ def main() -> int:
                     lambda w: ps._forward_rows_plain(fr_ep, fr_er, w, fr_k, fr_ids.long()),
                     ("p", "c"))
     ms = cuda_ms(torch, lambda: kernels.candidates_forward_rows(fr_ep, fr_er, default, fr_k, fr_ids), 3)
-    ms_one_lane = cuda_ms(torch, lambda: kernels.candidates_forward_rows(
-        fr_ep, fr_er, default, fr_k, fr_ids, lanes=1), 3)
+    ms_unsplit = cuda_ms(torch, lambda: kernels.candidates_forward_rows(
+        fr_ep, fr_er, default, fr_k, fr_ids, rows_per_warp=8, split=1), 3)
     plain = cuda_ms(torch, lambda: ps._forward_rows_plain(fr_ep, fr_er, default, fr_k, fr_ids.long()), 1)
     R = fr_ids.numel()
-    print(f"candidates_forward_rows: {R} rows in {ms:.3f} ms with the default lanes, "
-          f"{ms_one_lane:.3f} ms with one lane per row", flush=True)
+    print(f"candidates_forward_rows: {R} rows in {ms:.3f} ms with the default layout "
+          f"{kernels.k1_rows_layout(R)}, {ms_unsplit:.3f} ms at 8 rows a warp", flush=True)
     feas = feasible_cells(torch, compat_mask, gather_providers, gather_requirements, fr_ep, fr_er,
                           t_ids=fr_ids.long())
     fwd_repair = row("candidates_forward_rows", SRC_K1, "protocol_tpu/parallel/sparse.py:702",
@@ -2910,7 +2937,7 @@ def main() -> int:
                      R * N * OPS_PER_CELL + feas * OPS_PER_FEASIBLE_CELL)
     fwd_repair = {"rows": R, **{x: fwd_repair[x] for x in (
         "replaces", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
-        "ms_one_lane": ms_one_lane}
+        "ms_unsplit": ms_unsplit}
 
     # K1 reverse, blocks variant (writes the pools in place: fresh copies per call)
     (rb_ep, rb_er, _, rb_tile, rb_p, rb_j, rb_pt, rb_pc), _ = args_of("candidates_reverse_blocks")
@@ -3155,8 +3182,8 @@ def main() -> int:
             "matcher_dense": launches_dense, "matcher_torch": launches_torch, **phase_runs,
             **route_runs, **backend_runs, **stage_runs, **mesh_runs, **dense_runs, **sink_runs}
 
-    # K1's forward launch: the cold pass over every task id; its call on
-    # the warm repair's dirty rows rides along as "repair_call"
+    # K1's forward launch timed over every task id; its call on the warm
+    # repair's dirty rows rides along as "repair_call"
     fwd_row = row("candidates_forward_rows", SRC_K1, "protocol_tpu/ops/sparse.py:131",
                   k1_default["fwd_max_abs_err"], fwd_ms, fwd_plain_ms, fwd_bytes, k1_ops)
     fwd_row["repair_call"] = fwd_repair
@@ -3164,12 +3191,18 @@ def main() -> int:
     rev_row = row("candidates_reverse", SRC_K1, "protocol_tpu/ops/sparse.py:172",
                   k1_default["rev_max_abs_err"], rev_ms, rev_plain_ms, rev_bytes, k1_ops)
     rev_row["offset_ms"] = rev_off_ms
+    # the cold pass: one fused launch, each cell scored once for both directions
+    bidir_row = row("candidates_bidir", SRC_K1, "protocol_tpu/ops/sparse.py:172",
+                    k1_default["bidir_max_abs_err"], bidir_ms,
+                    bidir_plain_ms, bidir_bytes, k1_ops)
+    bidir_row["offset_ms"] = bidir_off_ms
     k2_row = row("auction_phase", "protocol_tpu_torch/csrc/auction.cu",
                  "protocol_tpu/ops/sparse.py:418", 0.0, k2_ms, k2_plain_ms, k2_bytes, k2_ops)
     k2_row.update(cluster=k2_c, one_block_open=kernels.K2_ONE_BLOCK_OPEN,
                   us_per_round=k2_ms * 1e3 / k2_rounds, ms_b512=k2_ms_512,
                   us_per_round_b512=k2_ms_512 * 1e3 / k2_rounds_512)
     rows = [
+        bidir_row,
         fwd_row,
         rev_row,
         k2_row,

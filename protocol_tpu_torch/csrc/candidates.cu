@@ -1,63 +1,84 @@
-// K1: fused candidate pass for Hopper (sm_90a).
+// K1: the candidate kernel for Hopper (sm_90a).
 //
-// Replaces, on the cold path, the reference's candidate scan
-// (protocol_tpu/ops/sparse.py: _forward_tile_select and the reverse step
-// and carry of candidates_topk_reverse), over compat_mask
-// (ops/encoding.py), cost_matrix and tie_jitter (ops/cost.py). The
-// reference streams [P, tile] cost blocks through XLA; here every (p, t)
-// cell is scored in registers by one __device__ function and the
-// [P, T] block never reaches device memory.
+// Replaces the reference's candidate scan (protocol_tpu/ops/sparse.py:
+// _forward_tile_select and the reverse step and carry of
+// candidates_topk_reverse), over compat_mask (ops/encoding.py),
+// cost_matrix and tie_jitter (ops/cost.py). The reference streams
+// [P, tile] cost blocks through XLA and feeds both selections from each;
+// here every (provider, task) cell is scored once, in registers, by the
+// functions of cell.cuh, and the [P, T] block never reaches device memory.
 //
-// Two launches over the same cell function (cell.cuh):
-//   forward  (k1_forward_rows) for a list of global task ids, row i of
-//            the output for task t_ids[i]: the cold pass gives every task
-//            id, the warm-path repair (parallel/sparse.py
-//            _build_repair_forward's selection) the dirty ones. Each row
-//            walks the P providers in index order, split over up to 32
-//            lanes of a warp, each lane keeping a running top-k under the
-//            key (cost, provider), so the lower index wins among equal
-//            costs (lax.top_k's order); admitted costs are buffered and
-//            merged 16 at a time, and the lanes' lists are merged by
-//            shuffles, so that a few rows still fill the card. Writes
-//            [R, k], provider -1 where cost >= 5e8. A jitter offset
-//            (the reference's task_offset) shifts each task's jitter key,
-//            not the requirement row it reads. An optional [P] bias (the
-//            reference's provider_offset; the blocked Sinkhorn's rounding
-//            passes -eps * u) is added to the feasible cells' cost for the
-//            selection only: that instantiation keys the walk, its buffer
-//            and the lane merge on (selection, provider), carries each
-//            entry's true cost beside the key, writes the true costs, and
-//            sets the provider to -1 where the selection is >= 5e8. The
-//            unbiased instantiation is the code it was, bit for bit.
-//   reverse  per provider, four threads each take a quarter of the task
-//            tiles: the first argmin of each tile goes to pool_t / pool_c
-//            [P, n_tiles]; then the pools are folded in tile order into a
-//            register top-r carry (the carry wins ties). Writes rev_t /
-//            rev_c [P, r]. Where a tile contributes rt > 1 tasks (fewer
-//            than r tiles, as the matcher's colocation phase has), each
-//            tile keeps a stable register top-rt instead of its argmin,
-//            the pools are [P, n_tiles * rt] in tile order, and the fold
-//            takes their entries in that order: the stable top-r of
-//            concat(carry, tile's top-rt) per tile, the reference's step.
-//            It takes the same jitter offset as the forward launch.
-//            Blocks variant (k1_reverse_blocks; replaces parallel/sparse.py
-//            _build_repair_tile at rt = 1): one thread per flagged
-//            (provider, tile) block of a flat list, writing that block's
-//            first argmin into the pools in place; the list is ordered by
-//            (tile, provider), so a warp's task loads stay uniform.
+// One kernel template, k1_kernel<kFwd, kRev, kBias, kMulti>, in three
+// launches:
+//   bidir    (k1_bidir, kFwd and kRev) the cold pass: each task's k
+//            cheapest providers and each provider's per-tile best tasks
+//            from the same scored cells, then a fold launch (below);
+//   rows     (k1_forward_rows, kFwd) the forward selection for a list of
+//            global task ids (the warm repair's dirty rows, the cache's
+//            delta rows, the matcher's phases) and, with a [P] bias, the
+//            blocked Sinkhorn's biased rounding (kBias);
+//   reverse  (k1_reverse, kRev) the reverse selection alone (the cache's
+//            uncovered rows, the matcher's colocation phase at rt > 1).
+// The blocks variant (k1_reverse_blocks; replaces parallel/sparse.py
+// _build_repair_tile at rt = 1) rescores flagged (provider, tile) blocks
+// one thread each, into the pools in place.
 //
-// What bounds it on the H100: arithmetic. Each cell is ~40 integer ops of
-// the capability check plus, on feasible cells, two sinf, one asinf and
-// one sqrtf; the inputs are O(P + T) bytes and the outputs O(T k + P r).
-// The design therefore keeps the loop side of each launch (providers in
-// the forward launch, tasks in the reverse launch) as warp-uniform loads
-// that hit L1, hoists the per-row terms (base price term, cos(lat)) out
-// of the cell, and skips the haversine on infeasible cells (their cost is
-// INFEASIBLE whatever the distance). Measured on the H100 both launches
-// run far above that bound: the forward launch is held back by its
-// running top-k (a lane that inserts stalls its warp), which its buffered
-// insertion eases, the reverse launch by latency at low occupancy, which
-// its four-way split of the tiles eases.
+// Layout. A block is kWarps warps in G groups of S warps (G * S = kWarps,
+// S <= 2); a group owns rw <= 8 task rows, staged once in shared memory
+// with their per-row terms, jitter key, limits and GPU options; its S
+// warps split the providers. The block streams the providers in chunks
+// of kChunk staged in shared memory; a lane takes two providers of a
+// 64-provider step and walks its warp's rows. Per step:
+//   1. the capability check per (row, provider) cell (compat_many: compat's
+//      rules with each row's limits loaded once for both providers);
+//      infeasible cells cost exactly INFEASIBLE, feasible ones are queued
+//      per warp at a warp scan of the lanes' counts;
+//   2. the queued cells are scored one a lane (cell_terms and the jitter,
+//      feasible_cost), so the haversine never runs on a warp whose lanes
+//      are mostly infeasible;
+//   3. selection: forward, a cell whose selection value is at most its
+//      row's threshold (the k-th key's value) is pushed with its key into
+//      the row's buffer (ballot, no atomics); a full buffer is merged into
+//      the row's sorted top-k by rank (every key is unique, so each
+//      entry's place is the count of keys below it), and the k-th key
+//      gives the new threshold, so once it settles almost no step admits
+//      a cell and the warp skips its ballots. Reverse, each lane keeps the
+//      least (or, at rt > 1, the stable top-rt) key of its provider over
+//      the warp's rows, which lie in one tile (rw divides the tile); the
+//      block's warps are combined per provider in shared memory and
+//      flushed to a [P, n_tiles * rt] key buffer with 64-bit atomicMin
+//      (at rt > 1 a cascade: the displaced key moves on to the next slot),
+//      which keeps the rt least keys of every block in any order. The fold
+//      launch decodes the buffer into the pools and folds them per provider
+//      with fold_pools, the carry winning ties, as before.
+//
+// Keys. A selection is a function of unique 64-bit keys: forward (cost,
+// provider), or on the biased path (selection, provider) with selection =
+// cost + bias[p] on the cells below INFEASIBLE/2; reverse (cost, task).
+// The float goes to the high word through order_bits (sign bit set on a
+// non-negative float, every bit flipped on a negative one), so unsigned
+// order is float order, then the lower index. order_bits is a bijection:
+// the written costs and selections are decoded from the keys bit for bit;
+// the biased path rescores its k winners for their true costs. It orders
+// -0 before +0, where the parent's `<` held them equal; no K1 key is -0:
+// a feasible cost below INFEASIBLE/2 gets + jitter with jitter >= +0, and
+// in round-to-nearest -0 + (+0) = +0, a larger cost is positive, an
+// infeasible cell is 1e9; so a selection c + bias[p] is -0 only for c = -0.
+// With unique keys any order of scoring gives the same selections, which
+// are the parent's at every weight.
+//
+// What bounds it on the H100: operations. Every cell pays the capability
+// check, a feasible cell (22% at the main path's 65,536^2) the haversine
+// (two sinf, an asinf, an IEEE square root); the inputs are O(P + T)
+// bytes and the outputs O(T k + P n_tiles). The design keeps loads off
+// the per-cell path (providers staged a chunk a block, each row's limits
+// and options loaded once for two providers as warp-uniform broadcasts,
+// an absent limit folded into one compare), packs the feasible cells
+// across the lanes, scores every cell once for both directions, and
+// admits into the forward select only the cells that reach the
+// threshold. Measured by clock64 probes at the kernel's phase markers: the
+// check still takes the largest share of the fused launch's cycles, then
+// the scoring and the selection, then the block barrier of a chunk.
 //
 // Numerics: built with -fmad=false and no fast-math, so every f32
 // operation rounds once, in the reference's order, as torch's eager ops
@@ -70,259 +91,454 @@
 
 namespace {
 
-// Admitted costs wait in a small unsorted buffer (arrival = provider
-// order) and are merged into the sorted list when it fills: appending is
-// two stores, where a sorted insertion shifts half the list while the
-// other lanes of the warp wait.
-constexpr int kBuf = 16;
+using u64 = unsigned long long;
 
-// Merge the first nq buffered entries into the sorted top-k (bc, bp).
-// Every list entry has a lower provider index than every buffered one,
-// so the list wins ties; the buffer is sorted stably first. The key bc /
-// qc is the cost, or on the biased path the selection value (cost plus
-// the provider's bias); there bx / qx carry each entry's true cost along.
-template <bool kBias>
-__device__ __forceinline__ void flush_topk(float* bc, int32_t* bp, float* bx, float* qc,
-                                           int32_t* qp, float* qx, int nq, int k) {
-  for (int i = 1; i < nq; ++i) {
-    const float x = qc[i];
-    const int32_t xp = qp[i];
-    float xx = 0.0f;
-    if constexpr (kBias) xx = qx[i];
-    int j = i;
-    while (j > 0 && qc[j - 1] > x) {
-      qc[j] = qc[j - 1];
-      qp[j] = qp[j - 1];
-      if constexpr (kBias) qx[j] = qx[j - 1];
-      --j;
-    }
-    qc[j] = x;
-    qp[j] = xp;
-    if constexpr (kBias) qx[j] = xx;
-  }
-  float mc[kMaxK];
-  int32_t mp[kMaxK];
-  float mx[kBias ? kMaxK : 1];
-  int a = 0, b = 0;
-  for (int i = 0; i < k; ++i) {  // a <= i < k: the list never runs out
-    if (b >= nq || bc[a] <= qc[b]) {
-      mc[i] = bc[a];
-      mp[i] = bp[a];
-      if constexpr (kBias) mx[i] = bx[a];
-      ++a;
-    } else {
-      mc[i] = qc[b];
-      mp[i] = qp[b];
-      if constexpr (kBias) mx[i] = qx[b];
-      ++b;
-    }
-  }
-  for (int i = 0; i < k; ++i) {
-    bc[i] = mc[i];
-    bp[i] = mp[i];
-    if constexpr (kBias) bx[i] = mx[i];
-  }
+constexpr int kWarps = 4;             // warps a block
+constexpr int kThreads = kWarps * 32;
+constexpr int kChunk = kThreads;      // providers staged a chunk: one a thread
+constexpr int kStep = 64;             // providers a warp step: two a lane
+constexpr int kSub = kChunk / kStep;  // steps a chunk (a group splits over at most kSub warps)
+constexpr int kMaxRows = 8;           // task rows a warp group
+constexpr int kCap = 32;              // a row's admission buffer: one push of up to 32
+constexpr u64 kNoKey = ~0ull;         // above every key (provider and task ids < 2^31)
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ uint32_t order_bits(float f) {
+  const uint32_t u = __float_as_uint(f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
-// Walk providers [p0, p1) in index order for task row tr (global id t),
-// keeping the running top-k (bc, bp) under the key (cost, provider). On
-// the biased path (the reference's provider_offset) the key is the
-// selection value where(cost < INFEASIBLE/2, cost + bias[p], cost) and bx
-// holds each entry's true cost, as the walk computed it.
-template <bool kBias>
-__device__ __forceinline__ void walk_topk(const Prov& prov, const Req& req, const Aux& aux,
-                                          const Weights& w, const TaskRow& tr, int t, int K,
-                                          int W, int k, int p0, int p1,
-                                          const float* __restrict__ bias, float* bc,
-                                          int32_t* bp, float* bx) {
-  for (int j = 0; j < k; ++j) {
-    bc[j] = INFINITY;
-    bp[j] = -1;
-    if constexpr (kBias) bx[j] = INFINITY;
-  }
-  float qc[kBuf];
-  int32_t qp[kBuf];
-  float qx[kBias ? kBuf : 1];
-  int nq = 0;
-  // the list's k-th key as of the last merge: never below the exact
-  // running threshold, so every key that belongs in the top-k is
-  // admitted (the merge drops the rest)
-  float worst = INFINITY;
-  for (int p = p0; p < p1; ++p) {
-    const ProvRow pr = load_prov(prov, aux, p);
-    const float c = cell_cost(pr, p, tr, t, req, K, W, w);
-    float s = c;
-    if constexpr (kBias) s = c < kHalfInfeasible ? __fadd_rn(c, bias[p]) : c;
-    if (s < worst) {
-      qc[nq] = s;
-      qp[nq] = p;
-      if constexpr (kBias) qx[nq] = c;
-      if (++nq == kBuf) {
-        flush_topk<kBias>(bc, bp, bx, qc, qp, qx, nq, k);
-        nq = 0;
-        worst = bc[k - 1];
-      }
-    }
-  }
-  flush_topk<kBias>(bc, bp, bx, qc, qp, qx, nq, k);
+__device__ __forceinline__ float order_float(uint32_t u) {
+  return __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
 }
 
-// Row i is task t_ids[i], shared by `lanes` threads of one warp (a power
-// of two <= 32). Lane j walks the j-th contiguous part of
-// the providers with its own top-k; the lanes then merge their lists k
-// times by warp shuffles, taking the least (cost, provider) each time, so
-// the lower index wins among equal costs as in one walk (each list keeps
-// its own lower indices first). A few rows (a requirement-churn tick's
-// ~1%, a matcher phase's few thousand slots) still spread over the card
-// this way; lanes = 1 is one walk per row, as the cold pass over 65,536
-// tasks takes.
-template <bool kBias>
-__global__ void __launch_bounds__(128) forward_rows_kernel(Prov prov, Req req, Aux aux, Weights w,
-                                                           int P, int n_rows,
-                                                           const int32_t* __restrict__ t_ids,
-                                                           int K, int W, int k, int lanes,
-                                                           uint32_t offset,
-                                                           const float* __restrict__ bias,
-                                                           int32_t* __restrict__ out_p,
-                                                           float* __restrict__ out_c) {
-  // every thread of a warp takes part in the shuffles: no early return
-  const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  const int i = g / lanes;
-  const int lane = g % lanes;
-  const bool active = i < n_rows;
-  float bc[kMaxK];
-  int32_t bp[kMaxK];
-  float bx[kBias ? kMaxK : 1];
-  if (active) {
-    const int t = t_ids[i];
-    const TaskRow tr = load_task(req, aux, t, K, offset);
-    const int part = (P + lanes - 1) / lanes;
-    const int p0 = min(P, lane * part);
-    walk_topk<kBias>(prov, req, aux, w, tr, t, K, W, k, p0, min(P, p0 + part), bias, bc, bp, bx);
-  } else {
-    for (int j = 0; j < k; ++j) {
-      bc[j] = INFINITY;
-      bp[j] = -1;
-      if constexpr (kBias) bx[j] = INFINITY;
-    }
-  }
-  int head = 0;
-  for (int j = 0; j < k; ++j) {
-    const float c = head < k ? bc[head] : INFINITY;
-    int32_t p = head < k ? bp[head] : -1;
-    if (p < 0) p = INT_MAX;  // an empty slot sorts last
-    float best_c = c;
-    int32_t best_p = p;
-    // the biased path's key is the selection value: its true cost rides along
-    float best_x = 0.0f;
-    if constexpr (kBias) best_x = head < k ? bx[head] : INFINITY;
-    for (int off = lanes >> 1; off > 0; off >>= 1) {
-      const float oc = __shfl_xor_sync(0xffffffffu, best_c, off);
-      const int32_t op = __shfl_xor_sync(0xffffffffu, best_p, off);
-      float ox = 0.0f;
-      if constexpr (kBias) ox = __shfl_xor_sync(0xffffffffu, best_x, off);
-      if (oc < best_c || (oc == best_c && op < best_p)) {
-        best_c = oc;
-        best_p = op;
-        if constexpr (kBias) best_x = ox;
-      }
-    }
-    if (p == best_p) ++head;  // provider ids are unique across the lanes
-    if (active && lane == 0) {
-      out_c[(size_t)i * k + j] = kBias ? best_x : best_c;
-      out_p[(size_t)i * k + j] = best_c < kHalfInfeasible ? best_p : -1;
-    }
-  }
+__device__ __forceinline__ u64 make_key(float f, uint32_t idx) {
+  return ((u64)order_bits(f) << 32) | idx;
 }
 
-// The reverse launch serves 32 providers per block with kParts warps: warp
-// q takes the q-th contiguous part of the task tiles for all 32 providers,
-// so the loop side stays warp-uniform and four times as many warps are
-// resident as with one thread per provider; the pools are folded in tile
-// order afterwards, so ties resolve exactly as one walk would resolve
-// them. (The forward launch splits a row only where the rows are too
-// few to fill the card: split the same way at full width, its top-k
-// insertions per cell rise and it measured 2x slower.)
-constexpr int kParts = 4;
-constexpr int kRows = 32;
+// Keys of a sorted list below x: its place in the list.
+__device__ __forceinline__ int count_below(const u64* list, int n, u64 x) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (list[mid] < x)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo;
+}
 
+// Insert x into an ascending list of rt keys, dropping the largest.
 template <bool kMulti>
-__global__ void __launch_bounds__(kRows * kParts) reverse_kernel(
-    Prov prov, Req req, Aux aux, Weights w, int P, int T, int K, int W, int tile, int r, int rt,
-    uint32_t offset, int32_t* pool_t, float* pool_c, int32_t* __restrict__ rev_t,
-    float* __restrict__ rev_c) {
-  // pool_t / pool_c are written by every part and read back by part 0
-  const int lane = threadIdx.x % kRows;
-  const int part = threadIdx.x / kRows;
-  const int p = blockIdx.x * kRows + lane;
-  const bool active = p < P;
-  const int n_tiles = T / tile;
-  const int chunk = (n_tiles + kParts - 1) / kParts;
-  const int ti_end = min(n_tiles, (part + 1) * chunk);
-  const int n_pool = n_tiles * rt;
-  if (active) {
-    const ProvRow pr = load_prov(prov, aux, p);
-    for (int ti = part * chunk; ti < ti_end; ++ti) {
-      const int t0 = ti * tile;
-      if constexpr (!kMulti) {
-        float best = INFINITY;
-        int32_t bt = -1;
-        for (int j = 0; j < tile; ++j) {
-          const int t = t0 + j;
-          const TaskRow tr = load_task(req, aux, t, K, offset);
-          const float c = cell_cost(pr, p, tr, t, req, K, W, w);
-          if (c < best) {  // strict: the first index among ties
-            best = c;
-            bt = t;
+__device__ __forceinline__ void insert_key(u64* best, u64 x, int rt) {
+  if constexpr (!kMulti) {
+    best[0] = x < best[0] ? x : best[0];
+  } else {
+#pragma unroll
+    for (int e = 0; e < kMaxR; ++e) {
+      if (e < rt) {
+        const u64 lo = x < best[e] ? x : best[e];
+        x = x < best[e] ? best[e] : x;
+        best[e] = lo;
+      }
+    }
+  }
+}
+
+// Shared memory of a block, carved from one dynamic allocation (16-byte
+// aligned regions). Per-warp regions are indexed by the warp.
+struct K1Smem {
+  int prov, bias, task, tid, caps, opt, ctile, queue, list, buf, tmp, thr, nlist, nbuf, rev,
+      bytes;
+};
+
+__host__ __device__ inline int k1_take(int& at, int bytes) {
+  const int o = at;
+  at += (bytes + 15) & ~15;
+  return o;
+}
+
+__host__ __device__ inline K1Smem k1_smem(bool fwd, bool rev, bool bias, int k, int rt, int K) {
+  K1Smem s;
+  int at = 0;
+  const int fw = fwd ? kWarps : 0;
+  s.prov = k1_take(at, kChunk * (int)sizeof(ProvRow));
+  s.bias = k1_take(at, bias ? kChunk * 4 : 0);
+  s.task = k1_take(at, kWarps * kMaxRows * (int)sizeof(TaskRow));
+  s.tid = k1_take(at, kWarps * kMaxRows * 4);
+  s.caps = k1_take(at, kWarps * kMaxRows * (int)sizeof(RowCaps));     // the rows' limits
+  s.opt = k1_take(at, kWarps * kMaxRows * K * (int)sizeof(OptCaps));  // the rows' GPU options
+  s.ctile = k1_take(at, kWarps * kMaxRows * kStep * 4);  // a warp's costs [row][provider]
+  s.queue = k1_take(at, kWarps * kMaxRows * kStep * 2);  // a warp's feasible cells
+  s.list = k1_take(at, fw * kMaxRows * k * 8);          // sorted top-k [warp][row][k]
+  s.buf = k1_take(at, fw * kMaxRows * kCap * 8);        // admitted keys [warp][row][kCap]
+  s.tmp = k1_take(at, fw * k * 8);                      // a merge's output [warp][k]
+  s.thr = k1_take(at, fw * kMaxRows * 4);               // admission thresholds
+  s.nlist = k1_take(at, fw * kMaxRows * 4);
+  s.nbuf = k1_take(at, fw * kMaxRows * 4);
+  s.rev = k1_take(at, rev ? kWarps * kChunk * rt * 8 : 0);  // [group][provider][rt]
+  s.bytes = at;
+  return s;
+}
+
+// Merge a row's nb admitted keys (unsorted) into its sorted list of nl:
+// every key's place in the merged order is the count of keys below it in
+// both (keys are unique), and the first k places are kept. The k-th key's
+// value becomes the row's threshold. All 32 lanes call it together.
+__device__ void merge_row(u64* list, int* nlist, const u64* buf, int nb, u64* tmp, float* thr,
+                          int k, int lane) {
+  const int nl = *nlist;
+  const u64 l0 = lane < nl ? list[lane] : kNoKey;
+  const u64 l1 = lane + 32 < nl ? list[lane + 32] : kNoKey;
+  const u64 b0 = lane < nb ? buf[lane] : kNoKey;
+  const u64 b1 = lane + 32 < nb ? buf[lane + 32] : kNoKey;
+  int pl0 = lane, pl1 = lane + 32, pb0 = 0, pb1 = 0;
+  for (int y = 0; y < nb; ++y) {
+    const u64 v = buf[y];
+    pl0 += v < l0;
+    pl1 += v < l1;
+    pb0 += v < b0;
+    pb1 += v < b1;
+  }
+  for (int y = 0; y < nl; ++y) {
+    const u64 v = list[y];
+    pb0 += v < b0;
+    pb1 += v < b1;
+  }
+  if (lane < nl && pl0 < k) tmp[pl0] = l0;
+  if (lane + 32 < nl && pl1 < k) tmp[pl1] = l1;
+  if (lane < nb && pb0 < k) tmp[pb0] = b0;
+  if (lane + 32 < nb && pb1 < k) tmp[pb1] = b1;
+  __syncwarp();
+  const int nn = min(k, nl + nb);
+  for (int a = lane; a < nn; a += 32) list[a] = tmp[a];
+  __syncwarp();
+  if (lane == 0) {
+    *nlist = nn;
+    *thr = nn == k ? order_float((uint32_t)(list[k - 1] >> 32)) : INFINITY;
+  }
+  __syncwarp();
+}
+
+struct K1Args {
+  Prov prov;
+  Req req;
+  Aux aux;
+  Weights w;
+  int P, T, K, W;
+  const int32_t* t_ids;  // the rows' global task ids; null: row i is task i
+  int n_rows;
+  int rw, split;          // rows a warp group, warps a group (the providers' split)
+  int k, tile, rt, n_pool;
+  uint32_t offset;        // jitter offset, added to a task's key where its row is staged
+  const float* bias;      // [P] selection bias (kBias)
+  int32_t* out_p;         // [n_rows, k] (kFwd)
+  float* out_c;
+  u64* rkey;              // [P, n_pool] reverse keys, all ones before the launch (kRev)
+};
+
+// Flush a block's rt least reverse keys of provider p in tile ti into the
+// key buffer: each key is min-exchanged down the tile's rt slots, the
+// displaced one going on, so the slots end as the rt least keys of all
+// blocks, ascending, whatever the order of the blocks.
+template <bool kMulti>
+__device__ __forceinline__ void flush_rev(const K1Args& a, int p, int ti, const u64* best) {
+  u64* slot = a.rkey + (size_t)p * a.n_pool + (size_t)ti * a.rt;
+  if constexpr (!kMulti) {
+    atomicMin(slot, best[0]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < kMaxR; ++e) {
+      if (e < a.rt) {
+        u64 x = best[e];
+        for (int s = 0; s < a.rt && x != kNoKey; ++s) {
+          const u64 old = atomicMin(slot + s, x);
+          x = old > x ? old : x;
+        }
+      }
+    }
+  }
+}
+
+template <bool kFwd, bool kRev, bool kBias, bool kMulti>
+__global__ void __launch_bounds__(kThreads, 4) k1_kernel(const K1Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int kR = kMulti ? kMaxR : 1;
+  const K1Smem L = k1_smem(kFwd, kRev, kBias, a.k, a.rt, a.K);
+  ProvRow* s_prov = reinterpret_cast<ProvRow*>(smem + L.prov);
+  float* s_bias = reinterpret_cast<float*>(smem + L.bias);
+  TaskRow* s_task = reinterpret_cast<TaskRow*>(smem + L.task);
+  int* s_tid = reinterpret_cast<int*>(smem + L.tid);
+  RowCaps* s_caps = reinterpret_cast<RowCaps*>(smem + L.caps);
+  OptCaps* s_opt = reinterpret_cast<OptCaps*>(smem + L.opt);
+  u64* s_list = reinterpret_cast<u64*>(smem + L.list);
+  int* s_nlist = reinterpret_cast<int*>(smem + L.nlist);
+  u64* s_rev = reinterpret_cast<u64*>(smem + L.rev);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const uint32_t lt = (1u << lane) - 1u;
+  float* ctile = reinterpret_cast<float*>(smem + L.ctile) + warp * kMaxRows * kStep;
+  uint16_t* queue = reinterpret_cast<uint16_t*>(smem + L.queue) + warp * kMaxRows * kStep;
+  u64* w_list = s_list + warp * kMaxRows * a.k;
+  u64* w_buf = reinterpret_cast<u64*>(smem + L.buf) + warp * kMaxRows * kCap;
+  u64* w_tmp = reinterpret_cast<u64*>(smem + L.tmp) + warp * a.k;
+  float* w_thr = reinterpret_cast<float*>(smem + L.thr) + warp * kMaxRows;
+  int* w_nlist = s_nlist + warp * kMaxRows;
+  int* w_nbuf = reinterpret_cast<int*>(smem + L.nbuf) + warp * kMaxRows;
+
+  const int groups = kWarps / a.split;
+  const int g = warp / a.split, q = warp % a.split;
+  const int row0 = blockIdx.x * groups * a.rw;  // the block's first row
+  const int grow0 = row0 + g * a.rw;            // the group's first row
+  const int nact = max(0, min(a.rw, a.n_rows - grow0));
+  const TaskRow* w_task = s_task + g * a.rw;
+  const int* w_tid = s_tid + g * a.rw;
+  const RowCaps* w_caps = s_caps + g * a.rw;
+  const OptCaps* w_opt = s_opt + g * a.rw * a.K;
+
+  // the block's task rows and their GPU options, loaded once; the jitter
+  // offset goes into the row's key
+  for (int j = threadIdx.x; j < groups * a.rw; j += kThreads) {
+    const int row = row0 + j;
+    if (row < a.n_rows) {
+      const int t = a.t_ids ? a.t_ids[row] : row;
+      s_tid[j] = t;
+      const TaskRow tr = load_task(a.req, a.aux, t, a.K, a.offset);
+      s_task[j] = tr;
+      s_caps[j] = load_row_caps(tr);
+    }
+  }
+  for (int e = threadIdx.x; e < groups * a.rw * a.K; e += kThreads) {
+    const int j = e / a.K, row = row0 + j;
+    if (row < a.n_rows) {
+      const int t = a.t_ids ? a.t_ids[row] : row;
+      s_opt[e] = load_opt(a.req, t * a.K + e % a.K);
+    }
+  }
+  if constexpr (kFwd) {
+    if (lane < kMaxRows) {
+      w_thr[lane] = INFINITY;
+      w_nlist[lane] = 0;
+      w_nbuf[lane] = 0;
+    }
+  }
+
+  for (int cb = 0; cb < a.P; cb += kChunk) {
+    __syncthreads();  // the last chunk's readers are done
+    {
+      const int p = cb + threadIdx.x;
+      if (p < a.P) {
+        s_prov[threadIdx.x] = load_prov(a.prov, a.aux, p);
+        if constexpr (kBias) s_bias[threadIdx.x] = a.bias[p];
+      }
+    }
+    __syncthreads();
+    if (nact > 0) {
+      for (int m = q; m < kSub; m += a.split) {
+        // a lane's two providers: i0 and i0 + 32 of the chunk
+        const int i0 = m * kStep + lane;
+        bool pv[2];
+        ProvRow pr[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          pv[h] = cb + i0 + 32 * h < a.P;
+          pr[h] = s_prov[i0 + 32 * h];
+        }
+        const uint32_t valid = (pv[0] ? 1u : 0u) | (pv[1] ? 2u : 0u);
+        {
+          // 1. the capability check, each row's fields and options loaded
+          // once for both providers; bit 2j + h of fm: cell (j, h) feasible
+          uint32_t fm = 0;
+          for (int j = 0; j < nact; ++j) {
+            const RowCaps tc = w_caps[j];
+            const uint32_t f = valid & compat_many<2>(pr, tc, w_opt + j * a.K,
+                                                      a.req.gpu_model_mask +
+                                                          (size_t)w_tid[j] * a.K * a.W,
+                                                      a.K, a.W);
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              if ((valid & ~f) >> h & 1u) ctile[j * kStep + 32 * h + lane] = kInfeasible;
+            fm |= f << (2 * j);
+          }
+          // the feasible cells into the warp's queue at a scan of the counts
+          const int cnt = __popc(fm);
+          int incl = cnt;
+#pragma unroll
+          for (int d = 1; d < 32; d <<= 1) {
+            const int v = __shfl_up_sync(kFull, incl, d);
+            if (lane >= d) incl += v;
+          }
+          const int qn = __shfl_sync(kFull, incl, 31);
+          int pos = incl - cnt;
+          while (fm) {
+            const int b = __ffs(fm) - 1;
+            fm &= fm - 1;
+            queue[pos++] = (uint16_t)((b >> 1) << 6 | (b & 1) << 5 | lane);
+          }
+          __syncwarp();
+          // 2. score the queued cells, one a lane
+          for (int e = lane; e < qn; e += 32) {
+            const int en = queue[e];
+            const int j = en >> 6, l = en & (kStep - 1);
+            ctile[j * kStep + l] =
+                feasible_cost(s_prov[m * kStep + l], cb + m * kStep + l, w_task[j], a.w);
+          }
+          __syncwarp();
+        }
+        // 3. selection. Forward: a cell is admitted when its selection
+        // value is <= the row's threshold (the k-th key's value), which
+        // takes in every cell whose key is below the k-th key; its key is
+        // built then. Reverse: each lane keeps its providers' least (at rt
+        // > 1 the rt least) (cost, task) keys over the warp's rows.
+        u64 best[2][kR];
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < kR; ++e) best[h][e] = kNoKey;
+        float pb[2] = {0.0f, 0.0f};
+        if constexpr (kBias) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) pb[h] = pv[h] ? s_bias[i0 + 32 * h] : 0.0f;
+        }
+        for (int j = 0; j < nact; ++j) {
+          float c[2];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) c[h] = ctile[j * kStep + 32 * h + lane];
+          if constexpr (kFwd) {
+            const float th = w_thr[j];
+            float sel[2];
+            bool adm[2];
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              sel[h] = c[h];
+              if constexpr (kBias) sel[h] = c[h] < kHalfInfeasible ? __fadd_rn(c[h], pb[h]) : c[h];
+              adm[h] = pv[h] && sel[h] <= th;
+            }
+            // once the threshold settles, few steps admit a cell
+            if (__any_sync(kFull, adm[0] || adm[1])) {
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const uint32_t mk = __ballot_sync(kFull, adm[h]);
+                if (mk) {
+                  u64* buf = w_buf + j * kCap;
+                  int nb = w_nbuf[j];
+                  const int cnt = __popc(mk);
+                  if (nb + cnt > kCap) {
+                    merge_row(w_list + j * a.k, w_nlist + j, buf, nb, w_tmp, w_thr + j, a.k,
+                              lane);
+                    nb = 0;
+                  }
+                  if (adm[h])
+                    buf[nb + __popc(mk & lt)] = make_key(sel[h], (uint32_t)(cb + i0 + 32 * h));
+                  __syncwarp();
+                  if (lane == 0) w_nbuf[j] = nb + cnt;
+                  __syncwarp();
+                }
+              }
+            }
+          }
+          if constexpr (kRev) {
+            const uint32_t t = (uint32_t)w_tid[j];
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              if (pv[h]) insert_key<kMulti>(best[h], make_key(c[h], t), a.rt);
           }
         }
-        pool_t[(size_t)p * n_pool + ti] = bt;
-        pool_c[(size_t)p * n_pool + ti] = best;
-      } else {
-        // stable top-rt of the tile: an entry goes after the entries it
-        // equals, so the lower index comes first among ties
-        float tc[kMaxR];
-        int32_t tt[kMaxR];
+        if constexpr (kRev) {
 #pragma unroll
-        for (int i = 0; i < kMaxR; ++i) {
-          tc[i] = INFINITY;
-          tt[i] = -1;
-        }
-        for (int j = 0; j < tile; ++j) {
-          const int t = t0 + j;
-          const TaskRow tr = load_task(req, aux, t, K, offset);
-          float c = cell_cost(pr, p, tr, t, req, K, W, w);
-          int32_t ct = t;
-          bool moved = false;
+          for (int h = 0; h < 2; ++h) {
+            if (pv[h]) {
+              u64* part = s_rev + ((size_t)g * kChunk + i0 + 32 * h) * a.rt;
 #pragma unroll
-          for (int i = 0; i < kMaxR; ++i) {
-            if (i < rt && (moved || c < tc[i])) {
-              const float sc = tc[i];
-              const int32_t st = tt[i];
-              tc[i] = c;
-              tt[i] = ct;
-              c = sc;
-              ct = st;
-              moved = true;
+              for (int e = 0; e < kR; ++e)
+                if (e < a.rt) part[e] = best[h][e];
             }
           }
         }
+      }
+    }
+    if constexpr (kRev) {
+      // combine the groups' keys per provider, tile by tile, and flush
+      __syncthreads();
+      const int p = cb + threadIdx.x;
+      if (p < a.P) {
+        u64 cur[kR];
+        int cur_tile = -1;
+        for (int gg = 0; gg < groups; ++gg) {
+          const int r0 = row0 + gg * a.rw;
+          if (r0 >= a.n_rows) break;
+          const int ti = r0 / a.tile;
+          const u64* part = s_rev + ((size_t)gg * kChunk + threadIdx.x) * a.rt;
+          if (ti != cur_tile) {
+            if (cur_tile >= 0) flush_rev<kMulti>(a, p, cur_tile, cur);
+            cur_tile = ti;
 #pragma unroll
-        for (int i = 0; i < kMaxR; ++i) {
-          if (i < rt) {
-            pool_t[(size_t)p * n_pool + (size_t)ti * rt + i] = tt[i];
-            pool_c[(size_t)p * n_pool + (size_t)ti * rt + i] = tc[i];
+            for (int e = 0; e < kR; ++e) cur[e] = e < a.rt ? part[e] : kNoKey;
+          } else {
+            for (int e = 0; e < a.rt; ++e) insert_key<kMulti>(cur, part[e], a.rt);
           }
+        }
+        if (cur_tile >= 0) flush_rev<kMulti>(a, p, cur_tile, cur);
+      }
+    }
+  }
+
+  if constexpr (kFwd) {
+    for (int j = 0; j < nact; ++j) {
+      const int nb = w_nbuf[j];
+      if (nb > 0) merge_row(w_list + j * a.k, w_nlist + j, w_buf + j * kCap, nb, w_tmp, w_thr + j,
+                            a.k, lane);
+    }
+    __syncthreads();  // every warp of a group holds its lists
+    // the group's S lists of row j merged by rank; warp q writes rows q, q + S, ...
+    for (int j = q; j < nact; j += a.split) {
+      const int row = grow0 + j;
+      for (int s = 0; s < a.split; ++s) {
+        const int ws = g * a.split + s;
+        const u64* ls = s_list + (ws * kMaxRows + j) * a.k;
+        const int ns = s_nlist[ws * kMaxRows + j];
+        for (int e = lane; e < ns; e += 32) {
+          const u64 x = ls[e];
+          int rank = e;
+          for (int s2 = 0; s2 < a.split; ++s2) {
+            if (s2 == s) continue;
+            const int w2 = g * a.split + s2;
+            rank += count_below(s_list + (w2 * kMaxRows + j) * a.k, s_nlist[w2 * kMaxRows + j], x);
+          }
+          if (rank >= a.k) continue;
+          const int pp = (int)(uint32_t)x;
+          const float sel = order_float((uint32_t)(x >> 32));
+          float c = sel;
+          if constexpr (kBias)
+            c = cell_cost(load_prov(a.prov, a.aux, pp), pp, w_task[j], w_tid[j], a.req, a.K, a.W,
+                          a.w);
+          a.out_p[(size_t)row * a.k + rank] = sel < kHalfInfeasible ? pp : -1;
+          a.out_c[(size_t)row * a.k + rank] = c;
         }
       }
     }
   }
-  __syncthreads();  // every part's pool entries of this block are written
-  if (part != 0 || !active) return;
-  // fold the pools in tile order into the carry (the carry wins ties)
+}
+
+// One thread per provider: decode its reverse keys into the pools
+// [P, n_pool] (tile order), then fold them into its best r from an
+// (INFEASIBLE, -1) carry, the carry winning ties.
+__global__ void __launch_bounds__(128) fold_kernel(const u64* __restrict__ rkey, int P,
+                                                   int n_pool, int r, int32_t* pool_t,
+                                                   float* pool_c, int32_t* __restrict__ rev_t,
+                                                   float* __restrict__ rev_c) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= P) return;
+  const size_t base = (size_t)p * n_pool;
+  for (int e = 0; e < n_pool; ++e) {
+    const u64 x = rkey[base + e];
+    pool_t[base + e] = (int32_t)(uint32_t)x;
+    pool_c[base + e] = order_float((uint32_t)(x >> 32));
+  }
   float rc[kMaxR];
   int32_t rv[kMaxR];
-  fold_pools(pool_t, pool_c, (size_t)p * n_pool, n_pool, r, rc, rv);
+  fold_pools(pool_t, pool_c, base, n_pool, r, rc, rv);
 #pragma unroll
   for (int i = 0; i < kMaxR; ++i) {
     if (i < r) {
@@ -333,7 +549,7 @@ __global__ void __launch_bounds__(kRows * kParts) reverse_kernel(
 }
 
 // One thread per flagged (provider, tile) block: the first argmin of the
-// block's cells (strict <, as the cold reverse launch), written into the
+// block's cells (strict <, the first index among ties), written into the
 // pools at [p, j]. Blocks come ordered by (tile, provider).
 __global__ void __launch_bounds__(128) reverse_blocks_kernel(
     Prov prov, Req req, Aux aux, Weights w, int n_tiles, int K, int W, int tile,
@@ -359,11 +575,46 @@ __global__ void __launch_bounds__(128) reverse_blocks_kernel(
   pool_c[(size_t)p * n_tiles + blk_j[b]] = best;
 }
 
+template <bool kFwd, bool kRev, bool kBias, bool kMulti>
+int run_k1(const K1Args& a, int blocks, cudaStream_t stream) {
+  const int bytes = k1_smem(kFwd, kRev, kBias, a.k, a.rt, a.K).bytes;
+  cudaError_t e = cudaFuncSetAttribute(k1_kernel<kFwd, kRev, kBias, kMulti>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return (int)e;
+  k1_kernel<kFwd, kRev, kBias, kMulti><<<blocks, kThreads, bytes, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+K1Args k1_args(const void* const* prov_cols, const void* const* req_cols, int P, int T, int K,
+               int W, float w_price, float w_load, float w_prox, float w_prio, float* aux) {
+  K1Args a{};
+  a.prov = make_prov(prov_cols);
+  a.req = make_req(req_cols);
+  a.aux = make_aux(aux, P, T);
+  a.w = Weights{w_price, w_load, w_prox, w_prio};
+  a.P = P;
+  a.T = T;
+  a.K = K;
+  a.W = W;
+  return a;
+}
+
+bool pow2_at_most(int x, int hi) { return x >= 1 && x <= hi && (x & (x - 1)) == 0; }
+
+// The reverse side's arguments: rt tasks per tile (1 <= rt <= min(r,
+// tile)), rw rows a warp (a power of two <= 8) dividing the tile.
+int check_reverse(int P, int T, int K, int tile, int r, int rt, int rw) {
+  if (P < 1 || r < 1 || r > kMaxR || K > kMaxOpts || tile < 1 || T % tile != 0 || rt < 1 ||
+      rt > r || rt > tile || !pow2_at_most(rw, kMaxRows) || tile % rw != 0)
+    return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
 }  // namespace
 
 // Plain C interface (loaded with ctypes). Pointer arrays hold the columns
-// in the order of the port's _P_SPEC / _R_SPEC. Each returns the launch's
-// cudaError_t (0 = launched).
+// in the order of the port's _P_SPEC / _R_SPEC. Each returns the first
+// refused launch's cudaError_t (0 = launched).
 extern "C" int k1_limits(int* max_k, int* max_r, int* max_opts) {
   *max_k = kMaxK;
   *max_r = kMaxR;
@@ -371,61 +622,103 @@ extern "C" int k1_limits(int* max_k, int* max_r, int* max_opts) {
   return 0;
 }
 
-// The forward walk for the n_rows global task ids t_ids, `lanes` threads
-// per row, the jitter keyed on (id + offset) mod 2^32. With a [P] bias
-// (not null) the selection is biased per provider and out_c holds the
-// true costs; null takes the unbiased instantiation.
+// The forward selection for the n_rows global task ids t_ids: groups of rw
+// rows (1, 2, 4 or 8), each walked by `split` warps (1 or 2) over a share
+// of the providers, the jitter keyed on (id + offset) mod 2^32. With
+// a [P] bias (not null) the selection is biased per provider and out_c
+// holds the true costs; null takes the unbiased instantiation.
 extern "C" int k1_forward_rows(const void* const* prov_cols, const void* const* req_cols, int P,
                                int T, int K, int W, float w_price, float w_load, float w_prox,
-                               float w_prio, int k, const int32_t* t_ids, int n_rows, int lanes,
-                               unsigned int offset, const float* bias, float* aux,
+                               float w_prio, int k, const int32_t* t_ids, int n_rows, int rw,
+                               int split, unsigned int offset, const float* bias, float* aux,
                                int32_t* out_p, float* out_c, void* stream) {
-  if (k < 1 || k > kMaxK || K > kMaxOpts || k > P || n_rows < 1 || lanes < 1 || lanes > 32 ||
-      (lanes & (lanes - 1)) != 0)
+  if (k < 1 || k > kMaxK || K > kMaxOpts || k > P || n_rows < 1 ||
+      !pow2_at_most(rw, kMaxRows) || !pow2_at_most(split, kSub))
     return (int)cudaErrorInvalidValue;
-  const Weights w{w_price, w_load, w_prox, w_prio};
-  const int threads = 128;
-  const long long total = (long long)n_rows * lanes;
-  const Prov prov = make_prov(prov_cols);
-  const Req req = make_req(req_cols);
-  launch_prep(prov, req, w, P, T, aux, (cudaStream_t)stream);
-  const int blocks = (int)((total + threads - 1) / threads);
-  if (bias == nullptr)
-    forward_rows_kernel<false><<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        prov, req, make_aux(aux, P, T), w, P, n_rows, t_ids, K, W, k, lanes, offset, nullptr,
-        out_p, out_c);
-  else
-    forward_rows_kernel<true><<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        prov, req, make_aux(aux, P, T), w, P, n_rows, t_ids, K, W, k, lanes, offset, bias,
-        out_p, out_c);
-  return (int)cudaGetLastError();
+  K1Args a = k1_args(prov_cols, req_cols, P, T, K, W, w_price, w_load, w_prox, w_prio, aux);
+  a.t_ids = t_ids;
+  a.n_rows = n_rows;
+  a.rw = rw;
+  a.split = split;
+  a.k = k;
+  a.tile = 1;
+  a.rt = 1;
+  a.offset = offset;
+  a.bias = bias;
+  a.out_p = out_p;
+  a.out_c = out_c;
+  const cudaStream_t st = (cudaStream_t)stream;
+  launch_prep(a.prov, a.req, a.w, P, T, aux, st);
+  const int rows_a_block = kWarps / split * rw;
+  const int blocks = (n_rows + rows_a_block - 1) / rows_a_block;
+  return bias == nullptr ? run_k1<true, false, false, false>(a, blocks, st)
+                         : run_k1<true, false, true, false>(a, blocks, st);
 }
 
-// rt tasks per tile (1 <= rt <= r, rt <= tile): pools [P, n_tiles * rt];
-// the jitter keyed on (task id + offset) mod 2^32. Fewer pool entries than
-// r (a shard of the provider mesh holds few tiles) leave the carry's
+// The reverse selection alone: each tile's rt least (cost, task) keys per
+// provider (1 <= rt <= min(r, tile)) into rkey [P, n_tiles * rt], the
+// pools decoded from it [P, n_tiles * rt] in tile order, and the fold into
+// rev [P, r]; rw rows a warp (a power of two <= 8 dividing the tile), the
+// jitter keyed on (task id + offset) mod 2^32. Fewer pool entries than r
+// (a shard of the provider mesh holds few tiles) leave the carry's
 // (INFEASIBLE, -1) entries in place, as the reference's fold does.
 extern "C" int k1_reverse(const void* const* prov_cols, const void* const* req_cols, int P,
                           int T, int K, int W, float w_price, float w_load, float w_prox,
-                          float w_prio, int tile, int r, int rt, unsigned int offset, float* aux,
-                          int32_t* pool_t, float* pool_c, int32_t* rev_t, float* rev_c,
-                          void* stream) {
-  if (r < 1 || r > kMaxR || K > kMaxOpts || tile < 1 || T % tile != 0 || rt < 1 || rt > r ||
-      rt > tile)
-    return (int)cudaErrorInvalidValue;
-  const Weights w{w_price, w_load, w_prox, w_prio};
-  const int threads = kRows * kParts;
-  const int blocks = (P + kRows - 1) / kRows;
-  const Prov prov = make_prov(prov_cols);
-  const Req req = make_req(req_cols);
-  const Aux ax = make_aux(aux, P, T);
-  launch_prep(prov, req, w, P, T, aux, (cudaStream_t)stream);
-  if (rt == 1)
-    reverse_kernel<false><<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        prov, req, ax, w, P, T, K, W, tile, r, 1, offset, pool_t, pool_c, rev_t, rev_c);
-  else
-    reverse_kernel<true><<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        prov, req, ax, w, P, T, K, W, tile, r, rt, offset, pool_t, pool_c, rev_t, rev_c);
+                          float w_prio, int tile, int r, int rt, int rw, unsigned int offset,
+                          float* aux, u64* rkey, int32_t* pool_t, float* pool_c, int32_t* rev_t,
+                          float* rev_c, void* stream) {
+  if (int rc = check_reverse(P, T, K, tile, r, rt, rw)) return rc;
+  K1Args a = k1_args(prov_cols, req_cols, P, T, K, W, w_price, w_load, w_prox, w_prio, aux);
+  a.n_rows = T;
+  a.rw = rw;
+  a.split = 1;
+  a.tile = tile;
+  a.rt = rt;
+  a.n_pool = T / tile * rt;
+  a.offset = offset;
+  a.rkey = rkey;
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t e = cudaMemsetAsync(rkey, 0xff, (size_t)P * a.n_pool * sizeof(u64), st);
+  if (e != cudaSuccess) return (int)e;
+  launch_prep(a.prov, a.req, a.w, P, T, aux, st);
+  const int blocks = (T + kWarps * rw - 1) / (kWarps * rw);
+  const int rc = rt == 1 ? run_k1<false, true, false, false>(a, blocks, st)
+                         : run_k1<false, true, false, true>(a, blocks, st);
+  if (rc) return rc;
+  fold_kernel<<<(P + 127) / 128, 128, 0, st>>>(rkey, P, a.n_pool, r, pool_t, pool_c, rev_t, rev_c);
+  return (int)cudaGetLastError();
+}
+
+// The cold pass in one launch: every task's forward top-k (fwd [T, k]) and
+// the reverse pools and fold of k1_reverse, each cell scored once.
+extern "C" int k1_bidir(const void* const* prov_cols, const void* const* req_cols, int P, int T,
+                        int K, int W, float w_price, float w_load, float w_prox, float w_prio,
+                        int k, int tile, int r, int rt, int rw, unsigned int offset, float* aux,
+                        u64* rkey, int32_t* fwd_p, float* fwd_c, int32_t* pool_t, float* pool_c,
+                        int32_t* rev_t, float* rev_c, void* stream) {
+  if (k < 1 || k > kMaxK || k > P) return (int)cudaErrorInvalidValue;
+  if (int rc = check_reverse(P, T, K, tile, r, rt, rw)) return rc;
+  K1Args a = k1_args(prov_cols, req_cols, P, T, K, W, w_price, w_load, w_prox, w_prio, aux);
+  a.n_rows = T;
+  a.rw = rw;
+  a.split = 1;
+  a.k = k;
+  a.tile = tile;
+  a.rt = rt;
+  a.n_pool = T / tile * rt;
+  a.offset = offset;
+  a.out_p = fwd_p;
+  a.out_c = fwd_c;
+  a.rkey = rkey;
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t e = cudaMemsetAsync(rkey, 0xff, (size_t)P * a.n_pool * sizeof(u64), st);
+  if (e != cudaSuccess) return (int)e;
+  launch_prep(a.prov, a.req, a.w, P, T, aux, st);
+  const int blocks = (T + kWarps * rw - 1) / (kWarps * rw);
+  const int rc = rt == 1 ? run_k1<true, true, false, false>(a, blocks, st)
+                         : run_k1<true, true, false, true>(a, blocks, st);
+  if (rc) return rc;
+  fold_kernel<<<(P + 127) / 128, 128, 0, st>>>(rkey, P, a.n_pool, r, pool_t, pool_c, rev_t, rev_c);
   return (int)cudaGetLastError();
 }
 

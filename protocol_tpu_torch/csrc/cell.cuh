@@ -19,6 +19,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <climits>
+
 namespace {
 
 constexpr float kInfeasible = 1e9f;
@@ -201,6 +203,99 @@ __device__ __forceinline__ bool compat(const ProvRow& p, const TaskRow& t, const
   return false;
 }
 
+// A requirement row's capability limits, staged where a kernel checks many
+// providers against few rows. An absent limit (< 0) is folded into the
+// staged value once, so that each rule of compat is one compare a cell:
+//   ge_min(spec, req) == (spec >= (req < 0 ? INT_MIN : req)): for req >= 0,
+//     spec >= req implies spec >= 0;
+//   le_max(spec, req) == ((uint32_t)spec <= (req < 0 ? UINT32_MAX : req)):
+//     a negative spec is above every non-negative req as unsigned;
+//   the total-memory rule's (lim < 0) | (total op lim) likewise, with INT_MIN
+//     and INT_MAX.
+// Row flags: bit 0 cpu_required, bit 1 valid, bit 2 any GPU option. An
+// option's flags: bit 0 gpu_opt_valid, bit 1 gpu_model_constrained.
+struct alignas(16) RowCaps {
+  int32_t cores, ram, storage;
+  uint32_t flags;
+};
+
+struct alignas(16) OptCaps {
+  int32_t count, mem_min;
+  uint32_t mem_max;
+  int32_t tot_min, tot_max;
+  uint32_t flags;
+  int32_t pad0, pad1;
+};
+
+__device__ __forceinline__ int32_t stage_min(int32_t req) { return req < 0 ? INT32_MIN : req; }
+
+__device__ __forceinline__ RowCaps load_row_caps(const TaskRow& t) {
+  RowCaps c;
+  c.cores = stage_min(t.cores);
+  c.ram = stage_min(t.ram);
+  c.storage = stage_min(t.storage);
+  c.flags = (t.cpu_required ? 1u : 0u) | (t.valid ? 2u : 0u) | (t.any_opt ? 4u : 0u);
+  return c;
+}
+
+__device__ __forceinline__ OptCaps load_opt(const Req& R, int o) {
+  OptCaps c;
+  const int32_t mmax = R.gpu_mem_max[o], tmax = R.gpu_total_mem_max[o];
+  c.count = R.gpu_count[o];
+  c.mem_min = stage_min(R.gpu_mem_min[o]);
+  c.mem_max = mmax < 0 ? 0xffffffffu : (uint32_t)mmax;
+  c.tot_min = stage_min(R.gpu_total_mem_min[o]);
+  c.tot_max = tmax < 0 ? INT32_MAX : tmax;
+  c.flags = (R.gpu_opt_valid[o] ? 1u : 0u) | (R.gpu_model_constrained[o] ? 2u : 0u);
+  c.pad0 = c.pad1 = 0;
+  return c;
+}
+
+// compat for N providers against one requirement row at once: compat's
+// rules on the row's staged limits (one compare a rule, above) and its K
+// options (each loaded once for the N providers), the model masks read at
+// mask_row (gpu_model_mask + row * K * W). Bit i of the result is
+// compat(p[i], t).
+template <int N>
+__device__ __forceinline__ uint32_t compat_many(const ProvRow* p, const RowCaps& t,
+                                                const OptCaps* opts, const uint32_t* mask_row,
+                                                int K, int W) {
+  uint32_t gate = 0, ok_bits = 0;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    bool ok = !(t.flags & 1u) | (p[i].has_cpu & (p[i].cores >= t.cores));
+    ok &= (p[i].ram >= t.ram) & (p[i].storage >= t.storage);
+    ok &= p[i].valid & ((t.flags & 2u) != 0u);
+    ok_bits |= (ok ? 1u : 0u) << i;
+    gate |= (ok & p[i].has_gpu ? 1u : 0u) << i;
+  }
+  if (!(t.flags & 4u)) return ok_bits;
+  uint32_t found = 0;
+  for (int k = 0; k < K && (found != gate); ++k) {
+    const OptCaps o = opts[k];
+    if (!(o.flags & 1u)) continue;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int32_t pc = p[i].count, pm = p[i].mem;
+      // i32 product, wrapping as the reference's does
+      const int32_t total = (int32_t)((uint32_t)pc * (uint32_t)pm);
+      const bool have_total = (pc >= 0) & (pm >= 0);
+      const bool count_ok = (o.count < 0) | (pc < 0 ? o.count == 0 : pc == o.count);
+      const bool mem_ok = (pm >= o.mem_min) & ((uint32_t)pm <= o.mem_max);
+      const bool tot_ok = !have_total | ((total >= o.tot_min) & (total <= o.tot_max));
+      bool model_ok = true;
+      if (o.flags & 2u) {
+        const int mid = p[i].model < 0 ? 0 : p[i].model;
+        const int word = mid >> 5;
+        const uint32_t wbits = word < W ? mask_row[(size_t)k * W + word] : 0u;
+        model_ok = (p[i].model >= 0) & (((wbits >> (uint32_t)(mid & 31)) & 1u) != 0u);
+      }
+      if (count_ok & mem_ok & tot_ok & model_ok) found |= gate & (1u << i);
+    }
+  }
+  return found;
+}
+
 // The cost terms of a compatible cell: cost_matrix's in its order,
 // base + proximity * haversine (0 unless both sides are located) - prio,
 // from the provider's (base, lat, lon, coslat) and the task's (lat, lon,
@@ -235,6 +330,20 @@ __device__ __forceinline__ float cell_cost(const ProvRow& p, int pi, const TaskR
   float cost = cell_terms(p.base, p.lat, p.lon, p.coslat, p.has_loc, t.lat, t.lon, t.coslat,
                           t.has_loc, t.prio, w.proximity);
   if (kJitter && cost < kHalfInfeasible) {
+    const uint32_t h = ((uint32_t)pi * 2654435761u) ^ (t.jkey * 40503u);
+    cost = __fadd_rn(cost, __fmul_rn((float)(h & 1023u), 1e-7f));
+  }
+  return cost;
+}
+
+// The cost of a cell that compat admits: cell_cost's arithmetic after its
+// mask test, operation for operation, jitter included. The candidate
+// kernel checks every cell first and scores the feasible ones apart.
+__device__ __forceinline__ float feasible_cost(const ProvRow& p, int pi, const TaskRow& t,
+                                               const Weights& w) {
+  float cost = cell_terms(p.base, p.lat, p.lon, p.coslat, p.has_loc, t.lat, t.lon, t.coslat,
+                          t.has_loc, t.prio, w.proximity);
+  if (cost < kHalfInfeasible) {
     const uint32_t h = ((uint32_t)pi * 2654435761u) ^ (t.jkey * 40503u);
     cost = __fadd_rn(cost, __fmul_rn((float)(h & 1023u), 1e-7f));
   }

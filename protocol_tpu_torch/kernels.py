@@ -48,7 +48,7 @@ NVCC_FLAGS = (
 # launches per kernel since the last reset_launches()
 LAUNCHES = {
     "candidates_forward_rows": 0, "candidates_forward_rows_biased": 0,
-    "candidates_reverse": 0, "auction_phase": 0,
+    "candidates_reverse": 0, "candidates_bidir": 0, "auction_phase": 0,
     "candidates_reverse_blocks": 0,
     "repair_enter": 0, "repair_tile_min": 0, "repair_refold": 0,
     "dense_value_base": 0, "dense_auction": 0, "unbounded_best": 0, "greedy_cleanup": 0,
@@ -135,15 +135,21 @@ def _lib(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_lib_path(name)))
         if name == "candidates":
             lib.k1_reverse.argtypes = [
-                _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _I, _I, _U, _P, _P, _P, _P, _P, _P,
+                _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _I, _I, _I, _U,
+                _P, _P, _P, _P, _P, _P, _P,
+            ]
+            lib.k1_bidir.argtypes = [
+                _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _I, _I, _I, _I, _U,
+                _P, _P, _P, _P, _P, _P, _P, _P, _P,
             ]
             lib.k1_forward_rows.argtypes = [
-                _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P, _I, _I, _U, _P, _P, _P, _P, _P,
+                _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P, _I, _I, _I, _U, _P, _P, _P, _P,
+                _P,
             ]
             lib.k1_reverse_blocks.argtypes = [
                 _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P, _P, _I, _P, _P, _P, _P,
             ]
-            for fn in ("k1_reverse", "k1_forward_rows", "k1_reverse_blocks"):
+            for fn in ("k1_reverse", "k1_bidir", "k1_forward_rows", "k1_reverse_blocks"):
                 getattr(lib, fn).restype = _I
         elif name == "repair":
             lib.k3_repair_enter.argtypes = [
@@ -364,6 +370,59 @@ def jitter_offset(offset: int) -> int:
     return offset & 0xFFFFFFFF
 
 
+# K1's layout (csrc/candidates.cu): a block of 4 warps in groups of `split`
+# warps (at most K1_MAX_SPLIT, a share of the providers each), each group
+# over `rows_per_warp` task rows
+K1_MAX_SPLIT = 2
+K1_MAX_ROWS = 8
+# warps the rows launch aims for: two a row at the repair's ~655 rows,
+# eight rows a warp at the cold pass's 65,536
+K1_TARGET_WARPS = 2_048
+
+
+def k1_rows_layout(n_rows: int) -> tuple[int, int]:
+    """(rows_per_warp, split) of K1's rows launch over ``n_rows`` rows: 8
+    rows a warp group, halved, then the group split over 2 warps (a share
+    of the providers each), until the launch has K1_TARGET_WARPS warps or
+    the split is K1_MAX_SPLIT."""
+    rw, split = K1_MAX_ROWS, 1
+    while -(-n_rows // rw) * split < K1_TARGET_WARPS:
+        if rw > 1:
+            rw //= 2
+        elif split < K1_MAX_SPLIT:
+            split *= 2
+        else:
+            break
+    return rw, split
+
+
+def k1_tile_rows(tile: int) -> int:
+    """Rows a warp in K1's reverse side: the largest power of two <= 8 that
+    divides ``tile``, so that no warp's rows straddle two tiles."""
+    rw = K1_MAX_ROWS
+    while tile % rw:
+        rw //= 2
+    return rw
+
+
+def _k1_reverse_out(P: int, T: int, tile: int, r: int, rt: int, dev, what: str):
+    """Check the reverse side's arguments; the key buffer, the pools and the
+    fold's outputs."""
+    if not 1 <= r <= 8 or tile < 1 or T % tile != 0:
+        raise ValueError(f"{what} takes r <= 8 and T % tile == 0 (r={r}, T={T}, tile={tile})")
+    if not 1 <= rt <= min(r, tile):
+        raise ValueError(f"{what} takes 1 <= rt <= min(r, tile) (rt={rt}, r={r}, tile={tile})")
+    n_pool = T // tile * rt
+    # the reverse keys (cost, task) as int64: 8 bytes a pool entry, 32 MB at
+    # 65,536^2 (tile 1,024) and at 100,000^2 (tile 2,500); reset by the launch
+    rkey = torch.empty((P, n_pool), dtype=torch.int64, device=dev)
+    pool_t = torch.empty((P, n_pool), dtype=torch.int32, device=dev)
+    pool_c = torch.empty((P, n_pool), dtype=torch.float32, device=dev)
+    rev_t = torch.empty((P, r), dtype=torch.int32, device=dev)
+    rev_c = torch.empty((P, r), dtype=torch.float32, device=dev)
+    return rkey, pool_t, pool_c, rev_t, rev_c
+
+
 @_on_device
 def candidates_reverse(ep, er, weights, tile: int, r: int, rt: int, offset: int = 0):
     """K1, reverse launch (``csrc/candidates.cu``): each tile's stable
@@ -374,21 +433,37 @@ def candidates_reverse(ep, er, weights, tile: int, r: int, rt: int, offset: int 
     pool_c)."""
     offset = jitter_offset(offset)
     dev, pcols, rcols, (P, T, K, W), w, aux = _k1_setup(ep, er, weights)
-    if not 1 <= r <= 8 or tile < 1 or T % tile != 0:
-        raise ValueError(f"K1 reverse takes r <= 8 and T % tile == 0 (r={r}, T={T}, tile={tile})")
-    n_tiles = T // tile
-    if not 1 <= rt <= min(r, tile):
-        raise ValueError(f"K1 reverse takes 1 <= rt <= min(r, tile) (rt={rt}, r={r}, tile={tile})")
-    pool_t = torch.empty((P, n_tiles * rt), dtype=torch.int32, device=dev)
-    pool_c = torch.empty((P, n_tiles * rt), dtype=torch.float32, device=dev)
-    rev_t = torch.empty((P, r), dtype=torch.int32, device=dev)
-    rev_c = torch.empty((P, r), dtype=torch.float32, device=dev)
+    rkey, pool_t, pool_c, rev_t, rev_c = _k1_reverse_out(P, T, tile, r, rt, dev, "K1 reverse")
     _launch("candidates_reverse", _lib("candidates").k1_reverse,
-        pcols, rcols, P, T, K, W, *w, tile, r, rt, offset, aux.data_ptr(),
-        pool_t.data_ptr(), pool_c.data_ptr(), rev_t.data_ptr(), rev_c.data_ptr(),
-        _stream(pool_t),
+        pcols, rcols, P, T, K, W, *w, tile, r, rt, k1_tile_rows(tile), offset, aux.data_ptr(),
+        rkey.data_ptr(), pool_t.data_ptr(), pool_c.data_ptr(), rev_t.data_ptr(),
+        rev_c.data_ptr(), _stream(pool_t),
     )
     return rev_t, rev_c, pool_t, pool_c
+
+
+@_on_device
+def candidates_bidir(ep, er, weights, k: int, tile: int, r: int, rt: int, offset: int = 0):
+    """K1, the fused cold pass (``csrc/candidates.cu``): every task's k
+    cheapest providers and the reverse pools and fold of
+    :func:`candidates_reverse`, each cell scored once, the jitter keyed on
+    (task id + ``offset``) mod 2^32. Returns (fwd_p [T, k] with -1 where the
+    cost is >= INFEASIBLE/2, fwd_c, rev_t [P, r] unmasked, rev_c, pool_t
+    [P, n_tiles * rt], pool_c)."""
+    if not 1 <= k <= 64 or k > ep.num:
+        raise ValueError(f"K1 takes 1 <= k <= min(64, P) candidates a task, "
+                         f"got k={k} with P={ep.num}")
+    offset = jitter_offset(offset)
+    dev, pcols, rcols, (P, T, K, W), w, aux = _k1_setup(ep, er, weights)
+    rkey, pool_t, pool_c, rev_t, rev_c = _k1_reverse_out(P, T, tile, r, rt, dev, "K1 bidir")
+    fwd_p = torch.empty((T, k), dtype=torch.int32, device=dev)
+    fwd_c = torch.empty((T, k), dtype=torch.float32, device=dev)
+    _launch("candidates_bidir", _lib("candidates").k1_bidir,
+        pcols, rcols, P, T, K, W, *w, k, tile, r, rt, k1_tile_rows(tile), offset,
+        aux.data_ptr(), rkey.data_ptr(), fwd_p.data_ptr(), fwd_c.data_ptr(), pool_t.data_ptr(),
+        pool_c.data_ptr(), rev_t.data_ptr(), rev_c.data_ptr(), _stream(pool_t),
+    )
+    return fwd_p, fwd_c, rev_t, rev_c, pool_t, pool_c
 
 
 # K2's cluster: the largest size of 16 (non-portable) and 8 whose
@@ -480,23 +555,18 @@ def _ids(ids: torch.Tensor, n: int, dev, what: str) -> torch.Tensor:
     return ids
 
 
-# threads the forward launch aims for: one per task at the main path's
-# width of 65,536 tasks
-ROWS_TARGET_THREADS = 65_536
-
-
 @_on_device
 def candidates_forward_rows(ep, er, weights, k: int, t_ids: torch.Tensor,
-                            lanes: int | None = None, offset: int = 0,
-                            bias: torch.Tensor | None = None):
+                            rows_per_warp: int | None = None, split: int | None = None,
+                            offset: int = 0, bias: torch.Tensor | None = None):
     """K1, forward launch (``csrc/candidates.cu``): the k cheapest
     providers of each task in ``t_ids`` (global ids; the jitter is keyed
     on (id + ``offset``) mod 2^32), (p [R, k] i32, c [R, k] f32), row i for
-    task t_ids[i]. Each row is walked by ``lanes`` threads (a power of two
-    <= 32; by default the least that brings R x lanes to
-    :data:`ROWS_TARGET_THREADS`). With ``bias`` ([P] f32, the reference's
-    ``provider_offset``) the selection runs on cost + bias[p] over the
-    feasible cells, c holds the true costs and p is -1 where the
+    task t_ids[i]. A warp group takes ``rows_per_warp`` rows (1, 2, 4 or
+    8) and its ``split`` warps (1 or 2) a share of the providers each;
+    by default :func:`k1_rows_layout` of R. With ``bias`` ([P] f32, the
+    reference's ``provider_offset``) the selection runs on cost + bias[p]
+    over the feasible cells, c holds the true costs and p is -1 where the
     selection is >= INFEASIBLE/2."""
     if not 1 <= k <= 64 or k > ep.num:
         raise ValueError(f"K1 forward takes 1 <= k <= min(64, P) candidates a task, "
@@ -509,16 +579,17 @@ def candidates_forward_rows(ep, er, weights, k: int, t_ids: torch.Tensor,
         raise ValueError(f"candidates_forward_rows: bias must be a contiguous [{P}] f32 "
                          f"tensor on {dev}")
     R = t_ids.numel()
-    if lanes is None:
-        lanes = 1
-        while lanes < 32 and R * lanes < ROWS_TARGET_THREADS:
-            lanes *= 2
+    rw, sp = k1_rows_layout(R)
+    rw, sp = rows_per_warp or rw, split or sp
+    if rw not in (1, 2, 4, 8) or sp not in (1, 2):
+        raise ValueError(f"candidates_forward_rows takes rows_per_warp in 1, 2, 4, 8 and split "
+                         f"in 1, 2, got {rw}, {sp}")
     out_p = torch.empty((R, k), dtype=torch.int32, device=dev)
     out_c = torch.empty((R, k), dtype=torch.float32, device=dev)
     # the biased instantiation is a kernel of its own, counted apart
     _launch("candidates_forward_rows" if bias is None else "candidates_forward_rows_biased",
             _lib("candidates").k1_forward_rows,
-            pcols, rcols, P, T, K, W, *w, k, t_ids.data_ptr(), R, lanes, offset,
+            pcols, rcols, P, T, K, W, *w, k, t_ids.data_ptr(), R, rw, sp, offset,
             None if bias is None else bias.data_ptr(), aux.data_ptr(), out_p.data_ptr(),
             out_c.data_ptr(), _stream(out_p), what="candidates_forward_rows")
     return out_p, out_c

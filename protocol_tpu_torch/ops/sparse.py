@@ -31,10 +31,12 @@ returned costs stay the true (jittered) costs.
 Three functions hold hand kernels for Hopper (``csrc/``); each dispatches
 on the device of its inputs, with no fallback:
 
-  candidates_forward / candidates_reverse -> K1 (``csrc/candidates.cu``),
-        its forward and reverse launches: a CPU tensor takes the plain
-        torch scans below, a CUDA tensor the fused kernel (the forward
-        launch over every task id).
+  candidates_fused / candidates_forward / candidates_reverse -> K1
+        (``csrc/candidates.cu``), its fused cold pass (both directions from
+        one scoring of each cell; the cold pass of candidates_topk_reverse
+        without a provider_offset) and its forward and reverse launches: a
+        CPU tensor takes the plain torch scans below, a CUDA tensor the
+        kernel (the forward launch over every task id).
   _sparse_auction_phase   -> K2 (``csrc/auction.cu``): a CPU tensor takes the
         plain round loop below, a CUDA tensor the kernel (every round of a
         call in one launch of one thread-block cluster).
@@ -95,6 +97,13 @@ def _forward_tile_select(ep, er, weights, t0: int, tile: int, k: int, task_offse
     (provider [tile, k], true cost_k [tile, k], the jittered [P, tile]
     cost block)."""
     cost = _jittered_tile_cost(ep, er, weights, t0, tile, task_offset)
+    return (*_select_forward(cost, k, provider_offset), cost)
+
+
+def _select_forward(cost: torch.Tensor, k: int, provider_offset: torch.Tensor | None = None):
+    """The forward selection from a jittered [P, tile] cost block:
+    (provider [tile, k] with -1 where the selection is >= INFEASIBLE/2,
+    true cost_k [tile, k])."""
     if provider_offset is None:
         selection = cost
     else:
@@ -104,7 +113,7 @@ def _forward_tile_select(ep, er, weights, t0: int, tile: int, k: int, task_offse
     cost_k = torch.gather(cost.T, 1, idx)  # true costs
     sel_k = torch.gather(selection.T, 1, idx)
     provider = torch.where(sel_k < INFEASIBLE * 0.5, idx.to(torch.int32), -1)
-    return provider, cost_k, cost
+    return provider, cost_k
 
 
 def _smallest_stable(c: torch.Tensor, n: int) -> torch.Tensor:
@@ -127,29 +136,58 @@ def _reverse_plain(ep, er, weights, tile: int, r: int, rt: int, task_offset: int
     provider's rt cheapest tasks (the pools, first index among ties),
     folded into a running best r where the carry wins ties. Returns
     (rev_t, rev_c) [P, r] unmasked and (pool_t, pool_c) [P, n_tiles*rt]."""
-    P = ep.gpu_count.shape[0]
-    T = er.cpu_cores.shape[0]
-    dev = ep.gpu_count.device
-    rev_c = torch.full((P, r), INFEASIBLE, dtype=torch.float32, device=dev)
-    rev_t = torch.full((P, r), -1, dtype=torch.int32, device=dev)
+    carry = _reverse_carry(ep.gpu_count.shape[0], r, ep.gpu_count.device)
     pool_t, pool_c = [], []
-    for t0 in range(0, T, tile):
+    for t0 in range(0, er.cpu_cores.shape[0], tile):
         cost = _jittered_tile_cost(ep, er, weights, t0, tile, task_offset)
-        tid = t0 + torch.arange(tile, dtype=torch.int32, device=dev)
-        if rt == 1:
-            j = torch.argmin(cost, dim=1)[:, None]  # first index among ties
-        else:
-            j = _smallest_stable(cost, rt)
-        tile_c = torch.gather(cost, 1, j)
-        tile_t = tid[j]
-        merged_c = torch.cat([rev_c, tile_c], dim=1)  # [P, r+rt]; carry first
-        merged_t = torch.cat([rev_t, tile_t], dim=1)
-        m = _smallest_stable(merged_c, r)
-        rev_c = torch.gather(merged_c, 1, m)
-        rev_t = torch.gather(merged_t, 1, m)
+        tile_t, tile_c, carry = _reverse_step(cost, t0, rt, carry)
         pool_t.append(tile_t)
         pool_c.append(tile_c)
-    return rev_t, rev_c, torch.cat(pool_t, dim=1), torch.cat(pool_c, dim=1)
+    return (*carry, torch.cat(pool_t, dim=1), torch.cat(pool_c, dim=1))
+
+
+def _reverse_carry(P: int, r: int, dev):
+    """The reverse fold's starting carry: (INFEASIBLE, -1) [P, r]."""
+    return (torch.full((P, r), -1, dtype=torch.int32, device=dev),
+            torch.full((P, r), INFEASIBLE, dtype=torch.float32, device=dev))
+
+
+def _reverse_step(cost: torch.Tensor, t0: int, rt: int, carry):
+    """One tile of the reverse selection: each provider's rt cheapest tasks
+    of the jittered [P, tile] block ``cost`` (first index among ties),
+    folded into the carry (rev_t, rev_c) [P, r], the carry winning ties.
+    Returns (tile_t, tile_c) [P, rt] and the new carry."""
+    rev_t, rev_c = carry
+    tid = t0 + torch.arange(cost.shape[1], dtype=torch.int32, device=cost.device)
+    if rt == 1:
+        j = torch.argmin(cost, dim=1)[:, None]  # first index among ties
+    else:
+        j = _smallest_stable(cost, rt)
+    tile_c = torch.gather(cost, 1, j)
+    tile_t = tid[j]
+    merged_c = torch.cat([rev_c, tile_c], dim=1)  # [P, r+rt]; carry first
+    merged_t = torch.cat([rev_t, tile_t], dim=1)
+    m = _smallest_stable(merged_c, rev_c.shape[1])
+    return tile_t, tile_c, (torch.gather(merged_t, 1, m), torch.gather(merged_c, 1, m))
+
+
+def _bidir_plain(ep, er, weights, k: int, tile: int, r: int, rt: int, task_offset: int = 0):
+    """Plain torch version of K1's fused cold pass: each tile's jittered
+    [P, tile] cost block, scored once, feeds the forward selection and the
+    reverse step. Returns (fwd_p, fwd_c) [T, k], (rev_t, rev_c) [P, r]
+    unmasked and (pool_t, pool_c) [P, n_tiles * rt]."""
+    carry = _reverse_carry(ep.gpu_count.shape[0], r, ep.gpu_count.device)
+    fwd_p, fwd_c, pool_t, pool_c = [], [], [], []
+    for t0 in range(0, er.cpu_cores.shape[0], tile):
+        cost = _jittered_tile_cost(ep, er, weights, t0, tile, task_offset)
+        p, c = _select_forward(cost, k)
+        tile_t, tile_c, carry = _reverse_step(cost, t0, rt, carry)
+        fwd_p.append(p)
+        fwd_c.append(c)
+        pool_t.append(tile_t)
+        pool_c.append(tile_c)
+    return (torch.cat(fwd_p), torch.cat(fwd_c), *carry, torch.cat(pool_t, dim=1),
+            torch.cat(pool_c, dim=1))
 
 
 def candidates_forward(ep, er, weights, k: int, tile: int, task_offset: int = 0,
@@ -188,6 +226,20 @@ def candidates_reverse(ep, er, weights, tile: int, r: int, rt: int, task_offset:
     return _reverse_plain(ep, er, weights, tile, r, rt, task_offset)
 
 
+def candidates_fused(ep, er, weights, k: int, tile: int, r: int, rt: int, task_offset: int = 0):
+    """Both directions from one scoring of each cell: (fwd_p, fwd_c, rev_t
+    unmasked, rev_c, pool_t, pool_c) as :func:`candidates_forward` and
+    :func:`candidates_reverse` give them. On a CUDA tensor this is K1's
+    fused launch, else :func:`_bidir_plain`."""
+    from protocol_tpu_torch import kernels
+
+    kernels.jitter_offset(task_offset)
+    if ep.gpu_count.is_cuda:
+        return kernels.candidates_bidir(ep, er, weights, k=k, tile=tile, r=r, rt=rt,
+                                        offset=task_offset)
+    return _bidir_plain(ep, er, weights, k, tile, r, rt, task_offset)
+
+
 def _refuse_unported(approx_recall) -> None:
     if approx_recall is not None:
         raise NotImplementedError(
@@ -200,6 +252,13 @@ def _tiles(T: int, tile: int) -> int:
     if T % tile != 0:
         raise ValueError(f"T={T} not divisible by tile={tile}; pad requirements")
     return T // tile
+
+
+def _reverse_shape(T: int, tile: int, reverse_r: int) -> tuple[int, int]:
+    """(r, rt): the reverse edges a provider keeps (reverse_r clamped to
+    T) and each tile's pool contribution, ceil(r / n_tiles)."""
+    r = min(reverse_r, T)
+    return r, max(1, -(-r // _tiles(T, tile)))
 
 
 def candidates_topk(
@@ -232,9 +291,7 @@ def reverse_candidates(ep, er, weights, tile: int, reverse_r: int, task_offset: 
     best ``reverse_r`` tasks from per-tile pools of ceil(r / n_tiles)
     tasks. Returns (rev_t [P, r] with -1 where infeasible, rev_c [P, r],
     pool_t, pool_c)."""
-    n_tiles = _tiles(er.cpu_cores.shape[0], tile)
-    r = min(reverse_r, er.cpu_cores.shape[0])
-    rt = max(1, -(-r // n_tiles))  # per-tile contribution (ceil div)
+    r, rt = _reverse_shape(er.cpu_cores.shape[0], tile, reverse_r)
     rev_t, rev_c, pool_t, pool_c = candidates_reverse(ep, er, weights, tile, r, rt, task_offset)
     return torch.where(rev_c < INFEASIBLE * 0.5, rev_t, -1), rev_c, pool_t, pool_c
 
@@ -261,16 +318,25 @@ def candidates_topk_reverse(
     rev_t [P,r] i32 with -1 padding, rev_c [P,r]) and, with
     ``with_pools``, (pool_t, pool_c) [P, n_tiles*rt] in tile order.
 
-    On a CUDA tensor this is kernel K1 (``csrc/candidates.cu``), both
-    launches keyed on ``task_offset``.
+    On a CUDA tensor this is kernel K1 (``csrc/candidates.cu``) keyed on
+    ``task_offset``: one fused launch (:func:`candidates_fused`), or with
+    ``provider_offset`` the biased forward launch and the reverse launch.
     """
     if weights is None:
         weights = CostWeights()
-    fwd_p, fwd_c = candidates_topk(
-        ep, er, weights, k=k, tile=tile, provider_offset=provider_offset,
-        task_offset=task_offset, approx_recall=approx_recall,
-    )
-    rev_t, rev_c, pool_t, pool_c = reverse_candidates(ep, er, weights, tile, reverse_r, task_offset)
+    if provider_offset is not None:
+        fwd_p, fwd_c = candidates_topk(
+            ep, er, weights, k=k, tile=tile, provider_offset=provider_offset,
+            task_offset=task_offset, approx_recall=approx_recall,
+        )
+        rev_t, rev_c, pool_t, pool_c = reverse_candidates(ep, er, weights, tile, reverse_r,
+                                                          task_offset)
+    else:
+        _refuse_unported(approx_recall)
+        r, rt = _reverse_shape(er.cpu_cores.shape[0], tile, reverse_r)
+        fwd_p, fwd_c, rev_t, rev_c, pool_t, pool_c = candidates_fused(
+            ep, er, weights, min(k, int(ep.gpu_count.shape[0])), tile, r, rt, task_offset)
+        rev_t = torch.where(rev_c < INFEASIBLE * 0.5, rev_t, -1)
     res = (fwd_p, fwd_c, rev_t, rev_c)
     if with_pools:
         res = res + (pool_t, pool_c)

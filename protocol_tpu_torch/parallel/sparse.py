@@ -48,7 +48,7 @@ plain torch version beside it, a CUDA tensor the kernel.
                       pmin; the plain versions ``_round_*_plain`` run
                       every shard at once over stacked views of one device
 
-Sharded generation runs K1's two launches per shard (``csrc/candidates.cu``)
+Sharded generation runs K1's fused launch per shard (``csrc/candidates.cu``)
 at the shard's jitter offset.
 
 Every cell is scored with its global provider and task ids in the tie
@@ -82,8 +82,7 @@ from protocol_tpu_torch.ops.sparse import (
     _report_stall,
     _smallest_stable,
     _unassign_unhappy,
-    candidates_forward,
-    candidates_reverse,
+    candidates_fused,
     frontier_bids,
     merge_reverse_candidates,
 )
@@ -488,8 +487,8 @@ def candidates_topk_bidir_sharded(
         off = s * Tl
         ep_s = _on(ep, dev)
         er_s = _on(slice_requirements(er, off, Tl), dev)
-        p, c = candidates_forward(ep_s, er_s, weights, k, tile, task_offset=off)
-        rt_s, rc_s, pt_s, pc_s = candidates_reverse(ep_s, er_s, weights, tile, r, rt, task_offset=off)
+        p, c, rt_s, rc_s, pt_s, pc_s = candidates_fused(ep_s, er_s, weights, k, tile, r, rt,
+                                                        task_offset=off)
         fwd_p.append(p)
         fwd_c.append(c)
         # local task ids -> global; the carry's -1 stays

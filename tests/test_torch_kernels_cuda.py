@@ -339,6 +339,92 @@ def test_card_cold_tick_matches_cpu(card):
     np.testing.assert_array_equal(a_gpu.price, a_cpu.price)
 
 
+# the fused cold pass: (P, T, k, tile, r, jitter offset); rt = ceil(r /
+# n_tiles) > 1 in the third and fourth, tile 250 splits a warp group's rows
+# at 2, P < 32 and k = P in the fifth, the last is a D = 4 shard's offset
+BIDIR_CASES = [
+    (3000, 2000, 64, 250, 8, 0),
+    (1024, 2048, 64, 256, 8, 123_456_789),
+    (3000, 1024, 64, 256, 8, 0),
+    (500, 96, 32, 48, 8, 0),
+    (20, 512, 20, 64, 8, 0),
+    (3000, 1024, 64, 256, 8, 3072),
+]
+
+
+@pytest.mark.parametrize("P,T,k,tile,r,offset", BIDIR_CASES)
+def test_fused_candidate_kernel_matches_plain_and_separate_launches(card, P, T, k, tile, r,
+                                                                    offset):
+    """K1's fused launch: bit for bit the plain fused pass at proximity 0,
+    and the rows launch over every task plus the reverse launch at default
+    weights, where the haversine's ulps keep the plain version apart."""
+    from protocol_tpu_torch import kernels
+
+    ep = synth_providers(np.random.default_rng(P), P, device=card)
+    er = synth_requirements(np.random.default_rng(T), T, device=card)
+    rt = max(1, -(-r // (T // tile)))
+    for w in (CostWeights(proximity=0.0), CostWeights()):
+        before = kernels.LAUNCHES["candidates_bidir"]
+        got = sp.candidates_fused(ep, er, w, k, tile, r, rt, task_offset=offset)
+        assert kernels.LAUNCHES["candidates_bidir"] == before + 1
+        assert got[4].shape == (P, T // tile * rt)
+        ids = torch.arange(T, dtype=torch.int32, device=card)
+        apart = (*kernels.candidates_forward_rows(ep, er, w, k, ids, offset=offset),
+                 *kernels.candidates_reverse(ep, er, w, tile, r, rt, offset=offset))
+        assert all(same_bits(a, b) for a, b in zip(got, apart))
+        if w.proximity == 0.0:
+            ref = sp._bidir_plain(ep, er, w, k, tile, r, rt, offset)
+            assert all(same_bits(a, b) for a, b in zip(got, ref))
+
+
+@pytest.mark.parametrize("rows", [1, 293, 655])
+@pytest.mark.parametrize("biased", [False, True])
+def test_rows_kernel_at_the_repairs_row_counts_matches_plain_bits(card, rows, biased):
+    """K1's rows launch over 1, 293 and 655 scattered task ids at the
+    default layout, biased and unbiased, against the plain selection."""
+    from protocol_tpu_torch import kernels
+
+    P, T = 3000, 2048
+    ep = synth_providers(np.random.default_rng(5), P, device=card)
+    er = synth_requirements(np.random.default_rng(6), T, device=card)
+    w = CostWeights(proximity=0.0)
+    rng = np.random.default_rng(rows)
+    ids = torch.from_numpy(rng.permutation(T)[:rows].astype(np.int32)).to(card)
+    bias = (torch.from_numpy(rng.normal(0, 1, P).astype(np.float32)).to(card) if biased
+            else None)
+    got = kernels.candidates_forward_rows(ep, er, w, 64, ids, bias=bias)
+    fp, fc = sp._forward_plain(ep, er, w, 64, T, provider_offset=bias)
+    assert same_bits(got[0], fp[ids.long()]) and same_bits(got[1], fc[ids.long()])
+
+
+def test_candidate_kernel_refuses_what_it_does_not_take(card):
+    """A shape K1 does not take raises, from the wrapper or from the refused
+    launch; no path falls back to a plain version."""
+    from protocol_tpu_torch import kernels
+
+    ep = synth_providers(np.random.default_rng(5), 300, device=card)
+    er = synth_requirements(np.random.default_rng(6), 512, device=card)
+    w = CostWeights()
+    ids = torch.arange(512, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError):
+        kernels.candidates_forward_rows(ep, er, w, 64, ids, rows_per_warp=3)
+    with pytest.raises(ValueError):
+        kernels.candidates_forward_rows(ep, er, w, 65, ids)
+    with pytest.raises(ValueError):
+        kernels.candidates_bidir(ep, er, w, 64, 100, 8, 1)  # tile does not divide T
+    with pytest.raises(ValueError):
+        kernels.candidates_bidir(ep, er, w, 64, 64, 8, 9)  # rt > r
+    from protocol_tpu_torch.kernels import _k1_setup, _lib
+
+    dev, pcols, rcols, (P, T, K, W), wt, aux = _k1_setup(ep, er, w)
+    out = torch.empty(64, dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError, match="refused"):  # rows a warp group must divide the tile
+        kernels._check(_lib("candidates").k1_reverse(
+            pcols, rcols, P, T, K, W, *wt, 64, 8, 1, 3, 0, aux.data_ptr(), out.data_ptr(),
+            out.data_ptr(), out.data_ptr(), out.data_ptr(), out.data_ptr(),
+            kernels._stream(out)), "k1_reverse")
+
+
 def churned_parts(card, weights, P=3000, T=2048, tile=256):
     """A cold pass's parts on the card under ``weights``, then 1% provider
     and requirement churn: (churned columns, parts, dirty_p, dirty_t)."""
@@ -372,9 +458,11 @@ def test_repair_kernels_match_plain_bits(card):
                      ps._enter_plain(ep, er, w, p_ids, thresh))
     rows = torch.arange(0, er.num, 7, device=card).flip(0)
     plain = ps._forward_rows_plain(ep, er, w, 64, rows)
-    for lanes in (None, 1, 4, 32):  # None: 32 lanes for these 293 rows
-        got = kernels.candidates_forward_rows(ep, er, w, 64, rows, lanes=lanes)
-        assert all(same_bits(a, b) for a, b in zip(got, plain)), lanes
+    # (rows a warp group, warps a group); None: the default layout, (1, 2)
+    # for these 293 rows
+    for layout in ((None, None), (8, 1), (4, 2), (1, 1)):
+        got = kernels.candidates_forward_rows(ep, er, w, 64, rows, *layout)
+        assert all(same_bits(a, b) for a, b in zip(got, plain)), layout
     assert same_bits(kernels.repair_tile_min(ep, er, w, t_ids, tile, ps._PAD_COST),
                      ps._tile_min_plain(ep, er, w, t_ids, tile, ps._PAD_COST))
     gen = torch.Generator(device=card).manual_seed(0)
@@ -807,8 +895,8 @@ def test_blocked_sinkhorn_kernels_match_plain(card, P, T, tile, proximity):
         assert float((g - r)[~masked].abs().max()) <= BLOCKED_ATOL
 
 
-@pytest.mark.parametrize("lanes", [None, 1, 8])
-def test_candidate_kernel_with_a_provider_bias_matches_plain_bits(card, lanes):
+@pytest.mark.parametrize("layout", [(None, None), (8, 1), (1, 2)])
+def test_candidate_kernel_with_a_provider_bias_matches_plain_bits(card, layout):
     """K1's biased forward launch against the plain biased selection, bit
     for bit at proximity 0, with ties made by a bias of -1000 on a third
     of the providers; the unbiased launch keeps its bits."""
@@ -822,11 +910,11 @@ def test_candidate_kernel_with_a_provider_bias_matches_plain_bits(card, lanes):
     rng = np.random.default_rng(2)
     for bias in (rng.normal(0, 1, P), np.where(np.arange(P) % 3 == 0, -1000.0, 0.0)):
         bias = torch.from_numpy(bias.astype(np.float32)).to(card)
-        got = kernels.candidates_forward_rows(ep, er, w, 64, ids, lanes=lanes, offset=77,
+        got = kernels.candidates_forward_rows(ep, er, w, 64, ids, *layout, offset=77,
                                               bias=bias)
         ref = sp._forward_plain(ep, er, w, 64, tile, task_offset=77, provider_offset=bias)
         assert all(same_bits(a, b) for a, b in zip(got, ref))
-    got = kernels.candidates_forward_rows(ep, er, w, 64, ids, lanes=lanes)
+    got = kernels.candidates_forward_rows(ep, er, w, 64, ids, *layout)
     ref = sp._forward_plain(ep, er, w, 64, tile)
     assert all(same_bits(a, b) for a, b in zip(got, ref))
 
