@@ -137,12 +137,14 @@ provider churn), after every tick equal to TorchSolveArena(devices=1)
 TorchBatchMatcher(use_mesh=True) on the torch route's pool, the stateless
 route and the cached default route each cold and after 1% node churn,
 every refresh sharded (mesh_sharded; mesh_gen_sharded on the stateless
-route), its matching checked, the cold cached refresh seating at least
-98% of the one-device cached route's bounded slots. K1 per shard at its
-offset (proximity 0, bit for bit), K3 at shard 3's offset 49,152 and K5
-at 4 and 8 lanes on the chain's calls, and K16 over one 256-round segment
-of the sharded scaled ladder (the whole state) are held against their
-plain versions.
+route) by K16's segment launch (mesh_route), its matching checked, the
+cold cached refresh seating at least 98% of the one-device cached route's
+bounded slots; both runs timed in place, neither launching K16's
+three-launch rounds. K1 per shard at its offset (proximity 0, bit for
+bit), K3 at shard 3's offset 49,152 and K5 at 4 and 8 lanes on the
+chain's calls, and K16 over one 256-round segment of the sharded scaled
+ladder (the whole state), by the segment launch and by the three launches
+a round, are held against their plain versions.
 Then, at D = 4 views of the card again, the provider-sharded dense
 auction and blocked Sinkhorn (parallel/auction.py, parallel/sinkhorn.py),
 in two more runs with the counts set to 0 just before each:
@@ -1825,25 +1827,30 @@ def run_stage_s(torch, kernels) -> tuple[list, dict, dict]:
 # the provider mesh: D = 4 views of the one card (utils/platform.py)
 MESH_D = 4
 MESH_SHARD_OFFSET = 16_384 * 3  # shard 3's first row at N / 4 tasks a shard
-MESH_KERNELS = ("candidates_bidir", "candidates_forward_rows", "repair_enter",
-                "repair_refold", "mesh_round_bid", "mesh_round_resolve", "mesh_round_apply")
-K16 = ("mesh_round_bid", "mesh_round_resolve", "mesh_round_apply")
+MESH_KERNELS = ("candidates_bidir", "candidates_forward_rows", "repair_enter", "repair_refold")
+# K16 where every shard lies on one card: its segment launch; across cards
+# its three launches a round, which no run on one card may launch
+K16 = ("mesh_segment",)
+K16_ROUNDS = ("mesh_round_bid", "mesh_round_resolve", "mesh_round_apply")
 MESH_MATCHER_KERNELS = ("candidates_bidir",) + K16
-SRC_K16 = "protocol_tpu_torch/csrc/mesh_auction.cu"
+SRC_K16 = "protocol_tpu_torch/csrc/auction.cu"
+SRC_K16_ROUNDS = "protocol_tpu_torch/csrc/mesh_auction.cu"
 
 
-def run_mesh(torch, kernels, refresh) -> tuple[list, dict]:
+def run_mesh(torch, kernels, refresh) -> tuple[list, dict, dict]:
     """The provider mesh on the card at D = 4 views of it: sharded
     generation at 65,536^2 against D = 1 and the one-device pass; then, in
-    two runs with the counts set to 0 just before each, a
-    TorchSolveArena(devices=4) chain (cold, 3 x 1% requirement churn, 1%
-    provider churn) held tick by tick against TorchSolveArena(devices=1)
-    and a fresh cold pass at D = 4 (repaired == regen), and
-    TorchBatchMatcher(use_mesh=True) on the torch route's pool, the
-    stateless route and the cached default route, each cold and after 1%
-    node churn; then K1 per shard, K3 at a shard's offset, K5 at 4 and 8
-    lanes and K16 over a 256-round segment against their plain versions.
-    Returns (rows, {run name: launches}); raises on any failed check."""
+    two runs with the counts set to 0 just before each, each timed in
+    place, a TorchSolveArena(devices=4) chain (cold, 3 x 1% requirement
+    churn, 1% provider churn) held tick by tick against
+    TorchSolveArena(devices=1) and a fresh cold pass at D = 4 (repaired ==
+    regen), and TorchBatchMatcher(use_mesh=True) on the torch route's
+    pool, the stateless route and the cached default route, each cold and
+    after 1% node churn; then K1 per shard, K3 at a shard's offset, K5 at
+    4 and 8 lanes and K16 over a 256-round segment (the segment launch and
+    the three-launch rounds) against their plain versions. Returns (rows,
+    {run name: launches}, {run name: in-place sums}); raises on any failed
+    check."""
     import numpy as np
 
     from protocol_tpu_torch.ops import sparse as sp
@@ -1939,6 +1946,7 @@ def run_mesh(torch, kernels, refresh) -> tuple[list, dict]:
         kernels.reset_launches()
         gen_count["candidates_sharded"] = 0
         calls, originals = record_calls(kernels, ("repair_enter", "repair_refold"))
+        kernels.time_in_place(True)
         arena_ticks = []
         for label, step in (("prime", None), ("req-churn-0", req_churn),
                             ("req-churn-1", req_churn), ("req-churn-2", req_churn),
@@ -1951,7 +1959,7 @@ def run_mesh(torch, kernels, refresh) -> tuple[list, dict]:
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
             st = dict(a4.last_stats)
-            with uncounted(kernels, gen_count):
+            with uncounted(kernels, gen_count), kernels.untimed():
                 t0 = time.perf_counter()
                 p1 = a1.solve(ns(cols["pa"]), ns(cols["ra"]), default)
                 torch.cuda.synchronize()
@@ -1984,10 +1992,13 @@ def run_mesh(torch, kernels, refresh) -> tuple[list, dict]:
         for name, fn in originals.items():
             setattr(kernels, name, fn)
         launches_arena = dict(kernels.LAUNCHES, **gen_count)
+        in_place = {"mesh_arena": in_place_run(kernels, kernels.LAUNCHES, "mesh arena")}
         print(f"kernels (mesh arena): {json.dumps(launches_arena)}", flush=True)
-        missing = [n for n in MESH_KERNELS[:4] + ("candidates_sharded",) if launches_arena[n] == 0]
+        missing = [n for n in MESH_KERNELS + ("candidates_sharded",) if launches_arena[n] == 0]
         if missing:
             raise AssertionError(f"the mesh arena launched no {missing}")
+        if any(launches_arena[n] for n in K16_ROUNDS):
+            raise AssertionError("the mesh arena launched K16's three-launch rounds on one card")
         del a1
 
         # ---- the matcher over the mesh on the torch route's pool
@@ -1997,12 +2008,14 @@ def run_mesh(torch, kernels, refresh) -> tuple[list, dict]:
         torch.cuda.synchronize()
         kernels.reset_launches()
         gen_count["candidates_sharded"] = 0
+        kernels.time_in_place(True)
         matcher_stats = []
         for warm_start in (False, True):
             m = tb.TorchBatchMatcher(store, use_mesh=True, warm_start=warm_start, device=dev)
             route = "cached" if warm_start else "stateless"
             if warm_start:
-                with uncounted(kernels, gen_count):  # the one-device cached route's cold seats
+                # the one-device cached route's cold seats
+                with uncounted(kernels, gen_count), kernels.untimed():
                     single = tb.TorchBatchMatcher(store, device=dev)
                     single_seats = refresh(single, store, "mesh-reference-one-device-cold",
                                            "sparse_topk")["checked"]["bounded_seats"]
@@ -2012,10 +2025,14 @@ def run_mesh(torch, kernels, refresh) -> tuple[list, dict]:
                     churn_nodes(rng, store, CHURN, first=N * (2 + int(warm_start)))
                 st = refresh(m, store, f"mesh-{route}-{step}", "sparse_topk")
                 print(f"matcher mesh-{route}-{step}: mesh_sharded {st['mesh_sharded']} "
-                      f"mesh_gen_sharded {st['mesh_gen_sharded']}", flush=True)
+                      f"mesh_gen_sharded {st['mesh_gen_sharded']} mesh_route "
+                      f"{st.get('mesh_route')}", flush=True)
                 matcher_stats.append(st)
                 if not st["mesh_sharded"] or (not warm_start and not st["mesh_gen_sharded"]):
                     raise AssertionError(f"mesh-{route}-{step}: the mesh did not engage")
+                if st.get("mesh_route") != "segment":
+                    raise AssertionError(f"mesh-{route}-{step}: phase 1 ran the "
+                                         f"{st.get('mesh_route')} route, not K16's segment launch")
                 if warm_start and step == "cold":
                     seats = st["checked"]["bounded_seats"]
                     print(f"mesh cached cold: {seats} bounded seats, one device {single_seats}",
@@ -2025,11 +2042,14 @@ def run_mesh(torch, kernels, refresh) -> tuple[list, dict]:
                                              f"under {ROUTE_SEATS_FLOOR} x {single_seats}")
             del m
         launches_matcher = dict(kernels.LAUNCHES, **gen_count)
+        in_place["mesh_matcher"] = in_place_run(kernels, kernels.LAUNCHES, "mesh matcher")
         print(f"kernels (mesh matcher): {json.dumps(launches_matcher)}", flush=True)
         missing = [n for n in MESH_MATCHER_KERNELS + ("candidates_sharded",)
                    if launches_matcher[n] == 0]
         if missing:
             raise AssertionError(f"the mesh matcher launched no {missing}")
+        if any(launches_matcher[n] for n in K16_ROUNDS):
+            raise AssertionError("the mesh matcher launched K16's three-launch rounds on one card")
         del store, nodes, tasks
 
         # ---- the kernels against their plain versions (uncounted)
@@ -2118,7 +2138,8 @@ def run_mesh(torch, kernels, refresh) -> tuple[list, dict]:
             rows_out.append(k5_row)
 
             # K16: one 256-round segment of the sharded scaled ladder (its
-            # first phase, eps 4.0) at D = 4, the whole state compared
+            # first phase, eps 4.0) at D = 4, the whole state compared, by
+            # the segment launch and by the three launches a round (forced)
             T = N
             B = min(4096, T // MESH_D)
             zeros = (torch.zeros(N, device=dev), torch.full((N,), -1, dtype=torch.int32, device=dev),
@@ -2128,54 +2149,92 @@ def run_mesh(torch, kernels, refresh) -> tuple[list, dict]:
             def shards():
                 return ps._make_shards(mesh, cand_p, cand_c, True, *zeros, B)
 
-            got_sh, ref_sh = shards(), shards()
-            out_k = ps._segment(mesh, *got_sh, T, 4.0, B, 256, 0)
-            out_p = ps._segment(mesh, *ref_sh, T, 4.0, B, 256, 0, plain=True)
-            torch.cuda.synchronize()
-            bad = [n for n in ("price", "owner", "p4t", "retired", "ctl", "win_key", "win_task")
-                   if not bits_equal(torch, getattr(got_sh[1], n), getattr(ref_sh[1], n))]
-            rows_k16 = int(got_sh[1].ctl[:, kernels.CTL_ROWS].sum())
-            print(f"K16 one segment at D={MESH_D}: (it, stall, open) kernel {out_k} plain {out_p}; "
-                  f"frontier rows {rows_k16}, assigned {int((got_sh[1].p4t >= 0).sum())}; "
-                  f"differing {bad}", flush=True)
-            if bad or out_k != out_p:
-                raise AssertionError(f"K16: the segment differs from the plain rounds: {bad}")
-            seg = []
-            for _ in range(3):
-                sh = shards()
+            if ps.segment_route(mesh.devices, Tl, cand_c.shape[1], B) != "segment":
+                raise AssertionError("K16: the mesh of views does not take the segment launch")
+            ref_sh = shards()
+            out_p = ps._segment(mesh, *ref_sh, T, 4.0, B, 256, 0, "plain")
+            fields = ("price", "owner", "p4t", "retired", "ctl", "win_key", "win_task")
+            k16_ms, k16_launches = {}, {}
+            for route, keys in (("segment", K16), ("rounds", K16_ROUNDS)):
+                got_sh = shards()
+                out_k = ps._segment(mesh, *got_sh, T, 4.0, B, 256, 0, route)
                 torch.cuda.synchronize()
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                before = sum(kernels.LAUNCHES[k_] for k_ in K16)
-                start.record()
-                ps._segment(mesh, *sh, T, 4.0, B, 256, 0)
-                end.record()
-                torch.cuda.synchronize()
-                seg.append(start.elapsed_time(end))
-                seg_launches = sum(kernels.LAUNCHES[k_] for k_ in K16) - before
+                bad = [n for n in fields
+                       if not bits_equal(torch, getattr(got_sh[1], n), getattr(ref_sh[1], n))]
+                rows_k16 = int(got_sh[1].ctl[:, kernels.CTL_ROWS].sum())
+                # the data the segment launch must write: each provider
+                # seated at least once (its price moved off the start's
+                # 0), each row assigned or retired at the end
+                seated = int((got_sh[1].price[0] != 0).sum())
+                assigned_k16 = int((got_sh[1].p4t >= 0).sum())
+                retired_k16 = int(got_sh[1].retired.sum())
+                print(f"K16 one segment at D={MESH_D}, {route} route: (it, stall, open) kernel "
+                      f"{out_k} plain {out_p}; frontier rows {rows_k16}, assigned "
+                      f"{assigned_k16}, seated providers {seated}; differing {bad}", flush=True)
+                if bad or out_k != out_p:
+                    raise AssertionError(f"K16 ({route} route): the segment differs from the "
+                                         f"plain rounds: {bad}")
+                seg = []
+                for _ in range(3):
+                    sh = shards()
+                    torch.cuda.synchronize()
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    before = sum(kernels.LAUNCHES[k_] for k_ in keys)
+                    start.record()
+                    ps._segment(mesh, *sh, T, 4.0, B, 256, 0, route)
+                    end.record()
+                    torch.cuda.synchronize()
+                    seg.append(start.elapsed_time(end))
+                    k16_launches[route] = sum(kernels.LAUNCHES[k_] for k_ in keys) - before
+                k16_ms[route] = sum(seg) / len(seg)
             sh = shards()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            ps._segment(mesh, *sh, T, 4.0, B, 256, 0, plain=True)
+            ps._segment(mesh, *sh, T, 4.0, B, 256, 0, "plain")
             torch.cuda.synchronize()
             k16_plain_ms = (time.perf_counter() - t0) * 1e3
             K = cand_c.shape[1]
-            rounds = out_k[0]
-            k16_bytes = (N * K * 8 + MESH_D * rounds * (Tl * 6 + N * 24)
-                         + rows_k16 * (K * 12 + 16))
-            k16_row = row("mesh_auction_round", SRC_K16, "protocol_tpu/parallel/sparse.py:81",
-                          0.0, sum(seg) / len(seg), k16_plain_ms, k16_bytes, rows_k16 * K * 3)
-            k16_row.update(counter=K16, runs=("mesh_matcher",), launches_timed=seg_launches,
-                           note=f"one 256-round segment ({rounds} live rounds) at eps 4.0, "
-                                f"B {B}, over {MESH_D} shards on one card; ms the mean of "
-                                f"{len(seg)} (CUDA events), plain ms host clock")
+            rounds = out_p[0]
+            # the bytes each route moves: both read the candidate arrays
+            # and gather the frontier rows' candidates and prices; the three
+            # launches also scan each shard's rows and reset and combine
+            # the [P] key, winner, price and owner arrays of every shard
+            # every round, where the segment launch reads the rows' state
+            # once and writes the D replicas only at a seat
+            frontier_bytes = N * K * 8 + rows_k16 * (K * 12 + 16)
+            k16_bytes = frontier_bytes + MESH_D * rounds * (Tl * 6 + N * 24)
+            seg_bytes = (frontier_bytes + T * 6 + seated * MESH_D * 8 + assigned_k16 * 4
+                         + retired_k16)
+            what = (f"one 256-round segment ({rounds} live rounds) at eps 4.0, B {B}, over "
+                    f"{MESH_D} shards on one card; ms the mean of 3 (CUDA events), plain ms "
+                    f"host clock")
+            k16_row = row("mesh_segment", SRC_K16, "protocol_tpu/parallel/sparse.py:81",
+                          0.0, k16_ms["segment"], k16_plain_ms, seg_bytes, rows_k16 * K * 3)
+            k16_row.update(counter=K16, runs=("mesh_matcher",),
+                           launches_timed=k16_launches["segment"],
+                           rounds_ms=k16_ms["rounds"],
+                           note=f"{what}; the segment launch (K2's cluster kernel over the "
+                                f"shards), rounds_ms the three launches a round")
             rows_out.append(k16_row)
-            print(f"K16 segment: {k16_row['ms']:.3f} ms (kernels), plain {k16_plain_ms:.1f} ms",
-                  flush=True)
+            k16r_row = row("mesh_auction_round", SRC_K16_ROUNDS,
+                           "protocol_tpu/parallel/sparse.py:81", 0.0, k16_ms["rounds"],
+                           k16_plain_ms, k16_bytes, rows_k16 * K * 3)
+            k16r_row.update(counter=K16_ROUNDS, runs=("mesh_matcher",),
+                            launches_timed=k16_launches["rounds"],
+                            note=f"{what}; three launches a shard a round, the route of "
+                                 f"shards on several cards (no launch on one card)")
+            rows_out.append(k16r_row)
+            print(f"K16 segment: {k16_ms['segment']:.3f} ms by the segment launch "
+                  f"({k16_launches['segment']} launches), {k16_ms['rounds']:.3f} ms by the "
+                  f"three-launch rounds ({k16_launches['rounds']} launches), plain "
+                  f"{k16_plain_ms:.1f} ms; bound {k16_row['bound_ms']:.4f} ms by the segment "
+                  f"launch's {seg_bytes} bytes, {k16r_row['bound_ms']:.4f} ms by the three "
+                  f"launches' {k16_bytes}", flush=True)
     finally:
         counting.__exit__(None, None, None)
         platform.force_virtual_devices(prev, torch.device(dev).type)
-    return rows_out, {"mesh_arena": launches_arena, "mesh_matcher": launches_matcher}
+    return rows_out, {"mesh_arena": launches_arena, "mesh_matcher": launches_matcher}, in_place
 
 
 # the provider-sharded dense auction (B9 dense) at D = 4 views of the card
@@ -3171,7 +3230,7 @@ def main() -> int:
     stage_rows, stage_runs, stage_ref = run_stage_s(torch, kernels)
 
     # ---- the provider mesh: four views of the card
-    mesh_rows, mesh_runs = run_mesh(torch, kernels, refresh)
+    mesh_rows, mesh_runs, mesh_in_place = run_mesh(torch, kernels, refresh)
 
     # ---- the provider-sharded dense auction and blocked Sinkhorn
     dense_rows, dense_runs = run_mesh_dense(torch, kernels)
@@ -3254,6 +3313,18 @@ def main() -> int:
     print("kernels by in-place device ms, the cold ticks and the warm chain: " + "; ".join(
         f"{name} {ms:.3f}" for name, ms in sorted(total.items(), key=lambda kv: -kv[1])),
         flush=True)
+    # the same for the mesh arena chain and the mesh matcher (D = 4 views)
+    mesh_total: dict = {}
+    for run in mesh_in_place.values():
+        for name, v in run.items():
+            mesh_total[name] = mesh_total.get(name, 0.0) + v["ms"]
+    for r_ in rows:
+        if r_["name"] in mesh_total:
+            r_["in_place_ms_mesh"] = mesh_total[r_["name"]]
+    print("kernels by in-place device ms, the mesh arena chain and the mesh matcher: "
+          + "; ".join(f"{name} {ms:.3f}"
+                      for name, ms in sorted(mesh_total.items(), key=lambda kv: -kv[1])),
+          flush=True)
     print(f"K2 timed launch: eps 4.0, B 4096, {k2_rounds} rounds, {k2_rows} frontier rows; "
           f"eps 0.02, B 512 (carried), {k2_rounds_512} rounds, {k2_rows_512} frontier rows",
           flush=True)

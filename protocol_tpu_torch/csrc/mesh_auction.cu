@@ -1,6 +1,9 @@
 // K16: one round of the task-sharded frontier auction for Hopper (sm_90a),
 // per shard, in three launches around the round's two cross-shard
-// combines.
+// combines: the route of shards on several cards. Where every shard lies
+// on one card, K16 runs as its segment launch instead (csrc/auction.cu,
+// K2's cluster kernel over the shards: 256 rounds of every shard in one
+// launch); parallel/sparse.py::segment_route chooses.
 //
 // Replaces protocol_tpu/parallel/sparse.py::_build_sharded_phase (the body
 // of its lax.while_loop under shard_map). Each shard owns Tl consecutive
@@ -57,20 +60,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "auction.cuh"
+
 namespace {
 
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxSlots = 4;  // candidate values each lane keeps: K <= 128
 constexpr unsigned kFull = 0xffffffffu;
-constexpr float kNeg = -1e18f;
-constexpr float kHalfNeg = -5e17f;  // _NEG * 0.5
-constexpr float kV2Floor = -1e8f;
 constexpr int kNoBid = INT_MIN;  // below every float's key
-
-// the shard's loop state and counts, int32 [kCtl], in the order of
-// kernels.py's CTL_* (the one definition of the layout)
-enum Ctl { kIt, kBest, kStall, kGo, kPending, kNb, kRows, kOpen, kAssigned, kCtl };
 
 __device__ __forceinline__ int32_t ordered_key(float f) {
   const int32_t i = __float_as_int(f);

@@ -4,7 +4,7 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface under ``build/kernels/`` beside
 the package, at first use (one ``nvcc`` per source, all started together),
 and loaded with ``ctypes``. A library's file name carries a hash of its
-source, the shared header ``csrc/cell.cuh`` and the flags, so an edited
+source, the shared headers ``csrc/*.cuh`` and the flags, so an edited
 source is rebuilt and never mixed with an old build.
 
 Flags: ``-O3 -fmad=false`` and no fast-math, so every f32 operation in a
@@ -55,7 +55,7 @@ LAUNCHES = {
     "cost_block": 0, "binpack_ffd": 0, "greedy_assign": 0, "sinkhorn": 0,
     "blocked_feasibility": 0, "blocked_row_lse": 0, "blocked_col_lse": 0,
     "blocked_col_partial": 0, "pair_cost": 0,
-    "mesh_round_bid": 0, "mesh_round_resolve": 0, "mesh_round_apply": 0,
+    "mesh_segment": 0, "mesh_round_bid": 0, "mesh_round_resolve": 0, "mesh_round_apply": 0,
     "mesh_dense_scan": 0, "mesh_dense_combine": 0, "mesh_dense_resolve": 0,
     "mesh_dense_apply": 0, "mesh_dense_finish": 0,
 }
@@ -92,7 +92,8 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> pathlib.Path:
-    src = (CSRC / f"{name}.cu").read_bytes() + (CSRC / "cell.cuh").read_bytes()
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
@@ -219,8 +220,12 @@ def _lib(name: str) -> ctypes.CDLL:
                 _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
                 _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
             ]
+            lib.k16_mesh_segment.argtypes = [
+                _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
+            ]
             lib.k2_active_clusters.argtypes = [_I, _P]
-            for fn in ("k2_auction_phase", "k2_active_clusters"):
+            for fn in ("k2_auction_phase", "k16_mesh_segment", "k2_active_clusters"):
                 getattr(lib, fn).restype = _I
         _LIBS[name] = lib
     return lib
@@ -528,21 +533,28 @@ def auction_phase(
     if K > 128 or T > 1_638_400:
         raise ValueError(f"K2 takes K <= 128 candidates and T <= 1,638,400 tasks, got {K}, {T}")
     C = k2_cluster(dev) if cluster is None else int(cluster)
-    f_idx = torch.empty(B, dtype=torch.int32, device=dev)
-    fr_p1 = torch.empty((2, B), dtype=torch.int32, device=dev)
-    fr_key = torch.empty(B, dtype=torch.int64, device=dev)
-    win_key = torch.zeros((2, P), dtype=torch.int64, device=dev)
-    out = torch.zeros(3, dtype=torch.int32, device=dev)
+    f_idx, fr_p1, fr_key, win_key = _phase_scratch(B, P, dev)
+    ctl = torch.empty(MESH_CTL, dtype=torch.int32, device=dev)
     _launch("auction_phase", _lib("auction").k2_auction_phase,
         cand_safe.data_ptr(), value_base.data_ptr(), feasible.data_ptr(),
         give_up.data_ptr(), T, K, B, P, max_iters, stall_limit, eps, K2_ONE_BLOCK_OPEN,
         price.data_ptr(), owner.data_ptr(), p4t.data_ptr(), retired.data_ptr(),
         f_idx.data_ptr(), fr_p1.data_ptr(), fr_key.data_ptr(), win_key.data_ptr(),
-        out.data_ptr(), C, _stream(out), what=f"auction_phase (cluster of {C})",
+        ctl.data_ptr(), C, _stream(ctl), what=f"auction_phase (cluster of {C})",
     )
     if work_out is not None:
-        work_out["frontier_rows"] = out[2]
-    return (out[0], price, owner, p4t, retired), out[1]
+        work_out["frontier_rows"] = ctl[CTL_ROWS]
+    return (ctl[CTL_IT], price, owner, p4t, retired), ctl[CTL_STALL]
+
+
+def _phase_scratch(n_front: int, P: int, dev):
+    """The phase kernel's scratch for frontiers of ``n_front`` entries:
+    f_idx, fr_p1 (two round parities), fr_key, and the 64-bit key buffers
+    win_key [2, P], zero as the launch takes them."""
+    return (torch.empty(n_front, dtype=torch.int32, device=dev),
+            torch.empty((2, n_front), dtype=torch.int32, device=dev),
+            torch.empty(n_front, dtype=torch.int64, device=dev),
+            torch.zeros((2, P), dtype=torch.int64, device=dev))
 
 
 def _ids(ids: torch.Tensor, n: int, dev, what: str) -> torch.Tensor:
@@ -999,8 +1011,8 @@ CARD_CHECK_EVERY = 256
 # K16's per-shard int32 state, one word each, and its size MESH_CTL: the
 # loop's it, best and stall, whether this round runs (go) and has counts
 # to fold (pending), the frontier size nb, the frontier rows bid so far,
-# and the shard's open and assigned counts. The one definition of the
-# layout: csrc/mesh_auction.cu's Ctl enum follows it.
+# and the shard's open and assigned counts. A mirror of the Ctl enum in
+# csrc/auction.cuh.
 (CTL_IT, CTL_BEST, CTL_STALL, CTL_GO, CTL_PENDING, CTL_NB, CTL_ROWS, CTL_OPEN, CTL_ASSIGNED,
  MESH_CTL) = range(10)
 
@@ -1010,6 +1022,59 @@ def _mesh_tensors(dev, what: str, **named) -> None:
         if t.device != dev or t.dtype != dtype or t.numel() != n or not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be a contiguous {dtype} tensor of {n} "
                              f"elements on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+# K16's segment launch (csrc/auction.cu): the shards one launch takes, and
+# the bytes its open bitmask may hold (D ceil(Tl / 32) words); a mirror of
+# kMaxShards and kMaxOpenBytes in csrc/auction.cuh
+MESH_SEGMENT_MAX_SHARDS = 32
+MESH_SEGMENT_OPEN_BYTES = 200 * 1024
+
+
+def mesh_segment_fits(D: int, Tl: int, K: int, B: int) -> bool:
+    """Whether K16's segment launch takes D shards of Tl rows, K candidates
+    a row and a per-shard frontier of B (decided from the shapes alone)."""
+    return (1 <= D <= MESH_SEGMENT_MAX_SHARDS and 1 <= K <= 128 and 1 <= B <= Tl
+            and D * -(-Tl // 32) * 4 <= MESH_SEGMENT_OPEN_BYTES)
+
+
+@_on_device
+def mesh_segment(cand_safe, value_base, feasible, give_up, price, owner, p4t, retired, ctl,
+                 eps: float, B: int, max_iters: int, stall_limit: int, fresh: bool,
+                 cluster: int | None = None) -> None:
+    """K16's segment launch (``csrc/auction.cu``, K2's kernel over D shards):
+    up to :data:`CARD_CHECK_EVERY` rounds of the sharded phase's
+    ``max_iters`` for every shard of a mesh of views of one card, in one
+    launch of one thread-block cluster of ``cluster`` blocks (default
+    :func:`k2_cluster`; a size the card refuses raises). Takes the stacked
+    shard fields: ``cand_safe`` / ``value_base`` [D, Tl, K], ``feasible`` /
+    ``p4t`` / ``retired`` [D, Tl], ``give_up`` [D, 1], ``price`` / ``owner``
+    [D, P] (the replicas), ``ctl`` [D, MESH_CTL]. With ``fresh`` the loop
+    state starts afresh (it, stall and the frontier rows 0, best the
+    assigned count), else it goes on from ``ctl``'s. Updates price, owner,
+    p4t, retired and ctl in place; ``ctl``'s go word says whether rounds
+    are left."""
+    D, Tl, K = value_base.shape
+    P = price.shape[-1]
+    dev = value_base.device
+    if not mesh_segment_fits(D, Tl, K, B):
+        raise ValueError(f"K16's segment launch takes D <= {MESH_SEGMENT_MAX_SHARDS}, K <= 128, "
+                         f"1 <= B <= Tl and D ceil(Tl / 32) words of open bits <= "
+                         f"{MESH_SEGMENT_OPEN_BYTES} bytes; got D={D}, Tl={Tl}, K={K}, B={B}")
+    _mesh_tensors(dev, "mesh_segment", cand_safe=(cand_safe, torch.int32, D * Tl * K),
+                  value_base=(value_base, torch.float32, D * Tl * K),
+                  feasible=(feasible, torch.uint8, D * Tl), give_up=(give_up, torch.float32, D),
+                  price=(price, torch.float32, D * P), owner=(owner, torch.int32, D * P),
+                  p4t=(p4t, torch.int32, D * Tl), retired=(retired, torch.uint8, D * Tl),
+                  ctl=(ctl, torch.int32, D * MESH_CTL))
+    C = k2_cluster(dev) if cluster is None else int(cluster)
+    f_idx, fr_p1, fr_key, win_key = _phase_scratch(D * B, P, dev)
+    _launch("mesh_segment", _lib("auction").k16_mesh_segment,
+        cand_safe.data_ptr(), value_base.data_ptr(), feasible.data_ptr(), give_up.data_ptr(),
+        D, Tl, K, B, P, max_iters, stall_limit, CARD_CHECK_EVERY, int(bool(fresh)), eps,
+        price.data_ptr(), owner.data_ptr(), p4t.data_ptr(), retired.data_ptr(), f_idx.data_ptr(), fr_p1.data_ptr(), fr_key.data_ptr(),
+        win_key.data_ptr(), ctl.data_ptr(), C, _stream(ctl), what=f"mesh_segment (cluster of {C})",
+    )
 
 
 @_on_device

@@ -42,10 +42,15 @@ plain torch version beside it, a CUDA tensor the kernel.
                       ``_build_repair_tile``
   repair_refold    -> K5 (``csrc/repair.cu``), ``_build_repair_refold`` +
                       ``_merge_rev_pools``, at ``d_fold`` lanes
-  _segment         -> K16 (``csrc/mesh_auction.cu``): each round of
+  _segment         -> K16: where every shard lies on one card, its
+                      segment launch (``csrc/auction.cu``, K2's cluster
+                      kernel over D shards: 256 rounds of every shard a
+                      launch); across cards each round of
                       ``_build_sharded_phase`` as three launches a shard
-                      (bid, resolve, apply) around the round's pmax and
-                      pmin; the plain versions ``_round_*_plain`` run
+                      (``csrc/mesh_auction.cu``: bid, resolve, apply)
+                      around the round's pmax and pmin
+                      (``segment_route`` decides from the devices and the
+                      shapes); the plain versions ``_round_*_plain`` run
                       every shard at once over stacked views of one device
 
 Sharded generation runs K1's fused launch per shard (``csrc/candidates.cu``)
@@ -705,20 +710,45 @@ def _round_apply_plain(st: _Shard, win_key, win_task, T: int) -> None:
 # ---- the phase: rounds in segments
 
 
+def segment_route(devices, Tl: int, K: int, B: int) -> str:
+    """How ``_segment`` runs the rounds of a mesh over ``devices`` (one a
+    shard) with Tl rows a shard, K candidates a row and a per-shard
+    frontier of B, from the devices and the shapes alone: ``"plain"`` (the
+    plain rounds over the stacked shards) off a card; ``"segment"``, K16's
+    segment launch (every shard's rounds in one cluster launch per
+    :data:`CARD_CHECK_EVERY` rounds), where every shard lies on one card
+    and the shapes fit it; else ``"rounds"``, three launches a shard a
+    round around the host's pmax and pmin (shards on several cards)."""
+    from protocol_tpu_torch import kernels
+
+    if devices[0].type != "cuda":
+        return "plain"
+    if len(set(devices)) == 1 and kernels.mesh_segment_fits(len(devices), Tl, K, B):
+        return "segment"
+    return "rounds"
+
+
 def _segment(mesh: Mesh, shards: list, stacked, T: int, eps: float, B: int, max_iters: int,
-             stall_limit: int, plain: bool = False) -> tuple[int, int, int]:
+             stall_limit: int, route: str | None = None) -> tuple[int, int, int]:
     """Up to ``max_iters`` rounds of the sharded phase from the shards'
     state (a run of the reference's ``_build_sharded_phase``: it, best and
-    stall start afresh). A round: each shard's bid step, pmax of the bid
-    keys, each shard's resolve step, pmin of the winners, each shard's
-    apply step, psum of the counts. The steps are K16's launches per
-    shard on a card; the plain versions over the stacked shards on the
-    CPU, or anywhere with ``plain`` (the card's check of K16). The stop is
-    decided on the device, so a card runs the rounds without a read-back.
-    Returns (it, stall, open tasks) at the end: one read-back."""
-    on_card = shards[0].ctl.is_cuda and not plain
-    if not on_card and stacked is None:
-        raise ValueError("the plain rounds take a mesh of views of one device")
+    stall start afresh), by ``route`` (default :func:`segment_route`'s;
+    ``"plain"`` on a card is its check of K16). A round: each shard's bid
+    step, pmax of the bid keys, each shard's resolve step, pmin of the
+    winners, each shard's apply step, psum of the counts. On the
+    ``"rounds"`` route the steps are K16's launches per shard, on
+    ``"segment"`` one launch runs every shard's rounds, 256 at a time; the
+    plain versions run over the stacked shards. The stop is decided on the
+    device, so a card runs the rounds without a read-back but one a
+    segment launch or every 256 rounds. Returns (it, stall, open tasks) at
+    the end."""
+    if route is None:
+        route = segment_route(mesh.devices, *shards[0].value_base.shape, B)
+    if route != "rounds" and stacked is None:
+        raise ValueError(f"the {route} route takes a mesh of views of one device")
+    if route == "segment":
+        return _segment_launches(stacked, eps, B, max_iters, stall_limit)
+    on_card = route == "rounds"
     tot = psum([sh.ctl[CTL_OPEN:] for sh in shards], mesh)
     for sh, t in zip(shards, tot):
         sh.ctl[:CTL_OPEN] = 0
@@ -763,6 +793,25 @@ def _segment(mesh: Mesh, shards: list, stacked, T: int, eps: float, B: int, max_
     return it, stall, open_count
 
 
+def _segment_launches(st: _Shard, eps: float, B: int, max_iters: int,
+                      stall_limit: int) -> tuple[int, int, int]:
+    """``_segment``'s rounds as K16's segment launches over the stacked
+    shards ``st``: a launch runs up to CARD_CHECK_EVERY rounds, the first
+    from a fresh loop state, each next one from the state the last left in
+    ``ctl``, until its go word is 0 (one read-back a launch)."""
+    from protocol_tpu_torch import kernels
+
+    fresh = True
+    while True:
+        kernels.mesh_segment(st.cand_safe, st.value_base, st.feasible, st.give_up, st.price,
+                             st.owner, st.p4t, st.retired, st.ctl, eps, B, max_iters,
+                             stall_limit, fresh)
+        fresh = False
+        ctl = st.ctl.tolist()
+        if not ctl[0][CTL_GO]:
+            return ctl[0][CTL_IT], ctl[0][CTL_STALL], sum(c[CTL_OPEN] for c in ctl)
+
+
 def _run_phase_sharded(mesh: Mesh, P: int, B0: int, max_iters: int, cand_p, cand_c, eps: float,
                        stall_limit: int, price, owner, p4t, frontier_ladder: bool,
                        retired=None, retire: bool = True):
@@ -771,15 +820,17 @@ def _run_phase_sharded(mesh: Mesh, P: int, B0: int, max_iters: int, cand_p, cand
     ``frontier_ladder`` in 256-round segments with the per-shard frontier
     refit to the live open set between them (floor max(64, 512 // D)) and
     the stall carried across them, as the reference's
-    ``_run_phase_sharded``. Returns (price, owner, p4t, retired, stall)
-    on the mesh's first device."""
+    ``_run_phase_sharded``. The rounds' route is :func:`segment_route`'s,
+    decided once a phase at the first frontier. Returns (price, owner, p4t,
+    retired, stall) on the mesh's first device."""
     D = mesh.size
     T = cand_c.shape[0]
     if retired is None:
         retired = torch.zeros(T, dtype=torch.bool, device=cand_c.device)
     shards, stacked = _make_shards(mesh, cand_p, cand_c, retire, price, owner, p4t, retired, B0)
+    route = segment_route(mesh.devices, T // D, cand_c.shape[1], B0)
     if not frontier_ladder:
-        _, stall, _ = _segment(mesh, shards, stacked, T, eps, B0, max_iters, stall_limit)
+        _, stall, _ = _segment(mesh, shards, stacked, T, eps, B0, max_iters, stall_limit, route)
     else:
         seg_rounds = 256
         iters_left = max_iters
@@ -787,7 +838,7 @@ def _run_phase_sharded(mesh: Mesh, P: int, B0: int, max_iters: int, cand_p, cand
         stall = 0
         floor = max(64, 512 // D)
         while iters_left > 0:
-            _, s, open_count = _segment(mesh, shards, stacked, T, eps, B, seg_rounds, 0)
+            _, s, open_count = _segment(mesh, shards, stacked, T, eps, B, seg_rounds, 0, route)
             # a segment reports its own trailing stall; a whole-segment
             # stall accumulates
             stall = stall + seg_rounds if s >= seg_rounds else s

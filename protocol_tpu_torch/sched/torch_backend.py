@@ -83,6 +83,7 @@ from protocol_tpu_torch.parallel.sparse import (
     assign_auction_sparse_scaled_sharded,
     assign_auction_sparse_warm_sharded,
     candidates_topk_bidir_sharded,
+    segment_route,
 )
 from protocol_tpu_torch.sched.cand_cache import (
     CandidateCache,
@@ -345,6 +346,7 @@ class TorchBatchMatcher:
         self._last_warm_used = False
         self._last_warm_seeded = 0
         self._last_stall: dict = {}
+        self._last_mesh_route: str | None = None
         self.last_solve_stats: dict = {}
         self._solve_seq = 0
         # per-solve counters of phases 0 and 0.5
@@ -465,11 +467,16 @@ class TorchBatchMatcher:
                       stats_out=None, retired0=None):
         """Phase 1's sparse solve: the warm auction from the carried duals,
         else the eps-scaled ladder; over the mesh (K16) when ``use_mesh``
-        found devices and the slot count divides by D, else on one device.
-        Returns (result, prices, retired)."""
+        found devices and the slot count divides by D, else on one device
+        (the mesh's route kept for the stats). Returns (result, prices,
+        retired)."""
         D = self._mesh.size if self._mesh is not None else 0
         self._last_sharded = D > 1 and cand_p.shape[0] % D == 0
         if self._last_sharded:
+            T, K = cand_c.shape
+            # the sharded ladders' default frontier of 4,096, cut to a shard
+            self._last_mesh_route = segment_route(self._mesh.devices, T // D, K,
+                                                  min(4096, T // D))
             if warm:
                 return assign_auction_sparse_warm_sharded(
                     cand_p, cand_c, num_providers, self._mesh, price0=price0, p4t0=p4t0,
@@ -1109,6 +1116,9 @@ class TorchBatchMatcher:
             "kernel": kernel_used,  # dense_auction | sparse_topk | torch_arena | none
             # phase 1 ran the sharded kernels (engaged, not merely asked for)
             "mesh_sharded": self._last_sharded,
+            # how a sharded phase 1 ran its rounds (parallel/sparse.py::
+            # segment_route): "segment", "rounds" or "plain"
+            **({"mesh_route": self._last_mesh_route} if self._last_sharded else {}),
             "mesh_gen_sharded": self._last_gen_sharded,
             "warm": warm_used,
             "warm_seeded_slots": warm_seeded,

@@ -1006,33 +1006,6 @@ def test_sharded_generation_on_the_card_matches_plain_and_one_device(card, mesh4
         assert all(same_bits(a, b) for a, b in zip(k_rev, p_rev))
 
 
-def test_mesh_round_kernels_match_plain_bits(card, mesh4):
-    """K16 over 256-round segments of the sharded phase at D = 4 views (a
-    cold segment, then one from the carried state at a smaller frontier),
-    the whole state compared with the plain rounds on the same inputs."""
-    from protocol_tpu_torch import kernels
-    from protocol_tpu_torch.parallel import sparse as ps
-
-    n = 4096
-    ep = synth_providers(np.random.default_rng(2), n, device=card)
-    er = synth_requirements(np.random.default_rng(3), n, device=card)
-    cp, cc = sp.candidates_topk_bidir(ep, er, CostWeights(), k=64, tile=512)
-    state = (torch.zeros(n, device=card), torch.full((n,), -1, dtype=torch.int32, device=card),
-             torch.full((n,), -1, dtype=torch.int32, device=card),
-             torch.zeros(n, dtype=torch.bool, device=card))
-    got = ps._make_shards(mesh4, cp, cc, True, *state, 1024)
-    ref = ps._make_shards(mesh4, cp, cc, True, *state, 1024)
-    before = kernels.LAUNCHES["mesh_round_bid"]
-    for eps, B in ((4.0, 1024), (1.0, 256)):
-        out_k = ps._segment(mesh4, *got, n, eps, B, 256, 0)
-        out_p = ps._segment(mesh4, *ref, n, eps, B, 256, 0, plain=True)
-        assert out_k == out_p
-        for name in ("price", "owner", "p4t", "retired", "ctl", "win_key", "win_task"):
-            assert same_bits(getattr(got[1], name), getattr(ref[1], name)), (eps, name)
-    assert kernels.LAUNCHES["mesh_round_bid"] > before
-    assert int((got[1].p4t >= 0).sum()) > 0
-
-
 @pytest.fixture
 def views(card):
     """A function giving a mesh of D views of the card (utils/platform.py);
@@ -1043,6 +1016,127 @@ def views(card):
     prev = platform.force_virtual_devices(8, "cuda")
     yield lambda D: make_mesh(D, card)
     platform.force_virtual_devices(prev, "cuda")
+
+
+def k16_check(mesh, cp, cc, state, B0, segments, route):
+    """K16 by ``route`` against the plain rounds over ``segments`` of (eps,
+    B, max_iters, stall_limit) from the same shards: the (it, stall, open)
+    triple and the seven state fields after each, bit for bit. Returns the
+    kernel's stacked shard."""
+    from protocol_tpu_torch import kernels
+    from protocol_tpu_torch.parallel import sparse as ps
+
+    key = "mesh_segment" if route == "segment" else "mesh_round_bid"
+    T = cp.shape[0]
+    got = ps._make_shards(mesh, cp, cc, True, *state, B0)
+    ref = ps._make_shards(mesh, cp, cc, True, *state, B0)
+    before = kernels.LAUNCHES[key]
+    for eps, B, max_iters, stall_limit in segments:
+        out_k = ps._segment(mesh, *got, T, eps, B, max_iters, stall_limit, route)
+        out_p = ps._segment(mesh, *ref, T, eps, B, max_iters, stall_limit, "plain")
+        assert out_k == out_p, (eps, B)
+        for name in ("price", "owner", "p4t", "retired", "ctl", "win_key", "win_task"):
+            assert same_bits(getattr(got[1], name), getattr(ref[1], name)), (eps, B, name)
+    assert kernels.LAUNCHES[key] > before
+    return got[1]
+
+
+@pytest.mark.parametrize("D", [2, 4, 8])
+@pytest.mark.parametrize("route", ["segment", "rounds"])
+def test_mesh_round_kernels_match_plain_bits(card, views, route, D):
+    """K16 over 256-round segments of the sharded phase at D views (a cold
+    segment, then one from the carried state at a smaller frontier), by
+    the segment launch and by the three launches a round, the whole state
+    compared with the plain rounds on the same inputs."""
+    n = 4096
+    ep = synth_providers(np.random.default_rng(2), n, device=card)
+    er = synth_requirements(np.random.default_rng(3), n, device=card)
+    cp, cc = sp.candidates_topk_bidir(ep, er, CostWeights(), k=64, tile=512)
+    state = (torch.zeros(n, device=card), torch.full((n,), -1, dtype=torch.int32, device=card),
+             torch.full((n,), -1, dtype=torch.int32, device=card),
+             torch.zeros(n, dtype=torch.bool, device=card))
+    Tl = n // D
+    st = k16_check(views(D), cp, cc, state, min(1024, Tl),
+                   ((4.0, min(1024, Tl), 256, 0), (1.0, 256, 256, 0)), route)
+    assert int((st.p4t >= 0).sum()) > 0
+
+
+def k16_market(seed: int, T: int, P: int, K: int, p_inf: float = 0.1, hi: float = 5.0):
+    """Random candidate arrays [T, K] over P providers, a share ``p_inf`` of
+    the entries absent (-1, infeasible cost)."""
+    rng = np.random.default_rng(seed)
+    cp = np.stack([rng.choice(P, K, replace=False) for _ in range(T)]).astype(np.int32)
+    cc = rng.uniform(0.0, hi, (T, K)).astype(np.float32)
+    drop = rng.random((T, K)) < p_inf
+    cp[drop], cc[drop] = -1, np.float32(1e9)
+    return cp, cc
+
+
+# K16's seams: (D, T, P, K, p_inf, hi, B0, segments of (eps, B, max_iters,
+# stall_limit)), each segment from the state the last one left
+K16_CASES = {
+    # every row seated after 13 rounds of a 600-round phase
+    "stops_midway": (4, 2048, 3000, 8, 0.1, 5.0, 512, ((0.5, 512, 600, 0),)),
+    # max_iters below a launch's 256 rounds ends both segments with rows open
+    "few_rounds": (4, 2048, 2400, 8, 0.1, 5.0, 16, ((0.05, 16, 20, 0), (0.05, 8, 37, 0))),
+    # a stall exit: 700 providers for 2,048 rows, 1,348 left open
+    "stall_exit": (8, 2048, 700, 6, 0.1, 5.0, 64, ((0.001, 64, 4000, 8),)),
+    # most rows retire: half the candidates absent, costs spread to 1e4
+    "retirement": (4, 2048, 600, 6, 0.5, 1e4, 256, ((1.0, 256, 600, 0),)),
+    # one round, then a frontier wider than the rows left open
+    "wide_frontier": (2, 1024, 2000, 12, 0.1, 5.0, 512, ((4.0, 512, 1, 0), (0.5, 512, 300, 0))),
+    # four bids a round: a phase of several launches, the loop state
+    # carried from one to the next
+    "many_launches": (2, 1024, 1100, 4, 0.1, 5.0, 2, ((0.01, 2, 900, 0),)),
+    # 8 words a shard: a block of a 16- or 8-block cluster holds words of
+    # two shards (3 or 6 words a block); fewer providers than rows, so rows
+    # stay open, evictions cross shards, and the rows left over retire
+    "shards_share_a_block": (6, 1536, 1400, 8, 0.1, 5.0, 256, ((1.0, 256, 300, 0),)),
+    # 1,000 rows a shard, its last word ragged; 6 or 12 words a block, so a
+    # block holds the end of one shard and the start of the next; 40
+    # rounds, then a narrower frontier from the carried state to a stall
+    "ragged_shards": (3, 3000, 2900, 8, 0.1, 5.0, 512, ((1.0, 512, 40, 0),
+                                                         (0.2, 128, 300, 8))),
+}
+
+
+@pytest.mark.parametrize("name", sorted(K16_CASES))
+@pytest.mark.parametrize("route", ["segment", "rounds"])
+def test_mesh_round_kernels_cases_match_plain_bits(card, views, monkeypatch, route, name):
+    """K16 by ``route`` against the plain rounds on each seam of K16_CASES;
+    the segment launch at every cluster size K2 runs at on this card."""
+    from protocol_tpu_torch import kernels
+
+    D, T, P, K, p_inf, hi, B0, segments = K16_CASES[name]
+    cp, cc = (torch.from_numpy(a).to(card) for a in k16_market(7, T, P, K, p_inf, hi))
+    state = (torch.zeros(P, device=card), torch.full((P,), -1, dtype=torch.int32, device=card),
+             torch.full((T,), -1, dtype=torch.int32, device=card),
+             torch.zeros(T, dtype=torch.bool, device=card))
+    for C in k2_sizes() if route == "segment" else [None]:
+        if C is not None:
+            monkeypatch.setattr(kernels, "k2_cluster", lambda dev, C=C: C)
+        k16_check(views(D), cp, cc, state, B0, segments, route)
+
+
+def test_mesh_segment_refused_cluster_raises(card, views):
+    """A cluster size the card refuses raises with its cudaError and counts
+    no launch; the segment route picks the launch on a mesh of views."""
+    from protocol_tpu_torch import kernels
+    from protocol_tpu_torch.parallel import sparse as ps
+
+    mesh = views(4)
+    cp, cc = (torch.from_numpy(a).to(card) for a in k16_market(3, 1024, 800, 8))
+    state = (torch.zeros(800, device=card), torch.full((800,), -1, dtype=torch.int32, device=card),
+             torch.full((1024,), -1, dtype=torch.int32, device=card),
+             torch.zeros(1024, dtype=torch.bool, device=card))
+    _, st = ps._make_shards(mesh, cp, cc, True, *state, 128)
+    assert ps.segment_route(mesh.devices, 256, 8, 128) == "segment"
+    before = kernels.LAUNCHES["mesh_segment"]
+    with pytest.raises(RuntimeError, match="cudaError"):
+        kernels.mesh_segment(st.cand_safe, st.value_base, st.feasible, st.give_up, st.price,
+                             st.owner, st.p4t, st.retired, st.ctl, 1.0, 128, 8, 0, True,
+                             cluster=32)
+    assert kernels.LAUNCHES["mesh_segment"] == before
 
 
 def jittered_cost(card, P, T, seed=11):

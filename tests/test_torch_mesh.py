@@ -345,6 +345,86 @@ def test_sharded_contention_with_retirement(mesh8, D):
     assert int((got.provider_for_task >= 0).sum()) > 0
 
 
+CPU, CARD0, CARD1 = torch.device("cpu"), torch.device("cuda", 0), torch.device("cuda", 1)
+
+
+@pytest.mark.parametrize("devices,Tl,K,B,route", [
+    ((CPU,) * 4, 256, 16, 64, "plain"),
+    ((CARD0,) * 4, 16384, 80, 4096, "segment"),  # the mesh matcher's shape on one card
+    ((CARD0, CARD1), 256, 16, 64, "rounds"),  # shards on two cards
+    ((CARD0,) * 4, 256, 129, 64, "rounds"),  # more candidates than the launch takes
+    ((CARD0,) * 33, 256, 16, 64, "rounds"),  # more shards than the launch takes
+])
+def test_segment_route_follows_the_devices_and_shapes(devices, Tl, K, B, route):
+    """K16's route is decided from the mesh's devices and the shapes alone
+    (no card is asked): the segment launch for one card repeated, the three
+    launches a round across cards or for a shape the launch refuses, the
+    plain rounds off a card."""
+    assert ps.segment_route(devices, Tl, K, B) == route
+
+
+@pytest.mark.parametrize("case", ["dtype", "frontier", "candidates"])
+def test_mesh_segment_refuses_before_loading_a_library(monkeypatch, case):
+    """K16's segment wrapper refuses a wrong dtype, B > Tl and K > 128 with
+    ValueError before it builds or loads a kernel library."""
+    from protocol_tpu_torch import kernels
+
+    def no_library(name):
+        raise AssertionError(f"the wrapper loaded {name} before refusing")
+
+    monkeypatch.setattr(kernels, "_lib", no_library)
+    monkeypatch.setattr(kernels, "k2_cluster", no_library)
+    D, Tl, K, P, B = 2, 64, 8, 50, 16
+    K = 129 if case == "candidates" else K
+    B = Tl + 1 if case == "frontier" else B
+    st = (  # the stacked shard fields, in the wrapper's order
+        torch.zeros((D, Tl, K), dtype=torch.int32),
+        torch.zeros((D, Tl, K), dtype=torch.float64 if case == "dtype" else torch.float32),
+        torch.ones((D, Tl), dtype=torch.uint8), torch.zeros((D, 1)), torch.zeros((D, P)),
+        torch.full((D, P), -1, dtype=torch.int32), torch.full((D, Tl), -1, dtype=torch.int32),
+        torch.zeros((D, Tl), dtype=torch.uint8), torch.zeros((D, kernels.MESH_CTL),
+                                                            dtype=torch.int32),
+    )
+    with pytest.raises(ValueError, match="segment"):
+        kernels.mesh_segment(*st, eps=1.0, B=B, max_iters=8, stall_limit=0, fresh=True)
+
+
+@pytest.mark.parametrize("route", ["segment", "plain"])
+def test_segment_routes_of_one_device_refuse_unstacked_shards(mesh8, route):
+    """The segment launch and the plain rounds run over the stacked shards
+    of a mesh of views of one device: given none, ``_segment`` raises."""
+    cp, cc = cands(3, 32, 64, 0.2)
+    P = 32
+    state = (torch.zeros(P), torch.full((P,), -1, dtype=torch.int32),
+             torch.full((64,), -1, dtype=torch.int32), torch.zeros(64, dtype=torch.bool))
+    mesh = port_mesh(4)
+    shards, stacked = ps._make_shards(mesh, t(cp), t(cc), True, *state, 8)
+    assert stacked is not None
+    with pytest.raises(ValueError, match="views of one device"):
+        ps._segment(mesh, shards, None, 64, 1.0, 8, 16, 0, route)
+
+
+def test_auction_header_is_mirrored_by_the_wrapper():
+    """kernels.py's CTL_* and the segment launch's limits are the values of
+    csrc/auction.cuh, which both auction sources include."""
+    import math
+    import re
+
+    from protocol_tpu_torch import kernels
+
+    src = (kernels.CSRC / "auction.cuh").read_text()
+    names = re.search(r"enum Ctl \{([^}]*)\}", src).group(1).replace(" ", "").split(",")
+    assert names[-1] == "kCtl" and len(names) == kernels.MESH_CTL + 1
+    for i, n in enumerate(names[:-1]):
+        assert getattr(kernels, "CTL_" + re.sub(r"(?<!^)(?=[A-Z])", "_", n[1:]).upper()) == i
+    limits = {n: math.prod(int(f) for f in v.split("*"))
+              for n, v in re.findall(r"constexpr int (kMax\w+) = ([^;]+);", src)}
+    assert limits["kMaxShards"] == kernels.MESH_SEGMENT_MAX_SHARDS
+    assert limits["kMaxOpenBytes"] == kernels.MESH_SEGMENT_OPEN_BYTES
+    for name in ("auction", "mesh_auction"):
+        assert '#include "auction.cuh"' in (kernels.CSRC / f"{name}.cu").read_text()
+
+
 def test_sharded_auctions_refuse_what_does_not_divide(mesh8):
     mesh = port_mesh(8)
     cp, cc = torch.zeros((12, 4), dtype=torch.int32), torch.zeros((12, 4))
@@ -579,6 +659,22 @@ def test_use_mesh_matcher_equals_the_reference(mesh8, warm_start):
             assert gs[key] == rs[key], (step, key)
         assert gs["mesh_sharded"] is True and gs["assigned"] == 48
         assert gs["mesh_gen_sharded"] is (not warm_start and step == 0)
+
+
+@pytest.mark.parametrize("warm_start", [True, False])
+def test_use_mesh_matcher_reports_the_route(mesh8, warm_start):
+    """Both sparse routes report how the sharded phase ran its rounds
+    (mesh_route: the plain rounds on the CPU's views), and only when the
+    mesh engaged."""
+    ctx = mesh_store(64, [mk_bounded_task("a", 1.0, 24, "gpu:count=8;gpu:model=H100")])
+    kw = dict(min_solve_interval=0.0, dense_cell_budget=1, warm_start=warm_start)
+    got = TorchBatchMatcher(ctx, device="cpu", use_mesh=True, **kw)
+    got.refresh()
+    assert got.last_solve_stats["mesh_sharded"] is True
+    assert got.last_solve_stats["mesh_route"] == "plain"
+    one = TorchBatchMatcher(ctx, device="cpu", **kw)
+    one.refresh()
+    assert "mesh_route" not in one.last_solve_stats
 
 
 def test_use_mesh_counts_match_unsharded(mesh8):
