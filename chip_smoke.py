@@ -51,7 +51,8 @@ The card's matcher must equal the port's CPU matcher on a 1,024-node x
 node left to phase 2 with a compatible unbounded task must get one.
 
 Then the matcher's anti-affinity and colocation phases (0 and 0.5), in
-two more runs with the counts set to 0 just before each:
+three more runs with the counts set to 0 just before each, each timed in
+place (kernels.time_in_place) and its sums printed:
 
   - the torch route on the 65,536-node pool above, its located nodes at
     256 shared sites, plus 64 location-spread and 64 provider-spread tasks
@@ -59,9 +60,14 @@ two more runs with the counts set to 0 just before each:
     one-GPU slices over the other six (model, per-GPU-memory, CPU, RAM and
     storage gates): a cold refresh, then a warm one after 1% node churn;
     the cold refresh must place at least half the colocated slots;
-  - the dense route on the 4,096-node pool with the same mix at 1/8.
+  - the dense route on the 4,096-node pool with the same mix at 1/8;
+  - the dense route on that pool with 640 provider-spread tasks x 4
+    replicas, whose phase-0 occupancy bitmask outgrows shared memory:
+    K11's device instantiation.
 K10 (the dense cost block) and K11 (the FFD bin-pack) must equal their
-plain versions bit for bit on every call of the cold refresh, and K1 its
+plain versions bit for bit on every call of the cold refresh (K11 in
+every instantiation that fits the call; each call's shapes and
+instantiation printed), and K1 its
 plain version on the colocation phase's reverse call (several tasks per
 tile) and phase 0's forward call; every spread task's replicas must sit on distinct
 providers or location classes, every colocated provider's summed demand
@@ -196,7 +202,8 @@ WARM_KERNELS = COLD_KERNELS + (
     "repair_refold",
 )
 DENSE_KERNELS = ("dense_value_base", "dense_auction", "unbounded_best")
-PHASE_KERNELS = ("cost_block", "binpack_ffd")
+PHASE_KERNELS = ("cost_block", "binpack_ffd")  # wrappers; K11's device launch key:
+K11_DEVICE = "binpack_ffd_device"
 SRC_K1 = "protocol_tpu_torch/csrc/candidates.cu"
 SRC_REPAIR = "protocol_tpu_torch/csrc/repair.cu"
 SRC_DENSE = "protocol_tpu_torch/csrc/dense.cu"
@@ -229,6 +236,11 @@ SMALL_POOL = (1_024, 48, 16, 64)
 PHASE_MIX = (64, 64, 512)
 PHASE_DENSE_MIX = (8, 8, 64)  # the same mix at 1/8 on the dense route
 PHASE_SMALL_MIX = (4, 4, 32)
+# the dense route's pool with (provider-spread tasks, replicas): phase 0's
+# occupancy bitmask (its rows x the group bucket, 2,048 x 1,024 bits and
+# more) outgrows the block's shared memory, so K11 takes its device
+# instantiation
+PHASE_WIDE = (640, 4)
 # the default route above dense_cell_budget (the candidate cache): the
 # torch route's pool at full width, and the card-vs-CPU check on 2,048
 # nodes x 2,048 slots under a lowered budget
@@ -586,8 +598,8 @@ def colo_dsl(rng, classes=COLO_CLASSES) -> str:
     return ";".join(parts)
 
 
-def phase_tasks(rng, n_loc: int, n_task: int, n_colo: int) -> list:
-    """Spread tasks (``anti_affinity: location`` and ``task``, AA_REPLICAS
+def phase_tasks(rng, n_loc: int, n_task: int, n_colo: int, replicas: int = AA_REPLICAS) -> list:
+    """Spread tasks (``anti_affinity: location`` and ``task``, ``replicas``
     replicas, pool_dsl requirements over SPREAD_CLASSES) and colocated
     one-GPU tasks (COLO_REPLICAS replicas over COLO_CLASSES)."""
     from protocol_tpu_torch.models.task import (
@@ -609,9 +621,9 @@ def phase_tasks(rng, n_loc: int, n_task: int, n_colo: int) -> list:
         dsl = pool_dsl(rng, SPREAD_CLASSES)
         return dsl + (f";storage_gb={rng.choice([1_000, 4_000])}" if rng.random() < 0.6 else "")
 
-    out = [task(f"al{j}", spread_dsl(), AA_REPLICAS, anti_affinity="location")
+    out = [task(f"al{j}", spread_dsl(), replicas, anti_affinity="location")
            for j in range(n_loc)]
-    out += [task(f"at{j}", spread_dsl(), AA_REPLICAS, anti_affinity="task") for j in range(n_task)]
+    out += [task(f"at{j}", spread_dsl(), replicas, anti_affinity="task") for j in range(n_task)]
     out += [task(f"co{j}", colo_dsl(rng), COLO_REPLICAS, colocate="true") for j in range(n_colo)]
     return out
 
@@ -837,10 +849,14 @@ def check_phases(store, matcher, seen, addr_of_row=None) -> dict:
             "colocated_unplaced": st["colocated_unplaced"]}
 
 
-def check_phase_kernels(torch, kernels, bp, cost_matrix, calls, label: str) -> None:
+def check_phase_kernels(torch, kernels, bp, cost_matrix, calls, label: str) -> list:
     """K10 and K11 against their plain versions, bit for bit, on every
-    recorded call; K11's picks keep the groups apart and the capacity."""
-    with uncounted(kernels):
+    recorded call, K11 in every instantiation that fits the call's shapes
+    (the one it took, and the device one, which fits every shape); K11's
+    picks keep the groups apart and the capacity. Returns each K11 call's
+    shapes and instantiation."""
+    shapes = []
+    with uncounted(kernels), kernels.untimed():
         # (a recorded K10 block itself may since carry phase 0's taken-row
         # mask: the call is made again)
         for args, kw, _ in calls["cost_block"]:
@@ -849,16 +865,25 @@ def check_phase_kernels(torch, kernels, bp, cost_matrix, calls, label: str) -> N
             torch.cuda.synchronize()
             if not bits_equal(torch, got, ref):
                 raise AssertionError(f"{label}: K10 differs from its plain version")
-        for args, kw, out in calls["binpack_ffd"]:
+        for n_call, (args, kw, out) in enumerate(calls["binpack_ffd"]):
             cost_tp, demand, capacity, order, anti, loc, L, G = args
-            got = kernels.binpack_ffd(*args)
+            (T, P), R = cost_tp.shape, demand.shape[1]
+            took = kw.get("route") or kernels.binpack_route(P, R, L, G)
             ref = bp._binpack_plain(cost_tp.T, demand, capacity,
                                     bp.ffd_demand_order(demand) if order is None else order,
                                     anti, loc, L, G)
-            torch.cuda.synchronize()
-            if not all(bits_equal(torch, a, b) for a, b in zip((*got, *out), (*ref, *ref))):
-                raise AssertionError(f"{label}: K11 differs from its plain version")
-            pft = got[0]
+            held = [r for r in kernels.K11_ROUTES if kernels.binpack_slots(P, R, L, G,
+                                                                           r == "shared")]
+            for route in held:
+                got = kernels.binpack_ffd(*args, route=route)
+                torch.cuda.synchronize()
+                if not all(bits_equal(torch, a, b) for a, b in zip(got, ref)):
+                    raise AssertionError(f"{label}: K11 ({route}) differs from its plain version "
+                                         f"on call {n_call}")
+            if not all(bits_equal(torch, a, b) for a, b in zip(out, ref)):
+                raise AssertionError(f"{label}: K11's call {n_call} ({took}) differs from its "
+                                     "plain version")
+            pft = ref[0]
             seated = torch.nonzero(pft >= 0).flatten()
             p = pft[seated].long()
             use = torch.zeros(capacity.shape, dtype=torch.float64, device=capacity.device)
@@ -870,12 +895,16 @@ def check_phase_kernels(torch, kernels, bp, cost_matrix, calls, label: str) -> N
             pairs = loc[p][grouped].long() * G + g[grouped]
             if torch.unique(pairs).numel() != pairs.numel():
                 raise AssertionError(f"{label}: K11 put two members of a group in one domain")
+            shapes.append({"T": T, "P": P, "R": R, "LG": L * G, "route": took, "held": held})
+            print(f"{label}: K11 call {n_call}: {T} slots x {P} rows, R={R}, L x G = {L * G}, "
+                  f"route {took}, held bit for bit as {held}", flush=True)
     ranked = sum(args[3] is None for args, _, _ in calls["binpack_ffd"])
     if ranked == 0:
         raise AssertionError(f"{label}: no K11 call ranked the FFD order in its launch")
     print(f"{label}: K10 x {len(calls['cost_block'])} and K11 x {len(calls['binpack_ffd'])} "
           f"calls ({ranked} ranking the FFD order in the launch) bit-identical to their plain "
           "versions; groups and capacity hold", flush=True)
+    return shapes
 
 
 def refresh_matcher(torch, compat_mask, matcher, store, label: str, kernel: str) -> dict:
@@ -910,13 +939,15 @@ def refresh_matcher(torch, compat_mask, matcher, store, label: str, kernel: str)
     return st
 
 
-def run_phases(torch, kernels, refresh) -> tuple[list, dict]:
+def run_phases(torch, kernels, refresh) -> tuple[list, dict, dict]:
     """The matcher's phases 0 and 0.5 on the card: the card against the
     CPU on a small store with every task kind; the dense route with the
-    mix at 1/8, and the torch route at full width (cold, then warm), each
-    run with the counts set to 0 just before it. Returns (the
-    kernels-line rows of K10 and K11, {run name: launches}); raises on any
-    failed check."""
+    mix at 1/8, the dense route with PHASE_WIDE's spread tasks (K11's
+    device instantiation), and the torch route at full width (cold, then
+    warm), each run with the counts set to 0 just before it and timed in
+    place. Returns (the kernels-line rows of K10 and K11's two
+    instantiations, {run name: launches}, {run name: in-place sums});
+    raises on any failed check."""
     import numpy as np
 
     from protocol_tpu_torch.ops import binpack as bp
@@ -955,18 +986,47 @@ def run_phases(torch, kernels, refresh) -> tuple[list, dict]:
     seen = spy_phases(dense_p)
     torch.cuda.synchronize()
     kernels.reset_launches()
+    kernels.time_in_place(True)
     pd_calls, pd_originals = record_calls(kernels, PHASE_KERNELS)
     refresh(dense_p, store, "phases-dense", "dense_auction")
     for name, fn in pd_originals.items():
         setattr(kernels, name, fn)
     launches_pdense = dict(kernels.LAUNCHES)
     print(f"kernels (matcher phases, dense route): {json.dumps(launches_pdense)}", flush=True)
+    in_place = {"phases-dense": in_place_run(kernels, launches_pdense, "matcher phases, dense")}
     missing = [n for n in PHASE_KERNELS + DENSE_KERNELS if launches_pdense[n] == 0]
     if missing:
         raise AssertionError(f"the dense route with phase tasks launched no {missing}")
     print(f"matcher phases-dense: {json.dumps(check_phases(store, dense_p, seen))}", flush=True)
     check_phase_kernels(torch, kernels, bp, cost_matrix, pd_calls, "phases-dense")
     del dense_p, store, pd_calls, seen
+
+    # the dense route with many provider-spread tasks: K11's device
+    # instantiation on phase 0's call
+    nodes, tasks = make_pool(np.random.default_rng(SEED + 20), *DENSE_POOL, sites=SITES)
+    tasks += phase_tasks(np.random.default_rng(SEED + 24), 0, PHASE_WIDE[0], 0,
+                         replicas=PHASE_WIDE[1])
+    store = mem_store(nodes, tasks)
+    wide_p = tb.TorchBatchMatcher(store, device=dev)
+    seen = spy_phases(wide_p)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    kernels.time_in_place(True)
+    pw_calls, pw_originals = record_calls(kernels, PHASE_KERNELS)
+    wide_stats = refresh(wide_p, store, "phases-wide", "dense_auction")
+    for name, fn in pw_originals.items():
+        setattr(kernels, name, fn)
+    launches_pwide = dict(kernels.LAUNCHES)
+    print(f"kernels (matcher phases, wide): {json.dumps(launches_pwide)}", flush=True)
+    in_place["phases-wide"] = in_place_run(kernels, launches_pwide, "matcher phases, wide")
+    if launches_pwide[K11_DEVICE] == 0 or "device" not in wide_stats.get("binpack_routes", ()):
+        raise AssertionError(f"the wide phase run took no K11 device launch "
+                             f"({wide_stats.get('binpack_routes')})")
+    print(f"matcher phases-wide: {json.dumps(check_phases(store, wide_p, seen))}", flush=True)
+    wide_shapes = check_phase_kernels(torch, kernels, bp, cost_matrix, pw_calls, "phases-wide")
+    wide_call = [i for i, sh in enumerate(wide_shapes) if sh["route"] == "device"][0]
+    a11_dev = pw_calls["binpack_ffd"][wide_call][0]
+    del wide_p, store, seen
 
     # the torch route at full width: cold, then warm after 1% node churn
     nodes, tasks = make_pool(np.random.default_rng(SEED + 30), *ARENA_POOL, sites=SITES)
@@ -977,12 +1037,13 @@ def run_phases(torch, kernels, refresh) -> tuple[list, dict]:
     seen = spy_phases(arena_p)
     torch.cuda.synchronize()
     kernels.reset_launches()
+    kernels.time_in_place(True)
     pt_calls, pt_originals = record_calls(
         kernels, PHASE_KERNELS + ("candidates_bidir", "candidates_forward_rows"))
     phase_torch_stats = [refresh(arena_p, store, "phases-torch-cold", "torch_arena")]
     for name, fn in pt_originals.items():
         setattr(kernels, name, fn)
-    with uncounted(kernels):
+    with uncounted(kernels), kernels.untimed():
         cold_phases = check_phases(store, arena_p, seen)
     print(f"matcher phases-torch-cold: {json.dumps(cold_phases)}", flush=True)
     # the colocated tasks ask for models the spread tasks do not: phase
@@ -994,6 +1055,7 @@ def run_phases(torch, kernels, refresh) -> tuple[list, dict]:
     phase_torch_stats.append(refresh(arena_p, store, "phases-torch-warm", "torch_arena"))
     launches_ptorch = dict(kernels.LAUNCHES)
     print(f"kernels (matcher phases, torch route): {json.dumps(launches_ptorch)}", flush=True)
+    in_place["phases-torch"] = in_place_run(kernels, launches_ptorch, "matcher phases, torch")
     missing = [n for n in PHASE_KERNELS + COLD_KERNELS + ("unbounded_best",)
                if launches_ptorch[n] == 0]
     if missing:
@@ -1028,21 +1090,25 @@ def run_phases(torch, kernels, refresh) -> tuple[list, dict]:
         raise AssertionError(f"K1 on the phases' calls: {k1_phase}")
 
     # K10 and K11 timed on each call of the cold refresh; the kernels line
-    # takes the colocation call (K11 with the five resources)
+    # takes the colocation call (K11 with the five resources, the shared
+    # instantiation) and the wide run's phase 0 call (the device one)
     k10_times, k11_times = [], []
-    for (a10, _, c10), (a11, _, _) in zip(pt_calls["cost_block"], pt_calls["binpack_ffd"]):
+    for (a10, _, c10), (a11, kw11, _) in zip(pt_calls["cost_block"], pt_calls["binpack_ffd"]):
         t10 = cuda_ms(torch, lambda: kernels.cost_block(*a10), 3)
-        t11 = cuda_ms(torch, lambda: kernels.binpack_ffd(*a11), 2)
+        t11 = cuda_ms(torch, lambda: kernels.binpack_ffd(*a11, **kw11), 2)
         k10_times.append(t10)
         k11_times.append(t11)
         print(f"K10 / K11 on {c10.shape[0]} slots x {c10.shape[1]} rows "
-              f"(R={a11[1].shape[1]}): {t10:.4f} / {t11:.3f} ms", flush=True)
+              f"(R={a11[1].shape[1]}, {kw11.get('route')}): {t10:.4f} / {t11:.3f} ms, "
+              f"K11 {t11 * 1e3 / c10.shape[0]:.3f} us a step", flush=True)
     colo = [i for i, (a, _, _) in enumerate(pt_calls["binpack_ffd"]) if a[1].shape[1] == 5]
     if len(colo) != 1:
         raise AssertionError(f"the cold refresh made {len(colo)} five-resource K11 calls, not 1")
     call = colo[0]
     (ep10, er10, w10), _, c10 = pt_calls["cost_block"][call]
-    a11 = pt_calls["binpack_ffd"][call][0]
+    a11, kw11, _ = pt_calls["binpack_ffd"][call]
+    if kw11.get("route") != "shared":
+        raise AssertionError(f"the colocation call took K11's {kw11.get('route')} instantiation")
     k10_ms, k11_ms = k10_times[call], k11_times[call]
     k10_plain_ms = cuda_ms(torch, lambda: cost_matrix(ep10, er10, w10)[0], 3)
     k11_plain_ms = cuda_ms(torch, lambda: bp._binpack_plain(
@@ -1056,14 +1122,35 @@ def run_phases(torch, kernels, refresh) -> tuple[list, dict]:
     k11_ops = T10 * P10 + finite * (R11 + 2)  # a compare per cell, the fit on finite ones
     print(f"K10 / K11 in the kernels line: call {call} of the cold refresh (colocation), "
           f"{T10} slots x {P10} rows, {finite} finite cells", flush=True)
-    del arena_p, store, nodes, tasks, pt_calls, seen
+    # the device instantiation on the wide run's phase 0 call
+    Td, Pd = a11_dev[0].shape
+    Rd = a11_dev[1].shape[1]
+    kd_ms = cuda_ms(torch, lambda: kernels.binpack_ffd(*a11_dev, route="device"), 2)
+    kd_plain_ms = cuda_ms(torch, lambda: bp._binpack_plain(
+        a11_dev[0].T, a11_dev[1], a11_dev[2], bp.ffd_demand_order(a11_dev[1]), *a11_dev[4:]), 1)
+    finite_d = int((a11_dev[0] < 5e8).sum())
+    kd_bytes = Td * Pd * 4 + Td * (Rd * 4 + 4 + 4) + Pd * (2 * Rd * 4 + 4)
+    kd_ops = Td * Pd + finite_d * (Rd + 2)
+    print(f"K11 device instantiation in the kernels line: the wide run's call {wide_call}, "
+          f"{Td} slots x {Pd} rows, L x G = {a11_dev[6] * a11_dev[7]}: {kd_ms:.3f} ms, "
+          f"{kd_ms * 1e3 / Td:.3f} us a step", flush=True)
+    del arena_p, store, nodes, tasks, pt_calls, pw_calls, seen
+    k11_row = row("binpack_ffd", SRC_K11, "protocol_tpu/ops/binpack.py:61", 0.0, k11_ms,
+                  k11_plain_ms, k11_bytes, k11_ops)
+    k11_row.update(us_per_step=k11_ms * 1e3 / T10, steps=T10, rows=P10, resources=R11,
+                   instantiation="shared")
+    kd_row = row(K11_DEVICE, SRC_K11, "protocol_tpu/ops/binpack.py:61", 0.0, kd_ms,
+                 kd_plain_ms, kd_bytes, kd_ops)
+    kd_row.update(us_per_step=kd_ms * 1e3 / Td, steps=Td, rows=Pd, resources=Rd,
+                  instantiation="device")
     rows = [
         row("cost_block", SRC_DENSE, "protocol_tpu/sched/tpu_backend.py:184", 0.0, k10_ms,
             k10_plain_ms, k10_bytes, k10_ops),
-        row("binpack_ffd", SRC_K11, "protocol_tpu/ops/binpack.py:61", 0.0, k11_ms,
-            k11_plain_ms, k11_bytes, k11_ops),
+        k11_row,
+        kd_row,
     ]
-    return rows, {"matcher_phases_dense": launches_pdense, "matcher_phases_torch": launches_ptorch}
+    return rows, {"matcher_phases_dense": launches_pdense, "matcher_phases_wide": launches_pwide,
+                  "matcher_phases_torch": launches_ptorch}, in_place
 
 
 def spy_prepare(matcher) -> list:
@@ -2763,6 +2850,9 @@ def main() -> int:
     k9_bytes = cut_open.numel() * (cand_c.shape[1] * 8 + 4 + 4) + N * 4 + N * 8
     del cut, cut_owner, cut_p4t, k9_got, k9_ref, cold_state, carried
 
+    k9_row = row("greedy_cleanup", SRC_K9, "protocol_tpu/ops/sparse.py:545", 0.0, k9_ms,
+                 k9_plain_ms, k9_bytes, 0)
+    k9_row.update(ns_per_row=k9_ms * 1e6 / cut_open.numel(), open_rows=cut_open.numel())
     K = cand_c.shape[1]
     k2_bytes = N * K * 8 + N * 2 + N * 2 * 4 + N * 4 + 2 * (N * 2 * 4 + N * 4 + N)
     k2_ops = k2_rows * K * 3  # per candidate: subtract, compare, max
@@ -3218,7 +3308,7 @@ def main() -> int:
     del arena_m, store, nodes, tasks
 
     # ---- phases 0 and 0.5 (anti-affinity and colocation)
-    phase_rows, phase_runs = run_phases(torch, kernels, refresh)
+    phase_rows, phase_runs, phase_in_place = run_phases(torch, kernels, refresh)
 
     # ---- the default route above dense_cell_budget (the candidate cache)
     route_runs = run_default_route(torch, kernels, refresh)
@@ -3276,8 +3366,7 @@ def main() -> int:
             k7_plain_ms, k7_bytes, k7_ops),
         row("unbounded_best", SRC_DENSE, "protocol_tpu/sched/tpu_backend.py:189", 0.0, k8_ms,
             k8_plain_ms, k8_bytes, k8_ops),
-        row("greedy_cleanup", SRC_K9, "protocol_tpu/ops/sparse.py:545", 0.0, k9_ms,
-            k9_plain_ms, k9_bytes, 0),
+        k9_row,
     ] + phase_rows + backend_rows + stage_rows + mesh_rows + dense_rows + sink_rows
     for r_ in rows:
         # a row may count another wrapper's launches (a kernel at new
@@ -3325,11 +3414,23 @@ def main() -> int:
           + "; ".join(f"{name} {ms:.3f}"
                       for name, ms in sorted(mesh_total.items(), key=lambda kv: -kv[1])),
           flush=True)
+    # the same for the matcher's phase runs (dense, wide, torch route)
+    phase_total: dict = {}
+    for run in phase_in_place.values():
+        for name, v in run.items():
+            phase_total[name] = phase_total.get(name, 0.0) + v["ms"]
+    for r_ in rows:
+        if r_["name"] in phase_total:
+            r_["in_place_ms_phases"] = phase_total[r_["name"]]
+    print("kernels by in-place device ms, the matcher's phase runs: " + "; ".join(
+        f"{name} {ms:.3f}" for name, ms in sorted(phase_total.items(), key=lambda kv: -kv[1])),
+        flush=True)
     print(f"K2 timed launch: eps 4.0, B 4096, {k2_rounds} rounds, {k2_rows} frontier rows; "
           f"eps 0.02, B 512 (carried), {k2_rounds_512} rounds, {k2_rows_512} frontier rows",
           flush=True)
     print(f"K7 timed launch: {Td} slots x {Pd} providers, eps 0.05, {k7_rounds} rounds, "
-          f"{k7_open_rows} open rows; K9 timed on {cut_open.numel()} open tasks", flush=True)
+          f"{k7_open_rows} open rows; K9 timed on {cut_open.numel()} open tasks "
+          f"({k9_ms * 1e6 / cut_open.numel():.1f} ns a row)", flush=True)
     print(f"elapsed: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(f"card: {card}", flush=True)

@@ -52,7 +52,8 @@ LAUNCHES = {
     "candidates_reverse_blocks": 0,
     "repair_enter": 0, "repair_tile_min": 0, "repair_refold": 0,
     "dense_value_base": 0, "dense_auction": 0, "unbounded_best": 0, "greedy_cleanup": 0,
-    "cost_block": 0, "binpack_ffd": 0, "greedy_assign": 0, "sinkhorn": 0,
+    "cost_block": 0, "binpack_ffd": 0, "binpack_ffd_device": 0, "greedy_assign": 0,
+    "sinkhorn": 0,
     "blocked_feasibility": 0, "blocked_row_lse": 0, "blocked_col_lse": 0,
     "blocked_col_partial": 0, "pair_cost": 0,
     "mesh_segment": 0, "mesh_round_bid": 0, "mesh_round_resolve": 0, "mesh_round_apply": 0,
@@ -177,9 +178,11 @@ def _lib(name: str) -> ctypes.CDLL:
             lib.k9_greedy_cleanup.restype = _I
         elif name == "binpack":
             lib.k11_binpack_ffd.argtypes = [
-                _P, _I, _I, _P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _P,
+                _P, _I, _I, _P, _I, _P, _I, _P, _P, _I, _I, _P, _P, _P, _I, _P,
             ]
-            lib.k11_binpack_ffd.restype = _I
+            lib.k11_slots.argtypes = [_I, _I, ctypes.c_longlong, _I]
+            for fn in ("k11_binpack_ffd", "k11_slots"):
+                getattr(lib, fn).restype = _I
         elif name == "greedy":
             lib.k12_greedy.argtypes = [_P, _I, _I, _P, _I, _P, _P]
             lib.k12_greedy.restype = _I
@@ -801,12 +804,50 @@ def cost_block(ep, er, weights):
     return cost
 
 
+# K11's layout (csrc/binpack.cu: k11_layout), mirrored so that the route
+# is chosen from the shapes without a card: a ring of up to K11_MAX_SLOTS
+# slots of up to K11_CHUNK_MAX cost floats in K11_SMEM_MAX bytes of shared
+# memory, beside the chain's state in the shared instantiation
+K11_SMEM_MAX = 232_448
+K11_CHUNK_MAX = 32 * 480
+K11_MAX_SLOTS, K11_MIN_SLOTS = 32, 2
+K11_HDR_BYTES = 48
+K11_FIXED_BYTES = 64 + 15 * 160 * 8 + 128  # the pick's keys, the consumer warps' queues
+K11_ROUTES = {"shared": "binpack_ffd", "device": "binpack_ffd_device"}  # -> LAUNCHES key
+
+
+def _round16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+def binpack_slots(P: int, R: int, L: int, G: int, shared_state: bool) -> int:
+    """The ring's slot count of K11's pack launch for these shapes, in the
+    shared instantiation (capacity, domains and occupancy bitmask in shared
+    memory) or the device one; 0 where it does not fit."""
+    C = min(P, K11_CHUNK_MAX)
+    slot = _round16(C * 4 + 12)
+    state = _round16(R * P * 4 + P * 4 + (L * G + 31) // 32 * 4) if shared_state else 0
+    room = K11_SMEM_MAX - K11_FIXED_BYTES - state
+    S = min(K11_MAX_SLOTS, room // (slot + 16 + K11_HDR_BYTES)) if room > 0 else 0
+    return S if S >= K11_MIN_SLOTS else 0
+
+
+def binpack_route(P: int, R: int, L: int, G: int) -> str:
+    """K11's instantiation for P providers, R resources and L x G
+    occupancy bits, from the shapes alone: "shared" where the chain's state
+    fits in the block's shared memory beside a ring of two slots, else
+    "device" (the state in device memory)."""
+    return "shared" if binpack_slots(P, R, L, G, True) else "device"
+
+
 @_on_device
-def binpack_ffd(cost_tp, demand, capacity, task_order, anti_group, loc_id, L: int, G: int):
+def binpack_ffd(cost_tp, demand, capacity, task_order, anti_group, loc_id, L: int, G: int,
+                route: str | None = None):
     """K11 (``csrc/binpack.cu``): the FFD vector bin-pack over the slot-major
     cost ``cost_tp`` [T, P]; ``task_order`` None = the FFD demand order,
-    ranked in the launch. Returns (provider_for_task [T] i32, remaining
-    capacity [P, R] f32)."""
+    ranked in the launch. ``route`` forces an instantiation (default
+    :func:`binpack_route`'s); one that does not fit raises. Returns
+    (provider_for_task [T] i32, remaining capacity [P, R] f32)."""
     T, P = cost_tp.shape
     dev = cost_tp.device
     R = demand.shape[1] if demand.dim() == 2 else 0
@@ -820,24 +861,34 @@ def binpack_ffd(cost_tp, demand, capacity, task_order, anti_group, loc_id, L: in
                          f"got {tuple(cost_tp.shape)}, {tuple(demand.shape)}, {tuple(cap.shape)}")
     if group.shape != (T,) or loc.shape != (P,) or L < 1 or G < 1:
         raise ValueError("K11: anti_group must be [T] and loc_id [P], with L, G >= 1")
-    for t in (demand, cap, group, loc):
+    order = None if task_order is None else task_order.to(torch.int32).contiguous()
+    if order is not None and order.shape != (T,):
+        raise ValueError(f"K11: task_order must be a [{T}] tensor on {dev}")
+    for t in (demand, cap, group, loc) + (() if order is None else (order,)):
         if t.device != dev:
             raise ValueError(f"K11: every input must lie on {dev}, got {t.device}")
-    if int(group.min()) < -1 or int(group.max()) >= G or int(loc.min()) < 0 or int(loc.max()) >= L:
+    route = binpack_route(P, R, L, G) if route is None else route
+    if route not in K11_ROUTES or not binpack_slots(P, R, L, G, route == "shared"):
+        raise ValueError(f"K11: no {route!r} instantiation at P={P}, R={R}, L x G={L * G}")
+    # the range checks in one read-back
+    ends = [group.min(), group.max(), loc.min(), loc.max()]
+    if order is not None:
+        ends += [order.min(), order.max()]
+    lo_g, hi_g, lo_l, hi_l, *o = torch.stack(ends).tolist()
+    if lo_g < -1 or hi_g >= G or lo_l < 0 or hi_l >= L:
         raise ValueError(f"K11: anti_group must lie in [-1, {G}) and loc_id in [0, {L})")
-    if task_order is None:
+    if o and (o[0] < 0 or o[1] >= T):
+        raise ValueError(f"K11: task_order ids out of range [0, {T})")
+    if order is None:
         order = torch.empty(T, dtype=torch.int32, device=dev)
-    else:
-        order = task_order.to(torch.int32).contiguous()
-        if order.device != dev or order.shape != (T,):
-            raise ValueError(f"K11: task_order must be a [{T}] tensor on {dev}")
-        order = _ids(order, T, dev, "binpack_ffd")
-    used = torch.zeros((L * G + 31) // 32, dtype=torch.int32, device=dev)
+    shared = route == "shared"
+    used = (None if shared
+            else torch.zeros((L * G + 31) // 32, dtype=torch.int32, device=dev))
     pft = torch.empty(T, dtype=torch.int32, device=dev)
-    _launch("binpack_ffd", _lib("binpack").k11_binpack_ffd,
+    _launch(K11_ROUTES[route], _lib("binpack").k11_binpack_ffd,
         cost_tp.data_ptr(), P, T, demand.data_ptr(), R, order.data_ptr(),
-        int(task_order is not None), group.data_ptr(), loc.data_ptr(), G, cap.data_ptr(),
-        used.data_ptr(), pft.data_ptr(), _stream(pft),
+        int(task_order is not None), group.data_ptr(), loc.data_ptr(), L, G, cap.data_ptr(),
+        None if used is None else used.data_ptr(), pft.data_ptr(), int(shared), _stream(pft),
     )
     return pft, cap
 

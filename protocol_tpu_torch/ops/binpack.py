@@ -13,7 +13,8 @@ descending, stable), and each takes the cheapest provider that is
 compatible (finite cost), still has capacity >= its demand in every
 resource and does not break its group on the provider's domain; ties go
 to the lowest provider index. On a CUDA tensor :func:`assign_binpack_ffd`
-is kernel K11 (``csrc/binpack.cu``); on a CPU tensor it is
+is kernel K11 (``csrc/binpack.cu``, the instantiation
+``kernels.binpack_route`` picks from the shapes); on a CPU tensor it is
 :func:`_binpack_plain`, a loop over the steps of the reference's
 ``lax.scan``.
 """
@@ -31,6 +32,7 @@ from protocol_tpu_torch.ops.cost import INFEASIBLE
 class BinpackResult:
     provider_for_task: torch.Tensor  # i32 [T], -1 = unassigned
     remaining_capacity: torch.Tensor  # f32 [P, R]
+    route: str = "plain"  # K11's instantiation on a card ("shared" / "device")
 
 
 def _l1_demand(demand: torch.Tensor) -> torch.Tensor:
@@ -101,8 +103,9 @@ def assign_binpack_ffd(
     if cost.is_cuda:
         from protocol_tpu_torch import kernels
 
+        route = kernels.binpack_route(P, demand.shape[1], L, G)
         return BinpackResult(*kernels.binpack_ffd(
-            cost.T, demand, capacity, task_order, anti_group, loc_id, L, G))
+            cost.T, demand, capacity, task_order, anti_group, loc_id, L, G, route=route), route)
     if task_order is None:
         task_order = ffd_demand_order(demand)
     return BinpackResult(*_binpack_plain(cost, demand, capacity, task_order, anti_group,

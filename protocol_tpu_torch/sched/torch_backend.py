@@ -351,6 +351,7 @@ class TorchBatchMatcher:
         self._solve_seq = 0
         # per-solve counters of phases 0 and 0.5
         self._aa_truncated = self._colo_truncated = self._colo_requested = 0
+        self._binpack_routes: list[str] = []
 
     # ----- invalidation hooks (wire to TaskStore observers + node changes)
 
@@ -697,6 +698,7 @@ class TorchBatchMatcher:
                 num_locations=_pow2_bucket(int(L)),
                 num_groups=_pow2_bucket(len(items)),
             )
+            self._binpack_routes.append(res.route)
             p4s = res.provider_for_task[:S].cpu().numpy()
             for s_idx, r_local in enumerate(p4s):
                 if 0 <= r_local < len(rows):
@@ -789,6 +791,7 @@ class TorchBatchMatcher:
         demand = np.zeros((s_pad, 5), np.float32)
         demand[:S] = np.asarray([demand_of[i] for i in slot_task], np.float32)
         res = assign_binpack_ffd(cost, torch.from_numpy(demand).to(self.device), capacity)
+        self._binpack_routes.append(res.route)
         p4s = res.provider_for_task[:S].cpu().numpy()
         placed: dict[int, list[int]] = {}
         for s_idx, r_local in enumerate(p4s):
@@ -977,6 +980,7 @@ class TorchBatchMatcher:
         # the auction and phase 2
         t0, enc_ms = time.perf_counter(), 0.0
         self._aa_truncated = 0
+        self._binpack_routes = []
         claims: dict[int, int] = {}
         if aa:
             loc_by_addr = {n.address: n.location for n in nodes}
@@ -1127,6 +1131,9 @@ class TorchBatchMatcher:
             "stall_exit": self._last_stall.get("stall_exit", False),
             "anti_affinity_assigned": len(claims),
             "truncated_aa_slots": self._aa_truncated,
+            # K11's instantiation on each bin-pack call of phases 0 and 0.5
+            # ("shared" / "device"; "plain" on the CPU), in call order
+            **({"binpack_routes": list(self._binpack_routes)} if self._binpack_routes else {}),
             "group_assignments": 0,
             "seq": self._solve_seq,
             **cache_stats,

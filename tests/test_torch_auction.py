@@ -32,7 +32,11 @@ from protocol_tpu_torch.ops.sparse import (
 )
 
 from tests.test_torch_candidates import bits
-from tests.test_torch_kernels_cuda import k2_cluster_cases  # shared with the card tests
+from tests.test_torch_kernels_cuda import (  # shared with the card tests
+    K9_KINDS,
+    k2_cluster_cases,
+    k9_case,
+)
 
 K2_CASES = k2_cluster_cases()
 
@@ -161,6 +165,21 @@ def test_unassign_unhappy_and_cleanup_bits():
     np.testing.assert_array_equal(got_clean.numpy(), np.asarray(ref_clean))
 
 
+@pytest.mark.parametrize("kind", K9_KINDS)
+def test_cleanup_matches_the_reference_on_k9_cases(kind):
+    """K9's card cases at a small size: the plain sweep, the card's
+    referee, against the reference, so that the kernel = the plain sweep =
+    the reference on each hazard (merged rows, K = 128 and 80, a provider
+    twice in a row, -0.0 / +0.0 ties, equal costs, one open row, rows with
+    no free candidate, more than a million providers)."""
+    cp, cc, owner, p4t = k9_case(kind, small=True)
+    ref = j_greedy_cleanup(jnp.asarray(cp), jnp.asarray(cc), jnp.asarray(owner),
+                           jnp.asarray(p4t))
+    got = _greedy_cleanup(*to_t(cp, cc, owner, p4t))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    assert (got.numpy() != p4t).any()  # the sweep seated someone
+
+
 @pytest.mark.parametrize("market", sorted(MARKETS))
 def test_scaled_ladder_bits_and_stats(market):
     cp, cc = MARKETS[market]()
@@ -256,6 +275,48 @@ def test_launch_counts_only_a_launch_and_a_refusal_raises():
         kernels._launch("auction_phase", lambda *a: 912, what="auction_phase (cluster of 32)")
     assert kernels.LAUNCHES["auction_phase"] == before + 1
     kernels.LAUNCHES["auction_phase"] = before
+
+
+def _k9_args(T=8, K=16, P=32):
+    return (torch.zeros((T, K), dtype=torch.int32), torch.zeros((T, K)),
+            torch.full((P,), -1, dtype=torch.int32), torch.full((T,), -1, dtype=torch.int32),
+            torch.arange(T, dtype=torch.int32))
+
+
+def _k11_args(P=6, T=4, R=1, L=6, G=2):
+    return [torch.zeros((T, P)), torch.ones((T, R)), torch.ones((P, R)), None,
+            torch.full((T,), -1, dtype=torch.int32), torch.arange(P, dtype=torch.int32), L, G]
+
+
+def _k11_bad(i, value, **kw):
+    args = _k11_args()
+    args[i] = value
+    return lambda: kernels.binpack_ffd(*args, **kw)
+
+
+CHAIN_REFUSALS = {
+    "k9 K > 128": lambda: kernels.greedy_cleanup(*_k9_args(K=129)),
+    "k9 P > 1,638,400": lambda: kernels.greedy_cleanup(*_k9_args(P=1_638_401)),
+    "k9 p4t shape": lambda: kernels.greedy_cleanup(
+        *_k9_args()[:3], torch.zeros(7, dtype=torch.int32), torch.arange(8, dtype=torch.int32)),
+    "k11 R > 8": _k11_bad(1, torch.ones((4, 9))),
+    "k11 capacity shape": _k11_bad(2, torch.ones((5, 1))),
+    "k11 group range": _k11_bad(4, torch.tensor([0, 1, 2, -1], dtype=torch.int32)),
+    "k11 domain range": _k11_bad(5, torch.tensor([0, 1, 2, 3, 4, 6], dtype=torch.int32)),
+    "k11 order range": _k11_bad(3, torch.tensor([0, 1, 2, 4], dtype=torch.int32)),
+    "k11 order shape": _k11_bad(3, torch.tensor([0, 1, 2], dtype=torch.int32)),
+    "k11 shared does not fit": _k11_bad(6, 1 << 22, route="shared"),
+    "k11 unknown route": _k11_bad(6, 6, route="registers"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CHAIN_REFUSALS))
+def test_chain_kernels_refuse_bad_inputs_before_loading(case, monkeypatch):
+    """K9's and K11's wrappers check shapes, ranges and the instantiation
+    before they load a library (here there is none to load)."""
+    monkeypatch.setattr(kernels, "_lib", lambda name: pytest.fail(f"loaded {name}"))
+    with pytest.raises(ValueError):
+        CHAIN_REFUSALS[case]()
 
 
 class _Event:

@@ -28,6 +28,7 @@ from protocol_tpu_torch.ops.cost import CostWeights
 from protocol_tpu_torch.sched.torch_backend import cost_only
 
 from tests.test_binpack import check_feasible, random_instance
+from tests.test_torch_kernels_cuda import BINPACK_KINDS, binpack_case, binpack_limit_L
 from tests.test_torch_dense import markets
 from tests.test_torch_encoding_cost import COST_ATOL, to_port
 
@@ -138,6 +139,38 @@ def test_colocation_capacity_vectors_and_explicit_order():
     assert (got >= 0).sum() > T // 2
     order = rng.permutation(T).astype(np.int32)
     assert_same(cost, demand, capacity, task_order=order)
+
+
+@pytest.mark.parametrize("kind", BINPACK_KINDS)
+def test_plain_matches_the_reference_on_k11_cases(kind):
+    """K11's card cases at a small size: the plain step loop, the card's
+    referee, against the reference, so that the kernel = the plain loop =
+    the reference on each seam (a long visit order, one step, equal costs,
+    -0.0 / +0.0, wide occupancy bitmasks on each side of the route's
+    limit)."""
+    cost, demand, capacity, order, anti, loc, L, G = binpack_case(kind, small=True)
+    got = assert_same(cost, demand, capacity, task_order=order, anti_group=anti, loc_id=loc,
+                      num_locations=L, num_groups=G)
+    assert (got >= 0).any()
+
+
+def test_k11_route_picks_by_shape():
+    """K11's instantiation from the shapes alone: the matcher's calls on
+    the card (colocation, phase 0, the wide phase-0 run), each side of the
+    shared instantiation's limit, and the device one fitting every P."""
+    from protocol_tpu_torch import kernels
+
+    assert kernels.binpack_route(4096, 5, 4096, 1) == "shared"
+    assert kernels.binpack_slots(4096, 5, 4096, 1, True) == 6
+    assert kernels.binpack_route(2048, 1, 2048, 64) == "shared"
+    assert kernels.binpack_route(2048, 1, 2048, 1024) == "device"
+    assert kernels.binpack_route(65_536, 5, 65_536, 1) == "device"
+    for P, R, G in ((1000, 1, 16), (3000, 5, 1), (60, 8, 4)):
+        L = binpack_limit_L(P, R, G)
+        assert kernels.binpack_route(P, R, L, G) == "shared"
+        assert kernels.binpack_route(P, R, L + 1, G) == "device"
+    for P in (1, 15_872, 15_873, 1_000_000):
+        assert kernels.binpack_slots(P, 8, 1 << 20, 64, False) >= kernels.K11_MIN_SLOTS
 
 
 @pytest.mark.parametrize("seed", [0, 1])

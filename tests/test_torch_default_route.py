@@ -42,7 +42,9 @@ SHARED_STATS = (
     "colocated_unplaced", "seq", "cache_rebuilt", "cache_delta_rows", "cache_delta_tasks",
     "cache_uncovered_rows", "cache_stale_frac",
 )
-PORT_ONLY = {"encode_ms", "phase0_ms", "phase05_ms", "phase1_ms", "phase2_ms"}
+# the port's own stats; binpack_routes (K11's instantiation a call) where
+# phase 0 or 0.5 ran, as in sc_all_kinds
+PORT_ONLY = {"encode_ms", "phase0_ms", "phase05_ms", "phase1_ms", "phase2_ms", "binpack_routes"}
 MODES = {
     "cached": {},
     "stateless": {"warm_start": False},

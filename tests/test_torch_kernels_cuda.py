@@ -559,25 +559,6 @@ def test_dense_kernels_match_plain_bits(card, proximity):
     assert same_bits(kernels.unbounded_best(ep, er, w), tb._solve_unbounded_plain(ep, er, w))
 
 
-def test_greedy_cleanup_kernel_matches_plain_bits(card):
-    """K9 on the state an auction cut after a few rounds leaves (many open
-    tasks contending for the same free providers)."""
-    from protocol_tpu_torch import kernels
-
-    n = 3000
-    ep = synth_providers(np.random.default_rng(2), n, device=card)
-    er = synth_requirements(np.random.default_rng(3), n, device=card)
-    cp, cc = sp.candidates_topk_bidir(ep, er, CostWeights(), k=64, tile=250)
-    state, _ = sp._sparse_auction_phase(cp, cc, n, None, eps=4.0, max_iters=2, frontier=4096,
-                                        retire=True, stall_limit=0)
-    _, _, owner, p4t, _ = state
-    open_idx = torch.nonzero(p4t < 0).flatten()
-    assert open_idx.numel() >= 1000
-    got = kernels.greedy_cleanup(cp, cc, owner, p4t, open_idx)
-    ref = sp._greedy_cleanup_plain(cp, cc, owner, p4t, open_idx)
-    assert same_bits(got, ref.to(torch.int32))
-
-
 @pytest.mark.parametrize("offset", [123_456_789, 2**31 - 1, -5])
 @pytest.mark.parametrize("tile", [256, 1024])
 def test_candidate_kernel_with_a_jitter_offset_matches_plain_bits(card, offset, tile):
@@ -716,53 +697,211 @@ def test_cost_block_matches_plain_bits(card, proximity):
     assert same_bits(got.contiguous(), cost_matrix(ep, er, w)[0])
 
 
-def binpack_case(kind: str, card):
-    """Integer-valued bin-pack inputs: unit demand with groups over
-    domains (phase 0's shape), five resources (phase 0.5's), or a given
-    visit order; every case has an all-infeasible column."""
-    rng = np.random.default_rng({"unit": 1, "capacity": 2, "order": 3}[kind])
-    P, T = 3000, 700
+# ---------------- K11's cases (shared with tests/test_torch_binpack.py) ----------------
+# Each case is a bin-pack call whose inputs stress one seam of K11's
+# chain: the ring of column slots (a visit order far longer than the ring,
+# a single step), the pick's key (equal costs across providers, -0.0 and
+# +0.0), and the route between the two instantiations (an occupancy
+# bitmask only device memory holds, a shape on each side of the limit).
+# The CPU tests hold the plain step loop against the reference on the
+# small sizes; the card tests hold K11 against the plain loop.
+
+BINPACK_KINDS = ("unit", "capacity", "order", "wrap", "t1", "equal", "negzero", "wide",
+                 "edge_in", "edge_out")
+
+
+def binpack_limit_L(P: int, R: int, G: int) -> int:
+    """The largest domain count L at which K11's shared instantiation still
+    fits P providers, R resources and G groups."""
+    from protocol_tpu_torch import kernels
+
+    lo, hi = 1, 1 << 24
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if kernels.binpack_slots(P, R, mid, G, True):
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+def binpack_case(kind: str, small: bool = False):
+    """Integer-valued bin-pack inputs as numpy arrays (cost [P, T],
+    demand, capacity, order or None, anti_group, loc_id, L, G): unit
+    demand with groups over domains (phase 0's shape), five resources
+    (phase 0.5's), a given visit order, and the seams above; every case
+    but ``t1`` has an all-infeasible column (5)."""
+    rng = np.random.default_rng(1 + BINPACK_KINDS.index(kind))
+    P, T = (60, 40) if small else (3000, 700)
+    if kind == "wrap":
+        P, T = (24, 96) if small else (700, 3000)  # 3,000 steps through a ring of 32 slots
+    if kind == "t1":
+        T = 1
+    if kind in ("edge_in", "edge_out", "wide"):
+        P = 200 if small else 1000
     cost = rng.integers(1, 2000, (P, T)).astype(np.float32) / 8
+    if kind == "equal":
+        cost[:] = 2.5
+    if kind == "negzero":
+        cost = np.where(rng.uniform(size=(P, T)) < 0.5, -0.0, 0.0).astype(np.float32)
     cost[rng.uniform(size=(P, T)) > 0.3] = 1e9
-    cost[:, 5] = 1e9
-    if kind == "unit":
+    if T > 5:
+        cost[:, 5] = 1e9
+    order = None
+    if kind in ("unit", "equal", "negzero", "wide", "edge_in", "edge_out"):
         demand, capacity = np.ones((T, 1), np.float32), np.ones((P, 1), np.float32)
-        anti = np.where(np.arange(T) < 600, np.arange(T) // 40, -1).astype(np.int32)
-        loc = rng.integers(0, 64, P).astype(np.int32)
-        L, G, order = 64, 16, None
+        G = 16
+        n_grouped = T * 6 // 7
+        anti = np.where(np.arange(T) < n_grouped, np.arange(T) // max(1, T // G), -1)
+        anti = np.minimum(anti, G - 1).astype(np.int32)
+        L = 64
+        if kind == "wide":  # an occupancy bitmask of 4M bits: device memory only
+            G, L = 64, 65_536
+        elif kind in ("edge_in", "edge_out"):
+            L = binpack_limit_L(P, 1, G) + (kind == "edge_out")
+        loc = rng.integers(0, L, P).astype(np.int32)
     else:
         demand = rng.integers(0, 4, (T, 5)).astype(np.float32)
         capacity = rng.integers(0, 9, (P, 5)).astype(np.float32)
+        if kind == "wrap":
+            capacity *= 5
         anti, loc = np.full(T, -1, np.int32), np.arange(P, dtype=np.int32)
         L, G = P, 1
-        order = rng.permutation(T).astype(np.int32) if kind == "order" else None
-
-    def dev(x):
-        return None if x is None else torch.from_numpy(x).to(card)
-
-    return dev(cost), dev(demand), dev(capacity), dev(order), dev(anti), dev(loc), L, G
+        if kind in ("order", "t1"):
+            order = rng.permutation(T).astype(np.int32)
+    return cost, demand, capacity, order, anti, loc, L, G
 
 
-@pytest.mark.parametrize("kind", ["unit", "capacity", "order"])
-def test_binpack_kernel_matches_plain_bits(card, kind):
-    """K11 (its rank launch included) against the plain step loop."""
+@pytest.mark.parametrize("route", ["shared", "device"])
+@pytest.mark.parametrize("kind", BINPACK_KINDS)
+def test_binpack_kernel_matches_plain_bits(card, kind, route):
+    """K11 (its rank launch included) in each instantiation, forced,
+    against the plain step loop; an instantiation that does not fit the
+    shapes raises."""
     from protocol_tpu_torch import kernels
     from protocol_tpu_torch.ops import binpack as bp
 
-    cost, demand, capacity, order, anti, loc, L, G = binpack_case(kind, card)
-    got = kernels.binpack_ffd(cost.T.contiguous(), demand, capacity, order, anti, loc, L, G)
+    cost, demand, capacity, order, anti, loc, L, G = (
+        x if isinstance(x, int) or x is None else torch.from_numpy(x).to(card)
+        for x in binpack_case(kind))
+    P, T = cost.shape
+    R = demand.shape[1]
+    fits = kernels.binpack_slots(P, R, L, G, route == "shared") > 0
+    assert fits == (route == "device" or kind not in ("wide", "edge_out"))
+    if kind.startswith("edge"):
+        assert kernels.binpack_route(P, R, L, G) == ("shared" if kind == "edge_in" else "device")
+    if not fits:
+        with pytest.raises(ValueError, match="instantiation"):
+            kernels.binpack_ffd(cost.T.contiguous(), demand, capacity, order, anti, loc, L, G,
+                                route=route)
+        return
+    key = kernels.K11_ROUTES[route]
+    before = kernels.LAUNCHES[key]
+    got = kernels.binpack_ffd(cost.T.contiguous(), demand, capacity, order, anti, loc, L, G,
+                              route=route)
+    assert kernels.LAUNCHES[key] == before + 1
     ref = bp._binpack_plain(cost, demand, capacity,
                             bp.ffd_demand_order(demand) if order is None else order,
                             anti, loc, L, G)
     assert same_bits(got[0], ref[0]) and same_bits(got[1], ref[1])
-    assert int(got[0][5]) == -1 and int((got[0] >= 0).sum()) > 0
-    # the public entry point launches K11 on a card (ranking the default
-    # order in the launch), from a transposed view as the matcher's K10 gives
-    before = kernels.LAUNCHES["binpack_ffd"]
+    assert int((got[0] >= 0).sum()) > 0
+    if T > 5:
+        assert int(got[0][5]) == -1
+    # the public entry point launches K11 on a card in the route's own
+    # instantiation (ranking the default order in the launch), from a
+    # transposed view as the matcher's K10 gives
+    own = kernels.binpack_route(P, R, L, G)
+    before = kernels.LAUNCHES[kernels.K11_ROUTES[own]]
     res = bp.assign_binpack_ffd(cost.T.contiguous().T, demand, capacity, task_order=order,
                                 anti_group=anti, loc_id=loc, num_locations=L, num_groups=G)
-    assert kernels.LAUNCHES["binpack_ffd"] == before + 1
+    assert kernels.LAUNCHES[kernels.K11_ROUTES[own]] == before + 1 and res.route == own
     assert same_bits(res.provider_for_task, ref[0]) and same_bits(res.remaining_capacity, ref[1])
+
+
+def test_binpack_layout_mirrors_the_library(card):
+    """kernels.binpack_slots, which picks K11's route without a card,
+    equals the library's own layout on both sides of every limit."""
+    from protocol_tpu_torch import kernels
+
+    lib = kernels._lib("binpack")
+    for P in (1, 3, 992, 2048, 4096, 15_872, 15_873, 65_536):
+        for R in (1, 5, 8):
+            for L, G in ((P, 1), (2048, 64), (4096, 1024), (binpack_limit_L(P, R, 16), 16)):
+                for shared in (True, False):
+                    assert kernels.binpack_slots(P, R, L, G, shared) == lib.k11_slots(
+                        P, R, L * G, int(shared)), (P, R, L, G, shared)
+
+
+# ---------------- K9's cases (shared with tests/test_torch_auction.py) ----------------
+# Each case is a cleanup call whose inputs stress one hazard of K9's sorted
+# sweep: merged rows (64 sorted forward columns, 16 extras sorted only
+# among themselves), K = 128 and K = 80 (not a multiple of 32), a provider
+# twice in a row, -0.0 / +0.0 ties, equal costs, one open row, rows with no
+# free candidate, and (on the card) more than a million providers. Every
+# case has invalid entries (p < 0) with a finite cost and infeasible costs.
+
+K9_KINDS = ("merged", "k128", "k80", "dup", "negzero", "equal", "one_open", "no_free",
+            "p_above_1m")
+
+
+def k9_case(kind: str, small: bool = False):
+    """(cand_p [T, K] i32, cand_c [T, K] f32, owner [P] i32, p4t [T] i32)
+    as numpy arrays."""
+    rng = np.random.default_rng(40 + K9_KINDS.index(kind))
+    T, P = (64, 120) if small else (6000, 20_000)
+    if kind == "p_above_1m":
+        P = 1_200_000
+    K = {"k128": 128, "k80": 80, "merged": 80}.get(kind, 64)
+    cp = rng.integers(0, P, (T, K)).astype(np.int32)
+    cc = (rng.integers(0, 40, (T, K)) / 8).astype(np.float32)
+    if kind == "merged":  # as merge_reverse_candidates leaves them
+        cc[:, :64] = np.sort(cc[:, :64], axis=1)
+        cc[:, 64:] = np.sort(cc[:, 64:], axis=1)
+    elif kind == "dup":
+        cp[:, 1::2] = cp[:, 0::2]
+    elif kind == "negzero":
+        cc = np.where(rng.uniform(size=(T, K)) < 0.5, -0.0, 0.0).astype(np.float32)
+    elif kind == "equal":
+        cc[:] = 1.5
+    cp[rng.uniform(size=(T, K)) < 0.1] = -1  # invalid, with a finite cost
+    cc[rng.uniform(size=(T, K)) < 0.05] = 1e9
+    owner = np.where(rng.uniform(size=P) < 0.5, 0, -1).astype(np.int32)
+    p4t = np.where(rng.uniform(size=T) < 0.6, -1, 0).astype(np.int32)
+    if kind == "one_open":
+        p4t[:] = 0
+        p4t[T // 3] = -1
+    elif kind == "no_free":  # half the rows' candidates are all taken or infeasible
+        taken = np.flatnonzero(owner >= 0)
+        cp[::2] = rng.choice(taken, (len(cp[::2]), K))
+        cc[1::4] = 1e9
+    return cp, cc, owner, p4t
+
+
+@pytest.mark.parametrize("kind", ("cut_auction",) + K9_KINDS)
+def test_greedy_cleanup_kernel_matches_plain_bits(card, kind):
+    """K9 against the plain sweep on the state an auction cut after a few
+    rounds leaves (many open tasks contending for the same free
+    providers) and on each of K9's cases."""
+    from protocol_tpu_torch import kernels
+
+    if kind == "cut_auction":
+        n = 3000
+        ep = synth_providers(np.random.default_rng(2), n, device=card)
+        er = synth_requirements(np.random.default_rng(3), n, device=card)
+        cp, cc = sp.candidates_topk_bidir(ep, er, CostWeights(), k=64, tile=250)
+        state, _ = sp._sparse_auction_phase(cp, cc, n, None, eps=4.0, max_iters=2,
+                                            frontier=4096, retire=True, stall_limit=0)
+        _, _, owner, p4t, _ = state
+    else:
+        cp, cc, owner, p4t = (torch.from_numpy(x).to(card) for x in k9_case(kind))
+    open_idx = torch.nonzero(p4t < 0).flatten()
+    assert open_idx.numel() >= (1 if kind == "one_open" else 1000)
+    before = kernels.LAUNCHES["greedy_cleanup"]
+    got = kernels.greedy_cleanup(cp, cc, owner, p4t, open_idx)
+    assert kernels.LAUNCHES["greedy_cleanup"] == before + 1
+    ref = sp._greedy_cleanup_plain(cp, cc, owner, p4t, open_idx)
+    assert same_bits(got, ref.to(torch.int32))
+    assert int((got[open_idx] >= 0).sum()) > 0
 
 
 @pytest.mark.parametrize("tile", [256, 512, 1024])
