@@ -40,8 +40,9 @@ just before each:
     dense_cell_budget: 4,096 nodes (12 GPU classes, half located), 192
     bounded tasks x 16 replicas = 3,072 slots and 1,024 unbounded tasks,
     two refreshes (1% of the nodes repriced and two tasks replaced in
-    between): K6 + K7 (phase 1) and K8 (phase 2), each held against its
-    plain version on the first refresh's inputs;
+    between), timed in place (kernels.time_in_place; the sums printed):
+    K6 + K7 (phase 1) and K8 (phase 2), each held against its plain
+    version on the first refresh's inputs;
   - the torch route (native_engine="torch") at 65,536 nodes x 65,536
     slots (4,096 tasks x 16 replicas): a cold refresh, then a warm one
     after 1% node churn.
@@ -98,7 +99,11 @@ with a jitter offset of 123,456,789 at 65,536 x 65,536 and timed with and
 without it.
 
 Then the scheduler backend (services/scheduler_grpc.py), in one more run
-with the counts set to 0 just before it: the port's gRPC server on a free
+with the counts set to 0 just before it and every launch timed in place
+(the sums printed and carried into the K7, K12 and K13 rows with the
+dense route's; K12's and K13's first launches in the process, which load
+their modules, are made and timed before it, untimed and uncounted): the
+port's gRPC server on a free
 localhost port, driven through the port's client, on the synthetic
 marketplace (new arrays for every kernel): greedy, sinkhorn (eps 0.05, 200
 rounds) and auction (eps 0.01, 500 rounds) at 4,096 x 4,096 and best at
@@ -1377,13 +1382,44 @@ def rounding_near_ties(torch, rcost_tp, order, colmax, tol: float):
     return p4t, order_ties, step_tie
 
 
+def first_launches(torch, kernels, n: int) -> None:
+    """K12's and K13's first launches in a process load their kernels'
+    modules inside the C entry, between in-place timing's event pair, and
+    the backend run would make them. Make them here at the backend's shape
+    (n x n, a seeded cost on the card), untimed and uncounted, and print
+    the first and the second launch of each as timed by events around the
+    wrapper: the difference is the load."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 57)
+    cost = torch.rand((n, n), generator=gen, device=DEVICE)
+    order = torch.arange(n, dtype=torch.int32, device=DEVICE)
+    calls = {"greedy_assign": lambda: kernels.greedy_assign(cost, order),
+             "sinkhorn": lambda: kernels.sinkhorn(cost, SINKHORN_EPS, SINKHORN_ITERS)}
+    ms = {}
+    with uncounted(kernels), kernels.untimed():
+        for name, fn in calls.items():
+            ms[name] = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn()
+                end.record()
+                end.synchronize()
+                ms[name].append(start.elapsed_time(end))
+    print(f"first launches in the process ({n} x {n}, events around the wrapper): " + "; ".join(
+        f"{name} {a:.3f} ms, then {b:.3f} ms" for name, (a, b) in ms.items()), flush=True)
+
+
 def run_backend(torch, kernels) -> tuple[list, dict]:
     """The scheduler backend on the card: the port's server on a free
     localhost port, driven through the port's client over both wires with
     the counts set to 0 just before. Every answer is checked (compatible,
-    a matching, v1 == v2, equal to the dispatch in process); K12 and K13
-    are held against their plain versions on their first calls. Returns
-    (the kernels-line rows of K12 and K13, {"backend": launches})."""
+    a matching, v1 == v2, equal to the dispatch in process), every launch
+    timed in place after K12's and K13's first launches (first_launches);
+    K12 and K13 are held against their plain versions on their first
+    calls. Returns (the kernels-line rows of K12 and K13,
+    {"backend": launches}, the in-place sums)."""
     import numpy as np
 
     from protocol_tpu_torch.ops import assign as da
@@ -1457,8 +1493,10 @@ def run_backend(torch, kernels) -> tuple[list, dict]:
               f"devices {health.device_count}", flush=True)
         if (health.status, health.platform) != ("ok", "gpu"):
             raise AssertionError("the backend's Health does not report a GPU")
+        first_launches(torch, kernels, n)
         torch.cuda.synchronize()
         kernels.reset_launches()
+        kernels.time_in_place(True)
         calls, originals = record_calls(kernels, ("greedy_assign", "sinkhorn"))
         for kernel in ("greedy", "sinkhorn", "auction", "best"):
             for wire in ("v1", "v2"):
@@ -1477,6 +1515,7 @@ def run_backend(torch, kernels) -> tuple[list, dict]:
         launches = dict(kernels.LAUNCHES)
         for name, fn in originals.items():
             setattr(kernels, name, fn)
+        backend_in_place = in_place_run(kernels, launches, "backend")
         memo = server.servicer.kernels.memo
         print(f"kernels (backend): {json.dumps(launches)}; candidate memo hits {memo.hits} "
               f"misses {memo.misses}", flush=True)
@@ -1609,8 +1648,9 @@ def run_backend(torch, kernels) -> tuple[list, dict]:
     rows = [
         # K12: the cost block read once, the order and the picks; a compare
         # and a select per cell
-        row("greedy_assign", SRC_K12, "protocol_tpu/ops/assign.py:70", 0.0, k12_ms,
-            k12_plain_ms, Tg * Pg * 4 + Tg * 8, Tg * Pg * 2),
+        dict(row("greedy_assign", SRC_K12, "protocol_tpu/ops/assign.py:70", 0.0, k12_ms,
+                 k12_plain_ms, Tg * Pg * 4 + Tg * 8, Tg * Pg * 2),
+             us_per_step=k12_ms * 1e3 / max(Tg, 1)),
         # K13: the cost in, the plan and the rounding cost out; per cell and
         # round two passes of five operations (add, max, subtract, exp,
         # add), plus nine in the prep and the final pass
@@ -1625,7 +1665,7 @@ def run_backend(torch, kernels) -> tuple[list, dict]:
     print(f"K12 timed on the greedy RPC's call ({Tg} steps x {Pg} providers); K13 on the "
           f"sinkhorn RPC's ({Ts} x {Ps}, {s_iters} rounds); one torch.logsumexp pass "
           f"{lse_ms:.4f} ms", flush=True)
-    return rows, {"backend": launches}
+    return rows, {"backend": launches}, backend_in_place
 
 
 def finite_err(torch, got, ref, keep) -> float:
@@ -3227,6 +3267,7 @@ def main() -> int:
     dense = tb.TorchBatchMatcher(store, device=dev)
     torch.cuda.synchronize()
     kernels.reset_launches()
+    kernels.time_in_place(True)
     d_recorded, d_originals = record_first_calls(
         kernels, {name: () for name in DENSE_KERNELS})
     dense_stats = [refresh(dense, store, "dense-0", "dense_auction")]
@@ -3236,6 +3277,7 @@ def main() -> int:
         setattr(kernels, name, fn)
     launches_dense = dict(kernels.LAUNCHES)
     print(f"kernels (matcher, dense route): {json.dumps(launches_dense)}", flush=True)
+    dense_in_place = in_place_run(kernels, launches_dense, "dense route")
     missing = [n for n in DENSE_KERNELS if launches_dense[n] == 0]
     if missing:
         return fail(f"the dense route launched no {missing}")
@@ -3314,7 +3356,7 @@ def main() -> int:
     route_runs = run_default_route(torch, kernels, refresh)
 
     # ---- the scheduler backend's stateless RPCs
-    backend_rows, backend_runs = run_backend(torch, kernels)
+    backend_rows, backend_runs, backend_in_place = run_backend(torch, kernels)
 
     # ---- stage S: the blocked Sinkhorn at 100,000^2 (BASELINE ladder #3)
     stage_rows, stage_runs, stage_ref = run_stage_s(torch, kernels)
@@ -3362,8 +3404,9 @@ def main() -> int:
     rows += [
         row("dense_value_base", SRC_DENSE, "protocol_tpu/sched/tpu_backend.py:172", 0.0,
             k6_ms, k6_plain_ms, k6_bytes, k6_ops),
-        row("dense_auction", SRC_DENSE, "protocol_tpu/ops/assign.py:176", 0.0, k7_ms,
-            k7_plain_ms, k7_bytes, k7_ops),
+        dict(row("dense_auction", SRC_DENSE, "protocol_tpu/ops/assign.py:176", 0.0, k7_ms,
+                 k7_plain_ms, k7_bytes, k7_ops),
+             price_route=kernels.dense_route(Pd), us_per_round=k7_ms * 1e3 / max(k7_rounds, 1)),
         row("unbounded_best", SRC_DENSE, "protocol_tpu/sched/tpu_backend.py:189", 0.0, k8_ms,
             k8_plain_ms, k8_bytes, k8_ops),
         k9_row,
@@ -3425,6 +3468,15 @@ def main() -> int:
     print("kernels by in-place device ms, the matcher's phase runs: " + "; ".join(
         f"{name} {ms:.3f}" for name, ms in sorted(phase_total.items(), key=lambda kv: -kv[1])),
         flush=True)
+    # the same for the backend's RPCs and the dense route's two refreshes
+    for label, key, sums in (("the backend", "in_place_ms_backend", backend_in_place),
+                             ("the dense route", "in_place_ms_dense_route", dense_in_place)):
+        for r_ in rows:
+            if r_["name"] in sums:
+                r_[key] = sums[r_["name"]]["ms"]
+        print(f"kernels by in-place device ms, {label}: " + "; ".join(
+            f"{name} {v['ms']:.3f} ({v['launches']})"
+            for name, v in sorted(sums.items(), key=lambda kv: -kv[1]["ms"])), flush=True)
     print(f"K2 timed launch: eps 4.0, B 4096, {k2_rounds} rounds, {k2_rows} frontier rows; "
           f"eps 0.02, B 512 (carried), {k2_rounds_512} rounds, {k2_rows_512} frontier rows",
           flush=True)

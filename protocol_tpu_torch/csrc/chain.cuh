@@ -1,11 +1,12 @@
-// Shared by the dependent-chain kernels, K9 (cleanup.cu) and K11
-// (binpack.cu): one block walks a chain of steps, each depending on the
-// state the one before left, while producer warps stage the inputs that do
-// not depend on the chain into a ring of shared-memory slots ahead of it.
-// The primitives below are the ring's handshakes: mbarriers with bulk
-// copies (TMA) completing on them, and acquire / release flags in shared
-// memory; plus the named barrier the consumer warps step on without the
-// producers.
+// Shared by the dependent-chain kernels, K9 (cleanup.cu), K11 (binpack.cu)
+// and K12 (greedy.cu): one block walks a chain of steps, each depending on
+// the state the one before left, while producer warps stage the inputs
+// that do not depend on the chain into a ring of shared-memory slots ahead
+// of it. The primitives below are the ring's handshakes: mbarriers with
+// bulk copies (TMA) completing on them, and acquire / release flags in
+// shared memory; plus the named barrier the consumer warps step on without
+// the producers, and the warp-wide bitonic sort the producers order their
+// keys with.
 
 #pragma once
 
@@ -77,10 +78,15 @@ __device__ __forceinline__ void st_release(int* p, int v) {
   asm volatile("st.release.cta.shared.b32 [%0], %1;" ::"r"(smem_addr(p)), "r"(v) : "memory");
 }
 
-// a read of a word another warp may be clearing bits of (stale is safe
-// where bits only ever clear)
-__device__ __forceinline__ uint32_t ld_relaxed(const uint32_t* p) {
-  return *(const volatile uint32_t*)p;
+// a read of a word in shared memory another warp may be clearing bits of
+// (stale is safe where bits only ever clear; an acquire before it orders
+// it after what that acquire saw): a plain shared load, issued afresh each
+// time (a volatile or relaxed load of the word costs hundreds of cycles a
+// read on an H100)
+__device__ __forceinline__ uint32_t ld_word(const uint32_t* p) {
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];" : "=r"(v) : "r"(smem_addr(p)));
+  return v;
 }
 
 // --- the barrier of the first `threads` threads of the block (barrier 1;
@@ -90,5 +96,42 @@ __device__ __forceinline__ void named_sync(int threads) {
 }
 
 __device__ __forceinline__ void nap(unsigned ns) { __nanosleep(ns); }
+
+// ascending bitonic sort of the warp's 32 x NJ keys, element lane * NJ + j
+// in key[j]: u64 keys, or floats (none NaN; +0 and -0 in either order)
+template <int NJ, class K>
+__device__ __forceinline__ void warp_sort(K (&key)[NJ], int lane) {
+  constexpr int N = 32 * NJ;
+#pragma unroll
+  for (int size = 2; size <= N; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      if (stride >= NJ) {  // the partner is in lane ^ (stride / NJ), same j
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const int e = lane * NJ + j;
+          const K o = __shfl_xor_sync(0xffffffffu, key[j], stride / NJ);
+          const bool up = (e & size) == 0;
+          const bool lower = (e & stride) == 0;
+          const K lo_k = o < key[j] ? o : key[j];
+          const K hi_k = o < key[j] ? key[j] : o;
+          key[j] = lower == up ? lo_k : hi_k;
+        }
+      } else {  // the partner is this lane's j ^ stride
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          if (j & stride) continue;
+          const int e = lane * NJ + j;
+          const bool up = (e & size) == 0;
+          const K a = key[j], b = key[j | stride];
+          if ((b < a) == up) {
+            key[j] = b;
+            key[j | stride] = a;
+          }
+        }
+      }
+    }
+  }
+}
 
 }  // namespace

@@ -89,43 +89,6 @@ __device__ __forceinline__ uint32_t ordered_bits(float f) {
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
-// ascending bitonic sort of the warp's 32 x NJ keys, element lane * NJ + j
-// in key[j]
-template <int NJ>
-__device__ __forceinline__ void warp_sort(unsigned long long (&key)[NJ], int lane) {
-  constexpr int N = 32 * NJ;
-#pragma unroll
-  for (int size = 2; size <= N; size <<= 1) {
-#pragma unroll
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      if (stride >= NJ) {  // the partner is in lane ^ (stride / NJ), same j
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          const int e = lane * NJ + j;
-          const unsigned long long o = __shfl_xor_sync(kFull, key[j], stride / NJ);
-          const bool up = (e & size) == 0;
-          const bool lower = (e & stride) == 0;
-          const unsigned long long lo_k = o < key[j] ? o : key[j];
-          const unsigned long long hi_k = o < key[j] ? key[j] : o;
-          key[j] = lower == up ? lo_k : hi_k;
-        }
-      } else {  // the partner is this lane's j ^ stride
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          if (j & stride) continue;
-          const int e = lane * NJ + j;
-          const bool up = (e & size) == 0;
-          const unsigned long long a = key[j], b = key[j | stride];
-          if ((b < a) == up) {
-            key[j] = b;
-            key[j | stride] = a;
-          }
-        }
-      }
-    }
-  }
-}
-
 template <int NJ>
 __global__ void __launch_bounds__(kThreads, 1)
     cleanup_kernel(const int32_t* __restrict__ cand_p, const float* __restrict__ cand_c, int K,
@@ -201,7 +164,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int k = lane + 32 * j;
         const int p = cp[j];
         const bool v = k < K && p >= 0 && cc[j] < kHalfInfeasible &&
-                       ((ld_relaxed(&s_free[p >> 5]) >> (p & 31)) & 1u);
+                       ((ld_word(&s_free[p >> 5]) >> (p & 31)) & 1u);
         key[j] = v ? ((unsigned long long)ordered_bits(cc[j]) << 28) |
                          ((unsigned long long)k << 21) | (uint32_t)p
                    : kNoKey;

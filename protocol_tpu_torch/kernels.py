@@ -168,9 +168,10 @@ def _lib(name: str) -> ctypes.CDLL:
             lib.k7_dense_auction.argtypes = [
                 _P, _P, _I, _I, _F, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
             ]
+            lib.k7_route.argtypes = [_I]
             lib.k8_unbounded_best.argtypes = [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P]
             lib.k10_cost_block.argtypes = [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P]
-            for fn in ("k6_value_base", "k7_dense_auction", "k8_unbounded_best",
+            for fn in ("k6_value_base", "k7_dense_auction", "k7_route", "k8_unbounded_best",
                        "k10_cost_block"):
                 getattr(lib, fn).restype = _I
         elif name == "cleanup":
@@ -714,13 +715,26 @@ def dense_value_base(ep, er, weights):
     return value_base, feasible.bool()
 
 
+# K7's route (csrc/dense.cu: k7_route), mirrored so that it is known from
+# the shape without a card: the round's prices in shared memory where P x 4
+# bytes fit in K7_PRICE_MAX_BYTES, else read through L2
+K7_PRICE_MAX_BYTES = 200 * 1024
+
+
+def dense_route(P: int) -> str:
+    """K7's route for P providers: "shared" (the round's prices staged in
+    shared memory) or "global" (read through L2), from the shape alone."""
+    return "shared" if P * 4 <= K7_PRICE_MAX_BYTES else "global"
+
+
 @_on_device
 def dense_auction(value_base, task_feasible, eps: float, max_iters: int,
                   work_out: dict | None = None):
     """K7 (``csrc/dense.cu``): the dense Jacobi auction from scratch duals,
-    every round in one cooperative launch. Returns (p4t [T] i32, t4p [P]
-    i32, price [P] f32, rounds 0-d i64); ``work_out["open_rows"]``
-    receives the open rows summed over the rounds (0-d i64)."""
+    every round in one cooperative launch over a compacted list of the
+    open slots. Returns (p4t [T] i32, t4p [P] i32, price [P] f32, rounds
+    0-d i64); ``work_out["open_rows"]`` receives the open rows summed over
+    the rounds (0-d i64)."""
     T, P = value_base.shape
     dev = value_base.device
     if value_base.dtype != torch.float32 or not value_base.is_contiguous():
@@ -730,18 +744,21 @@ def dense_auction(value_base, task_feasible, eps: float, max_iters: int,
     feasible = task_feasible.to(torch.uint8).contiguous()
     if feasible.device != dev or feasible.shape != (T,):
         raise ValueError(f"K7: task_feasible must be a [{T}] tensor on {dev}")
+    if value_base.data_ptr() % 16:  # the rows are read as 16-byte vectors
+        value_base = value_base.clone()
     price = torch.zeros(P, dtype=torch.float32, device=dev)
     owner = torch.full((P,), -1, dtype=torch.int32, device=dev)
     p4t = torch.full((T,), -1, dtype=torch.int32, device=dev)
-    fr_p1 = torch.full((2, T), -1, dtype=torch.int32, device=dev)
+    fr_p1 = torch.empty((2, T), dtype=torch.int32, device=dev)
     fr_key = torch.empty(T, dtype=torch.int64, device=dev)
     win_key = torch.zeros((2, P), dtype=torch.int64, device=dev)
-    ctl = torch.zeros(2, dtype=torch.int32, device=dev)  # barrier, open count
+    open_list = torch.empty((2, T), dtype=torch.int32, device=dev)
+    ctl = torch.zeros(4, dtype=torch.int32, device=dev)  # barrier, three list counts
     out = torch.zeros(2, dtype=torch.int64, device=dev)
     _launch("dense_auction", _lib("dense").k7_dense_auction,
         value_base.data_ptr(), feasible.data_ptr(), T, P, eps, max_iters,
         price.data_ptr(), owner.data_ptr(), p4t.data_ptr(), fr_p1.data_ptr(),
-        fr_key.data_ptr(), win_key.data_ptr(), ctl.data_ptr(), ctl[1:].data_ptr(),
+        fr_key.data_ptr(), win_key.data_ptr(), open_list.data_ptr(), ctl.data_ptr(),
         out.data_ptr(), _stream(out),
     )
     if work_out is not None:
@@ -896,9 +913,10 @@ def binpack_ffd(cost_tp, demand, capacity, task_order, anti_group, loc_id, L: in
 @_on_device
 def greedy_assign(cost_tp, task_order):
     """K12 (``csrc/greedy.cu``): the sequential greedy over the slot-major
-    cost ``cost_tp`` [T, P], tasks in ``task_order`` (ids in [0, T)).
-    Returns provider_for_task [T] i32 (-1 for a task not visited or left
-    unassigned)."""
+    cost ``cost_tp`` [T, P], tasks in ``task_order`` (ids in [0, T)):
+    producer warps reduce each coming row to a short sorted list, one warp
+    takes a step a ballot. Returns provider_for_task [T] i32 (-1 for a
+    task not visited or left unassigned)."""
     T, P = cost_tp.shape
     dev = cost_tp.device
     if cost_tp.dtype != torch.float32 or not cost_tp.is_contiguous() or T < 1 or P < 1:
@@ -910,6 +928,8 @@ def greedy_assign(cost_tp, task_order):
         raise ValueError(f"K12: task_order must be a 1-d tensor on {dev}")
     if order.numel() and (int(order.min()) < 0 or int(order.max()) >= T):
         raise ValueError(f"K12: task ids out of range [0, {T})")
+    if cost_tp.data_ptr() % 16:  # the rows are read from their 16-byte granules
+        cost_tp = cost_tp.clone()
     p4t = torch.full((T,), -1, dtype=torch.int32, device=dev)
     _launch("greedy_assign", _lib("greedy").k12_greedy,
         cost_tp.data_ptr(), T, P, order.data_ptr(), order.numel(), p4t.data_ptr(), _stream(p4t),

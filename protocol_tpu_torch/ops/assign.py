@@ -13,10 +13,12 @@ device of its inputs, with no fallback:
         straight from the encoded columns (cost_matrix + with_tie_jitter +
         value_base), a CPU tensor takes the plain torch ops;
   auction_dense      -> K7 (``csrc/dense.cu``): every round of
-        :func:`assign_auction` in one launch, a CPU tensor takes the plain
-        round loop below;
+        :func:`assign_auction` in one launch over a compacted list of the
+        open slots, a CPU tensor takes the plain round loop below;
   assign_greedy      -> K12 (``csrc/greedy.cu``): the whole scan over the
-        tasks in one block, a CPU tensor takes :func:`_greedy_plain`;
+        tasks in one block, producer warps reducing each coming row to a
+        short sorted list and one warp taking a step a ballot, a CPU
+        tensor takes :func:`_greedy_plain`;
   sinkhorn_plan / assign_sinkhorn -> K13 (``csrc/sinkhorn.cu``): the
         potentials, the plan and the rounding cost, then K12 for the
         rounding; a CPU tensor takes :func:`_sinkhorn_plain`.

@@ -918,6 +918,136 @@ def test_candidate_reverse_several_per_tile_matches_plain_bits(card, tile):
     assert all(same_bits(a, b) for a, b in zip(got, ref))
 
 
+# ---------------- K7's and K12's cases (shared with tests/test_torch_assign_rest.py) ----------------
+# Each K7 case is a dense cost [P, T] whose auction stresses one seam of
+# K7's rounds: the open list's length on both sides of each row-split
+# threshold (a group of g warps a row once n open x 2g <= the grid's warps:
+# 4,224 on 132 SMs), P not a multiple of 4 (rows off their 16-byte
+# granules), T >> P and P >> T, single-option rows (the -1e8 floor),
+# identical rows (equal bids: the lowest slot wins), all-infeasible rows,
+# and P on both sides of the shared-memory price route. Each K12 case is a
+# greedy call (cost [P, T], visit order) that stresses the producers' lists:
+# T = P (the lists run out late), rows with fewer than 32 candidates, heavy
+# -0 / +0 ties, free NaN cells, P not a multiple of 32, wide rows and the
+# widest the free bitmask takes (fewer producers fit beside it). The CPU
+# tests hold models of the two kernels' rounds and steps against the plain
+# versions and the reference on the small sizes; the card tests hold the
+# kernels against the plain versions.
+
+K7_KINDS = ("t2113", "t2112", "t1057", "t1056", "t529", "t528", "t265", "t264", "t133", "t132",
+            "t8", "p_mod4", "tall", "wide", "single", "equal", "infeasible", "price_in",
+            "price_out")
+K7_PRICE_P = 51_200  # the largest P whose prices K7 stages in shared memory
+
+
+def k7_case(kind: str, small: bool = False) -> np.ndarray:
+    """A [P, T] f32 cost for K7 (INFEASIBLE = 1e9 off the mask)."""
+    rng = np.random.default_rng(70 + K7_KINDS.index(kind))
+    sizes = {  # (T, P) on the card; small: for the CPU
+        "t2113": (2113, 2500), "t2112": (2112, 2500), "t1057": (1057, 1500),
+        "t1056": (1056, 1500), "t529": (529, 900), "t528": (528, 900), "t265": (265, 600),
+        "t264": (264, 600), "t133": (133, 600), "t132": (132, 600), "t8": (8, 4000),
+        "p_mod4": (700, 1001),
+        "tall": (3000, 300), "wide": (64, 20_000), "single": (500, 400), "equal": (600, 500),
+        "infeasible": (700, 600), "price_in": (40, K7_PRICE_P), "price_out": (40, K7_PRICE_P + 1),
+    }
+    T, P = sizes[kind]
+    if small:
+        T, P = max(2, min(T // 8, 160)), max(3, min(P // 8, 240))
+        if kind == "p_mod4":
+            P = 123
+    if kind in ("equal", "single"):
+        cost = (rng.integers(0, 64, (P, T)) / 8).astype(np.float32)
+    else:
+        cost = rng.uniform(0.0, 10.0, (P, T)).astype(np.float32)
+    cost[rng.uniform(size=(P, T)) < 0.3] = 1e9
+    if kind == "single":  # every other slot has one option
+        one = rng.integers(0, P, T)
+        cost[:, ::2] = 1e9
+        cost[one[::2], np.arange(0, T, 2)] = (rng.integers(0, 64, (T + 1) // 2) / 8)
+    elif kind == "equal":  # slots in identical pairs
+        cost[:, 1::2] = cost[:, 0:T - T % 2:2]
+    elif kind == "infeasible":
+        cost[:, ::5] = 1e9  # never open
+        cost[::7, :] = 1e9
+    return cost
+
+
+def k7_value_rows(cost, device):
+    """(value_base [T, P], task_feasible [T]) of a K7 case, as assign_auction
+    builds them."""
+    from protocol_tpu_torch.ops import assign as da
+
+    return da._value_base(torch.from_numpy(cost).to(device))
+
+
+K12_KINDS = ("square", "few", "ties", "nan", "p_mod32", "order", "wide_rows", "widest")
+
+
+def k12_case(kind: str, small: bool = False):
+    """(cost [P, T] f32, visit order [T] i32) for K12 as numpy arrays."""
+    rng = np.random.default_rng(90 + K12_KINDS.index(kind))
+    T, P = (700, 700) if not small else (300, 300)
+    if kind == "square":
+        T, P = (3000, 3000) if not small else (300, 300)
+    elif kind in ("p_mod32", "order"):
+        T, P = (2000, 743) if not small else (200, 103)
+    elif kind == "wide_rows":
+        T, P = (400, 70_000) if not small else (40, 2_000)
+    elif kind == "widest":
+        T, P = (24, 1_638_400) if not small else (20, 3_000)
+    elif kind == "few":
+        T = P // 2
+    cost = (rng.integers(0, 64, (P, T)) / 8).astype(np.float32)
+    if kind == "ties":
+        cost = np.where(rng.uniform(size=(P, T)) < 0.5, -0.0, 0.0).astype(np.float32)
+        cost[rng.uniform(size=(P, T)) < 0.2] = 1.0
+    cost[rng.uniform(size=(P, T)) < 0.1] = -0.0
+    cost[rng.uniform(size=(P, T)) < (0.97 if kind == "few" else 0.3)] = 1e9
+    if kind == "nan":
+        cost[rng.uniform(size=(P, T)) < 0.002] = np.nan
+    cost[:, 3] = 1e9
+    order = np.arange(T, dtype=np.int32)
+    if kind in ("order", "nan", "square"):
+        order = rng.permutation(T).astype(np.int32)
+    return cost, order
+
+
+@pytest.mark.parametrize("max_iters", [0, 1, 3, 300])
+@pytest.mark.parametrize("kind", K7_KINDS)
+def test_dense_auction_kernel_cases_match_plain_bits(card, kind, max_iters):
+    """K7 against the plain auction loop on each of its cases: p4t, t4p,
+    prices, rounds and open rows summed, bit for bit, at eps 0.05 and at
+    max_iters 0, 1, 3 and 300."""
+    from protocol_tpu_torch import kernels
+    from protocol_tpu_torch.ops import assign as da
+
+    cost = k7_case(kind)
+    vb, feas = k7_value_rows(cost, card)
+    P = vb.shape[1]
+    if kind.startswith("price"):
+        assert kernels.dense_route(P) == ("shared" if kind == "price_in" else "global")
+    work: dict = {}
+    before = kernels.LAUNCHES["dense_auction"]
+    got = kernels.dense_auction(vb, feas, 0.05, max_iters, work)
+    assert kernels.LAUNCHES["dense_auction"] == before + 1
+    p4t, t4p, price, rounds, open_rows = da._auction_dense_plain(vb, feas, 0.05, max_iters)
+    assert all(same_bits(a, b) for a, b in zip(got[:3], (p4t, t4p, price)))
+    assert int(got[3]) == int(rounds) and int(work["open_rows"]) == open_rows
+    if max_iters == 300 and kind != "tall":
+        assert int((got[0] >= 0).sum()) > 0
+
+
+def test_dense_route_mirrors_the_library(card):
+    """kernels.dense_route, which names K7's route without a card, equals
+    the library's own on both sides of the limit."""
+    from protocol_tpu_torch import kernels
+
+    lib = kernels._lib("dense")
+    for P in (1, 4096, 32_768, K7_PRICE_P - 1, K7_PRICE_P, K7_PRICE_P + 1, 1 << 20):
+        assert kernels.dense_route(P) == ("shared" if lib.k7_route(P) else "global"), P
+
+
 # K13 against its plain version: the potentials and the plan are summed in
 # another order on the card, so they agree within these bounds (f32 ulps of
 # potentials up to ~200 at eps 0.05, over 200 rounds); chip_smoke.py holds
@@ -953,6 +1083,28 @@ def test_greedy_kernel_matches_plain_bits(card, P, T):
     res = da.assign_greedy(cost)  # the public entry point launches K12 on a card
     assert kernels.LAUNCHES["greedy_assign"] == before + 1
     assert same_bits(res.provider_for_task, da._greedy_plain(cost_tp, torch.arange(T)))
+
+
+@pytest.mark.parametrize("kind", K12_KINDS)
+def test_greedy_kernel_cases_match_plain_bits(card, kind):
+    """K12 against the plain step loop on each of its cases. A free NaN
+    cell leaves its task at -1 and is never taken."""
+    from protocol_tpu_torch import kernels
+    from protocol_tpu_torch.ops import assign as da
+
+    cost_np, order_np = k12_case(kind)
+    cost = torch.from_numpy(cost_np).to(card)
+    order = torch.from_numpy(order_np).to(card)
+    cost_tp = cost.T.contiguous()
+    before = kernels.LAUNCHES["greedy_assign"]
+    got = kernels.greedy_assign(cost_tp, order)
+    assert kernels.LAUNCHES["greedy_assign"] == before + 1
+    ref = da._greedy_plain(cost_tp, order)
+    assert same_bits(got, ref) and int(got[3]) == -1 and int((got >= 0).sum()) > 0
+    if kind == "nan":
+        seated = got >= 0
+        assert not bool(torch.isnan(cost[got[seated].long(), seated.nonzero()[:, 0]]).any())
+        assert bool(torch.isnan(cost_tp).any(dim=1)[~seated].any())
 
 
 @pytest.mark.parametrize("P,T,eps", [(1000, 700, 0.05), (512, 2048, 0.02)])
