@@ -122,7 +122,9 @@ blocked Sinkhorn's potentials on the card against the CPU's at 2,048^2
 (tile 256, 20 iterations, proximity 0; masks equal, finite entries within
 BLOCKED_ATOL) and the plan-guided rounding of both fed the card's u
 (identical matchings); then, in one more run with the counts set to 0
-just before it, stage S at P = T = 100,000 (tile 2,500, 20 iterations):
+just before it and every launch timed in place (the sums printed and
+carried into the K14 rows), stage S at P = T = 100,000 (tile 2,500, 20
+iterations):
 the potentials (K14), the rounding (K1's biased forward launch, K2, K9)
 and the auction referee (K1, K2, K9), each measured through cost_pairs
 (K15). Both matchings must be injective with no infeasible pair, and u
@@ -167,7 +169,9 @@ in two more runs with the counts set to 0 just before each:
     one-device assign_auction on the same cost bit for bit; K17 is first
     held bit for bit against its plain rounds at 4,096^2;
   - mesh_sinkhorn: sinkhorn_potentials_sharded on stage S's instance at
-    100,000^2 (tile 2,500, 20 iterations), u and v within BLOCKED_ATOL of
+    100,000^2 (tile 2,500, 20 iterations), timed in place (the sums
+    printed and carried into the sharded K14 rows), u and v within
+    BLOCKED_ATOL of
     stage S's one-device potentials with equal masks, and the plan-guided
     rounding from the sharded u within stage S's 2% mean-cost bar of the
     referee; K14's partial column mode is held against its plain
@@ -1645,18 +1649,27 @@ def run_backend(torch, kernels) -> tuple[list, dict]:
     Tg, Pg = g_cost.shape
     Ts, Ps = s_cost.shape
     cells = Ts * Ps
+    s_feasible = int((s_cost < 5e8).sum())
     rows = [
         # K12: the cost block read once, the order and the picks; a compare
         # and a select per cell
         dict(row("greedy_assign", SRC_K12, "protocol_tpu/ops/assign.py:70", 0.0, k12_ms,
                  k12_plain_ms, Tg * Pg * 4 + Tg * 8, Tg * Pg * 2),
              us_per_step=k12_ms * 1e3 / max(Tg, 1)),
-        # K13: the cost in, the plan and the rounding cost out; per cell and
-        # round two passes of five operations (add, max, subtract, exp,
-        # add), plus nine in the prep and the final pass
+        # K13: the cost in, the plan and the rounding cost out; per feasible
+        # cell and round two passes of five operations (add, max, subtract,
+        # exp, add): the rounds skip the infeasible cells exactly; nine a
+        # cell in the prep and the final pass
         row("sinkhorn", SRC_K13, "protocol_tpu/ops/assign.py:111", errs["plan"], k13_ms,
-            k13_plain_ms, cells * 12 + (Ts + Ps) * 8, cells * (10 * s_iters + 9)),
+            k13_plain_ms, cells * 12 + (Ts + Ps) * 8,
+            s_feasible * 10 * s_iters + cells * 9),
     ]
+    rows[1]["bound_ms_all_cells"] = max(
+        (cells * 12 + (Ts + Ps) * 8) / PEAK_BYTES_PER_S,
+        cells * (10 * s_iters + 9) / PEAK_F32_OPS_PER_S) * 1e3
+    layout = kernels.sinkhorn_layout(s_feasible, Ts, Ps)
+    rows[1].update(feasible_share=s_feasible / cells, layout=layout,
+                   block_bytes=2 * (6 * s_feasible if layout == "packed" else 4 * cells))
     rows[1]["library_ms"] = lse_passes_ms
     rows[1]["library_call"] = (f"torch.logsumexp on the [P, T] block, two passes a round "
                                f"x {s_iters} rounds (the nearest call: the passes only)")
@@ -1671,6 +1684,47 @@ def run_backend(torch, kernels) -> tuple[list, dict]:
 def finite_err(torch, got, ref, keep) -> float:
     """Largest |got - ref| over ``keep`` (0 where it is empty)."""
     return float((got - ref)[keep].abs().max()) if bool(keep.any()) else 0.0
+
+
+def check_cells(torch, compat_mask, slice_requirements, ep, er, w, tile: int) -> tuple[int, int]:
+    """(compatible cells, compatible cells whose cost bracket straddles
+    INFEASIBLE/2) of ep x er, a tile of tasks at a time: the bracket of
+    csrc/blocked.cu's feasibility launch, fsub(fadd(base, near), prio) at
+    near = min / max(0, proximity x 20,016 km) for a located pair, 0 for
+    another; those cells are the ones it runs the haversine on."""
+    f32 = torch.float32
+    prox = torch.tensor(w.proximity, dtype=f32, device=ep.price.device)
+    far = prox * 20016.0
+    near_lo, near_hi = torch.clamp(far, max=0.0), torch.clamp(far, min=0.0)
+    if not bool(torch.isfinite(prox)):
+        near_lo = near_hi = torch.full_like(prox, float("nan"))
+    base = w.price * ep.price + w.load * ep.load
+    b0 = base + 0.0
+    p_loc = ep.has_location.bool()
+    blo = torch.where(p_loc, base + near_lo, b0)
+    bhi = torch.where(p_loc, base + near_hi, b0)
+    compat = straddle = 0
+    for t in range(0, er.num, tile):
+        er_t = slice_requirements(er, t, tile)
+        mask = compat_mask(ep, er_t)
+        t_loc, prio = er_t.has_location.bool()[None, :], w.priority * er_t.priority
+        lo = torch.where(t_loc, blo[:, None], b0[:, None]) - prio
+        hi = torch.where(t_loc, bhi[:, None], b0[:, None]) - prio
+        compat += int(mask.sum())
+        straddle += int((mask & ~(hi < 5e8) & ~(lo >= 5e8)).sum())
+    return compat, straddle
+
+
+def check_floor(r_: dict, cells: int, bracket_open: int, bytes_: int) -> None:
+    """The feasibility launch's row: its bound counts 30 operations more on
+    every feasible cell, which it runs only where the cost bracket is open;
+    the check's own floor (12 operations a cell and the bytes) beside it."""
+    floor_ops = cells * OPS_PER_CELL + bracket_open * OPS_PER_FEASIBLE_CELL
+    r_["bracket_open_cells"] = bracket_open
+    r_["check_floor_ms"] = max(bytes_ / PEAK_BYTES_PER_S, floor_ops / PEAK_F32_OPS_PER_S) * 1e3
+    r_["bound_note"] = ("bound_ms counts 30 operations on every feasible cell; the launch runs "
+                        "the haversine only on the bracket_open_cells, so check_floor_ms (12 "
+                        "a cell, 30 a bracket-open cell, and the bytes) is its own floor")
 
 
 def check_bitmaps(torch, bl, bits, ep, er, w, label: str) -> None:
@@ -1767,6 +1821,7 @@ def run_stage_s(torch, kernels) -> tuple[list, dict, dict]:
 
     stage_s.sinkhorn_potentials_blocked = measured_potentials
     kernels.auction_phase = k2_recorded
+    kernels.time_in_place(True)
     t0 = time.perf_counter()
     try:
         summary = stage_s.run(size=size, tile=tile, iters=iters, device=DEVICE, keep=keep,
@@ -1778,6 +1833,7 @@ def run_stage_s(torch, kernels) -> tuple[list, dict, dict]:
     for name, fn in originals.items():
         setattr(kernels, name, fn)
     launches = dict(kernels.LAUNCHES)
+    stage_in_place = in_place_run(kernels, launches, "stage S")
     print(f"kernels (stage S): {json.dumps(launches)}", flush=True)
     missing = [k_ for k_ in STAGE_S_KERNELS if launches[k_] == 0]
     if missing:
@@ -1900,9 +1956,10 @@ def run_stage_s(torch, kernels) -> tuple[list, dict, dict]:
           f"{lse_row_ms:.3f} / {lse_col_ms:.3f}); K1 forward at {size}x{size} biased "
           f"{bias_ms:.3f} ms, unbiased {unbiased_ms:.3f} ms; K15 {pair_ms:.4f} ms", flush=True)
 
-    # bounds: the cells of the pass (feasible ones counted on this run's data)
-    feasible = sum(int(compat_mask(ep, slice_requirements(er, t, tile)).sum())
-                   for t in range(0, size, tile))
+    # bounds: the cells of the pass (feasible ones counted on this run's
+    # data); the cells whose cost the feasibility launch's bracket leaves
+    # to the haversine
+    feasible, bracket_open = check_cells(torch, compat_mask, slice_requirements, ep, er, w, tile)
     cells = size * size
     p_row_b, r_row_b = row_bytes(ep), row_bytes(er)
     cols_bytes = size * p_row_b + size * r_row_b
@@ -1930,6 +1987,8 @@ def run_stage_s(torch, kernels) -> tuple[list, dict, dict]:
     for r_, b_ in zip(rows[:3], (bitmaps, bitmaps // 2, bitmaps // 2)):
         r_["runs"] = ("stage_s",)  # the sharded run's launches are a shard's: their own rows
         r_["bitmap_bytes"] = b_  # of bytes_ in the bound: written (feasibility) or read
+        r_["in_place_ms_stage_s"] = stage_in_place[r_["name"]]["ms"]
+    check_floor(rows[0], cells, bracket_open, cols_bytes + size + size // 8 + bitmaps)
     for r_, lib in ((rows[1], lse_row_ms), (rows[2], lse_col_ms)):
         r_["library_ms"] = lib
         r_["library_call"] = (f"{n_tiles} calls of torch.logsumexp over a materialised "
@@ -2608,6 +2667,7 @@ def run_mesh_sinkhorn(torch, kernels, reference: dict) -> tuple[list, dict]:
         kernels.reset_launches()
         recorded, originals = record_first_calls(kernels, {
             "blocked_feasibility": (), "blocked_row_lse": (), "blocked_col_partial": ()})
+        kernels.time_in_place(True)
         t0 = time.perf_counter()
         u, v = psk.sinkhorn_potentials_sharded(ep, er, mesh, w, eps=eps, num_iters=iters,
                                                tile=tile)
@@ -2619,6 +2679,7 @@ def run_mesh_sinkhorn(torch, kernels, reference: dict) -> tuple[list, dict]:
         for name, fn in originals.items():
             setattr(kernels, name, fn)
         launches = dict(kernels.LAUNCHES)
+        mesh_in_place = in_place_run(kernels, launches, "mesh sinkhorn")
         print(f"kernels (mesh sinkhorn): {json.dumps(launches)}", flush=True)
         missing = [k_ for k_ in MESH_SINKHORN_KERNELS if launches[k_] == 0]
         if missing:
@@ -2689,8 +2750,8 @@ def run_mesh_sinkhorn(torch, kernels, reference: dict) -> tuple[list, dict]:
             del x
             feas_ms = cuda_ms(torch, lambda: kernels.blocked_feasibility(f_ep, f_er, f_w), 3)
             feas_plain = cuda_ms(torch, lambda: bl.feasibility_scan(k_block, pl, starts), 1)
-        feasible = sum(int(compat_mask(p_ep, slice_requirements(p_er, t_, tile)).sum())
-                       for t_ in starts)
+        feasible, bracket_open = check_cells(torch, compat_mask, slice_requirements, f_ep, f_er,
+                                             f_w, tile)
         cols_bytes = pl * row_bytes(p_ep) + size * row_bytes(p_er)
         ops_scan = pl * size * OPS_PER_CELL + feasible * OPS_PER_FEASIBLE_CELL
         ops_pass = feasible * (OPS_PER_FEASIBLE_CELL + 5)  # feasible cells only
@@ -2714,6 +2775,11 @@ def run_mesh_sinkhorn(torch, kernels, reference: dict) -> tuple[list, dict]:
                                   f"pass (the nearest call: the block is not recomputed)")
         for r_, counter in ((row_row, "blocked_row_lse"), (feas_row, "blocked_feasibility")):
             r_.update(counter=counter, runs=("mesh_sinkhorn",))
+        for r_, counter in ((part_row, "blocked_col_partial"), (row_row, "blocked_row_lse"),
+                            (feas_row, "blocked_feasibility")):
+            r_["in_place_ms_mesh_sinkhorn"] = mesh_in_place[counter]["ms"]
+        check_floor(feas_row, pl * size, bracket_open,
+                    cols_bytes + pl + size // 8 + row_bits + col_bits)
         for r_ in (part_row, row_row, feas_row):
             r_["note"] = (f"{shard}; the sharded potentials at {size}x{size}: {pot_s:.3f} s over "
                           f"{MESH_D} shards on one card")

@@ -10,9 +10,9 @@
 //   feasibility  once per solve: the mask as two bitmaps, row-major
 //                rows[p][w] (bit j: cell (p, 32w + j)) and column-major
 //                cols[t][w] (bit j: cell (32w + j, t)), u32 words, pad
-//                bits 0; with row_any[p] (u8) and col_bits (a
-//                [ceil(T/32)] u32 bitmap of col_any). The predicate is
-//                K1's cell function, cell_cost<false> < INFEASIBLE/2;
+//                bits 0; with row_bits and col_bits (u32 bitmaps of
+//                row_any [P] and col_any [T]). The predicate is K1's
+//                cell function's, cell_cost<false> < INFEASIBLE/2;
 //   row pass     lse_u[p] = logsumexp over the feasible t of K[p, t] + v[t];
 //   column pass  lse_v[t] = logsumexp over the feasible p of K[p, t] + u[p];
 //                or, in its partial mode, the pair itself, m[t] and s[t],
@@ -29,13 +29,51 @@
 // and the loop over the iterations stay torch glue on the card
 // (protocol_tpu_torch/ops/blocked.py).
 //
-// Feasibility layout: a block serves 32 providers, one a lane, and its
-// kParts warps each walk a 32-aligned part of the tasks in index order,
-// so the task loads are warp-uniform and hit L1. A __ballot_sync over the
-// lanes is the column-major word of (task, block); each lane gathers its
-// own row-major word bit by bit. Every word of both bitmaps is written
-// once. The launch ORs col_any into a shared-memory bitmap of the T tasks
-// and that into col_bits with one atomicOr per changed word.
+// Feasibility layout. A block stages kTileTasks (256) task rows once in
+// shared memory: each row's limits as RowCaps, its GPU options as OptCaps
+// (cell.cuh, K1's staged form: an absent limit folded into one compare)
+// and its cost terms (lat, lon, coslat or kNoLoc, prio). blockIdx.y takes
+// a range of the providers, a multiple of a warp step, and the block's
+// warps walk it kLaneProv (2) providers a lane a step, loaded from the
+// columns into registers; each lane checks its providers against every
+// staged row with compat_many, so a row's limits and options are read
+// once for a lane's providers and once for the warp (a broadcast), never a
+// cell at a time, and every branch of the check is on the row's fields,
+// so the warp does not diverge. A lane gathers its providers' row-major words, 32 tasks a
+// word; the column-major words of the same 32 x 32 cells are the
+// transpose of the warp's 32 row words, which five shuffle stages give
+// (transpose32), so lane l ends with task (32w + l)'s word. The block
+// stages a step's words (512 providers by its 256 tasks) in shared memory
+// and writes them whole, each once, consecutive threads on consecutive
+// words: a provider's 8 row words (32 bytes) and a task's 16 column words
+// (64). Written straight from the lanes, a store touched 32 sectors 4
+// bytes each and took ~10 ms of the launch's ~57 at 100,000^2 (an H100,
+// scripts/torch_k14_ab.py). The lanes' any() bits go into row_bits and
+// the words' any() bits into col_bits, one atomicOr a word where it sets a
+// bit (a stale read first skips the rest).
+//
+// The cost predicate of a compatible cell, without the haversine where
+// the answer is settled. cell_terms returns fsub(fadd(base, near), prio)
+// with near = fmul(proximity, dist), dist in [0, kTwoR * asinf(1) ~
+// 20,015.09 km] where both sides are located, else near = 0. IEEE
+// round-to-nearest is monotone in each operand (x <= y implies fl(x op c)
+// <= fl(y op c) for + and -, and for * by c >= 0; reversed for c < 0), so
+// with proximity finite, near lies between near_lo = min(0, fmul(proximity,
+// kFarKm)) and near_hi = max(0, fmul(proximity, kFarKm)) for any f32 kFarKm
+// at or above the largest dist (20,016), and the cost between lo =
+// fsub(fadd(base, near_lo), prio) and hi = fsub(fadd(base, near_hi), prio)
+// (a zero's sign changes no comparison). So hi < INFEASIBLE/2 makes the
+// cell feasible, lo >= INFEASIBLE/2 infeasible, and only a cell between
+// the two, or one whose lo or hi is NaN, runs the exact cell_terms. An
+// unlocated cell's bracket is [0, 0]: lo = hi is its exact cost. A
+// proximity that is not finite makes near_lo and near_hi NaN, so every
+// located cell takes the exact path. With finite ends, fadd(base, near)
+// is NaN for no near in the bracket unless base is, and then lo and hi are
+// NaN too. A wider bracket only sends more cells to the exact path; it
+// cannot change a bit. Per cell that is two selects, two subtractions
+// and two compares, with no branch but the exact path's: the
+// per-provider sums fadd(base, 0), fadd(base, near_lo) and fadd(base,
+// near_hi) are made once a step.
 //
 // Pass layout: one warp per own row at a time (a provider in the row
 // pass, a task in the column pass), so no pass runs the capability check
@@ -80,8 +118,9 @@
 // measure, O(T) cells where [P, T] cannot exist).
 //
 // What bounds them on the H100: operations. The feasibility launch
-// scores P x T cells, ~12 operations each for the capability check and
-// ~30 more on a feasible one, and writes 2 x P x T / 8 bytes of bitmap.
+// checks P x T cells, ~12 operations each, and writes 2 x P x T / 8 bytes
+// of bitmap; the haversine (~30 more) runs only where the bracket above
+// leaves the answer open, none of trace/synth.py's cells.
 // A pass reads P x T / 8 bytes of bitmap and O(P + T) of rows, and does
 // the ~30 operations of the cost plus the division, the add and the exp
 // of the online sum-exp on each feasible cell only. K15 reads one
@@ -98,14 +137,24 @@
 
 #include <math.h>
 
+#include "bits.cuh"
 #include "cell.cuh"
 
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kTiny = 1e-30f;  // the reference's floor under the sum-exp
-constexpr int kLanes = 32;       // providers a feasibility block serves
-constexpr int kParts = 8;        // warps a feasibility block splits the tasks over
+constexpr int kLanes = 32;
+constexpr int kFeasWarps = 8;    // warps of a feasibility block
+constexpr int kFeasThreads = kFeasWarps * 32;
+constexpr int kTileWords = 8;    // task words a feasibility block stages
+constexpr int kTileTasks = kTileWords * 32;
+constexpr int kLaneProv = 2;     // providers a feasibility lane checks at once
+constexpr int kBlockProv = kFeasWarps * 32 * kLaneProv;  // providers a feasibility block step
+constexpr int kRowPad = kTileWords + 1;       // a staged provider's words, padded (banks)
+constexpr int kColPad = kBlockProv / 32 + 1;  // a staged task's words, padded
+constexpr int kStageBytes = (kBlockProv * kRowPad + kTileTasks * kColPad) * 4;
+constexpr float kFarKm = 20016.0f;  // at or above every distance cell_terms gives
 constexpr int kWarps = 4;        // warps of a pass block, each on one own row at a time
 constexpr int kChunk = 32;       // bitmap words a warp reads at a time (a word a lane)
 constexpr int kQueue = kChunk * 32 + kLanes;  // one chunk's cells + fewer than 32 carried
@@ -130,57 +179,166 @@ __device__ __forceinline__ void lse_merge(float& m, float& s, float m2, float s2
   m = M;
 }
 
-__global__ void __launch_bounds__(kLanes * kParts) feasibility_kernel(
-    Prov prov, Req req, Aux aux, Weights w, int P, int T, int K, int W,
-    uint8_t* __restrict__ row_any, uint32_t* __restrict__ col_bits,
-    uint32_t* __restrict__ rows, uint32_t* __restrict__ cols) {
-  extern __shared__ uint32_t s_col[];  // ceil(T / 32) words
-  __shared__ int s_row[kParts][kLanes];
-  const int lane = threadIdx.x % kLanes;
-  const int part = threadIdx.x / kLanes;
-  const int p = blockIdx.x * kLanes + lane;
-  const bool active = p < P;
-  const int n_words = (T + 31) / 32;
-  const size_t p_words = gridDim.x;  // ceil(P / 32): a column-major row's words
-  for (int i = threadIdx.x; i < n_words; i += blockDim.x) s_col[i] = 0u;
+struct FeasArgs {
+  Prov prov;
+  Req req;
+  Aux aux;
+  float proximity;
+  int P, T, K, W;
+  int p_split;  // providers a blockIdx.y takes, a multiple of a warp step
+  uint32_t* row_bits;
+  uint32_t* col_bits;
+  uint32_t* rows;
+  uint32_t* cols;
+};
+
+// The exact predicate of a compatible cell, out of line: the haversine's
+// code (sinf's slow path among it) stays out of the check's loop.
+__device__ __noinline__ bool exact_feasible(const ProvRow& p, const float4& t, bool t_loc,
+                                            float proximity) {
+  return cell_terms(p.base, p.lat, p.lon, p.coslat, p.has_loc, t.x, t.y, t.z, t_loc, t.w,
+                    proximity) < kHalfInfeasible;
+}
+
+// Which of a lane's kN compatible cells f (bit h: provider h) against task
+// row t are feasible: the bracket on every one, then the exact cost on the
+// cells it leaves open (see the head comment), the one divergent branch.
+template <int kN>
+__device__ __forceinline__ uint32_t cost_feasible(uint32_t f, const ProvRow* p, const float* b0,
+                                                  const float* blo, const float* bhi,
+                                                  const float4& t, float proximity) {
+  const bool t_loc = t.z != kNoLoc;
+  uint32_t sure = 0u, open = 0u;
+#pragma unroll
+  for (int h = 0; h < kN; ++h) {
+    const float lo = __fsub_rn(t_loc ? blo[h] : b0[h], t.w);
+    const float hi = __fsub_rn(t_loc ? bhi[h] : b0[h], t.w);
+    sure |= (hi < kHalfInfeasible ? 1u : 0u) << h;
+    open |= (!(hi < kHalfInfeasible) && !(lo >= kHalfInfeasible) ? 1u : 0u) << h;
+  }
+  open &= f;
+  if (open) {
+#pragma unroll
+    for (int h = 0; h < kN; ++h)
+      if (((open >> h) & 1u) && exact_feasible(p[h], t, t_loc, proximity)) sure |= 1u << h;
+  }
+  return f & sure;
+}
+
+// kN providers a lane (a warp step of 32 kN providers).
+template <int kN>
+__global__ void __launch_bounds__(kFeasThreads, 3) feasibility_kernel(const FeasArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  RowCaps* s_caps = reinterpret_cast<RowCaps*>(smem);
+  float4* s_terms = reinterpret_cast<float4*>(smem + kTileTasks * sizeof(RowCaps));
+  OptCaps* s_opt = reinterpret_cast<OptCaps*>(smem + kTileTasks * (sizeof(RowCaps) +
+                                                                   sizeof(float4)));
+  // a block step's words, staged to be written whole: [kBlockProv][kRowPad]
+  // row words, then [kTileTasks][kColPad] column words
+  uint32_t* s_rows = reinterpret_cast<uint32_t*>(
+      smem + kTileTasks * (sizeof(RowCaps) + sizeof(float4) + a.K * sizeof(OptCaps)));
+  uint32_t* s_cols = s_rows + kBlockProv * kRowPad;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t0 = blockIdx.x * kTileTasks;
+  const int n_t = min(kTileTasks, a.T - t0);
+  const int WT = (a.T + 31) >> 5, WP = (a.P + 31) >> 5;
+  for (int j = threadIdx.x; j < n_t; j += kFeasThreads) {
+    const TaskRow tr = load_task(a.req, a.aux, t0 + j, a.K);
+    s_caps[j] = load_row_caps(tr);
+    s_terms[j] = make_float4(tr.lat, tr.lon, tr.has_loc ? tr.coslat : kNoLoc, tr.prio);
+  }
+  for (int e = threadIdx.x; e < n_t * a.K; e += kFeasThreads)
+    s_opt[e] = load_opt(a.req, t0 * a.K + e);
   __syncthreads();
-  const ProvRow pr = load_prov(prov, aux, active ? p : 0);
-  // this warp's part of the tasks, whole words: [lo, hi)
-  const int part_words = (n_words + kParts - 1) / kParts;
-  const int lo = min(T, part * part_words * 32);
-  const int hi = min(T, lo + part_words * 32);
-  int any = 0;
-  uint32_t col_word = 0u;  // col_any bits of the current 32 tasks
-  uint32_t row_word = 0u;  // this lane's cells among them
-  uint32_t my_col = 0u;    // the ballot of task (t & ~31) + lane
-  for (int t = lo; t < hi; ++t) {
-    const TaskRow tr = load_task(req, aux, t, K);
-    const bool f = active && cell_cost<false>(pr, p, tr, t, req, K, W, w) < kHalfInfeasible;
-    any |= f;
-    row_word |= (uint32_t)f << (t & 31);
-    const uint32_t b = __ballot_sync(kFull, f);
-    if (lane == (t & 31)) my_col = b;
-    if (b != 0u) col_word |= 1u << (t & 31);
-    if ((t & 31) == 31 || t == hi - 1) {
-      const int w0 = t >> 5;
-      const int tl = (t & ~31) + lane;
-      if (tl <= t) cols[(size_t)tl * p_words + blockIdx.x] = my_col;
-      if (active) rows[(size_t)p * n_words + w0] = row_word;
-      if (lane == 0 && col_word != 0u) atomicOr(&s_col[w0], col_word);
-      col_word = row_word = 0u;
+  // the bracket's ends of a located cell; NaN (every located cell exact)
+  // where the proximity is not finite
+  const float far = __fmul_rn(a.proximity, kFarKm);
+  const bool finite_prox = isfinite(a.proximity);
+  const float near_lo = finite_prox ? fminf(0.0f, far) : NAN;
+  const float near_hi = finite_prox ? fmaxf(0.0f, far) : NAN;
+  const int p_lo = blockIdx.y * a.p_split;
+  const int p_hi = min(a.P, p_lo + a.p_split);
+  constexpr int kStep = 32 * kN;
+  static_assert(kStep * kFeasWarps == kBlockProv, "a block step is every warp's step");
+  const int tw0 = t0 >> 5;
+  const int n_tw = min(kTileWords, WT - tw0);  // the block's task words
+  uint32_t col_acc[kTileWords];  // OR of this warp's column words, a task word each
+#pragma unroll
+  for (int i = 0; i < kTileWords; ++i) col_acc[i] = 0u;
+  for (int pb = p_lo; pb < p_hi; pb += kBlockProv) {
+    const int p0 = pb + warp * kStep;
+    if (p0 < p_hi) {  // warp-uniform
+      ProvRow pr[kN];
+      float b0[kN], blo[kN], bhi[kN];
+      uint32_t valid = 0u;
+#pragma unroll
+      for (int h = 0; h < kN; ++h) {
+        const int p = p0 + 32 * h + lane;
+        valid |= (p < p_hi ? 1u : 0u) << h;
+        pr[h] = load_prov(a.prov, a.aux, p < p_hi ? p : 0);
+        b0[h] = __fadd_rn(pr[h].base, 0.0f);
+        blo[h] = pr[h].has_loc ? __fadd_rn(pr[h].base, near_lo) : b0[h];
+        bhi[h] = pr[h].has_loc ? __fadd_rn(pr[h].base, near_hi) : b0[h];
+      }
+      uint32_t any = 0u;  // bit h: provider h has a feasible task among the block's
+#pragma unroll
+      for (int i = 0; i < kTileWords; ++i) {
+        const int tw = (t0 >> 5) + i;
+        if (tw >= WT) continue;  // warp-uniform
+        uint32_t r[kN];
+#pragma unroll
+        for (int h = 0; h < kN; ++h) r[h] = 0u;
+        const int jn = min(32, n_t - 32 * i);
+        for (int j = 0; j < jn; ++j) {
+          const int lt = 32 * i + j;
+          uint32_t f = valid & compat_many<kN>(pr, s_caps[lt], s_opt + lt * a.K,
+                                               a.req.gpu_model_mask +
+                                                   (size_t)(t0 + lt) * a.K * a.W,
+                                               a.K, a.W);
+          f = cost_feasible<kN>(f, pr, b0, blo, bhi, s_terms[lt], a.proximity);
+#pragma unroll
+          for (int h = 0; h < kN; ++h) r[h] |= ((f >> h) & 1u) << j;
+        }
+#pragma unroll
+        for (int h = 0; h < kN; ++h) {
+          any |= (r[h] != 0u ? 1u : 0u) << h;
+          const uint32_t c = transpose32(r[h], lane);
+          col_acc[i] |= c;
+          s_rows[(warp * kStep + 32 * h + lane) * kRowPad + i] = r[h];
+          s_cols[(32 * i + lane) * kColPad + warp * kN + h] = c;
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < kN; ++h) {
+        const uint32_t b = __ballot_sync(kFull, (any >> h) & 1u);
+        uint32_t* word = a.row_bits + (p0 >> 5) + h;
+        // a stale read only costs an atomic that changes nothing
+        if (lane == 0 && b != 0u && p0 + 32 * h < p_hi && (*word & b) != b) atomicOr(word, b);
+      }
     }
+    __syncthreads();
+    // the step's words, consecutive threads on consecutive words: a
+    // provider's kTileWords row words (32 bytes), a task's kBlockProv / 32
+    // column words; a word of providers past p_hi or of tasks past T is
+    // left to its block or not written
+    for (int e = threadIdx.x; e < kBlockProv * kTileWords; e += kFeasThreads) {
+      const int pp = e / kTileWords, w = e % kTileWords;
+      if (pb + pp < p_hi && w < n_tw)
+        a.rows[(size_t)(pb + pp) * WT + tw0 + w] = s_rows[pp * kRowPad + w];
+    }
+    for (int e = threadIdx.x; e < kTileTasks * (kBlockProv / 32); e += kFeasThreads) {
+      const int tt = e / (kBlockProv / 32), w = e % (kBlockProv / 32);
+      if (tt < n_t && pb + 32 * w < p_hi)
+        a.cols[(size_t)(t0 + tt) * WP + (pb >> 5) + w] = s_cols[tt * kColPad + w];
+    }
+    __syncthreads();  // the stage is free for the next step
   }
-  s_row[part][lane] = any;
-  __syncthreads();
-  if (part == 0 && active) {
-    int r = 0;
-    for (int q = 0; q < kParts; ++q) r |= s_row[q][lane];
-    row_any[p] = (uint8_t)(r != 0);
-  }
-  for (int i = threadIdx.x; i < n_words; i += blockDim.x) {
-    const uint32_t b = s_col[i];
-    // a stale read only costs an atomic that changes nothing
-    if (b != 0u && (col_bits[i] | b) != col_bits[i]) atomicOr(&col_bits[i], b);
+#pragma unroll
+  for (int i = 0; i < kTileWords; ++i) {
+    const uint32_t b = __ballot_sync(kFull, col_acc[i] != 0u);
+    const int tw = (t0 >> 5) + i;
+    if (lane == 0 && b != 0u && tw < WT && (a.col_bits[tw] & b) != b)
+      atomicOr(a.col_bits + tw, b);
   }
 }
 
@@ -310,8 +468,6 @@ __global__ void __launch_bounds__(kThreads) pair_cost_kernel(Prov prov, Req req,
   out[t] = cell_cost<false>(pr, p, tr, t, req, K, W, w);
 }
 
-int own_blocks(int n) { return (n + kLanes - 1) / kLanes; }
-
 // Where the packed rows start in aux, in floats: past prep_kernel's 2 (P +
 // T) terms, rounded up to 16 bytes.
 size_t pack_offset(int P, int T) { return ((2 * (size_t)(P + T) + 3) / 4) * 4; }
@@ -367,26 +523,54 @@ int launch_pass(const void* const* prov_cols, const void* const* req_cols, int P
 // cudaError_t (0 = launched); nothing synchronises. A pass's aux holds
 // pack_offset(P, T) + 4 (P + T) + 1 floats.
 
-// K14 feasibility: row_any [P] u8, col_bits [ceil(T/32)] u32 (zero on
-// entry), rows [P][ceil(T/32)] u32 and cols [T][ceil(P/32)] u32 (every
-// word written).
+// K14 feasibility: row_bits [ceil(P/32)] and col_bits [ceil(T/32)] u32
+// (zero on entry: bit j of word w set where row / column 32w + j has a
+// feasible cell), rows [P][ceil(T/32)] u32 and cols [T][ceil(P/32)] u32
+// (every word written). The grid: a block a 256-task tile by as many
+// provider ranges (multiples of 64, at least 2,048 providers each) as
+// bring the blocks to about four times what the card keeps resident.
 extern "C" int k14_feasibility(const void* const* prov_cols, const void* const* req_cols, int P,
                                int T, int K, int W, float w_price, float w_load, float w_prox,
-                               float w_prio, float* aux, uint8_t* row_any, uint32_t* col_bits,
+                               float w_prio, float* aux, uint32_t* row_bits, uint32_t* col_bits,
                                uint32_t* rows, uint32_t* cols, void* stream) {
-  const size_t smem = (size_t)((T + 31) / 32) * sizeof(uint32_t);
-  if (P < 1 || T < 1 || K > kMaxOpts || smem > 200 * 1024) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        feasibility_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  if (P < 1 || T < 1 || K < 0 || K > kMaxOpts || W < 0) return (int)cudaErrorInvalidValue;
+  const int smem =
+      kTileTasks * (int)(sizeof(RowCaps) + sizeof(float4) + K * sizeof(OptCaps)) + kStageBytes;
+  int dev = 0, n_sm = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(feasibility_kernel<kLaneProv>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, feasibility_kernel<kLaneProv>,
+                                                        kFeasThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int gx = (T + kTileTasks - 1) / kTileTasks;
+  const long long want = 4LL * max(1, n_sm * per_sm);
+  int gy = (int)min((long long)(P + 2047) / 2048, (want + gx - 1) / gx);
+  gy = max(1, gy);
+  constexpr int kStep = 32 * kLaneProv;
+  const int p_split = (((P + gy - 1) / gy) + kStep - 1) / kStep * kStep;
+  gy = (P + p_split - 1) / p_split;
   const Weights w{w_price, w_load, w_prox, w_prio};
-  const Prov prov = make_prov(prov_cols);
-  const Req req = make_req(req_cols);
-  launch_prep(prov, req, w, P, T, aux, (cudaStream_t)stream);
-  feasibility_kernel<<<own_blocks(P), kLanes * kParts, smem, (cudaStream_t)stream>>>(
-      prov, req, make_aux(aux, P, T), w, P, T, K, W, row_any, col_bits, rows, cols);
+  FeasArgs fa;
+  fa.prov = make_prov(prov_cols);
+  fa.req = make_req(req_cols);
+  fa.aux = make_aux(aux, P, T);
+  fa.proximity = w_prox;
+  fa.P = P;
+  fa.T = T;
+  fa.K = K;
+  fa.W = W;
+  fa.p_split = p_split;
+  fa.row_bits = row_bits;
+  fa.col_bits = col_bits;
+  fa.rows = rows;
+  fa.cols = cols;
+  launch_prep(fa.prov, fa.req, w, P, T, aux, (cudaStream_t)stream);
+  feasibility_kernel<kLaneProv><<<dim3((unsigned)gx, (unsigned)gy), kFeasThreads, smem,
+                       (cudaStream_t)stream>>>(fa);
   return (int)cudaGetLastError();
 }
 

@@ -255,7 +255,9 @@ __device__ __forceinline__ OptCaps load_opt(const Req& R, int o) {
 // rules on the row's staged limits (one compare a rule, above) and its K
 // options (each loaded once for the N providers), the model masks read at
 // mask_row (gpu_model_mask + row * K * W). Bit i of the result is
-// compat(p[i], t).
+// compat(p[i], t). Every branch is on the row's fields alone (no option
+// loop that ends per lane), so a warp checking its lanes' providers
+// against one row never diverges.
 template <int N>
 __device__ __forceinline__ uint32_t compat_many(const ProvRow* p, const RowCaps& t,
                                                 const OptCaps* opts, const uint32_t* mask_row,
@@ -271,7 +273,7 @@ __device__ __forceinline__ uint32_t compat_many(const ProvRow* p, const RowCaps&
   }
   if (!(t.flags & 4u)) return ok_bits;
   uint32_t found = 0;
-  for (int k = 0; k < K && (found != gate); ++k) {
+  for (int k = 0; k < K; ++k) {
     const OptCaps o = opts[k];
     if (!(o.flags & 1u)) continue;
 #pragma unroll

@@ -217,8 +217,10 @@ def _lib(name: str) -> ctypes.CDLL:
             for fn in ("k17_scan", "k17_combine", "k17_resolve", "k17_apply", "k17_finish"):
                 getattr(lib, fn).restype = _I
         elif name == "sinkhorn":
-            lib.k13_sinkhorn.argtypes = [_P, _I, _I, _F, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P]
-            lib.k13_sinkhorn.restype = _I
+            lib.k13_sinkhorn.argtypes = [_P, _I, _I, _F, _I] + [_P] * 18
+            lib.k13_dense_layout.argtypes = [ctypes.c_longlong, _I, _I]
+            for fn in ("k13_sinkhorn", "k13_dense_layout"):
+                getattr(lib, fn).restype = _I
         else:
             lib.k2_auction_phase.argtypes = [
                 _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
@@ -937,34 +939,67 @@ def greedy_assign(cost_tp, task_order):
     return p4t
 
 
+# K13 (csrc/sinkhorn.cu): its rounds run over the feasible cells packed
+# with 16-bit columns, or over dense rows where at least K13_DENSE_SHARE of
+# the cells are feasible or a side has more than K13_PACKED_COLS columns (a
+# mirror of the library's dense_of, k13_dense_layout)
+K13_DENSE_SHARE = (4, 7)
+K13_PACKED_COLS = 65536
+
+
+def sinkhorn_layout(n_feasible: int, T: int, P: int) -> str:
+    """The layout of K13's rounds on a [T, P] cost with ``n_feasible``
+    cells below INFEASIBLE/2: "dense" or "packed"."""
+    num, den = K13_DENSE_SHARE
+    wide = T > K13_PACKED_COLS or P > K13_PACKED_COLS
+    return "dense" if wide or n_feasible * den >= T * P * num else "packed"
+
+
 @_on_device
 def sinkhorn(cost_tp, eps: float, num_iters: int):
     """K13 (``csrc/sinkhorn.cu``): the log-domain Sinkhorn over the
-    slot-major cost ``cost_tp`` [T, P]. Returns (plan [T, P] with
-    subnormal entries flushed to +0, the rounding cost [T, P] =
-    where(feasible, -plan, INFEASIBLE), each task's largest plan entry [T],
-    u [P], v [T]), all f32."""
+    slot-major cost ``cost_tp`` [T, P], its rounds over the feasible cells
+    in both orientations. Returns (plan [T, P] with subnormal entries
+    flushed to +0, the rounding cost [T, P] = where(feasible, -plan,
+    INFEASIBLE), each task's largest plan entry [T], u [P], v [T]), all
+    f32."""
     T, P = cost_tp.shape
     dev = cost_tp.device
     if cost_tp.dtype != torch.float32 or not cost_tp.is_contiguous() or T < 1 or P < 1:
         raise ValueError("K13: cost_tp must be a non-empty contiguous f32 [T, P] tensor")
     if not eps > 0 or num_iters < 0:
         raise ValueError(f"K13 takes eps > 0 and num_iters >= 0, got {eps}, {num_iters}")
-    rcost = torch.empty((T, P), dtype=torch.float32, device=dev)  # K, then the rounding cost
-    plan = torch.empty((T, P), dtype=torch.float32, device=dev)
-    feas_row = torch.empty(P, dtype=torch.uint8, device=dev)
-    feas_col = torch.empty(T, dtype=torch.uint8, device=dev)
-    log_a = torch.empty(P, dtype=torch.float32, device=dev)
-    log_b = torch.empty(T, dtype=torch.float32, device=dev)
-    u = torch.zeros(P, dtype=torch.float32, device=dev)
-    v = torch.zeros(T, dtype=torch.float32, device=dev)
-    colmax = torch.empty(T, dtype=torch.float32, device=dev)
+    wt, wp = (T + 31) // 32, (P + 31) // 32
+    t4, p4 = (T + 3) // 4 * 4, (P + 3) // 4 * 4
+    i32, f32 = torch.int32, torch.float32
+    # each side's bitmap, word places, row places and feasible cells; its
+    # values (a dense row padded to 4) lie over the plan (providers' rows)
+    # and the rounding cost (tasks'), their columns beside
+    pbits = torch.empty((P, wt), dtype=i32, device=dev)
+    pwpre = torch.empty((P, wt), dtype=i32, device=dev)
+    tbits = torch.empty((T, wp), dtype=i32, device=dev)
+    twpre = torch.empty((T, wp), dtype=i32, device=dev)
+    poff = torch.empty(P, dtype=torch.int64, device=dev)
+    toff = torch.empty(T, dtype=torch.int64, device=dev)
+    pcnt = torch.empty(P, dtype=i32, device=dev)
+    tcnt = torch.empty(T, dtype=i32, device=dev)
+    plan = torch.empty(P * t4, dtype=f32, device=dev)
+    rcost = torch.empty(T * p4, dtype=f32, device=dev)
+    pcidx = torch.empty(plan.numel(), dtype=torch.int16, device=dev)
+    tcidx = torch.empty(rcost.numel(), dtype=torch.int16, device=dev)
+    colmax = torch.empty(T, dtype=f32, device=dev)
+    u = torch.empty(p4, dtype=f32, device=dev)  # padded to a dense row's columns
+    v = torch.empty(t4, dtype=f32, device=dev)
+    ctl = torch.zeros(6, dtype=i32, device=dev)  # barrier, feasible rows a side, row counters
+    alloc = torch.zeros(3, dtype=torch.int64, device=dev)  # packed values a side, feasible cells
     _launch("sinkhorn", _lib("sinkhorn").k13_sinkhorn,
-        cost_tp.data_ptr(), T, P, eps, num_iters, rcost.data_ptr(), feas_row.data_ptr(),
-        feas_col.data_ptr(), log_a.data_ptr(), log_b.data_ptr(), u.data_ptr(), v.data_ptr(),
-        plan.data_ptr(), colmax.data_ptr(), _stream(plan),
+        cost_tp.data_ptr(), T, P, eps, num_iters, pbits.data_ptr(), pwpre.data_ptr(),
+        poff.data_ptr(), pcnt.data_ptr(), pcidx.data_ptr(), tbits.data_ptr(), twpre.data_ptr(),
+        toff.data_ptr(), tcnt.data_ptr(), tcidx.data_ptr(), plan.data_ptr(), rcost.data_ptr(),
+        colmax.data_ptr(), u.data_ptr(), v.data_ptr(), ctl.data_ptr(), alloc.data_ptr(),
+        _stream(plan),
     )
-    return plan, rcost, colmax, u, v
+    return plan[:T * P].view(T, P), rcost[:T * P].view(T, P), colmax, u[:P], v[:T]
 
 
 @_on_device
@@ -977,18 +1012,22 @@ def blocked_feasibility(ep, er, weights):
     from protocol_tpu_torch.ops.blocked import FeasibilityBits
 
     dev, pcols, rcols, (P, T, K, W), w, aux = _k1_setup(ep, er, weights)
-    if P < 1 or T < 1 or T > 1_600_000:
-        raise ValueError(f"K14 takes 1 <= P and 1 <= T <= 1,600,000, got P={P}, T={T}")
-    row_any = torch.empty(P, dtype=torch.uint8, device=dev)
-    col_bits = torch.zeros((T + 31) // 32, dtype=torch.int32, device=dev)
+    if P < 1 or T < 1:
+        raise ValueError(f"K14 takes P, T >= 1, got P={P}, T={T}")
+    any_bits = torch.zeros((P + 31) // 32 + (T + 31) // 32, dtype=torch.int32, device=dev)
+    row_bits, col_bits = any_bits[:(P + 31) // 32], any_bits[(P + 31) // 32:]
     bits = FeasibilityBits.empty(P, T, dev)
     _launch("blocked_feasibility", _lib("blocked").k14_feasibility,
-        pcols, rcols, P, T, K, W, *w, aux.data_ptr(), row_any.data_ptr(), col_bits.data_ptr(),
-        bits.rows.data_ptr(), bits.cols.data_ptr(), _stream(row_any),
+        pcols, rcols, P, T, K, W, *w, aux.data_ptr(), row_bits.data_ptr(), col_bits.data_ptr(),
+        bits.rows.data_ptr(), bits.cols.data_ptr(), _stream(any_bits),
     )
-    t = torch.arange(T, dtype=torch.int64, device=dev)
-    col_any = ((col_bits[t >> 5] >> (t & 31).to(torch.int32)) & 1).bool()
-    return row_any.bool(), col_any, bits
+    return _bit_set(row_bits, P), _bit_set(col_bits, T), bits
+
+
+def _bit_set(words: torch.Tensor, n: int) -> torch.Tensor:
+    """[n] bool: bit i % 32 of words[i // 32]."""
+    i = torch.arange(n, dtype=torch.int64, device=words.device)
+    return ((words[i >> 5] >> (i & 31).to(torch.int32)) & 1).bool()
 
 
 def _blocked_setup(ep, er, weights, eps: float, pot: torch.Tensor, bits, rows: bool, name: str):

@@ -12,18 +12,23 @@ Builds the kernels, makes stage S's instance (seed 42, providers first,
 default weights), then times with CUDA events, three runs after a
 warm-up each: the feasibility launch, the row and the column pass (v and
 u drawn from seeds 1 and 2, masked as the solve masks them), the same
-two at one D = 4 shard (the first P / 4 providers: the row pass and the
-column pass's partial mode), and 40 ``torch.logsumexp`` calls over one
-materialised [P, tile] block beside each pass; then the one-device
-potentials (``--iters`` iterations) by host clock to the end of the
-device work, with their peak device memory, and the D = 4 sharded
-potentials on four views of the card. Prints the card's name and power
-limit and one JSON line. Exits non-zero without a CUDA device.
+three at one D = 4 shard (the first P / 4 providers: the feasibility
+launch, the row pass and the column pass's partial mode), and 40
+``torch.logsumexp`` calls over one materialised [P, tile] block beside
+each pass; then the one-device potentials (``--iters`` iterations) by
+host clock to the end of the device work, with their peak device
+memory, the plan-guided rounding from their u (k = 32), and the D = 4
+sharded potentials on four views of the card. The sha256 of both
+feasibility launches' bitmaps and masks, of both potentials and of the
+rounding's matching are printed, so that two checkouts' outputs can be
+compared. Prints the card's name and power limit and one JSON line.
+Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import inspect
 import json
 import os
@@ -53,6 +58,13 @@ def cuda_ms(torch, fn, reps: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def sha(*ts) -> str:
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def main() -> int:
@@ -90,13 +102,17 @@ def main() -> int:
     w = CostWeights()
     feas = kernels.blocked_feasibility(ep, er, w)
     row_any, col_any = feas[0], feas[1]
+    sha_feas = {"masks": sha(row_any, col_any)}
+    if bitmaps:
+        sha_feas.update(rows=sha(feas[2].rows), cols=sha(feas[2].cols))
     extra = (feas[2],) if bitmaps else ()
     v = torch.from_numpy(np.random.default_rng(1).normal(0, 3, n).astype(np.float32)).cuda()
     v = torch.where(col_any, v, -1e18)
     u = torch.from_numpy(np.random.default_rng(2).normal(0, 3, n).astype(np.float32)).cuda()
     u = torch.where(row_any, u, -1e18)
     out = {"root": os.path.abspath(args.root), "card": card, "k14": "bitmaps" if bitmaps
-           else "per-cell", "size": n, "tile": tile, "build_s": build_s}
+           else "per-cell", "size": n, "tile": tile, "build_s": build_s,
+           "feasibility_sha256": sha_feas}
     out["feasibility_ms"] = cuda_ms(torch, lambda: kernels.blocked_feasibility(ep, er, w))
     out["row_ms"] = cuda_ms(torch, lambda: kernels.blocked_row_lse(ep, er, w, eps, v, *extra))
     out["col_ms"] = cuda_ms(torch, lambda: kernels.blocked_col_lse(ep, er, w, eps, u, *extra))
@@ -116,7 +132,14 @@ def main() -> int:
         ep0 = psk._shard_providers(ep, mesh)[0]
         pl = n // 4
         u0 = u[:pl].contiguous()
-        extra = (kernels.blocked_feasibility(ep0, er, w)[2],) if bitmaps else ()
+        feas0 = kernels.blocked_feasibility(ep0, er, w)
+        extra = (feas0[2],) if bitmaps else ()
+        out["shard_feasibility_sha256"] = dict(
+            masks=sha(feas0[0], feas0[1]),
+            **({"rows": sha(feas0[2].rows), "cols": sha(feas0[2].cols)} if bitmaps else {}))
+        del feas0
+        out["shard_feasibility_ms"] = cuda_ms(
+            torch, lambda: kernels.blocked_feasibility(ep0, er, w))
         out["shard_partial_ms"] = cuda_ms(
             torch, lambda: kernels.blocked_col_partial(ep0, er, w, eps, u0, *extra))
         out["shard_row_ms"] = cuda_ms(
@@ -133,15 +156,21 @@ def main() -> int:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        bl.sinkhorn_potentials_blocked(ep, er, w, eps=eps, num_iters=args.iters, tile=tile)
+        pu, pv = bl.sinkhorn_potentials_blocked(ep, er, w, eps=eps, num_iters=args.iters,
+                                                tile=tile)
         torch.cuda.synchronize()
         out["potentials_s"] = time.perf_counter() - t0
         out["potentials_peak_bytes"] = torch.cuda.max_memory_allocated()
+        out["potentials_sha256"] = sha(pu, pv)
+        res = bl.plan_guided_rounding(ep, er, pu, w, eps=eps, tile=tile, k=32)
+        out["rounding_sha256"] = sha(res.provider_for_task)
+        out["rounding_assigned"] = int((res.provider_for_task >= 0).sum())
         t0 = time.perf_counter()
-        psk.sinkhorn_potentials_sharded(ep, er, mesh, w, eps=eps, num_iters=args.iters,
-                                        tile=tile)
+        su, sv = psk.sinkhorn_potentials_sharded(ep, er, mesh, w, eps=eps,
+                                                 num_iters=args.iters, tile=tile)
         torch.cuda.synchronize()
         out["sharded_potentials_s"] = time.perf_counter() - t0
+        out["sharded_potentials_sha256"] = sha(su, sv)
     finally:
         platform.force_virtual_devices(prev, "cuda")
     print(json.dumps(out), flush=True)

@@ -14,6 +14,7 @@ differences of that size once subnormal plan entries are flushed to +0
 as XLA flushes them; ``test_subnormal_flush_decides_a_matching`` shows a
 case where it would be moved without the flush."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -28,7 +29,7 @@ from protocol_tpu.ops.cost import INFEASIBLE
 from protocol_tpu_torch.ops import assign as ta
 
 from tests.test_assign import check_feasible, greedy_oracle, random_cost
-from tests.test_torch_kernels_cuda import K7_KINDS, K12_KINDS, k7_case, k12_case
+from tests.test_torch_kernels_cuda import K7_KINDS, K12_KINDS, k7_case, k12_case, k13_cases
 
 # |plan - reference plan|: exp/log ulps and summation order
 PLAN_ATOL = 2e-5
@@ -187,6 +188,130 @@ def test_subnormal_flush_decides_a_matching():
 
     np.testing.assert_array_equal(rounded(flushed), ref)
     assert not np.array_equal(rounded(raw), ref)
+
+
+# --------------------------------------------------------------------------
+# A model of K13's rounds (csrc/sinkhorn.cu), held against the reference
+# --------------------------------------------------------------------------
+
+K13_CASES = k13_cases()
+UV_ATOL = 1e-3  # K13's potentials against the plain ones on the card
+K13_CPU_ROUNDS = 40  # the cases' rounds, capped: the card tests run them all
+
+
+def lse_online(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """K13's logsumexp of the rows of x along ``dim``, read as stored (-inf
+    cells count nothing): a row's cells dealt 4 at a time to 32 lanes in
+    turn, each lane's online (max, sum-exp) pair rescaled as its max rises,
+    then the row's max (0 where not finite) and the lanes' sums rescaled to
+    it, in order."""
+    x = x if dim == 1 else x.T
+    rows, n = x.shape
+    steps = -(-n // 128)
+    x = torch.nn.functional.pad(x, (0, steps * 128 - n), value=-torch.inf)
+    x = x.reshape(rows, steps, 32, 4)
+    m = torch.full((rows, 32), -torch.inf)
+    s = torch.zeros((rows, 32))
+    for k in range(steps):
+        c = x[:, k]
+        mx = torch.maximum(m, c.amax(dim=2))
+        live = mx > -torch.inf
+        t = s * torch.exp(m - mx)
+        for j in range(4):
+            t = t + torch.exp(c[..., j] - mx)
+        s = torch.where(live, t, s)
+        m = torch.where(live, mx, m)
+    big = m.amax(dim=1)
+    big = torch.where(torch.isfinite(big), big, 0.0)
+    t = torch.where(m > -torch.inf, s * torch.exp(m - big[:, None]), 0.0)
+    total = t[:, 0]
+    for j in range(1, 32):
+        total = total + t[:, j]
+    return torch.log(total) + big
+
+
+def sinkhorn_skipping(cost: torch.Tensor, eps: float, num_iters: int, layout: str = "packed"):
+    """A model of K13's rounds: _sinkhorn_plain with the infeasible cells
+    left out of each logsumexp (lse_online), and the plan +0 on them. A
+    dense row holds every cell, -inf off the mask; a packed row its
+    feasible cells in column order, then -inf. Returns (u [P], v [T], plan
+    [P, T] with subnormals flushed)."""
+    P, T = cost.shape
+    feasible = cost < INFEASIBLE * 0.5
+    feas_row, feas_col = feasible.any(dim=1), feasible.any(dim=0)
+    np_valid = torch.clamp(feas_row.sum(), min=1)
+    nt_valid = torch.clamp(feas_col.sum(), min=1)
+    m = torch.minimum(np_valid, nt_valid).to(torch.float32)
+    log_a = torch.where(feas_row, torch.log(m / np_valid.to(torch.float32)), ta._NEG)
+    log_b = torch.where(feas_col, torch.log(m / nt_valid.to(torch.float32)), ta._NEG)
+    K = torch.where(feasible, -cost / torch.tensor(eps, dtype=torch.float32), 0.0)
+
+    def lse(x, dim):
+        x = torch.where(feasible, x, -torch.inf)
+        if layout == "packed":  # each row's feasible cells first, in column order
+            mask = feasible if dim == 1 else feasible.T
+            x = x if dim == 1 else x.T
+            x = x.gather(1, torch.argsort((~mask).to(torch.int8), dim=1, stable=True))
+            dim = 1
+        return lse_online(x, dim)
+
+    u = torch.zeros(P, dtype=torch.float32)
+    v = torch.zeros(T, dtype=torch.float32)
+    for _ in range(num_iters):
+        u = torch.where(feas_row, log_a - lse(K + v[None, :], 1), ta._NEG)
+        v = torch.where(feas_col, log_b - lse(K + u[:, None], 0), ta._NEG)
+    plan = torch.where(feasible, torch.exp(K + u[:, None] + v[None, :]), 0.0)
+    return u, v, torch.where(plan < torch.finfo(torch.float32).tiny, 0.0, plan)
+
+
+def reference_potentials(cost: np.ndarray, eps: float, num_iters: int):
+    """u and v of the reference's sinkhorn_plan (protocol_tpu/ops/assign.py:
+    111), its loop transcribed in JAX: the jitted function returns the plan
+    alone."""
+    c = jnp.asarray(cost)
+    feas = c < INFEASIBLE * 0.5
+    feas_row, feas_col = jnp.any(feas, axis=1), jnp.any(feas, axis=0)
+    np_valid = jnp.maximum(jnp.sum(feas_row), 1)
+    nt_valid = jnp.maximum(jnp.sum(feas_col), 1)
+    m = jnp.minimum(np_valid, nt_valid).astype(jnp.float32)
+    log_a = jnp.where(feas_row, jnp.log(m / np_valid.astype(jnp.float32)), ta._NEG)
+    log_b = jnp.where(feas_col, jnp.log(m / nt_valid.astype(jnp.float32)), ta._NEG)
+    K = jnp.where(feas, -c / eps, ta._NEG)
+
+    def body(_, uv):
+        u, v = uv
+        u = jnp.where(feas_row, log_a - jax.nn.logsumexp(K + v[None, :], axis=1), ta._NEG)
+        v = jnp.where(feas_col, log_b - jax.nn.logsumexp(K + u[:, None], axis=0), ta._NEG)
+        return u, v
+
+    uv = (jnp.zeros(c.shape[0], jnp.float32), jnp.zeros(c.shape[1], jnp.float32))
+    u, v = jax.lax.fori_loop(0, num_iters, body, uv)
+    return np.asarray(u), np.asarray(v)
+
+
+@pytest.mark.parametrize("layout", ["packed", "dense"])
+@pytest.mark.parametrize("name", sorted(K13_CASES))
+def test_sinkhorn_skipping_infeasible_cells_matches_the_reference(name, layout):
+    """K13 leaves the infeasible cells out of every logsumexp
+    (sinkhorn_skipping), in either layout: its u and v masked exactly where
+    the reference's are, within UV_ATOL elsewhere, its plan within
+    PLAN_ATOL of the reference's, rows and columns without a feasible cell
+    included (at most K13_CPU_ROUNDS rounds)."""
+    cost, eps, iters = K13_CASES[name]
+    iters = min(iters, K13_CPU_ROUNDS)
+    u, v, plan = sinkhorn_skipping(torch.from_numpy(cost), eps, iters, layout)
+    ru, rv = reference_potentials(cost, eps, iters)
+    for got, ref in ((u.numpy(), ru), (v.numpy(), rv)):
+        masked = ref < -1e17
+        np.testing.assert_array_equal(got < -1e17, masked)
+        assert (got[masked] == -1e18).all()
+        if (~masked).any():
+            assert np.abs(got - ref)[~masked].max() <= UV_ATOL
+    rplan = np.asarray(j_plan(jnp.asarray(cost), eps=eps, num_iters=iters))
+    assert np.abs(plan.numpy() - rplan).max() <= PLAN_ATOL
+    if name.startswith("empty_lines"):
+        assert (u[11] == -1e18) and (v[7] == -1e18) and (plan[11].sum() == 0)
+        assert plan[:, 7].sum() == 0
 
 
 # --------------------------------------------------------------------------

@@ -35,19 +35,23 @@ from protocol_tpu.ops.cost import INFEASIBLE
 from protocol_tpu.ops.cost import CostWeights as JCostWeights
 from protocol_tpu.ops.cost import cost_matrix as j_cost_matrix
 from protocol_tpu.ops.cost import cost_pairs as j_cost_pairs
+from protocol_tpu.ops.encoding import EncodedProviders as JEncodedProviders
+from protocol_tpu.ops.encoding import EncodedRequirements as JEncodedRequirements
 from protocol_tpu.ops.encoding import compat_mask as j_compat_mask
 from protocol_tpu.ops.sparse import assign_auction_sparse_scaled as j_scaled
 from protocol_tpu.ops.sparse import candidates_topk as j_candidates_topk
 from protocol_tpu.ops.sparse import candidates_topk_reverse as j_candidates_topk_reverse
 from protocol_tpu_torch import stage_s
 from protocol_tpu_torch.ops import blocked as tb
-from protocol_tpu_torch.ops.cost import CostWeights, cost_pairs
+from protocol_tpu_torch.ops.cost import CostWeights, cost_matrix, cost_pairs
+from protocol_tpu_torch.ops.encoding import compat_mask
 from protocol_tpu_torch.ops.sparse import candidates_topk, candidates_topk_reverse
 
 from tests.test_assign import check_feasible, matching_cost
 from tests.test_sparse import encode_random_marketplace
 from tests.test_torch_candidates import bits, synth
 from tests.test_torch_encoding_cost import COST_ATOL, to_port
+from tests.test_torch_kernels_cuda import feasibility_cases  # shared with the card tests
 
 UV_ATOL = 1e-3
 PLAN_ATOL = 1e-4
@@ -235,6 +239,59 @@ def test_packed_bitmaps_equal_the_reference_mask(data, seed, P, T, proximity):
                                        jnp.zeros(1, dtype=jnp.int32))
     np.testing.assert_array_equal(mask.any(axis=1), np.asarray(j_row))
     np.testing.assert_array_equal(mask.any(axis=0), np.asarray(j_col).reshape(T))
+
+
+FEAS_CASES = feasibility_cases()
+# the cases whose cells must reach the exact cost: the bracket straddles
+# INFEASIBLE/2, or a located cell's proximity is not finite
+EXACT_CASES = ("straddle", "straddle_far", "negative", "half_located", "nan_inf", "inf_proximity",
+               "nan_proximity", "ragged")
+
+
+def feasibility_rule(ep, er, w: CostWeights):
+    """A model of K14's feasibility launch (csrc/blocked.cu), from the
+    port's columns on the CPU: compat, then the cost bracket lo / hi (the
+    cost at near = near_lo and near_hi, near_lo / near_hi = min / max(0,
+    proximity x 20,016 km), NaN for a proximity that is not finite, [0, 0]
+    off a located pair): feasible where hi < INFEASIBLE/2, infeasible where
+    lo >= INFEASIBLE/2, else the exact cost decides. Returns (mask [P, T],
+    the cells the exact cost decided)."""
+    f32 = torch.float32
+    compat = compat_mask(ep, er)
+    base = w.price * ep.price + w.load * ep.load
+    prio = w.priority * er.priority
+    prox = torch.tensor(w.proximity, dtype=f32)
+    far = prox * torch.tensor(20016.0, dtype=f32)
+    nan = torch.tensor(float("nan"), dtype=f32)
+    near_lo = torch.clamp(far, max=0.0) if bool(torch.isfinite(prox)) else nan
+    near_hi = torch.clamp(far, min=0.0) if bool(torch.isfinite(prox)) else nan
+    b0 = base + 0.0
+    p_loc, t_loc = ep.has_location.bool(), er.has_location.bool()[None, :]
+    lo = torch.where(t_loc, torch.where(p_loc, base + near_lo, b0)[:, None], b0[:, None]) - prio
+    hi = torch.where(t_loc, torch.where(p_loc, base + near_hi, b0)[:, None], b0[:, None]) - prio
+    sure, never = hi < INFEASIBLE * 0.5, lo >= INFEASIBLE * 0.5
+    exact = cost_matrix(ep, er, w)[0] < INFEASIBLE * 0.5
+    open_ = compat & ~sure & ~never
+    return compat & (sure | (open_ & exact)), int(open_.sum())
+
+
+@pytest.mark.parametrize("name", sorted(FEAS_CASES))
+def test_feasibility_rule_matches_the_reference_and_the_packer(name):
+    """The feasibility launch's rule (feasibility_rule) on each of its cases
+    equals the reference's cost_matrix(...)[0] < INFEASIBLE/2 and the plain
+    packer's bitmaps; the cases meant to reach the exact cost do."""
+    pa, ra, wk = FEAS_CASES[name]
+    ep, er = to_port(pa, ra)
+    w = CostWeights(**wk)
+    mask, n_exact = feasibility_rule(ep, er, w)
+    jp, jr = JEncodedProviders(**pa), JEncodedRequirements(**ra)
+    ref = np.asarray(j_cost_matrix(jp, jr, JCostWeights(**wk))[0]) < INFEASIBLE * 0.5
+    np.testing.assert_array_equal(mask.numpy(), ref)
+    packed = tb.pack_feasibility(ep, er, w, chunk=64)
+    np.testing.assert_array_equal(tb.unpack_words(packed.rows, er.num).numpy(), ref)
+    np.testing.assert_array_equal(tb.unpack_words(packed.cols, ep.num).numpy(), ref.T)
+    assert (n_exact > 0) == (name in EXACT_CASES)
+    assert 0 < ref.sum() < ref.size
 
 
 @pytest.mark.parametrize("tile", [16, 12, 48])

@@ -11,7 +11,12 @@ import torch
 from protocol_tpu_torch.ops import sparse as sp
 from protocol_tpu_torch.ops.cost import CostWeights
 from protocol_tpu_torch.parallel.torch_arena import TorchSolveArena
-from protocol_tpu_torch.trace.synth import synth_providers, synth_requirements
+from protocol_tpu_torch.trace.synth import (
+    synth_provider_arrays,
+    synth_providers,
+    synth_requirement_arrays,
+    synth_requirements,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -1107,6 +1112,46 @@ def test_greedy_kernel_cases_match_plain_bits(card, kind):
         assert bool(torch.isnan(cost_tp).any(dim=1)[~seated].any())
 
 
+# ---------------- K13's cases (shared with tests/test_torch_assign_rest.py) ----------------
+# Costs [P, T] that stress the blocks K13's rounds run over
+# (csrc/sinkhorn.cu): every cell feasible and 1% feasible, a row and a
+# column with no feasible cell in either layout (packed below four sevenths
+# of the cells feasible, dense from there), T != P both ways, sizes off
+# multiples of 32 and of 4 in both layouts, rows of thousands of cells and of
+# a few, columns past 65,535 (dense), and 0 and 1 rounds in both layouts.
+# Each case is (cost, eps, num_iters).
+
+
+def k13_cases() -> dict:
+    def cost(seed, P, T, p_feasible, hi=10.0):
+        rng = np.random.default_rng(seed)
+        c = rng.uniform(0.0, hi, (P, T)).astype(np.float32)
+        c[rng.uniform(size=(P, T)) >= p_feasible] = 1e9
+        return c
+
+    cases = {
+        "dense": (cost(1, 700, 500, 1.0), 0.05, 200),
+        "sparse": (cost(2, 900, 1100, 0.01), 0.05, 200),
+        "tall": (cost(4, 2100, 300, 0.3), 0.05, 100),
+        "wide": (cost(5, 300, 2100, 0.3), 0.02, 100),
+        "ragged": (cost(6, 33, 70, 0.5), 0.05, 200),
+        "zero_rounds": (cost(7, 300, 200, 0.4), 0.05, 0),
+        "one_round": (cost(8, 300, 200, 0.4), 0.05, 1),
+        "many_chunks": (cost(9, 9000, 40, 0.1), 0.05, 50),
+        "long_task_rows": (cost(10, 20000, 48, 0.05), 0.05, 50),
+        "wide_columns": (cost(11, 70000, 8, 0.3), 0.05, 20),
+        "ragged_dense": (cost(12, 33, 70, 0.9), 0.05, 200),
+        "zero_rounds_dense": (cost(13, 301, 203, 0.8), 0.05, 0),
+        "one_round_dense": (cost(14, 301, 203, 0.8), 0.05, 1),
+    }
+    for name, share in (("empty_lines", 0.7), ("empty_lines_packed", 0.2)):
+        c = cost(3, 600, 800, share)
+        c[11, :] = 1e9
+        c[:, 7] = 1e9
+        cases[name] = (c, 0.05, 200)
+    return cases
+
+
 @pytest.mark.parametrize("P,T,eps", [(1000, 700, 0.05), (512, 2048, 0.02)])
 def test_sinkhorn_kernel_matches_plain(card, P, T, eps):
     """K13 against the plain Sinkhorn within the stated bounds; its
@@ -1140,6 +1185,70 @@ def test_sinkhorn_kernel_matches_plain(card, P, T, eps):
     seated = p4t >= 0
     assert int(seated.sum()) > 0 and bool((cost[p4t[seated].long(), seated.nonzero()[:, 0]]
                                            < 5e8).all())
+
+
+
+def check_k13(card, cost, eps, iters):
+    """K13 on ``cost`` [P, T] against the plain Sinkhorn: u and v masked
+    exactly where the plain ones are, within SINKHORN_UV_ATOL elsewhere
+    (equal to 0 after 0 rounds), the plan within SINKHORN_PLAN_ATOL with no
+    subnormal entry, the rounding inputs those of its own plan bit for bit,
+    K12 on them the plain loop's; a second solve gives the same bits."""
+    from protocol_tpu_torch import kernels
+    from protocol_tpu_torch.ops import assign as da
+
+    out = kernels.sinkhorn(cost.T.contiguous(), eps, iters)
+    plan_tp, rcost_tp, colmax, u, v = out
+    K, pu, pv = da._sinkhorn_plain(cost, eps, iters)
+    pplan = da._plan_plain(K, pu, pv)
+    for got, ref in ((u, pu), (v, pv)):
+        masked = ref < -1e17
+        assert torch.equal(got < -1e17, masked) and bool((got[masked] == -1e18).all())
+        if iters == 0:
+            assert same_bits(got, ref)
+        elif bool((~masked).any()):
+            assert float((got - ref)[~masked].abs().max()) <= SINKHORN_UV_ATOL
+    assert float((plan_tp.T - pplan).abs().max()) <= SINKHORN_PLAN_ATOL
+    tiny = torch.finfo(torch.float32).tiny
+    assert not bool(((plan_tp > 0) & (plan_tp < tiny)).any())
+    r_tp, order = da._rounding_inputs(cost, plan_tp.T)
+    assert same_bits(rcost_tp, r_tp) and same_bits(colmax, plan_tp.amax(dim=1))
+    assert same_bits(kernels.greedy_assign(rcost_tp, order), da._greedy_plain(r_tp, order))
+    again = kernels.sinkhorn(cost.T.contiguous(), eps, iters)
+    assert all(same_bits(a, b) for a, b in zip(out, again))
+
+
+@pytest.mark.parametrize("name", sorted(k13_cases()))
+def test_sinkhorn_kernel_cases_match_plain(card, name):
+    """K13 on each of its cases (check_k13)."""
+    cost, eps, iters = k13_cases()[name]
+    check_k13(card, torch.from_numpy(cost).to(card), eps, iters)
+
+
+def test_sinkhorn_kernel_beyond_l2_matches_plain(card):
+    """K13 at 8,192^2 with every cell feasible: its dense block (268 MB a
+    side) is far above the L2 (check_k13)."""
+    gen = torch.Generator(device=card).manual_seed(5)
+    cost = torch.rand((8192, 8192), generator=gen, device=card) * 10.0
+    check_k13(card, cost, 0.05, 50)
+
+
+def test_sinkhorn_layout_mirrors_the_library(card):
+    """kernels.sinkhorn_layout, which names the layout of K13's rounds
+    without a card, equals the library's on both sides of its threshold."""
+    from protocol_tpu_torch import kernels
+
+    lib = kernels._lib("sinkhorn")
+    num, den = kernels.K13_DENSE_SHARE
+    for T, P in ((1, 1), (700, 500), (4096, 4096), (8192, 8192), (70000, 8)):
+        edge = -(-T * P * num // den)  # the fewest feasible cells of a dense solve
+        for n in {0, 1, edge - 1, edge, edge + 1, T * P}:
+            if 0 <= n <= T * P:
+                want = "dense" if lib.k13_dense_layout(n, T, P) else "packed"
+                assert kernels.sinkhorn_layout(n, T, P) == want, (n, T, P)
+    assert kernels.sinkhorn_layout(0, 4096, 4096) == "packed"
+    assert kernels.sinkhorn_layout(4096 * 4096, 4096, 4096) == "dense"
+    assert kernels.sinkhorn_layout(0, 70000, 8) == "dense"
 
 
 BLOCKED_ATOL = 1e-3  # K14's lse against the plain passes: another summation order
@@ -1523,6 +1632,116 @@ def test_blocked_col_partial_matches_plain(card, views, P, T, tile, proximity):
         assert float((g - o)[~masked].abs().max()) <= BLOCKED_ATOL
 
 
+# ------------- K14's feasibility cases (shared with tests/test_torch_blocked.py) -------------
+# Marketplaces on which the feasibility launch's cost bracket
+# (csrc/blocked.cu) leaves cells to the exact cost, or whose shapes and
+# values stress the launch's layout: prices within a few ulps of
+# INFEASIBLE/2 (an ulp is 32 there), each sign of the proximity and 0, no
+# row and every row located, non-finite prices, priorities and
+# proximities, rows and columns without a compatible cell, P and T off
+# multiples of 32, and 8 GPU options over 8 model-mask words. Each case
+# is (provider arrays, requirement arrays, CostWeights keywords). The CPU
+# tests hold a model of the launch's rule against the reference; the card
+# tests hold the launch against the plain packer, word for word.
+
+HALF_INFEASIBLE = np.float32(5e8)
+
+
+def _feas_market(seed: int, P: int, T: int):
+    rng = np.random.default_rng(seed)
+    return rng, synth_provider_arrays(rng, P), synth_requirement_arrays(rng, T)
+
+
+def _near_half(rng, pa, ra, spread: float, frac: float = 0.6, sign: float = -1.0):
+    """Prices of ``frac`` of the providers at INFEASIBLE/2 + sign x [0,
+    spread] (loads 0), and task priorities of 0 or +-1, 2 ulps there."""
+    P, T = pa["price"].shape[0], ra["priority"].shape[0]
+    on = rng.random(P) < frac
+    off = sign * np.round(rng.uniform(0.0, spread, P) / 32.0) * 32.0 + 32.0 * rng.integers(-4, 5, P)
+    pa["price"] = np.where(on, HALF_INFEASIBLE + off, pa["price"]).astype(np.float32)
+    pa["load"] = np.where(on, 0.0, pa["load"]).astype(np.float32)
+    ra["priority"] = rng.choice(np.float32([0.0, 32.0, -32.0, 64.0]), T)
+
+
+def _wide_options(rng, pa, ra, K: int = 8, W: int = 8):
+    """K GPU options a requirement over W model-mask words, provider models
+    in [-1, 32 W)."""
+    T, P = ra["priority"].shape[0], pa["price"].shape[0]
+    valid = rng.random((T, K)) < 0.5
+    valid[np.arange(T), rng.integers(0, K, T)] = True
+    ra.update(
+        gpu_opt_valid=valid,
+        gpu_count=rng.choice(np.int32([-1, 1, 2, 4, 8]), (T, K)),
+        gpu_mem_min=rng.choice(np.int32([-1, 16000, 40000]), (T, K)),
+        gpu_mem_max=rng.choice(np.int32([-1, 40000, 80000]), (T, K)),
+        gpu_total_mem_min=rng.choice(np.int32([-1, 32000, 160000]), (T, K)),
+        gpu_total_mem_max=rng.choice(np.int32([-1, 320000]), (T, K)),
+        gpu_model_mask=np.where(rng.random((T, K, W)) < 0.5,
+                                rng.integers(0, 2**32, (T, K, W), dtype=np.uint64), 0
+                                ).astype(np.uint32),
+        gpu_model_constrained=valid & (rng.random((T, K)) < 0.7),
+    )
+    pa["gpu_model_id"] = rng.integers(-1, 32 * W, P).astype(np.int32)
+
+
+def feasibility_cases() -> dict:
+    cases = {}
+    near = dict(priority=1.0)
+    # the bracket [0, 20.016] at proximity 0.001: a cell at 5e8 - 32 straddles
+    rng, pa, ra = _feas_market(1, 200, 170)
+    _near_half(rng, pa, ra, 64.0)
+    cases["straddle"] = (pa, ra, dict(near, proximity=0.001))
+    # proximity 1: the bracket [0, 20,016]; every located row
+    rng, pa, ra = _feas_market(2, 160, 200)
+    _near_half(rng, pa, ra, 20_100.0)
+    cases["straddle_far"] = (pa, ra, dict(near, proximity=1.0))
+    # a negative proximity: the bracket [-20,016, 0], prices above 5e8
+    rng, pa, ra = _feas_market(3, 170, 150)
+    _near_half(rng, pa, ra, 20_100.0, sign=1.0)
+    cases["negative"] = (pa, ra, dict(near, proximity=-1.0))
+    # proximity 0: the bracket [0, 0], the exact cost, at the threshold
+    rng, pa, ra = _feas_market(4, 150, 160)
+    _near_half(rng, pa, ra, 128.0, sign=1.0)
+    _near_half(rng, pa, ra, 128.0)
+    cases["zero"] = (pa, ra, dict(near, proximity=0.0))
+    # no row located, and half of each side located
+    for name, frac, seed in (("unlocated", 0.0, 5), ("half_located", 0.5, 6)):
+        rng, pa, ra = _feas_market(seed, 180, 140)
+        _near_half(rng, pa, ra, 20_100.0)
+        pa["has_location"] = rng.random(180) < frac
+        ra["has_location"] = rng.random(140) < frac
+        cases[name] = (pa, ra, dict(near, proximity=1.0))
+    # NaN and infinite prices and priorities
+    rng, pa, ra = _feas_market(7, 150, 130)
+    _near_half(rng, pa, ra, 64.0)
+    pa["price"][rng.choice(150, 30, replace=False)] = rng.choice(
+        np.float32([np.nan, np.inf, -np.inf]), 30)
+    ra["priority"][rng.choice(130, 25, replace=False)] = rng.choice(
+        np.float32([np.nan, np.inf, -np.inf]), 25)
+    cases["nan_inf"] = (pa, ra, dict(near, proximity=0.001))
+    # a proximity that is not finite: every located cell takes the exact cost
+    for name, prox, seed in (("inf_proximity", np.inf, 8), ("nan_proximity", np.nan, 9)):
+        rng, pa, ra = _feas_market(seed, 120, 110)
+        pa["has_location"] = rng.random(120) < 0.7
+        cases[name] = (pa, ra, dict(proximity=float(prox)))
+    # rows and columns with no compatible cell
+    rng, pa, ra = _feas_market(10, 160, 150)
+    pa["valid"][:9] = False
+    pa["has_gpu"][9:20] = False
+    ra["gpu_count"][:13, 0] = 99
+    ra["valid"][13:17] = False
+    cases["empty_lines"] = (pa, ra, dict(proximity=0.001))
+    # P and T off multiples of 32, at the threshold
+    rng, pa, ra = _feas_market(11, 97, 131)
+    _near_half(rng, pa, ra, 64.0)
+    cases["ragged"] = (pa, ra, dict(near, proximity=0.001))
+    # 8 GPU options over 8 model-mask words
+    rng, pa, ra = _feas_market(12, 190, 150)
+    _wide_options(rng, pa, ra)
+    cases["wide_options"] = (pa, ra, dict(proximity=0.001))
+    return cases
+
+
 @pytest.mark.parametrize("P,T", [(1000, 777), (65, 2000), (32, 64)])
 @pytest.mark.parametrize("proximity", [0.0, 0.001])
 def test_blocked_feasibility_bitmaps_match_the_plain_packer(card, P, T, proximity):
@@ -1543,6 +1762,57 @@ def test_blocked_feasibility_bitmaps_match_the_plain_packer(card, P, T, proximit
     assert torch.equal(mask.T, bl.unpack_words(bits.cols, P))
     assert torch.equal(row_any, mask.any(dim=1)) and torch.equal(col_any, mask.any(dim=0))
     assert 0 < int(mask.sum()) < P * T
+
+
+
+def check_bitmaps_against_packer(ep, er, w):
+    """K14's feasibility launch against the plain packer, word for word, and
+    row_any / col_any the bitmaps' any()."""
+    from protocol_tpu_torch import kernels
+    from protocol_tpu_torch.ops import blocked as bl
+
+    row_any, col_any, bits = kernels.blocked_feasibility(ep, er, w)
+    ref = bl.pack_feasibility(ep, er, w, chunk=64)
+    assert torch.equal(bits.rows, ref.rows) and torch.equal(bits.cols, ref.cols)
+    mask = bl.unpack_words(ref.rows, er.num)
+    assert torch.equal(row_any, mask.any(dim=1)) and torch.equal(col_any, mask.any(dim=0))
+    return mask
+
+
+@pytest.mark.parametrize("name", sorted(feasibility_cases()))
+def test_blocked_feasibility_cases_match_the_plain_packer(card, name):
+    """The feasibility launch on each of its cases (check_bitmaps_against_packer)."""
+    from protocol_tpu_torch.ops.encoding import providers_from_numpy, requirements_from_numpy
+
+    pa, ra, wk = feasibility_cases()[name]
+    check_bitmaps_against_packer(providers_from_numpy(pa, card), requirements_from_numpy(ra, card),
+                                 CostWeights(**wk))
+
+
+@pytest.mark.parametrize("P,T", [(9000, 3000), (2100, 700)])
+def test_blocked_feasibility_over_several_blocks_matches_the_plain_packer(card, P, T):
+    """Several 256-task tiles and provider ranges (check_bitmaps_against_packer)."""
+    ep = synth_providers(np.random.default_rng(P), P, device=card)
+    er = synth_requirements(np.random.default_rng(T), T, device=card)
+    mask = check_bitmaps_against_packer(ep, er, CostWeights())
+    assert 0 < int(mask.sum()) < P * T
+
+
+@pytest.mark.parametrize("name", ["straddle", "ragged", "wide_options", "empty_lines"])
+def test_shard_bitmaps_on_the_cases_match_the_plain_packer(card, views, name):
+    """Each of D = 4 shards of a feasibility case (the shards of the
+    provider-sharded Sinkhorn) against the plain packer on the shard."""
+    from protocol_tpu_torch.ops.encoding import providers_from_numpy, requirements_from_numpy
+    from protocol_tpu_torch.parallel import sinkhorn as psk
+
+    pa, ra, wk = feasibility_cases()[name]
+    P = pa["price"].shape[0]
+    keep = P // 4 * 4
+    pa = {k_: v_[:keep] for k_, v_ in pa.items()}
+    ep = providers_from_numpy(pa, card)
+    er = requirements_from_numpy(ra, card)
+    for ep_s in psk._shard_providers(ep, views(4)):
+        check_bitmaps_against_packer(ep_s, er, CostWeights(**wk))
 
 
 def test_shard_bitmaps_match_the_one_device_rows(card, views):
