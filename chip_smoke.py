@@ -3242,7 +3242,7 @@ def main() -> int:
                      n_p * N * OPS_PER_CELL + feas * OPS_PER_FEASIBLE_CELL,
                      f"{n_p} providers x {N} tasks"))
 
-    # K4 tile minima
+    # K4 tile minima (K1's list launch over the dirty ids)
     (tm_ep, tm_er, _, tm_ids, tm_tile, tm_pad), _ = args_of("repair_tile_min")
     err = cmp_cells("repair_tile_min",
                     lambda w: (kernels.repair_tile_min(tm_ep, tm_er, w, tm_ids, tm_tile, tm_pad),),
@@ -3255,7 +3255,7 @@ def main() -> int:
     n_t = tm_ids.numel()
     feas = feasible_cells(torch, compat_mask, gather_providers, gather_requirements, tm_ep, tm_er,
                           t_ids=tm_ids.long())
-    new_rows.append(("repair_tile_min", SRC_REPAIR, "protocol_tpu/parallel/sparse.py:702", err, ms,
+    new_rows.append(("repair_tile_min", SRC_K1, "protocol_tpu/parallel/sparse.py:702", err, ms,
                      plain, N * p_row + n_t * (r_row + 4) + N * (N // tm_tile) * 4,
                      N * n_t * OPS_PER_CELL + feas * OPS_PER_FEASIBLE_CELL,
                      f"{N} providers x {n_t} tasks"))

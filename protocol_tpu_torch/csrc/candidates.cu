@@ -19,9 +19,18 @@
 //            blocked Sinkhorn's biased rounding (kBias);
 //   reverse  (k1_reverse, kRev) the reverse selection alone (the cache's
 //            uncovered rows, the matcher's colocation phase at rt > 1).
-// The blocks variant (k1_reverse_blocks; replaces parallel/sparse.py
-// _build_repair_tile at rt = 1) rescores flagged (provider, tile) blocks
-// one thread each, into the pools in place.
+// Two list launches of one kernel template, list_kernel<kBlocks>, run the
+// warm repair's reverse scope (parallel/sparse.py: repair_topk_bidir):
+//   blocks   (k1_reverse_blocks; replaces parallel/sparse.py
+//            _build_repair_tile at rt = 1) rescores flagged (provider,
+//            tile) blocks into the pools in place, each block's first
+//            argmin as its least (cost, task) key;
+//   K4       (k4_repair_tile_min; replaces the dirty-column cost block of
+//            _build_repair_forward, reduced to per-(provider, tile) minima
+//            on the host there) the least fresh cost of each provider over
+//            each tile's dirty tasks.
+// Both hold a block's providers fixed and stream task rows past them; the
+// check and the scoring of a warp's step are k1_kernel's (score_step).
 //
 // Layout. A block is kWarps warps in G groups of S warps (G * S = kWarps,
 // S <= 2); a group owns rw <= 8 task rows, staged once in shared memory
@@ -65,7 +74,13 @@
 // in round-to-nearest -0 + (+0) = +0, a larger cost is positive, an
 // infeasible cell is 1e9; so a selection c + bias[p] is -0 only for c = -0.
 // With unique keys any order of scoring gives the same selections, which
-// are the parent's at every weight.
+// are the parent's at every weight. The blocks launch keys only cells
+// below +inf, the parent's strict `<` from +inf (no NaN or +inf cell
+// wins; a block without a key decodes to (+inf, -1), as before), so its
+// key order over a tile's cells is `<` with the lowest task first among
+// ties, the first argmin, however the cells are split. K4 needs no key:
+// fminf from the pad is exact in any order of the cells, as no cost is -0
+// and fminf passes over a NaN as the parent's did.
 //
 // What bounds it on the H100: operations. Every cell pays the capability
 // check, a feasible cell (22% at the main path's 65,536^2) the haversine
@@ -78,7 +93,13 @@
 // admits into the forward select only the cells that reach the
 // threshold. Measured by clock64 probes at the kernel's phase markers: the
 // check still takes the largest share of the fused launch's cycles, then
-// the scoring and the selection, then the block barrier of a chunk.
+// the scoring and the selection, then the block barrier of a chunk. The
+// list launches are bound the same way over far fewer cells (their work
+// is the flagged blocks' and the dirty rows' cells); the kernels they
+// replaced walked a block's (or a provider's) cells one at a time a
+// thread, thousands of cycles a cell with few warps an SM, so a launch
+// lasted one thread's walk. A list launch spreads the cells over about 16
+// blocks of 4 warps an SM (list_target) and pays K1's check and scoring.
 //
 // Numerics: built with -fmad=false and no fast-math, so every f32
 // operation rounds once, in the reference's order, as torch's eager ops
@@ -221,6 +242,58 @@ __device__ void merge_row(u64* list, int* nlist, const u64* buf, int nb, u64* tm
   __syncwarp();
 }
 
+// Steps 1 and 2 of a warp over nact <= kMaxRows staged task rows (their
+// limits caps[j], options opt[j * K ...], ids tid[j], terms task[j]) and a
+// 64-provider step, two a lane: pr[h] is provider lane + 32 h of the step,
+// sprov[l] its row for the scoring and pid(l) its global id, bit h of
+// valid whether it exists. Writes ctile[j * kStep + l] for every existing
+// cell: INFEASIBLE off the mask, else the exact jittered cost. The check
+// runs per (row, lane) for both providers; the feasible cells are queued
+// at a warp scan of the lanes' counts and scored one a lane.
+template <class PidFn>
+__device__ __forceinline__ void score_step(const ProvRow (&pr)[2], uint32_t valid,
+                                           const ProvRow* sprov, PidFn pid, const RowCaps* caps,
+                                           const OptCaps* opt, const int* tid, const TaskRow* task,
+                                           int nact, const Req& req, int K, int W,
+                                           const Weights& w, float* ctile, uint16_t* queue,
+                                           int lane) {
+  // 1. the capability check, each row's fields and options loaded once
+  // for both providers; bit 2j + h of fm: cell (j, h) feasible
+  uint32_t fm = 0;
+  for (int j = 0; j < nact; ++j) {
+    const RowCaps tc = caps[j];
+    const uint32_t f = valid & compat_many<2>(pr, tc, opt + j * K,
+                                              req.gpu_model_mask + (size_t)tid[j] * K * W, K, W);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if ((valid & ~f) >> h & 1u) ctile[j * kStep + 32 * h + lane] = kInfeasible;
+    fm |= f << (2 * j);
+  }
+  // the feasible cells into the warp's queue at a scan of the counts
+  const int cnt = __popc(fm);
+  int incl = cnt;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int v = __shfl_up_sync(kFull, incl, d);
+    if (lane >= d) incl += v;
+  }
+  const int qn = __shfl_sync(kFull, incl, 31);
+  int pos = incl - cnt;
+  while (fm) {
+    const int b = __ffs(fm) - 1;
+    fm &= fm - 1;
+    queue[pos++] = (uint16_t)((b >> 1) << 6 | (b & 1) << 5 | lane);
+  }
+  __syncwarp();
+  // 2. score the queued cells, one a lane
+  for (int e = lane; e < qn; e += 32) {
+    const int en = queue[e];
+    const int j = en >> 6, l = en & (kStep - 1);
+    ctile[j * kStep + l] = feasible_cost(sprov[l], pid(l), task[j], w);
+  }
+  __syncwarp();
+}
+
 struct K1Args {
   Prov prov;
   Req req;
@@ -346,46 +419,9 @@ __global__ void __launch_bounds__(kThreads, 4) k1_kernel(const K1Args a) {
           pr[h] = s_prov[i0 + 32 * h];
         }
         const uint32_t valid = (pv[0] ? 1u : 0u) | (pv[1] ? 2u : 0u);
-        {
-          // 1. the capability check, each row's fields and options loaded
-          // once for both providers; bit 2j + h of fm: cell (j, h) feasible
-          uint32_t fm = 0;
-          for (int j = 0; j < nact; ++j) {
-            const RowCaps tc = w_caps[j];
-            const uint32_t f = valid & compat_many<2>(pr, tc, w_opt + j * a.K,
-                                                      a.req.gpu_model_mask +
-                                                          (size_t)w_tid[j] * a.K * a.W,
-                                                      a.K, a.W);
-#pragma unroll
-            for (int h = 0; h < 2; ++h)
-              if ((valid & ~f) >> h & 1u) ctile[j * kStep + 32 * h + lane] = kInfeasible;
-            fm |= f << (2 * j);
-          }
-          // the feasible cells into the warp's queue at a scan of the counts
-          const int cnt = __popc(fm);
-          int incl = cnt;
-#pragma unroll
-          for (int d = 1; d < 32; d <<= 1) {
-            const int v = __shfl_up_sync(kFull, incl, d);
-            if (lane >= d) incl += v;
-          }
-          const int qn = __shfl_sync(kFull, incl, 31);
-          int pos = incl - cnt;
-          while (fm) {
-            const int b = __ffs(fm) - 1;
-            fm &= fm - 1;
-            queue[pos++] = (uint16_t)((b >> 1) << 6 | (b & 1) << 5 | lane);
-          }
-          __syncwarp();
-          // 2. score the queued cells, one a lane
-          for (int e = lane; e < qn; e += 32) {
-            const int en = queue[e];
-            const int j = en >> 6, l = en & (kStep - 1);
-            ctile[j * kStep + l] =
-                feasible_cost(s_prov[m * kStep + l], cb + m * kStep + l, w_task[j], a.w);
-          }
-          __syncwarp();
-        }
+        const int p0 = cb + m * kStep;
+        score_step(pr, valid, s_prov + m * kStep, [p0](int l) { return p0 + l; }, w_caps, w_opt,
+                   w_tid, w_task, nact, a.req, a.K, a.W, a.w, ctile, queue, lane);
         // 3. selection. Forward: a cell is admitted when its selection
         // value is <= the row's threshold (the k-th key's value), which
         // takes in every cell whose key is below the k-th key; its key is
@@ -548,31 +584,269 @@ __global__ void __launch_bounds__(128) fold_kernel(const u64* __restrict__ rkey,
   }
 }
 
-// One thread per flagged (provider, tile) block: the first argmin of the
-// block's cells (strict <, the first index among ties), written into the
-// pools at [p, j]. Blocks come ordered by (tile, provider).
-__global__ void __launch_bounds__(128) reverse_blocks_kernel(
-    Prov prov, Req req, Aux aux, Weights w, int n_tiles, int K, int W, int tile,
-    const int32_t* __restrict__ blk_p, const int32_t* __restrict__ blk_j, int n_blocks,
-    int32_t* __restrict__ pool_t, float* __restrict__ pool_c) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= n_blocks) return;
-  const int p = blk_p[b];
-  const int t0 = blk_j[b] * tile;
-  const ProvRow pr = load_prov(prov, aux, p);
-  float best = INFINITY;
-  int32_t bt = -1;
-  for (int j = 0; j < tile; ++j) {
-    const int t = t0 + j;
-    const TaskRow tr = load_task(req, aux, t, K);
-    const float c = cell_cost(pr, p, tr, t, req, K, W, w);
-    if (c < best) {
-      best = c;
-      bt = t;
+// ---- the list launches: the repair's reverse blocks and K4 ----
+//
+// A block holds kListProv providers, 64 a warp (two a lane), for the whole
+// launch, and streams task rows past them kMaxRows a step, staged once in
+// shared memory for its 4 warps; each warp runs score_step on the step.
+//   blocks (kBlocks): the providers are a chunk of the flagged entries of
+//     one tile (entries come ordered by tile, so a tile's are one run);
+//     the rows are a slice of that tile. Each lane keeps the least (cost,
+//     task) key of its two entries over the slice's cells with cost <
+//     +inf (the parent's strict `<` from +inf: NaN and +inf never win),
+//     and the slices meet in a [n_blocks] key buffer by 64-bit atomicMin;
+//     a decode launch writes the pools, (+inf, -1) where no key came.
+//   tile minima (K4): the providers are P's kListProv-wide chunks; the
+//     rows are a range of the dirty task ids cut at tile boundaries, so a
+//     block sees every dirty task of its tiles. A lane keeps a running
+//     fminf from the pad over the current tile (warp-uniform: the ids
+//     ascend) and stores it when the tile changes.
+constexpr int kListProv = kWarps * kStep;  // providers (or flagged entries) a block
+
+struct ListArgs {
+  Prov prov;
+  Req req;
+  Aux aux;
+  Weights w;
+  int P, K, W, tile, n_tiles;
+  // blocks: entries [blk_p, blk_j], lo[j] the first entry of tile j (lo
+  // [n_tiles] = n_blocks), the slice's rows, the key buffer
+  const int32_t* blk_p;
+  const int32_t* blk_j;
+  const int32_t* lo;
+  int n_blocks, slice;
+  u64* rkey;
+  // K4: the ascending dirty ids, the ranges over them, the pad, the output
+  const int32_t* t_ids;
+  int n_t, ranges;
+  float pad;
+  float* min_tile;
+};
+
+struct ListSmem {
+  int prov, pid, task, tid, caps, opt, tile, ctile, queue, bytes;
+};
+
+__host__ __device__ inline ListSmem list_smem(int K) {
+  ListSmem s;
+  int at = 0;
+  s.prov = k1_take(at, kListProv * (int)sizeof(ProvRow));
+  s.pid = k1_take(at, kListProv * 4);
+  s.task = k1_take(at, kMaxRows * (int)sizeof(TaskRow));
+  s.tid = k1_take(at, kMaxRows * 4);
+  s.caps = k1_take(at, kMaxRows * (int)sizeof(RowCaps));
+  s.opt = k1_take(at, kMaxRows * K * (int)sizeof(OptCaps));
+  s.tile = k1_take(at, kMaxRows * 4);
+  s.ctile = k1_take(at, kWarps * kMaxRows * kStep * 4);
+  s.queue = k1_take(at, kWarps * kMaxRows * kStep * 2);
+  s.bytes = at;
+  return s;
+}
+
+// The least index i' >= i of the ascending ids where a tile starts (0, n,
+// or ids[i'] in another tile than ids[i' - 1]). All 32 lanes call it.
+__device__ int tile_cut(const int32_t* ids, int n, int i, int tile, int lane) {
+  if (i <= 0) return 0;
+  if (i >= n) return n;
+  const int prev = ids[i - 1] / tile;
+  for (int base = i; base < n; base += 32) {
+    const int k = base + lane;
+    const uint32_t m = __ballot_sync(kFull, k < n && ids[k] / tile != prev);
+    if (m) return base + __ffs(m) - 1;
+  }
+  return n;
+}
+
+template <bool kBlocks>
+__global__ void __launch_bounds__(kThreads, 4) list_kernel(const ListArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_range[4];
+  const ListSmem L = list_smem(a.K);
+  ProvRow* s_prov = reinterpret_cast<ProvRow*>(smem + L.prov);
+  int* s_pid = reinterpret_cast<int*>(smem + L.pid);
+  TaskRow* s_task = reinterpret_cast<TaskRow*>(smem + L.task);
+  int* s_tid = reinterpret_cast<int*>(smem + L.tid);
+  RowCaps* s_caps = reinterpret_cast<RowCaps*>(smem + L.caps);
+  OptCaps* s_opt = reinterpret_cast<OptCaps*>(smem + L.opt);
+  int* s_tile = reinterpret_cast<int*>(smem + L.tile);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* ctile = reinterpret_cast<float*>(smem + L.ctile) + warp * kMaxRows * kStep;
+  uint16_t* queue = reinterpret_cast<uint16_t*>(smem + L.queue) + warp * kMaxRows * kStep;
+
+  // the block's providers [e0, e0 + ne) and rows [r0, r1)
+  if (threadIdx.x == 0) {
+    if constexpr (kBlocks) {
+      // chunk c of tile j is block g(j) + c, g(j) = lo[j] / kListProv + j,
+      // strictly increasing, g(0) = 0, g(n_tiles) = the grid's width
+      int jl = 0, jh = a.n_tiles;
+      while (jh - jl > 1) {
+        const int mid = (jl + jh) >> 1;
+        if (a.lo[mid] / kListProv + mid <= (int)blockIdx.x)
+          jl = mid;
+        else
+          jh = mid;
+      }
+      const int b0 = a.lo[jl] + ((int)blockIdx.x - (a.lo[jl] / kListProv + jl)) * kListProv;
+      const int r0 = blockIdx.y * a.slice;
+      s_range[0] = b0;
+      s_range[1] = max(0, min(kListProv, a.lo[jl + 1] - b0));
+      s_range[2] = jl * a.tile + r0;                    // the slice's first task
+      s_range[3] = min(a.slice, a.tile - r0);           // its rows
     }
   }
-  pool_t[(size_t)p * n_tiles + blk_j[b]] = bt;
-  pool_c[(size_t)p * n_tiles + blk_j[b]] = best;
+  if constexpr (!kBlocks) {
+    if (warp == 0) {
+      const int n0 = (int)((long long)a.n_t * blockIdx.y / a.ranges);
+      const int n1 = (int)((long long)a.n_t * (blockIdx.y + 1) / a.ranges);
+      const int r0 = tile_cut(a.t_ids, a.n_t, n0, a.tile, lane);
+      const int r1 = tile_cut(a.t_ids, a.n_t, n1, a.tile, lane);
+      if (lane == 0) {
+        s_range[0] = blockIdx.x * kListProv;
+        s_range[1] = min(kListProv, a.P - (int)blockIdx.x * kListProv);
+        s_range[2] = r0;
+        s_range[3] = r1 - r0;
+      }
+    }
+  }
+  __syncthreads();
+  const int e0 = s_range[0], ne = s_range[1], row0 = s_range[2], n_rows = s_range[3];
+  if (ne <= 0 || n_rows <= 0) return;  // block-uniform
+
+  for (int i = threadIdx.x; i < ne; i += kThreads) {
+    const int p = kBlocks ? a.blk_p[e0 + i] : e0 + i;
+    s_pid[i] = p;
+    s_prov[i] = load_prov(a.prov, a.aux, p);
+  }
+  const int i0 = warp * kStep + lane;  // the lane's entries i0 and i0 + 32
+  const bool pv[2] = {i0 < ne, i0 + 32 < ne};
+  const uint32_t valid = (pv[0] ? 1u : 0u) | (pv[1] ? 2u : 0u);
+  const bool live = warp * kStep < ne;  // warp-uniform
+  const int* w_pid = s_pid + warp * kStep;
+  u64 best[2] = {kNoKey, kNoKey};  // blocks
+  float m[2] = {a.pad, a.pad};     // K4: the current tile's minimum
+  int cur = -1;                    // K4: the current tile
+
+  for (int rs = 0; rs < n_rows; rs += kMaxRows) {
+    const int nact = min(kMaxRows, n_rows - rs);
+    __syncthreads();  // the last step's readers are done
+    for (int i = threadIdx.x; i < nact; i += kThreads) {
+      const int t = kBlocks ? row0 + rs + i : a.t_ids[row0 + rs + i];
+      s_tid[i] = t;
+      const TaskRow tr = load_task(a.req, a.aux, t, a.K);
+      s_task[i] = tr;
+      s_caps[i] = load_row_caps(tr);
+      s_tile[i] = t / a.tile;
+    }
+    for (int e = threadIdx.x; e < nact * a.K; e += kThreads) {
+      const int i = e / a.K;
+      const int t = kBlocks ? row0 + rs + i : a.t_ids[row0 + rs + i];
+      s_opt[e] = load_opt(a.req, t * a.K + e % a.K);
+    }
+    __syncthreads();
+    if (!live) continue;
+    const ProvRow pr[2] = {s_prov[i0], s_prov[i0 + 32]};
+    score_step(pr, valid, s_prov + warp * kStep, [w_pid](int l) { return w_pid[l]; }, s_caps,
+               s_opt, s_tid, s_task, nact, a.req, a.K, a.W, a.w, ctile, queue, lane);
+    for (int j = 0; j < nact; ++j) {
+      float c[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) c[h] = ctile[j * kStep + 32 * h + lane];
+      if constexpr (kBlocks) {
+        const uint32_t t = (uint32_t)s_tid[j];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const u64 x = make_key(c[h], t);
+          if (pv[h] && c[h] < INFINITY && x < best[h]) best[h] = x;
+        }
+      } else {
+        const int tj = s_tile[j];
+        if (tj != cur) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            if (cur >= 0 && pv[h]) a.min_tile[(size_t)(e0 + i0 + 32 * h) * a.n_tiles + cur] = m[h];
+            m[h] = a.pad;
+          }
+          cur = tj;
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) m[h] = fminf(m[h], c[h]);
+      }
+    }
+  }
+  if (!live) return;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (!pv[h]) continue;
+    if constexpr (kBlocks) {
+      if (best[h] != kNoKey) atomicMin(a.rkey + e0 + i0 + 32 * h, best[h]);
+    } else {
+      if (cur >= 0) a.min_tile[(size_t)(e0 + i0 + 32 * h) * a.n_tiles + cur] = m[h];
+    }
+  }
+}
+
+// One thread an entry: rkey[b] to all ones, and lo[j] (the first entry of
+// tile j, entries ordered by tile; lo[n_tiles] = n) for every j in
+// (blk_j[b - 1], blk_j[b]], and past the last entry's tile.
+__global__ void __launch_bounds__(128) blocks_plan_kernel(const int32_t* __restrict__ blk_j, int n,
+                                                          int n_tiles, int32_t* __restrict__ lo,
+                                                          u64* __restrict__ rkey) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= n) return;
+  rkey[b] = kNoKey;
+  const int jb = blk_j[b];
+  for (int j = b == 0 ? 0 : blk_j[b - 1] + 1; j <= jb; ++j) lo[j] = b;
+  if (b == n - 1)
+    for (int j = jb + 1; j <= n_tiles; ++j) lo[j] = n;
+}
+
+// One thread an entry: its key decoded into the pools at [p, j].
+__global__ void __launch_bounds__(128) blocks_decode_kernel(const u64* __restrict__ rkey,
+                                                            const int32_t* __restrict__ blk_p,
+                                                            const int32_t* __restrict__ blk_j, int n,
+                                                            int n_tiles, int32_t* __restrict__ pool_t,
+                                                            float* __restrict__ pool_c) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= n) return;
+  const u64 x = rkey[b];
+  const size_t at = (size_t)blk_p[b] * n_tiles + blk_j[b];
+  pool_t[at] = x == kNoKey ? -1 : (int32_t)(uint32_t)x;
+  pool_c[at] = x == kNoKey ? INFINITY : order_float((uint32_t)(x >> 32));
+}
+
+// Blocks a list launch aims for: four times what the card holds at once
+// (4 blocks an SM, the launch bound).
+int list_target() {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return 16 * sms;
+}
+
+ListArgs list_args(const void* const* prov_cols, const void* const* req_cols, int P, int T, int K,
+                   int W, float w_price, float w_load, float w_prox, float w_prio, int tile,
+                   float* aux) {
+  ListArgs a{};
+  a.prov = make_prov(prov_cols);
+  a.req = make_req(req_cols);
+  a.aux = make_aux(aux, P, T);
+  a.w = Weights{w_price, w_load, w_prox, w_prio};
+  a.P = P;
+  a.K = K;
+  a.W = W;
+  a.tile = tile;
+  a.n_tiles = T / tile;
+  return a;
+}
+
+template <bool kBlocks>
+int run_list(const ListArgs& a, dim3 grid, cudaStream_t stream) {
+  const int bytes = list_smem(a.K).bytes;
+  cudaError_t e = cudaFuncSetAttribute(list_kernel<kBlocks>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return (int)e;
+  list_kernel<kBlocks><<<grid, kThreads, bytes, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 template <bool kFwd, bool kRev, bool kBias, bool kMulti>
@@ -722,22 +996,60 @@ extern "C" int k1_bidir(const void* const* prov_cols, const void* const* req_col
   return (int)cudaGetLastError();
 }
 
-// Blocks variant: rescore n_blocks (provider, tile) blocks into the pools
-// [P, T / tile] in place (one contribution per tile).
+// Blocks variant: rescore n_blocks (provider blk_p[b], tile blk_j[b])
+// blocks, ordered by tile, into the pools [P, T / tile] in place (one
+// contribution per tile, the first argmin): a plan launch (rkey [n_blocks]
+// to all ones, lo [n_tiles + 1]), the list launch over chunks of each
+// tile's entries and slices of its rows (as many slices as bring the
+// launch to list_target blocks), a decode launch.
 extern "C" int k1_reverse_blocks(const void* const* prov_cols, const void* const* req_cols, int P,
                                  int T, int K, int W, float w_price, float w_load, float w_prox,
                                  float w_prio, int tile, const int32_t* blk_p,
-                                 const int32_t* blk_j, int n_blocks, float* aux, int32_t* pool_t,
-                                 float* pool_c, void* stream) {
-  if (K > kMaxOpts || tile < 1 || T % tile != 0 || n_blocks < 1)
+                                 const int32_t* blk_j, int n_blocks, float* aux, u64* rkey,
+                                 int32_t* lo, int32_t* pool_t, float* pool_c, void* stream) {
+  if (K > kMaxOpts || tile < 1 || T % tile != 0 || n_blocks < 1 || P < 1)
     return (int)cudaErrorInvalidValue;
-  const Weights w{w_price, w_load, w_prox, w_prio};
-  const int threads = 128;
-  const Prov prov = make_prov(prov_cols);
-  const Req req = make_req(req_cols);
-  launch_prep(prov, req, w, P, T, aux, (cudaStream_t)stream);
-  reverse_blocks_kernel<<<(n_blocks + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
-      prov, req, make_aux(aux, P, T), w, T / tile, K, W, tile, blk_p, blk_j, n_blocks, pool_t,
-      pool_c);
+  ListArgs a = list_args(prov_cols, req_cols, P, T, K, W, w_price, w_load, w_prox, w_prio, tile,
+                         aux);
+  a.blk_p = blk_p;
+  a.blk_j = blk_j;
+  a.lo = lo;
+  a.n_blocks = n_blocks;
+  a.rkey = rkey;
+  const int chunks = (n_blocks + kListProv - 1) / kListProv;
+  const int max_slices = (tile + kMaxRows - 1) / kMaxRows;
+  const int slices = min(max_slices, max(1, (list_target() + chunks - 1) / chunks));
+  a.slice = ((tile + slices - 1) / slices + kMaxRows - 1) / kMaxRows * kMaxRows;
+  const cudaStream_t st = (cudaStream_t)stream;
+  launch_prep(a.prov, a.req, a.w, P, T, aux, st);
+  blocks_plan_kernel<<<(n_blocks + 127) / 128, 128, 0, st>>>(blk_j, n_blocks, a.n_tiles, lo, rkey);
+  const dim3 grid(n_blocks / kListProv + a.n_tiles, (tile + a.slice - 1) / a.slice);
+  if (int rc = run_list<true>(a, grid, st)) return rc;
+  blocks_decode_kernel<<<(n_blocks + 127) / 128, 128, 0, st>>>(rkey, blk_p, blk_j, n_blocks,
+                                                               a.n_tiles, pool_t, pool_c);
   return (int)cudaGetLastError();
+}
+
+// K4: per (provider, tile), the least fresh cost over the ascending task
+// ids t_ids of that tile, from pad, into min_tile [P, T / tile] (prefilled
+// with pad; a tile without a dirty task keeps it): the list launch over
+// kListProv-wide provider chunks and ranges of the ids cut at tile
+// boundaries (as many ranges as bring the launch to list_target blocks).
+extern "C" int k4_repair_tile_min(const void* const* prov_cols, const void* const* req_cols,
+                                  int P, int T, int K, int W, float w_price, float w_load,
+                                  float w_prox, float w_prio, int tile, const int32_t* t_ids,
+                                  int n_t, float pad, float* aux, float* min_tile, void* stream) {
+  if (K > kMaxOpts || tile < 1 || T % tile != 0 || n_t < 1 || P < 1)
+    return (int)cudaErrorInvalidValue;
+  ListArgs a = list_args(prov_cols, req_cols, P, T, K, W, w_price, w_load, w_prox, w_prio, tile,
+                         aux);
+  a.t_ids = t_ids;
+  a.n_t = n_t;
+  a.pad = pad;
+  a.min_tile = min_tile;
+  const int chunks = (P + kListProv - 1) / kListProv;
+  a.ranges = min(n_t, max(1, (list_target() + chunks - 1) / chunks));
+  const cudaStream_t st = (cudaStream_t)stream;
+  launch_prep(a.prov, a.req, a.w, P, T, aux, st);
+  return run_list<false>(a, dim3(chunks, a.ranges), st);
 }

@@ -1,6 +1,7 @@
 // Repair kernels of the warm path for Hopper (sm_90a): the parts of the
 // reference's churn-masked candidate repair (protocol_tpu/parallel/
-// sparse.py: repair_topk_bidir_sharded) that are not a K1 variant.
+// sparse.py: repair_topk_bidir_sharded) that are not a K1 launch. K4, the
+// dirty-column tile minima, is one of K1's list launches (candidates.cu).
 //
 //   K3 enter     (_build_repair_enter) one thread per task walks the dirty
 //                providers (global ids, read from the full columns) and
@@ -15,13 +16,6 @@
 //                loaded, as K1's) keys the jitter on offset + t: a shard of
 //                the provider mesh scans its own rows at their global ids
 //                (_build_repair_enter_sharded, B5s).
-//   K4 tile min  (the dirty-column cost block of _build_repair_forward,
-//                reduced on the host there) one thread per provider walks
-//                the dirty tasks, sorted, and writes the minimum fresh cost
-//                per (provider, tile) they touch into min_tile [P, n_tiles]
-//                (prefilled with the pad cost). A minimum is exact in any
-//                order, so this is the reference's bits without the
-//                [P, dirty] block ever reaching device memory.
 //   K5 refold    (_build_repair_refold + _merge_rev_pools at d_fold
 //                lanes) one thread per provider: each lane l folds its
 //                n_tiles / d_fold consecutive pool entries in tile order
@@ -35,11 +29,11 @@
 //                cost is >= INFEASIBLE/2) and rev_c [P, r]. At one lane the
 //                merge is the identity.
 //
-// What bounds them on the H100: K3 and K4 score cells with cell_cost, so
-// they are bound by its arithmetic like K1, over n_dirty x T and P x
-// n_dirty cells (small at 1% churn); the loop side (providers for K3,
-// tasks for K4) is a warp-uniform load that hits L1. K5 reads the pools
-// once and writes the edges once: bound by bytes, ~P (n_tiles + r) x 8.
+// What bounds them on the H100: K3 scores cells with cell_cost, so it is
+// bound by its arithmetic like K1, over n_dirty x T cells (small at 1%
+// churn); the loop side (the providers) is a warp-uniform load that hits
+// L1. K5 reads the pools once and writes the edges once: bound by bytes,
+// ~P (n_tiles + r) x 8.
 //
 // Numerics: built like candidates.cu (-fmad=false, no fast-math); with
 // proximity 0 every output is bit-identical to the plain torch versions
@@ -66,29 +60,6 @@ __global__ void __launch_bounds__(128) enter_kernel(Prov prov, Req req, Aux aux,
     hit |= (c <= th) & (c < kHalfInfeasible);
   }
   enter[t] = hit ? 1 : 0;
-}
-
-__global__ void __launch_bounds__(128) tile_min_kernel(Prov prov, Req req, Aux aux, Weights w,
-                                                       int P, int K, int W, int tile, int n_tiles,
-                                                       const int32_t* __restrict__ t_ids, int n_t,
-                                                       float* __restrict__ min_tile) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= P) return;
-  const ProvRow pr = load_prov(prov, aux, p);
-  int cur = -1;
-  float m = 0.0f;
-  for (int i = 0; i < n_t; ++i) {
-    const int t = t_ids[i];
-    const int j = t / tile;
-    if (j != cur) {  // t_ids ascend, so each tile's tasks are contiguous
-      if (cur >= 0) min_tile[(size_t)p * n_tiles + cur] = m;
-      cur = j;
-      m = min_tile[(size_t)p * n_tiles + j];
-    }
-    const TaskRow tr = load_task(req, aux, t, K);
-    m = fminf(m, cell_cost(pr, p, tr, t, req, K, W, w));
-  }
-  if (cur >= 0) min_tile[(size_t)p * n_tiles + cur] = m;
 }
 
 __global__ void __launch_bounds__(128) refold_kernel(const int32_t* __restrict__ pool_t,
@@ -149,21 +120,6 @@ extern "C" int k3_repair_enter(const void* const* prov_cols, const void* const* 
   launch_prep(prov, req, w, P, T, aux, (cudaStream_t)stream);
   enter_kernel<<<(T + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
       prov, req, make_aux(aux, P, T), w, T, K, W, p_ids, n_p, offset, thresh, enter);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int k4_repair_tile_min(const void* const* prov_cols, const void* const* req_cols,
-                                  int P, int T, int K, int W, float w_price, float w_load,
-                                  float w_prox, float w_prio, int tile, const int32_t* t_ids,
-                                  int n_t, float* aux, float* min_tile, void* stream) {
-  if (K > kMaxOpts || tile < 1 || T % tile != 0 || n_t < 1 || P < 1)
-    return (int)cudaErrorInvalidValue;
-  const Weights w{w_price, w_load, w_prox, w_prio};
-  const Prov prov = make_prov(prov_cols);
-  const Req req = make_req(req_cols);
-  launch_prep(prov, req, w, P, T, aux, (cudaStream_t)stream);
-  tile_min_kernel<<<(P + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
-      prov, req, make_aux(aux, P, T), w, P, K, W, tile, T / tile, t_ids, n_t, min_tile);
   return (int)cudaGetLastError();
 }
 

@@ -149,19 +149,20 @@ def _lib(name: str) -> ctypes.CDLL:
                 _P,
             ]
             lib.k1_reverse_blocks.argtypes = [
-                _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P, _P, _I, _P, _P, _P, _P,
+                _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P,
             ]
-            for fn in ("k1_reverse", "k1_bidir", "k1_forward_rows", "k1_reverse_blocks"):
+            lib.k4_repair_tile_min.argtypes = [
+                _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P, _I, _F, _P, _P, _P,
+            ]
+            for fn in ("k1_reverse", "k1_bidir", "k1_forward_rows", "k1_reverse_blocks",
+                       "k4_repair_tile_min"):
                 getattr(lib, fn).restype = _I
         elif name == "repair":
             lib.k3_repair_enter.argtypes = [
                 _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P, _I, _U, _P, _P, _P, _P,
             ]
-            lib.k4_repair_tile_min.argtypes = [
-                _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P, _I, _P, _P, _P,
-            ]
             lib.k5_repair_refold.argtypes = [_P, _P, _I, _I, _I, _I, _P, _P, _P]
-            for fn in ("k3_repair_enter", "k4_repair_tile_min", "k5_repair_refold"):
+            for fn in ("k3_repair_enter", "k5_repair_refold"):
                 getattr(lib, fn).restype = _I
         elif name == "dense":
             lib.k6_value_base.argtypes = [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P, _P]
@@ -622,8 +623,9 @@ def _pools(pool_t, pool_c, P: int, n_tiles: int, dev, what: str) -> None:
 @_on_device
 def candidates_reverse_blocks(ep, er, weights, tile: int, blk_p, blk_j, pool_t, pool_c) -> None:
     """K1 reverse, blocks variant (``csrc/candidates.cu``): rescores the
-    (provider blk_p[b], tile blk_j[b]) blocks and writes each block's first
-    argmin into ``pool_t`` / ``pool_c`` [P, n_tiles] in place (rt = 1)."""
+    (provider blk_p[b], tile blk_j[b]) blocks, ordered by tile, and writes
+    each block's first argmin into ``pool_t`` / ``pool_c`` [P, n_tiles] in
+    place (rt = 1)."""
     dev, pcols, rcols, (P, T, K, W), w, aux = _k1_setup(ep, er, weights)
     if tile < 1 or T % tile != 0:
         raise ValueError(f"K1 reverse blocks: T={T} not divisible by tile={tile}")
@@ -633,9 +635,15 @@ def candidates_reverse_blocks(ep, er, weights, tile: int, blk_p, blk_j, pool_t, 
     blk_j = _ids(blk_j, n_tiles, dev, "candidates_reverse_blocks")
     if blk_p.shape != blk_j.shape:
         raise ValueError("candidates_reverse_blocks: blk_p and blk_j differ in length")
+    if blk_j.numel() > 1 and not bool((blk_j[1:] >= blk_j[:-1]).all()):
+        raise ValueError("candidates_reverse_blocks: blocks must come ordered by tile")
+    n = blk_p.numel()
+    rkey = torch.empty(n, dtype=torch.int64, device=dev)  # the slices' least keys
+    lo = torch.empty(n_tiles + 1, dtype=torch.int32, device=dev)  # each tile's first block
     _launch("candidates_reverse_blocks", _lib("candidates").k1_reverse_blocks,
-        pcols, rcols, P, T, K, W, *w, tile, blk_p.data_ptr(), blk_j.data_ptr(),
-        blk_p.numel(), aux.data_ptr(), pool_t.data_ptr(), pool_c.data_ptr(), _stream(pool_t),
+        pcols, rcols, P, T, K, W, *w, tile, blk_p.data_ptr(), blk_j.data_ptr(), n,
+        aux.data_ptr(), rkey.data_ptr(), lo.data_ptr(), pool_t.data_ptr(), pool_c.data_ptr(),
+        _stream(pool_t),
     )
 
 
@@ -661,7 +669,7 @@ def repair_enter(ep, er, weights, p_ids, thresh, offset: int = 0):
 
 @_on_device
 def repair_tile_min(ep, er, weights, t_ids, tile: int, pad: float):
-    """K4 (``csrc/repair.cu``): per (provider, tile), the least fresh cost
+    """K4 (``csrc/candidates.cu``): per (provider, tile), the least fresh cost
     over the tasks ``t_ids`` (global ids, ascending, unique) of that tile;
     ``pad`` where the tile holds none of them. Returns [P, n_tiles] f32."""
     dev, pcols, rcols, (P, T, K, W), w, aux = _k1_setup(ep, er, weights)
@@ -671,8 +679,8 @@ def repair_tile_min(ep, er, weights, t_ids, tile: int, pad: float):
     if t_ids.numel() > 1 and not bool((t_ids[1:] > t_ids[:-1]).all()):
         raise ValueError("repair_tile_min: task ids must ascend strictly")
     min_tile = torch.full((P, T // tile), pad, dtype=torch.float32, device=dev)
-    _launch("repair_tile_min", _lib("repair").k4_repair_tile_min,
-        pcols, rcols, P, T, K, W, *w, tile, t_ids.data_ptr(), t_ids.numel(),
+    _launch("repair_tile_min", _lib("candidates").k4_repair_tile_min,
+        pcols, rcols, P, T, K, W, *w, tile, t_ids.data_ptr(), t_ids.numel(), pad,
         aux.data_ptr(), min_tile.data_ptr(), _stream(min_tile),
     )
     return min_tile

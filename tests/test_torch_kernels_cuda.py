@@ -482,6 +482,80 @@ def test_repair_kernels_match_plain_bits(card):
                                                 ps._refold_plain(pt, pc, 8, 1)))
 
 
+def repair_list_cases() -> dict:
+    """name -> (provider arrays, requirement arrays, tile, flagged [P, n_tiles]
+    bool or None (5% at random), dirty task ids or None (2% at random)):
+    the seams of the reverse blocks' and K4's list launches (a block of 256
+    providers or flagged entries, task rows staged 8 a step, a tile's rows
+    split into slices, the dirty ids cut into ranges at tile boundaries)."""
+    from protocol_tpu_torch.trace.synth import synth_provider_arrays, synth_requirement_arrays
+
+    def market(P, T, seed):
+        return (synth_provider_arrays(np.random.default_rng(seed), P),
+                synth_requirement_arrays(np.random.default_rng(seed + 1), T))
+
+    cases = {}
+    # every cell of tile 1 infeasible: (INFEASIBLE, the tile's first task)
+    pa, ra = market(300, 1024, 1)
+    ra["valid"][256:512] = False
+    flag = np.zeros((300, 4), bool)
+    flag[::3, 1] = flag[::7, 2] = True
+    cases["infeasible_tile"] = (pa, ra, 256, flag, np.array([5, 260, 300, 511, 700]))
+    # a third of the providers above INFEASIBLE/2 (no jitter) and every
+    # priority 0: each of their feasible cells ties, across every slice
+    pa, ra = market(600, 1024, 2)
+    pa["price"][::3] = np.float32(6e8)
+    ra["priority"][:] = 0.0
+    cases["ties"] = (pa, ra, 256, None, None)
+    # one tile holds most flagged providers, the others two or none
+    pa, ra = market(2000, 2048, 3)
+    flag = np.zeros((2000, 8), bool)
+    flag[:1800, 3] = True
+    flag[[5, 1999], 6] = True
+    cases["skewed"] = (pa, ra, 256, flag, None)
+    # a single flagged block, a single dirty task
+    pa, ra = market(500, 1024, 4)
+    flag = np.zeros((500, 4), bool)
+    flag[321, 2] = True
+    cases["single"] = (pa, ra, 256, flag, np.array([777]))
+    # tile 1,000: not a multiple of the 8-row step
+    pa, ra = market(1500, 3000, 5)
+    cases["tile_1000"] = (pa, ra, 1000, None, None)
+    # dirty ids crossing tile boundaries inside one 8-row step, 13 of them
+    pa, ra = market(700, 1024, 6)
+    ids = np.array([250, 251, 252, 253, 254, 255, 256, 257, 510, 511, 512, 767, 768])
+    cases["cross_step"] = (pa, ra, 256, None, ids)
+    return cases
+
+
+@pytest.mark.parametrize("name", sorted(repair_list_cases()))
+def test_repair_list_kernels_cases_match_plain_bits(card, name):
+    """The reverse blocks and K4 against their plain versions, bit for bit at
+    proximity 0, on each of repair_list_cases()."""
+    from protocol_tpu_torch import kernels
+    from protocol_tpu_torch.ops.encoding import providers_from_numpy, requirements_from_numpy
+    from protocol_tpu_torch.parallel import sparse as ps
+
+    pa, ra, tile, flag, t_ids = repair_list_cases()[name]
+    ep, er = providers_from_numpy(pa, card), requirements_from_numpy(ra, card)
+    P, T, w = ep.num, er.num, CostWeights(proximity=0.0)
+    *_, pt, pc = sp.candidates_topk_reverse(ep, er, w, k=16, tile=tile, reverse_r=2,
+                                            with_pools=True)
+    rng = np.random.default_rng(0)
+    if flag is None:
+        flag = rng.random((P, T // tile)) < 0.05
+    if t_ids is None:
+        t_ids = np.sort(rng.choice(T, T // 50, replace=False))
+    blk_j, blk_p = torch.nonzero(torch.from_numpy(flag).T.to(card), as_tuple=True)
+    got, ref = (pt.clone(), pc.clone()), (pt.clone(), pc.clone())
+    kernels.candidates_reverse_blocks(ep, er, w, tile, blk_p, blk_j, *got)
+    ps._reverse_blocks_plain(ep, er, w, tile, 1, blk_p, blk_j, *ref)
+    assert all(same_bits(a, b) for a, b in zip(got, ref))
+    ids = torch.from_numpy(np.asarray(t_ids)).to(card)
+    assert same_bits(kernels.repair_tile_min(ep, er, w, ids, tile, ps._PAD_COST),
+                     ps._tile_min_plain(ep, er, w, ids.long(), tile, ps._PAD_COST))
+
+
 def test_card_repair_equals_card_regen(card):
     """repaired == regen on the card, bit for bit, at default weights: the
     repair kernels and K1 score every cell with the same device function."""

@@ -21,12 +21,13 @@ from protocol_tpu.ops.encoding import EncodedProviders
 from protocol_tpu.ops.sparse import candidates_topk_reverse as j_candidates_topk_reverse
 from protocol_tpu.parallel.sparse import _build_repair_enter as j_build_repair_enter
 from protocol_tpu.parallel.sparse import _build_repair_refold as j_build_repair_refold
+from protocol_tpu.parallel.sparse import _build_repair_tile as j_build_repair_tile
 from protocol_tpu.parallel.sparse import repair_topk_bidir_sharded as j_repair
 from protocol_tpu_torch.ops.cost import CostWeights
 from protocol_tpu_torch.ops.sparse import candidates_topk_reverse, merge_reverse_candidates
 from protocol_tpu_torch.parallel import sparse as ps
 
-from tests.test_torch_candidates import bits, synth
+from tests.test_torch_candidates import bits, k1_key_cost, k1_order_key, synth
 from tests.test_torch_encoding_cost import encode_random, to_port
 
 PARTS = ("cand_p", "cand_c", "fwd_p", "fwd_c", "pool_t", "pool_c")
@@ -194,3 +195,114 @@ def test_forward_rows_plain_are_the_full_pass_rows():
     p, c = ps.forward_rows(tp, tr, ZERO_PROX[1], 12, rows)
     np.testing.assert_array_equal(p.numpy(), fp[rows].numpy())
     np.testing.assert_array_equal(bits(c.numpy()), bits(fc[rows].numpy()))
+
+
+# ---------------- the list launches' exactness, modelled on the CPU ------
+# csrc/candidates.cu's reverse blocks split a tile's cells over row slices
+# and combine them by the least (order_bits(cost), task) key; K4 cuts the
+# dirty ids into ranges at tile boundaries and keeps a running fminf per
+# tile. Both are modelled here in numpy / torch.
+
+
+NO_KEY = torch.iinfo(torch.int64).max  # K1's all-ones key in the mirror's signed order
+
+
+@pytest.mark.parametrize("case", ["synth", "ties", "infeasible_tile"])
+def test_block_keys_split_anywhere_equal_plain_and_reference(case):
+    """Each (provider, tile) block's cells split at random points, each part
+    reduced to its least key and the parts combined by the least key: the
+    plain blocks and the reference's _build_repair_tile (first argmin)."""
+    P, T, tile = 24, 64, 16
+    ep, er = synth(P, T, 3)
+    if case == "ties":  # no jitter above INFEASIBLE/2, equal priorities: whole rows tie
+        price = np.array(ep.price, copy=True)
+        price[::3] = np.float32(6e8)
+        ep = dataclasses.replace(ep, price=price)
+        er = dataclasses.replace(er, priority=np.zeros_like(np.asarray(er.priority)))
+    elif case == "infeasible_tile":  # every cell of tile 1 at INFEASIBLE
+        valid = np.array(er.valid, copy=True)
+        valid[tile:2 * tile] = False
+        er = dataclasses.replace(er, valid=valid)
+    jw, tw = ZERO_PROX
+    tp, tr = to_port(ep, er)
+    cost = ps._jittered(tp, tr, tw, torch.arange(P), torch.arange(T))
+    n_tiles = T // tile
+    rng = np.random.default_rng(0)
+    got_t = np.zeros((P, n_tiles), np.int32)
+    got_c = np.zeros((P, n_tiles), np.float32)
+    for p in range(P):
+        for j in range(n_tiles):
+            tasks = torch.arange(j * tile, (j + 1) * tile, dtype=torch.int32)
+            c = cost[p, j * tile:(j + 1) * tile]
+            keys = torch.where(c < np.inf, k1_order_key(c, tasks), NO_KEY)
+            cuts = np.sort(rng.choice(np.arange(1, tile), rng.integers(0, 5), replace=False))
+            best = min(int(part.min()) for part in torch.tensor_split(keys, cuts.tolist()))
+            assert best != NO_KEY
+            got_t[p, j] = best & 0xFFFFFFFF
+            got_c[p, j] = k1_key_cost(torch.tensor([best]))[0]
+    blk_j, blk_p = torch.nonzero(torch.ones(n_tiles, P, dtype=torch.bool), as_tuple=True)
+    pool_t = torch.zeros((P, n_tiles), dtype=torch.int32)
+    pool_c = torch.zeros((P, n_tiles), dtype=torch.float32)
+    ps._reverse_blocks_plain(tp, tr, tw, tile, 1, blk_p, blk_j, pool_t, pool_c)
+    np.testing.assert_array_equal(got_t, pool_t.numpy())
+    np.testing.assert_array_equal(bits(got_c), bits(pool_c.numpy()))
+    ep_rows = jax.tree.map(jnp.asarray, ep)
+    for j in range(n_tiles):
+        er_tile = jax.tree.map(lambda a: jnp.asarray(np.asarray(a)[j * tile:(j + 1) * tile]), er)
+        run = j_build_repair_tile(dataclasses.astuple(jw), tile, 1, P, jax.tree.structure(ep_rows),
+                                  jax.tree.structure(er_tile))
+        tt, tc = run(ep_rows, jnp.arange(P, dtype=jnp.uint32), er_tile, jnp.uint32(j * tile))
+        np.testing.assert_array_equal(got_t[:, j], np.asarray(tt)[:, 0])
+        np.testing.assert_array_equal(bits(got_c[:, j]), bits(np.asarray(tc)[:, 0]))
+    if case == "ties":
+        assert (got_c[::3] >= 5e8).all() and (got_t[::3] % tile == 0).any()
+    if case == "infeasible_tile":
+        assert (got_c[:, 1] == np.float32(1e9)).all() and (got_t[:, 1] == tile).all()
+
+
+def tile_cut(ids, i, tile):
+    """K4's cut: the least index >= i where a tile starts among the ascending
+    ids (0, len(ids), or an id in another tile than the one before it)."""
+    if i <= 0 or i >= len(ids):
+        return min(max(i, 0), len(ids))
+    prev = ids[i - 1] // tile
+    later = np.flatnonzero(ids[i:] // tile != prev)
+    return i + int(later[0]) if later.size else len(ids)
+
+
+@pytest.mark.parametrize("ranges", [1, 3, 7, 40])
+def test_tile_min_over_ranges_cut_at_tile_boundaries_equals_plain(ranges):
+    """K4's ranges of the dirty ids, cut at tile boundaries, partition the ids
+    with no tile in two ranges; a running fminf from the pad per (provider,
+    tile) over each range's rows in order, stored when the tile changes,
+    equals the plain tile minima."""
+    P, T, tile = 16, 96, 8
+    ep, er = synth(P, T, 4)
+    tp, tr = to_port(ep, er)
+    tw = ZERO_PROX[1]
+    ids = np.array([0, 1, 7, 8, 15, 16, 17, 23, 40, 41, 42, 43, 44, 45, 46, 47, 48, 90, 95])
+    cost = ps._jittered(tp, tr, tw, torch.arange(P), torch.arange(T)).numpy()
+    pad = np.float32(ps._PAD_COST)
+    got = np.full((P, T // tile), pad, np.float32)
+    n = len(ids)
+    bounds = [(tile_cut(ids, n * y // ranges, tile), tile_cut(ids, n * (y + 1) // ranges, tile))
+              for y in range(ranges)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == n
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    seen = set()
+    for r0, r1 in bounds:
+        tiles = set((ids[r0:r1] // tile).tolist())
+        assert not tiles & seen
+        seen |= tiles
+        for p in range(P):
+            cur, m = -1, pad
+            for t in ids[r0:r1]:
+                if t // tile != cur:
+                    if cur >= 0:
+                        got[p, cur] = m
+                    cur, m = t // tile, pad
+                m = np.fmin(m, cost[p, t])
+            if cur >= 0:
+                got[p, cur] = m
+    want = ps._tile_min_plain(tp, tr, tw, torch.from_numpy(ids), tile, ps._PAD_COST)
+    np.testing.assert_array_equal(bits(got), bits(want.numpy()))
