@@ -1153,7 +1153,7 @@ def run_phases(torch, kernels, refresh) -> tuple[list, dict, dict]:
     kd_row.update(us_per_step=kd_ms * 1e3 / Td, steps=Td, rows=Pd, resources=Rd,
                   instantiation="device")
     rows = [
-        row("cost_block", SRC_DENSE, "protocol_tpu/sched/tpu_backend.py:184", 0.0, k10_ms,
+        row("cost_block", SRC_K1, "protocol_tpu/sched/tpu_backend.py:184", 0.0, k10_ms,
             k10_plain_ms, k10_bytes, k10_ops),
         k11_row,
         kd_row,
@@ -2293,7 +2293,7 @@ def run_mesh(torch, kernels, refresh) -> tuple[list, dict, dict]:
                                                            en_th, en_kw["offset"]), 1)
             feas = feasible_cells(torch, compat_mask, gather_providers, gather_requirements,
                                   en_ep, en_er, p_ids=en_ids.long())
-            k3_row = row("repair_enter_sharded", SRC_REPAIR, "protocol_tpu/parallel/sparse.py:740",
+            k3_row = row("repair_enter_sharded", SRC_K1, "protocol_tpu/parallel/sparse.py:740",
                          err, ms, plain, en_ids.numel() * (p_row + 4) + en_er.num * (r_row + 5),
                          en_ids.numel() * en_er.num * OPS_PER_CELL + feas * OPS_PER_FEASIBLE_CELL)
             k3_row.update(counter="repair_enter", runs=("mesh_arena",),
@@ -3237,7 +3237,7 @@ def main() -> int:
     n_p = en_ids.numel()
     feas = feasible_cells(torch, compat_mask, gather_providers, gather_requirements, en_ep, en_er,
                           p_ids=en_ids.long())
-    new_rows.append(("repair_enter", SRC_REPAIR, "protocol_tpu/parallel/sparse.py:659", err, ms,
+    new_rows.append(("repair_enter", SRC_K1, "protocol_tpu/parallel/sparse.py:659", err, ms,
                      plain, n_p * (p_row + 4) + N * (r_row + 4 + 1),
                      n_p * N * OPS_PER_CELL + feas * OPS_PER_FEASIBLE_CELL,
                      f"{n_p} providers x {N} tasks"))

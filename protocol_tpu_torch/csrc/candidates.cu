@@ -19,8 +19,7 @@
 //            blocked Sinkhorn's biased rounding (kBias);
 //   reverse  (k1_reverse, kRev) the reverse selection alone (the cache's
 //            uncovered rows, the matcher's colocation phase at rt > 1).
-// Two list launches of one kernel template, list_kernel<kBlocks>, run the
-// warm repair's reverse scope (parallel/sparse.py: repair_topk_bidir):
+// Four list launches of a second kernel template, list_kernel<kMode>:
 //   blocks   (k1_reverse_blocks; replaces parallel/sparse.py
 //            _build_repair_tile at rt = 1) rescores flagged (provider,
 //            tile) blocks into the pools in place, each block's first
@@ -28,9 +27,20 @@
 //   K4       (k4_repair_tile_min; replaces the dirty-column cost block of
 //            _build_repair_forward, reduced to per-(provider, tile) minima
 //            on the host there) the least fresh cost of each provider over
-//            each tile's dirty tasks.
-// Both hold a block's providers fixed and stream task rows past them; the
-// check and the scoring of a warp's step are k1_kernel's (score_step).
+//            each tile's dirty tasks;
+//   K3       (k3_repair_enter; replaces parallel/sparse.py
+//            _build_repair_enter, and at a jitter offset a shard's part of
+//            _build_repair_enter_sharded) flags each task that some dirty
+//            provider's fresh jittered cost can enter: c <= the task's
+//            stored k-th cost and c < INFEASIBLE/2;
+//   K10      (k10_cost_block; replaces sched/tpu_backend.py _cost_only,
+//            the unjittered cost_matrix of the matcher's phases 0 and 0.5
+//            and the greedy and sinkhorn RPCs) the slot-major [T, P] cost
+//            block.
+// The first three run the warm repair (parallel/sparse.py:
+// repair_topk_bidir). All hold a block's providers fixed and stream task
+// rows past them; the check and the scoring of a warp's step are
+// k1_kernel's (score_step, unjittered for K10).
 //
 // Layout. A block is kWarps warps in G groups of S warps (G * S = kWarps,
 // S <= 2); a group owns rw <= 8 task rows, staged once in shared memory
@@ -80,7 +90,9 @@
 // key order over a tile's cells is `<` with the lowest task first among
 // ties, the first argmin, however the cells are split. K4 needs no key:
 // fminf from the pad is exact in any order of the cells, as no cost is -0
-// and fminf passes over a NaN as the parent's did.
+// and fminf passes over a NaN as the parent's did. Nor do K3, an OR of
+// per-cell tests (a NaN cost or threshold flags nothing, as before), and
+// K10, which stores each cell's cost once.
 //
 // What bounds it on the H100: operations. Every cell pays the capability
 // check, a feasible cell (22% at the main path's 65,536^2) the haversine
@@ -95,11 +107,13 @@
 // check still takes the largest share of the fused launch's cycles, then
 // the scoring and the selection, then the block barrier of a chunk. The
 // list launches are bound the same way over far fewer cells (their work
-// is the flagged blocks' and the dirty rows' cells); the kernels they
-// replaced walked a block's (or a provider's) cells one at a time a
-// thread, thousands of cycles a cell with few warps an SM, so a launch
-// lasted one thread's walk. A list launch spreads the cells over about 16
-// blocks of 4 warps an SM (list_target) and pays K1's check and scoring.
+// is the flagged blocks', the dirty rows' or the dirty providers' cells;
+// K10's, every cell of a gathered block, whose 4 bytes a cell stored take
+// ~5% of its time at 4,096^2); the kernels they replaced walked a block's
+// (or a provider's, or a task's) cells one at a time a thread, thousands
+// of cycles a cell with few warps an SM, so a launch lasted one thread's
+// walk. A list launch spreads the cells over 16 or 32 blocks of 4 warps an
+// SM (list_target) and pays K1's check and scoring.
 //
 // Numerics: built with -fmad=false and no fast-math, so every f32
 // operation rounds once, in the reference's order, as torch's eager ops
@@ -247,10 +261,11 @@ __device__ void merge_row(u64* list, int* nlist, const u64* buf, int nb, u64* tm
 // 64-provider step, two a lane: pr[h] is provider lane + 32 h of the step,
 // sprov[l] its row for the scoring and pid(l) its global id, bit h of
 // valid whether it exists. Writes ctile[j * kStep + l] for every existing
-// cell: INFEASIBLE off the mask, else the exact jittered cost. The check
-// runs per (row, lane) for both providers; the feasible cells are queued
-// at a warp scan of the lanes' counts and scored one a lane.
-template <class PidFn>
+// cell: INFEASIBLE off the mask, else the exact cost, jittered when
+// kJitter (K10 scores without). The check runs per (row, lane) for both
+// providers; the feasible cells are queued at a warp scan of the lanes'
+// counts and scored one a lane.
+template <bool kJitter = true, class PidFn>
 __device__ __forceinline__ void score_step(const ProvRow (&pr)[2], uint32_t valid,
                                            const ProvRow* sprov, PidFn pid, const RowCaps* caps,
                                            const OptCaps* opt, const int* tid, const TaskRow* task,
@@ -289,7 +304,7 @@ __device__ __forceinline__ void score_step(const ProvRow (&pr)[2], uint32_t vali
   for (int e = lane; e < qn; e += 32) {
     const int en = queue[e];
     const int j = en >> 6, l = en & (kStep - 1);
-    ctile[j * kStep + l] = feasible_cost(sprov[l], pid(l), task[j], w);
+    ctile[j * kStep + l] = feasible_cost<kJitter>(sprov[l], pid(l), task[j], w);
   }
   __syncwarp();
 }
@@ -584,24 +599,37 @@ __global__ void __launch_bounds__(128) fold_kernel(const u64* __restrict__ rkey,
   }
 }
 
-// ---- the list launches: the repair's reverse blocks and K4 ----
+// ---- the list launches: the repair's reverse blocks, K4, K3 and K10 ----
 //
 // A block holds kListProv providers, 64 a warp (two a lane), for the whole
 // launch, and streams task rows past them kMaxRows a step, staged once in
 // shared memory for its 4 warps; each warp runs score_step on the step.
-//   blocks (kBlocks): the providers are a chunk of the flagged entries of
-//     one tile (entries come ordered by tile, so a tile's are one run);
+//   blocks (kListBlocks): the providers are a chunk of the flagged entries
+//     of one tile (entries come ordered by tile, so a tile's are one run);
 //     the rows are a slice of that tile. Each lane keeps the least (cost,
 //     task) key of its two entries over the slice's cells with cost <
 //     +inf (the parent's strict `<` from +inf: NaN and +inf never win),
 //     and the slices meet in a [n_blocks] key buffer by 64-bit atomicMin;
 //     a decode launch writes the pools, (+inf, -1) where no key came.
-//   tile minima (K4): the providers are P's kListProv-wide chunks; the
-//     rows are a range of the dirty task ids cut at tile boundaries, so a
-//     block sees every dirty task of its tiles. A lane keeps a running
-//     fminf from the pad over the current tile (warp-uniform: the ids
-//     ascend) and stores it when the tile changes.
+//   tile minima (K4, kListTileMin): the providers are P's kListProv-wide
+//     chunks; the rows are a range of the dirty task ids cut at tile
+//     boundaries, so a block sees every dirty task of its tiles. A lane
+//     keeps a running fminf from the pad over the current tile
+//     (warp-uniform: the ids ascend) and stores it when the tile changes.
+//   enter (K3, kListEnter): the providers are a kListProv-wide chunk of
+//     the dirty ids, the rows a contiguous range of the tasks, each with
+//     its threshold staged beside its limits and its jitter keyed on row
+//     + offset. A row's hit is one ballot over the lanes' (c <= th) & (c <
+//     INFEASIBLE/2); the warps' hits meet in a shared word and the block
+//     stores a 1 for each row hit, into enter zeroed before the launch.
+//     Blocks of other chunks may store a 1 to the same row: equal bytes,
+//     and the result an OR, exact in any order of the cells.
+//   cost block (K10, kListCost): the providers are P's kListProv-wide
+//     chunks, the rows a contiguous range of the slots, scored without
+//     jitter; each warp stores its step's cells from its cost tile, a row
+//     as two 128-byte runs of cost[t * P + p].
 constexpr int kListProv = kWarps * kStep;  // providers (or flagged entries) a block
+constexpr int kListBlocks = 0, kListTileMin = 1, kListEnter = 2, kListCost = 3;
 
 struct ListArgs {
   Prov prov;
@@ -621,10 +649,18 @@ struct ListArgs {
   int n_t, ranges;
   float pad;
   float* min_tile;
+  // K3 and K10: T rows in ranges of `slice`; the providers p_ids[0, n_p)
+  // (K3) or 0..P-1 (K10, n_p = P)
+  int T, n_p;
+  const int32_t* p_ids;
+  uint32_t offset;       // K3: the jitter offset
+  const float* thresh;   // K3: [T]
+  uint8_t* enter;        // K3: [T], zero before the launch
+  float* cost;           // K10: [T, P]
 };
 
 struct ListSmem {
-  int prov, pid, task, tid, caps, opt, tile, ctile, queue, bytes;
+  int prov, pid, task, tid, caps, opt, tile, ctile, queue, th, bytes;
 };
 
 __host__ __device__ inline ListSmem list_smem(int K) {
@@ -639,6 +675,7 @@ __host__ __device__ inline ListSmem list_smem(int K) {
   s.tile = k1_take(at, kMaxRows * 4);
   s.ctile = k1_take(at, kWarps * kMaxRows * kStep * 4);
   s.queue = k1_take(at, kWarps * kMaxRows * kStep * 2);
+  s.th = k1_take(at, kMaxRows * 4 + 4);  // K3: the rows' thresholds, then the step's hits
   s.bytes = at;
   return s;
 }
@@ -657,8 +694,22 @@ __device__ int tile_cut(const int32_t* ids, int n, int i, int tile, int lane) {
   return n;
 }
 
-template <bool kBlocks>
+// K3: a 1 into enter for each row of the step at row0 that some warp hit
+// (bit j of *hits), and the word cleared for the next step. One thread.
+__device__ __forceinline__ void flush_hits(uint32_t* hits, uint8_t* enter, int row0) {
+  uint32_t m = *hits;
+  *hits = 0;
+  while (m) {
+    const int j = __ffs(m) - 1;
+    m &= m - 1;
+    enter[row0 + j] = 1;
+  }
+}
+
+template <int kMode>
 __global__ void __launch_bounds__(kThreads, 4) list_kernel(const ListArgs a) {
+  constexpr bool kBlocks = kMode == kListBlocks;
+  constexpr bool kRange = kMode == kListEnter || kMode == kListCost;  // rows [y slice, ...)
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_range[4];
   const ListSmem L = list_smem(a.K);
@@ -669,6 +720,8 @@ __global__ void __launch_bounds__(kThreads, 4) list_kernel(const ListArgs a) {
   RowCaps* s_caps = reinterpret_cast<RowCaps*>(smem + L.caps);
   OptCaps* s_opt = reinterpret_cast<OptCaps*>(smem + L.opt);
   int* s_tile = reinterpret_cast<int*>(smem + L.tile);
+  float* s_th = reinterpret_cast<float*>(smem + L.th);
+  uint32_t* s_hits = reinterpret_cast<uint32_t*>(smem + L.th) + kMaxRows;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float* ctile = reinterpret_cast<float*>(smem + L.ctile) + warp * kMaxRows * kStep;
   uint16_t* queue = reinterpret_cast<uint16_t*>(smem + L.queue) + warp * kMaxRows * kStep;
@@ -693,8 +746,16 @@ __global__ void __launch_bounds__(kThreads, 4) list_kernel(const ListArgs a) {
       s_range[2] = jl * a.tile + r0;                    // the slice's first task
       s_range[3] = min(a.slice, a.tile - r0);           // its rows
     }
+    if constexpr (kRange) {
+      const int r0 = blockIdx.y * a.slice;
+      s_range[0] = blockIdx.x * kListProv;
+      s_range[1] = min(kListProv, a.n_p - (int)blockIdx.x * kListProv);
+      s_range[2] = r0;
+      s_range[3] = min(a.slice, a.T - r0);
+    }
+    if constexpr (kMode == kListEnter) *s_hits = 0;
   }
-  if constexpr (!kBlocks) {
+  if constexpr (kMode == kListTileMin) {
     if (warp == 0) {
       const int n0 = (int)((long long)a.n_t * blockIdx.y / a.ranges);
       const int n1 = (int)((long long)a.n_t * (blockIdx.y + 1) / a.ranges);
@@ -713,7 +774,7 @@ __global__ void __launch_bounds__(kThreads, 4) list_kernel(const ListArgs a) {
   if (ne <= 0 || n_rows <= 0) return;  // block-uniform
 
   for (int i = threadIdx.x; i < ne; i += kThreads) {
-    const int p = kBlocks ? a.blk_p[e0 + i] : e0 + i;
+    const int p = kBlocks ? a.blk_p[e0 + i] : kMode == kListEnter ? a.p_ids[e0 + i] : e0 + i;
     s_pid[i] = p;
     s_prov[i] = load_prov(a.prov, a.aux, p);
   }
@@ -729,24 +790,30 @@ __global__ void __launch_bounds__(kThreads, 4) list_kernel(const ListArgs a) {
   for (int rs = 0; rs < n_rows; rs += kMaxRows) {
     const int nact = min(kMaxRows, n_rows - rs);
     __syncthreads();  // the last step's readers are done
+    if constexpr (kMode == kListEnter) {
+      if (threadIdx.x == 0 && rs > 0) flush_hits(s_hits, a.enter, row0 + rs - kMaxRows);
+    }
     for (int i = threadIdx.x; i < nact; i += kThreads) {
-      const int t = kBlocks ? row0 + rs + i : a.t_ids[row0 + rs + i];
+      const int t = kMode == kListTileMin ? a.t_ids[row0 + rs + i] : row0 + rs + i;
       s_tid[i] = t;
-      const TaskRow tr = load_task(a.req, a.aux, t, a.K);
+      const TaskRow tr = load_task(a.req, a.aux, t, a.K, kMode == kListEnter ? a.offset : 0u);
       s_task[i] = tr;
       s_caps[i] = load_row_caps(tr);
-      s_tile[i] = t / a.tile;
+      if constexpr (!kRange) s_tile[i] = t / a.tile;
+      if constexpr (kMode == kListEnter) s_th[i] = a.thresh[t];
     }
     for (int e = threadIdx.x; e < nact * a.K; e += kThreads) {
       const int i = e / a.K;
-      const int t = kBlocks ? row0 + rs + i : a.t_ids[row0 + rs + i];
+      const int t = kMode == kListTileMin ? a.t_ids[row0 + rs + i] : row0 + rs + i;
       s_opt[e] = load_opt(a.req, t * a.K + e % a.K);
     }
     __syncthreads();
     if (!live) continue;
     const ProvRow pr[2] = {s_prov[i0], s_prov[i0 + 32]};
-    score_step(pr, valid, s_prov + warp * kStep, [w_pid](int l) { return w_pid[l]; }, s_caps,
-               s_opt, s_tid, s_task, nact, a.req, a.K, a.W, a.w, ctile, queue, lane);
+    score_step<kMode != kListCost>(pr, valid, s_prov + warp * kStep,
+                                   [w_pid](int l) { return w_pid[l]; }, s_caps, s_opt, s_tid,
+                                   s_task, nact, a.req, a.K, a.W, a.w, ctile, queue, lane);
+    uint32_t hits = 0;  // K3: bit j, row j hit by a lane of this warp
     for (int j = 0; j < nact; ++j) {
       float c[2];
 #pragma unroll
@@ -758,7 +825,7 @@ __global__ void __launch_bounds__(kThreads, 4) list_kernel(const ListArgs a) {
           const u64 x = make_key(c[h], t);
           if (pv[h] && c[h] < INFINITY && x < best[h]) best[h] = x;
         }
-      } else {
+      } else if constexpr (kMode == kListTileMin) {
         const int tj = s_tile[j];
         if (tj != cur) {
 #pragma unroll
@@ -770,8 +837,27 @@ __global__ void __launch_bounds__(kThreads, 4) list_kernel(const ListArgs a) {
         }
 #pragma unroll
         for (int h = 0; h < 2; ++h) m[h] = fminf(m[h], c[h]);
+      } else if constexpr (kMode == kListEnter) {
+        const float th = s_th[j];
+        bool hit = false;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) hit |= pv[h] & (c[h] <= th) & (c[h] < kHalfInfeasible);
+        hits |= (__ballot_sync(kFull, hit) != 0u ? 1u : 0u) << j;
+      } else {
+        float* out = a.cost + (size_t)(row0 + rs + j) * a.P + e0 + i0;
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          if (pv[h]) out[32 * h] = c[h];
       }
     }
+    if constexpr (kMode == kListEnter) {
+      if (lane == 0 && hits) atomicOr(s_hits, hits);
+    }
+  }
+  if constexpr (kMode == kListEnter) {
+    __syncthreads();  // every warp's hits of the last step are in
+    if (threadIdx.x == 0) flush_hits(s_hits, a.enter, row0 + (n_rows - 1) / kMaxRows * kMaxRows);
+    return;
   }
   if (!live) return;
 #pragma unroll
@@ -779,7 +865,7 @@ __global__ void __launch_bounds__(kThreads, 4) list_kernel(const ListArgs a) {
     if (!pv[h]) continue;
     if constexpr (kBlocks) {
       if (best[h] != kNoKey) atomicMin(a.rkey + e0 + i0 + 32 * h, best[h]);
-    } else {
+    } else if constexpr (kMode == kListTileMin) {
       if (cur >= 0) a.min_tile[(size_t)(e0 + i0 + 32 * h) * a.n_tiles + cur] = m[h];
     }
   }
@@ -839,14 +925,30 @@ ListArgs list_args(const void* const* prov_cols, const void* const* req_cols, in
   return a;
 }
 
-template <bool kBlocks>
+template <int kMode>
 int run_list(const ListArgs& a, dim3 grid, cudaStream_t stream) {
   const int bytes = list_smem(a.K).bytes;
-  cudaError_t e = cudaFuncSetAttribute(list_kernel<kBlocks>,
+  cudaError_t e = cudaFuncSetAttribute(list_kernel<kMode>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return (int)e;
-  list_kernel<kBlocks><<<grid, kThreads, bytes, stream>>>(a);
+  list_kernel<kMode><<<grid, kThreads, bytes, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// K3 and K10: a.n_p providers in kListProv-wide chunks against a.T rows in
+// ranges of a.slice (a multiple of kMaxRows), as many ranges as bring the
+// launch to twice list_target blocks (at most one a step of rows): their
+// blocks are shorter than the other list launches', and 32 blocks an SM
+// took 4-8% less than 16 at 65,536 x 655 and 4,096^2 (2% more on a
+// 16,384-task shard).
+template <int kMode>
+int run_range_list(ListArgs& a, cudaStream_t stream) {
+  const int chunks = (a.n_p + kListProv - 1) / kListProv;
+  const int max_ranges = (a.T + kMaxRows - 1) / kMaxRows;
+  const int ranges = min(max_ranges, max(1, (2 * list_target() + chunks - 1) / chunks));
+  a.slice = ((a.T + ranges - 1) / ranges + kMaxRows - 1) / kMaxRows * kMaxRows;
+  const dim3 grid(chunks, (a.T + a.slice - 1) / a.slice);
+  return run_list<kMode>(a, grid, stream);
 }
 
 template <bool kFwd, bool kRev, bool kBias, bool kMulti>
@@ -1024,7 +1126,7 @@ extern "C" int k1_reverse_blocks(const void* const* prov_cols, const void* const
   launch_prep(a.prov, a.req, a.w, P, T, aux, st);
   blocks_plan_kernel<<<(n_blocks + 127) / 128, 128, 0, st>>>(blk_j, n_blocks, a.n_tiles, lo, rkey);
   const dim3 grid(n_blocks / kListProv + a.n_tiles, (tile + a.slice - 1) / a.slice);
-  if (int rc = run_list<true>(a, grid, st)) return rc;
+  if (int rc = run_list<kListBlocks>(a, grid, st)) return rc;
   blocks_decode_kernel<<<(n_blocks + 127) / 128, 128, 0, st>>>(rkey, blk_p, blk_j, n_blocks,
                                                                a.n_tiles, pool_t, pool_c);
   return (int)cudaGetLastError();
@@ -1051,5 +1153,47 @@ extern "C" int k4_repair_tile_min(const void* const* prov_cols, const void* cons
   a.ranges = min(n_t, max(1, (list_target() + chunks - 1) / chunks));
   const cudaStream_t st = (cudaStream_t)stream;
   launch_prep(a.prov, a.req, a.w, P, T, aux, st);
-  return run_list<false>(a, dim3(chunks, a.ranges), st);
+  return run_list<kListTileMin>(a, dim3(chunks, a.ranges), st);
+}
+
+// K3: enter [T] u8, 1 where some dirty provider (global ids p_ids[0,
+// n_p), repeats allowed) has a fresh jittered cost c <= thresh[t] with c <
+// INFEASIBLE/2, the jitter keyed on (t + offset) mod 2^32; zeroed here,
+// then the list launch over chunks of the ids and ranges of the tasks.
+extern "C" int k3_repair_enter(const void* const* prov_cols, const void* const* req_cols, int P,
+                               int T, int K, int W, float w_price, float w_load, float w_prox,
+                               float w_prio, const int32_t* p_ids, int n_p,
+                               unsigned int offset, const float* thresh, float* aux,
+                               uint8_t* enter, void* stream) {
+  if (K > kMaxOpts || n_p < 1 || T < 1 || P < 1) return (int)cudaErrorInvalidValue;
+  ListArgs a = list_args(prov_cols, req_cols, P, T, K, W, w_price, w_load, w_prox, w_prio, 1,
+                         aux);
+  a.T = T;
+  a.n_p = n_p;
+  a.p_ids = p_ids;
+  a.offset = offset;
+  a.thresh = thresh;
+  a.enter = enter;
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t e = cudaMemsetAsync(enter, 0, (size_t)T, st);
+  if (e != cudaSuccess) return (int)e;
+  launch_prep(a.prov, a.req, a.w, P, T, aux, st);
+  return run_range_list<kListEnter>(a, st);
+}
+
+// K10: cost [T, P] f32, slot-major: the unjittered cost of every cell,
+// INFEASIBLE off the mask; the list launch over P's chunks and ranges of
+// the slots.
+extern "C" int k10_cost_block(const void* const* prov_cols, const void* const* req_cols, int P,
+                              int T, int K, int W, float w_price, float w_load, float w_prox,
+                              float w_prio, float* aux, float* cost, void* stream) {
+  if (P < 1 || T < 1 || K > kMaxOpts) return (int)cudaErrorInvalidValue;
+  ListArgs a = list_args(prov_cols, req_cols, P, T, K, W, w_price, w_load, w_prox, w_prio, 1,
+                         aux);
+  a.T = T;
+  a.n_p = P;
+  a.cost = cost;
+  const cudaStream_t st = (cudaStream_t)stream;
+  launch_prep(a.prov, a.req, a.w, P, T, aux, st);
+  return run_range_list<kListCost>(a, st);
 }

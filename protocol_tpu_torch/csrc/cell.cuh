@@ -1,11 +1,12 @@
-// Shared by the candidate kernels (candidates.cu), the repair kernels
-// (repair.cu) and the dense matcher kernels (dense.cu): the column
+// Shared by the candidate and list kernels (candidates.cu), the repair
+// refold (repair.cu) and the dense matcher kernels (dense.cu): the column
 // layout, the per-row cost terms, the capability check, the exact
 // jittered cost of one (provider, task) cell, and the fold of per-tile
 // reverse pools into a provider's best r. Every kernel that scores a cell
-// calls cell_cost, and both the cold reverse launch and the repair refold
-// call fold_pools, so a repaired cell or edge is the same bits as a cold
-// one.
+// calls cell_cost, or compat_many and then feasible_cost (its arithmetic
+// after the mask test), and both the cold reverse launch and the repair
+// refold call fold_pools, so a repaired cell or edge is the same bits as a
+// cold one.
 //
 // Jitter is keyed on the global provider and task ids the caller passes
 // (a kernel that walks a gathered subset reads its columns at the global
@@ -338,14 +339,16 @@ __device__ __forceinline__ float cell_cost(const ProvRow& p, int pi, const TaskR
   return cost;
 }
 
-// The cost of a cell that compat admits: cell_cost's arithmetic after its
-// mask test, operation for operation, jitter included. The candidate
-// kernel checks every cell first and scores the feasible ones apart.
+// The cost of a cell that compat admits: cell_cost<kJitter>'s arithmetic
+// after its mask test, operation for operation, the jitter included when
+// kJitter. The list and candidate kernels check every cell first and
+// score the feasible ones apart.
+template <bool kJitter = true>
 __device__ __forceinline__ float feasible_cost(const ProvRow& p, int pi, const TaskRow& t,
                                                const Weights& w) {
   float cost = cell_terms(p.base, p.lat, p.lon, p.coslat, p.has_loc, t.lat, t.lon, t.coslat,
                           t.has_loc, t.prio, w.proximity);
-  if (cost < kHalfInfeasible) {
+  if (kJitter && cost < kHalfInfeasible) {
     const uint32_t h = ((uint32_t)pi * 2654435761u) ^ (t.jkey * 40503u);
     cost = __fadd_rn(cost, __fmul_rn((float)(h & 1023u), 1e-7f));
   }

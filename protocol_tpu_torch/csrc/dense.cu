@@ -1,6 +1,7 @@
 // The batch matcher's dense route for Hopper (sm_90a): the kernels of
-// protocol_tpu/sched/tpu_backend.py::_solve_bounded, _solve_unbounded and
-// _cost_only.
+// protocol_tpu/sched/tpu_backend.py::_solve_bounded and _solve_unbounded.
+// K10, _cost_only's dense cost block, is a list launch of K1's layout in
+// candidates.cu (k10_cost_block), bound there.
 //
 //   K6 value base   (_solve_bounded's cost_matrix + with_tie_jitter, and
 //                   the value_base / task_feasible of ops/assign.py::
@@ -56,21 +57,12 @@
 //                   reference applies no tie jitter here), the lanes merge
 //                   by (cost, index); -1 where that cost is >= INFEASIBLE/2.
 //                   The [P, T] cost never reaches device memory.
-//   K10 cost block  (_cost_only: the unjittered cost_matrix(ep, er, w)[0]
-//                   of the anti-affinity and colocation phases, over a
-//                   gathered provider subset) one thread per (slot,
-//                   provider) cell writes cost[t, p] = cell_cost<false>,
-//                   INFEASIBLE off the mask, slot-major so that each step
-//                   of the bin-pack (binpack.cu, K11) reads one slot's
-//                   column over all rows coalesced. The caller sees the
-//                   reference's [P, T] meaning through a transposed view.
 //
-// What bounds them on the H100: K6, K8 and K10 score every cell with
+// What bounds them on the H100: K6 and K8 score every cell with
 // cell_cost, ~12 operations per cell and ~30 more per feasible one
 // (K6 also writes 4 bytes per cell: at 4,096 x 4,096, 64 MB, which is the
-// larger bound there; K10 likewise writes 4 bytes per cell). K7 reads the
-// open slots' value rows each round, bound by bytes: sum over rounds of
-// open rows x P x 4 bytes. At 4,096^2 a round's bid step reads at ~2.8
+// larger bound there). K7 reads the open slots' value rows each round,
+// bound by bytes: sum over rounds of open rows x P x 4 bytes. At 4,096^2 a round's bid step reads at ~2.8
 // TB/s where each warp has at most one row; the two grid barriers (~2,100
 // cycles each at 132 blocks, against ~2,800 for a fenced volatile spin),
 // the seat step's chain of L2 reads and the price staging take the rest,
@@ -428,20 +420,6 @@ __global__ void __launch_bounds__(kThreads) unbounded_best_kernel(Prov prov, Req
   if (lane == 0) best[p] = bc < kHalfInfeasible ? bt : -1;
 }
 
-// ---------------------------------------------------------------- K10
-
-__global__ void __launch_bounds__(kThreads) cost_block_kernel(Prov prov, Req req, Aux aux,
-                                                              Weights w, int P, int K, int W,
-                                                              int n_chunks,
-                                                              float* __restrict__ cost) {
-  const int t = blockIdx.x / n_chunks;
-  const int p = (blockIdx.x % n_chunks) * kThreads + threadIdx.x;
-  if (p >= P) return;
-  const TaskRow tr = load_task(req, aux, t, K);
-  const ProvRow pr = load_prov(prov, aux, p);
-  cost[(size_t)t * P + p] = cell_cost<false>(pr, p, tr, t, req, K, W, w);
-}
-
 }  // namespace
 
 // Plain C interface (loaded with ctypes). Each returns the launch's
@@ -522,23 +500,5 @@ extern "C" int k8_unbounded_best(const void* const* prov_cols, const void* const
   unbounded_best_kernel<<<(int)((threads + kThreads - 1) / kThreads), kThreads, 0,
                           (cudaStream_t)stream>>>(prov, req, make_aux(aux, P, T), w, P, T, K, W,
                                                   best);
-  return (int)cudaGetLastError();
-}
-
-// K10: cost [T, P] f32, slot-major: the unjittered cost of every cell,
-// INFEASIBLE off the mask.
-extern "C" int k10_cost_block(const void* const* prov_cols, const void* const* req_cols, int P,
-                              int T, int K, int W, float w_price, float w_load, float w_prox,
-                              float w_prio, float* aux, float* cost, void* stream) {
-  if (P < 1 || T < 1 || K > kMaxOpts) return (int)cudaErrorInvalidValue;
-  const Weights w{w_price, w_load, w_prox, w_prio};
-  const Prov prov = make_prov(prov_cols);
-  const Req req = make_req(req_cols);
-  launch_prep(prov, req, w, P, T, aux, (cudaStream_t)stream);
-  const int n_chunks = (P + kThreads - 1) / kThreads;
-  const long long blocks = (long long)n_chunks * T;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  cost_block_kernel<<<(int)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      prov, req, make_aux(aux, P, T), w, P, K, W, n_chunks, cost);
   return (int)cudaGetLastError();
 }

@@ -154,16 +154,16 @@ def _lib(name: str) -> ctypes.CDLL:
             lib.k4_repair_tile_min.argtypes = [
                 _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P, _I, _F, _P, _P, _P,
             ]
-            for fn in ("k1_reverse", "k1_bidir", "k1_forward_rows", "k1_reverse_blocks",
-                       "k4_repair_tile_min"):
-                getattr(lib, fn).restype = _I
-        elif name == "repair":
             lib.k3_repair_enter.argtypes = [
                 _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P, _I, _U, _P, _P, _P, _P,
             ]
-            lib.k5_repair_refold.argtypes = [_P, _P, _I, _I, _I, _I, _P, _P, _P]
-            for fn in ("k3_repair_enter", "k5_repair_refold"):
+            lib.k10_cost_block.argtypes = [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P]
+            for fn in ("k1_reverse", "k1_bidir", "k1_forward_rows", "k1_reverse_blocks",
+                       "k4_repair_tile_min", "k3_repair_enter", "k10_cost_block"):
                 getattr(lib, fn).restype = _I
+        elif name == "repair":
+            lib.k5_repair_refold.argtypes = [_P, _P, _I, _I, _I, _I, _P, _P, _P]
+            lib.k5_repair_refold.restype = _I
         elif name == "dense":
             lib.k6_value_base.argtypes = [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P, _P]
             lib.k7_dense_auction.argtypes = [
@@ -171,9 +171,7 @@ def _lib(name: str) -> ctypes.CDLL:
             ]
             lib.k7_route.argtypes = [_I]
             lib.k8_unbounded_best.argtypes = [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P]
-            lib.k10_cost_block.argtypes = [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P]
-            for fn in ("k6_value_base", "k7_dense_auction", "k7_route", "k8_unbounded_best",
-                       "k10_cost_block"):
+            for fn in ("k6_value_base", "k7_dense_auction", "k7_route", "k8_unbounded_best"):
                 getattr(lib, fn).restype = _I
         elif name == "cleanup":
             lib.k9_greedy_cleanup.argtypes = [_P, _P, _I, _I, _P, _P, _I, _P, _P]
@@ -649,10 +647,10 @@ def candidates_reverse_blocks(ep, er, weights, tile: int, blk_p, blk_j, pool_t, 
 
 @_on_device
 def repair_enter(ep, er, weights, p_ids, thresh, offset: int = 0):
-    """K3 (``csrc/repair.cu``): per task, whether some dirty provider
-    (global ids ``p_ids``) has a feasible fresh cost <= ``thresh`` [T] (the
-    stored k-th forward cost), the jitter keyed on (row + ``offset``) mod
-    2^32. Returns enter [T] bool."""
+    """K3 (``csrc/candidates.cu``, a list launch of K1's layout): per task,
+    whether some dirty provider (global ids ``p_ids``) has a feasible fresh
+    cost <= ``thresh`` [T] (the stored k-th forward cost), the jitter keyed
+    on (row + ``offset``) mod 2^32. Returns enter [T] bool."""
     offset = jitter_offset(offset)
     dev, pcols, rcols, (P, T, K, W), w, aux = _k1_setup(ep, er, weights)
     p_ids = _ids(p_ids, P, dev, "repair_enter")
@@ -660,7 +658,7 @@ def repair_enter(ep, er, weights, p_ids, thresh, offset: int = 0):
         raise ValueError(f"repair_enter: thresh must be a [{T}] f32 tensor on {dev}")
     thresh = thresh.contiguous()
     enter = torch.empty(T, dtype=torch.uint8, device=dev)
-    _launch("repair_enter", _lib("repair").k3_repair_enter,
+    _launch("repair_enter", _lib("candidates").k3_repair_enter,
         pcols, rcols, P, T, K, W, *w, p_ids.data_ptr(), p_ids.numel(), offset,
         thresh.data_ptr(), aux.data_ptr(), enter.data_ptr(), _stream(enter),
     )
@@ -818,14 +816,14 @@ def greedy_cleanup(cand_provider, cand_cost, owner, p4t, open_idx):
 
 @_on_device
 def cost_block(ep, er, weights):
-    """K10 (``csrc/dense.cu``): the unjittered cost of every cell, INFEASIBLE
-    off the mask, slot-major: cost [T, P] f32 (``cost_matrix(ep, er,
-    weights)[0].T``)."""
+    """K10 (``csrc/candidates.cu``, a list launch of K1's layout): the
+    unjittered cost of every cell, INFEASIBLE off the mask, slot-major:
+    cost [T, P] f32 (``cost_matrix(ep, er, weights)[0].T``)."""
     if ep.num < 1 or er.num < 1:
         raise ValueError("K10 takes at least one provider and one task")
     dev, pcols, rcols, (P, T, K, W), w, aux = _k1_setup(ep, er, weights)
     cost = torch.empty((T, P), dtype=torch.float32, device=dev)
-    _launch("cost_block", _lib("dense").k10_cost_block,
+    _launch("cost_block", _lib("candidates").k10_cost_block,
         pcols, rcols, P, T, K, W, *w, aux.data_ptr(), cost.data_ptr(), _stream(cost),
     )
     return cost

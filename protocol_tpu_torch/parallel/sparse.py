@@ -30,12 +30,13 @@ These functions hold hand kernels for Hopper (``csrc/``); each dispatches
 on the device of its inputs, with no fallback: a CPU tensor takes the
 plain torch version beside it, a CUDA tensor the kernel.
 
-  repair_enter     -> K3 (``csrc/repair.cu``), the reference's
-                      ``_build_repair_enter``; at a jitter offset, a
-                      shard's part of ``_build_repair_enter_sharded``
+  repair_enter     -> K3 (``csrc/candidates.cu``, a list launch of K1's
+                      layout), the reference's ``_build_repair_enter``; at
+                      a jitter offset, a shard's part of
+                      ``_build_repair_enter_sharded``
   forward_rows     -> K1's forward launch (``csrc/candidates.cu``),
                       the selection of ``_build_repair_forward``
-  tile_min         -> K4 (``csrc/repair.cu``), the dirty-column cost block
+  tile_min         -> K4 (``csrc/candidates.cu``), the dirty-column cost block
                       of ``_build_repair_forward`` reduced to per-(provider,
                       tile) minima
   reverse_blocks   -> K1 reverse, blocks variant (``csrc/candidates.cu``),

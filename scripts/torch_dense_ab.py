@@ -1,15 +1,23 @@
 #!/usr/bin/env python3
-"""Time the dense auction K7 and the sequential greedy K12 on one NVIDIA
-card, for an A/B of two checkouts.
+"""Time the dense cost block K10, the dense auction K7 and the sequential
+greedy K12 on one NVIDIA card, for an A/B of two checkouts.
 
-    python3 scripts/torch_dense_ab.py [--root DIR] [--skip-large]
+    python3 scripts/torch_dense_ab.py [--root DIR] [--skip-large] [--k10-only]
 
 Imports ``protocol_tpu_torch`` and ``chip_smoke`` from ``--root`` (default:
 this checkout), so that one call can time a parent and a change in turn
 (parent, change, change, parent); works on checkouts from before the
-redesign of the two kernels too. Builds the kernels, then times, each the
-mean of three runs by CUDA events after a warm-up, with a sha256 of every
-output:
+redesign of the three kernels too. Builds the kernels, then times, each
+the mean of three runs by CUDA events after a warm-up (K10 of ten, and of
+50 launches alone, ``launch_ms``: the wrapper's host work left out), with
+a sha256 of every output:
+  - K10 on the colocation call (``chip_smoke.py``'s torch-route phase run:
+    the 65,536-node pool with its phase tasks, the cold refresh's
+    five-resource bin-pack call), on the wide run's phase 0 call (the
+    4,096-node pool with PHASE_WIDE's provider-spread tasks) and on the
+    backend's 4,096^2 block (the greedy RPC's market), with each refresh's
+    K10 in-place device ms and the sha256 of its matching; and K1's fused
+    cold pass at 65,536^2 (whose check and scoring K10 shares) as a guard;
   - K7 on the dense route's first-refresh inputs (``chip_smoke.py``'s
     4,096-node pool: the value rows of its first K6 call, eps 0.05, 300
     rounds) and on ``chip_smoke.mesh_dense_cost`` at 32,768^2 (eps 0.05,
@@ -21,6 +29,7 @@ output:
   - the dense route's two refreshes (the pool, then 1% of the nodes
     repriced and two tasks replaced): ``phase1_ms``, the refresh wall and
     K7's in-place device ms.
+``--k10-only`` leaves out K7 and K12.
 Prints the card's name and power limit and, last, one JSON line. Exits
 non-zero without a CUDA device.
 """
@@ -44,6 +53,33 @@ def card_line() -> str:
         ).stdout.strip().splitlines()[0]
     except (OSError, IndexError, subprocess.SubprocessError):
         return "nvidia-smi unavailable"
+
+
+def launch_ms(torch, kernels, call, reps: int) -> float:
+    """Device ms of the launch a wrapper call makes, alone: ``call()`` runs
+    the wrapper once, and its C entry, once launched, is launched ``reps``
+    times more back to back between two CUDA events, while the wrapper's
+    buffers are alive (every entry timed here rewrites the same outputs).
+    Leaves out the wrapper's host checks and syncs."""
+    orig, got = kernels._launch, {}
+
+    def replay(key, fn, *args, what=None):
+        orig(key, fn, *args, what=what)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            kernels._check(fn(*args), key)
+        end.record()
+        end.synchronize()
+        got["ms"] = start.elapsed_time(end) / reps
+
+    kernels._launch = replay
+    try:
+        call()
+    finally:
+        kernels._launch = orig
+    return got["ms"]
 
 
 def sha(*tensors) -> str:
@@ -89,10 +125,74 @@ def backend_market(cs, seed: int, n: int, dev):
     return providers_from_numpy(ep, dev), requirements_from_numpy(er, dev)
 
 
+def matching_sha(matcher, store) -> str:
+    """sha256 of a matcher's single and multi-slot assignments, each task by
+    its name (task ids are drawn anew each run)."""
+    name = lambda t: store.task_store.get_task(t).name  # noqa: E731
+    return hashlib.sha256(repr((
+        sorted((a, name(t)) for a, t in matcher._assignment.items()),
+        sorted((a, sorted(map(name, ts))) for a, ts in matcher._assignment_multi.items()),
+    )).encode()).hexdigest()[:16]
+
+
+def phase_k10_calls(cs, kernels, tb, torch, dev) -> tuple[dict, dict]:
+    """K10's recorded calls from two of ``chip_smoke.run_phases``'s cold
+    refreshes: the torch route's colocation call and the wide run's phase
+    0 call. Returns ({label: (args, out)}, {label: refresh summary})."""
+    import numpy as np
+
+    runs = {
+        "colocation": (cs.ARENA_POOL, cs.SEED + 30,
+                       lambda: cs.phase_tasks(np.random.default_rng(cs.SEED + 32), *cs.PHASE_MIX),
+                       {"native_engine": "torch"}),
+        "wide_phase0": (cs.DENSE_POOL, cs.SEED + 20,
+                        lambda: cs.phase_tasks(np.random.default_rng(cs.SEED + 24), 0,
+                                               cs.PHASE_WIDE[0], 0, replicas=cs.PHASE_WIDE[1]),
+                        {}),
+    }
+    # load K10's library first, so that no refresh's first launch loads it
+    from protocol_tpu_torch.ops.cost import CostWeights
+
+    kernels.cost_block(*backend_market(cs, cs.SEED, 64, dev), CostWeights())
+    picked, summary = {}, {}
+    for label, (pool, seed, extra, kw) in runs.items():
+        nodes, tasks = cs.make_pool(np.random.default_rng(seed), *pool, sites=cs.SITES)
+        tasks += extra()
+        store = cs.mem_store(nodes, tasks)
+        matcher = tb.TorchBatchMatcher(store, device=dev, **kw)
+        torch.cuda.synchronize()
+        kernels.time_in_place(True)
+        calls, originals = cs.record_calls(kernels, ("cost_block", "binpack_ffd"))
+        try:
+            matcher.refresh()
+        finally:
+            for name, fn in originals.items():
+                setattr(kernels, name, fn)
+        in_place = kernels.in_place_ms()
+        kernels.time_in_place(False)
+        if label == "colocation":
+            at = [i for i, (a, _, _) in enumerate(calls["binpack_ffd"]) if a[1].shape[1] == 5]
+            at = at[0]
+        else:
+            at = 0  # phase 0 runs first
+        args, _, out = calls["cost_block"][at]
+        picked[label] = (args, out)
+        summary[label] = {
+            "k10_calls": [list(c[2].shape) for c in calls["cost_block"]],
+            "k10_in_place": in_place.get("cost_block"),
+            "matching_sha": matching_sha(matcher, store),
+        }
+        print(f"{label} refresh: {json.dumps(summary[label])}", flush=True)
+        del matcher, store, calls
+        torch.cuda.empty_cache()
+    return picked, summary
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--skip-large", action="store_true", help="leave out K7 at 32,768^2")
+    ap.add_argument("--k10-only", action="store_true", help="leave out K7 and K12")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
 
@@ -142,6 +242,45 @@ def main() -> int:
         print(f"K12 {label}: {json.dumps(r)}", flush=True)
         return r
 
+    # ---- K10: the phase runs' calls and the backend's block; K1's cold
+    # pass as the guard
+    import numpy as np
+
+    from protocol_tpu_torch.ops import sparse as sp
+    from protocol_tpu_torch.trace.synth import synth_providers, synth_requirements
+
+    def k10(label, ep, er, w):
+        got = kernels.cost_block(ep, er, w)
+        r = {"T": got.shape[0], "P": got.shape[1], "finite": int((got < 5e8).sum()),
+             "ms": cuda_ms(lambda: kernels.cost_block(ep, er, w), 10),
+             "launch_ms": launch_ms(torch, kernels, lambda: kernels.cost_block(ep, er, w), 50),
+             "sha256": sha(got)}
+        print(f"K10 {label}: {json.dumps(r)}", flush=True)
+        return r
+
+    picked, out["phase_refreshes"] = phase_k10_calls(cs, kernels, tb, torch, dev)
+    for label, (a10, _) in picked.items():
+        out[f"k10_{label}"] = k10(label, *a10)
+    del picked
+    ep, er = backend_market(cs, cs.SEED + 50, cs.BACKEND_N, dev)
+    out["k10_backend"] = k10("backend", ep, er, CostWeights())
+    ep = synth_providers(np.random.default_rng(2), cs.N, device=dev)
+    er = synth_requirements(np.random.default_rng(3), cs.N, device=dev)
+
+    def cold():
+        return sp.candidates_topk_reverse(ep, er, CostWeights(), k=64, tile=1024, reverse_r=8,
+                                          with_pools=True)
+
+    out["k1_cold_pass"] = {"ms": cuda_ms(cold), "launch_ms": launch_ms(torch, kernels, cold, 5),
+                           "sha256": sha(*cold())}
+    print(f"K1 cold pass {cs.N}^2 (guard): {json.dumps(out['k1_cold_pass'])}", flush=True)
+    del ep, er
+    torch.cuda.empty_cache()
+    if args.k10_only:
+        print(f"card: {card}", flush=True)
+        print(json.dumps(out), flush=True)
+        return 0
+
     # ---- K7: the dense route's first-refresh inputs, then 32,768^2
     (ep6, er6, w6), matcher, store = dense_route_inputs(cs, kernels, tb, dev)
     vb, feas = kernels.dense_value_base(ep6, er6, w6)
@@ -149,8 +288,6 @@ def main() -> int:
     del vb, feas
 
     # ---- the dense route's refreshes: phase1_ms and K7 in place
-    import numpy as np
-
     rng = np.random.default_rng(cs.SEED + 21)
     out["dense_refreshes"] = []
     for step in ("pool", "churn"):
@@ -200,6 +337,7 @@ def main() -> int:
     _, rcost_tp, colmax, _, _ = kernels.sinkhorn(cost_tp, cs.SINKHORN_EPS, cs.SINKHORN_ITERS)
     order = torch.sort(-colmax, stable=True).indices.to(torch.int32)
     out["k12_sinkhorn_rounding"] = k12("sinkhorn rounding", rcost_tp, order)
+    print(f"card: {card}", flush=True)
     print(json.dumps(out), flush=True)
     return 0
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the warm repair's reverse-scope kernels of the PyTorch port, K1's
-reverse blocks and K4 (the dirty-tile minima), on one NVIDIA card, for an
-A/B of two checkouts.
+"""Time the warm repair's list launches of the PyTorch port, K1's reverse
+blocks, K4 (the dirty-tile minima) and K3 (the enter scan), on one NVIDIA
+card, for an A/B of two checkouts.
 
     python3 scripts/torch_repair_ab.py [--root DIR] [--reps 5]
 
@@ -21,14 +21,19 @@ tile 1,000 (a tile that is no multiple of a power-of-two row step):
     ``parallel/sparse.py::repair_topk_bidir``, recording the arguments of
     each one's reverse-blocks launch and the first one's K4 launch, with
     every kernel's device ms in place (``kernels.time_in_place``);
-  - with CUDA events over ``--reps`` runs after a warm-up: the reverse
+  - with CUDA events over ``--reps`` runs after a warm-up, and over 4 x
+    ``--reps`` launches alone (``launch_ms``, the wrapper's host checks and
+    syncs left out): the reverse
     blocks on both recorded block sets and K4 on the recorded dirty ids;
-    at 65,536^2 also the cold pass (K1's fused launch, whose check and
-    scoring the list launches share).
+    K3 on the provider-churn repair's recorded enter call (its dirty
+    providers against every task) and, at 65,536^2, on the last of four
+    shards of those tasks at its jitter offset (16,384 tasks at 49,152,
+    the sharded enter scan); at 65,536^2 also the cold pass (K1's fused
+    launch, whose check and scoring the list launches share).
 
 Every output is printed with a sha256 of its bytes (the pools after each
-blocks launch from the cold pools, the tile minima, the repaired parts),
-so the two sides compare bit for bit. Prints the card's name and power
+blocks launch from the cold pools, the tile minima, the enter flags, the
+repaired parts), so the two sides compare bit for bit. Prints the card's name and power
 limit and, last, one JSON line. Exits non-zero without a CUDA device.
 """
 
@@ -44,6 +49,7 @@ import sys
 
 SHAPES = ((65_536, 65_536, 1_024), (24_576, 20_000, 1_000))  # (P, T, tile)
 CHURN = 0.01
+SHARDS = 4  # the sharded enter scan: the last shard's tasks at its offset
 
 
 def card_line() -> str:
@@ -69,6 +75,33 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def launch_ms(torch, kernels, call, reps: int) -> float:
+    """Device ms of the launch a wrapper call makes, alone: ``call()`` runs
+    the wrapper once, and its C entry, once launched, is launched ``reps``
+    times more back to back between two CUDA events, while the wrapper's
+    buffers are alive (every entry timed here rewrites the same outputs).
+    Leaves out the wrapper's host checks and syncs."""
+    orig, got = kernels._launch, {}
+
+    def replay(key, fn, *args, what=None):
+        orig(key, fn, *args, what=what)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            kernels._check(fn(*args), key)
+        end.record()
+        end.synchronize()
+        got["ms"] = start.elapsed_time(end) / reps
+
+    kernels._launch = replay
+    try:
+        call()
+    finally:
+        kernels._launch = orig
+    return got["ms"]
+
+
 def sha(a) -> str:
     return hashlib.sha256(a.contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
 
@@ -82,6 +115,21 @@ def ptxas_lines(log: str) -> list[str]:
         elif name and ("registers" in line or "spill" in line or "stack frame" in line):
             out.append(f"{name}: {line.split(':', 1)[-1].strip()}")
     return out
+
+
+def enter_ab(torch, kernels, sp, ep, er, w, p_ids, thresh, offset: int, reps: int,
+             label: str) -> dict:
+    """K3 on one call: its flags' sha256, the mean ms of ``reps`` wrapper
+    calls (its id checks included) and of its launch alone."""
+    def call():
+        return kernels.repair_enter(ep, er, w, p_ids, thresh, offset=offset)
+
+    got = call()
+    r = {"providers": p_ids.numel(), "tasks": er.num, "offset": offset,
+         "flagged": int(got.sum()), "sha": sha(got), "ms": cuda_ms(torch, call, reps),
+         "launch_ms": launch_ms(torch, kernels, call, 4 * reps)}
+    print(f"{label}: K3 {json.dumps(r)}", flush=True)
+    return r
 
 
 def main() -> int:
@@ -114,7 +162,8 @@ def main() -> int:
 
     w = CostWeights()
     recorded: dict = {}
-    originals = {n: getattr(kernels, n) for n in ("candidates_reverse_blocks", "repair_tile_min")}
+    originals = {n: getattr(kernels, n)
+                 for n in ("candidates_reverse_blocks", "repair_tile_min", "repair_enter")}
 
     def recording(name):
         def call(*a, **kw):
@@ -136,7 +185,9 @@ def main() -> int:
         fp, fc, _, _, pt, pc = cold()
         if P == T:
             res["cold_pass_ms"] = cuda_ms(torch, cold, 3)
-            print(f"{key} cold pass (K1 fused): {res['cold_pass_ms']:.3f} ms", flush=True)
+            res["cold_launch_ms"] = launch_ms(torch, kernels, cold, 5)
+            print(f"{key} cold pass (K1 fused): {res['cold_pass_ms']:.3f} ms, launch "
+                  f"{res['cold_launch_ms']:.3f} ms", flush=True)
         rng = np.random.default_rng(7)
         dirty_t = np.sort(rng.choice(T, int(T * CHURN), replace=False))
         ram = er.ram_mb.clone()
@@ -178,19 +229,36 @@ def main() -> int:
             r["blocks"] = b_p.numel()
             r["blocks_tiles"] = int(torch.unique(b_j).numel())
             r["blocks_sha"] = {"pool_t": sha(pools[0]), "pool_c": sha(pools[1])}
-            r["blocks_ms"] = cuda_ms(torch, lambda: kernels.candidates_reverse_blocks(
-                b_ep, b_er, b_w, b_tile, b_p, b_j, *pools), args.reps)
+            def blocks():
+                kernels.candidates_reverse_blocks(b_ep, b_er, b_w, b_tile, b_p, b_j, *pools)
+
+            r["blocks_ms"] = cuda_ms(torch, blocks, args.reps)
+            r["blocks_launch_ms"] = launch_ms(torch, kernels, blocks, 4 * args.reps)
             print(f"{key} {label}: reverse blocks {r['blocks']} blocks in {r['blocks_tiles']} "
-                  f"tiles: {r['blocks_ms']:.4f} ms {json.dumps(r['blocks_sha'])}", flush=True)
+                  f"tiles: {r['blocks_ms']:.4f} ms, launch {r['blocks_launch_ms']:.4f} ms "
+                  f"{json.dumps(r['blocks_sha'])}", flush=True)
             if "repair_tile_min" in recorded:
                 (m_ep, m_er, m_w, m_ids, m_tile, m_pad), = recorded["repair_tile_min"]
                 r["tile_min_rows"] = m_ids.numel()
                 r["tile_min_sha"] = sha(kernels.repair_tile_min(m_ep, m_er, m_w, m_ids, m_tile,
                                                                 m_pad))
-                r["tile_min_ms"] = cuda_ms(torch, lambda: kernels.repair_tile_min(
-                    m_ep, m_er, m_w, m_ids, m_tile, m_pad), args.reps)
+                def tile_min():
+                    kernels.repair_tile_min(m_ep, m_er, m_w, m_ids, m_tile, m_pad)
+
+                r["tile_min_ms"] = cuda_ms(torch, tile_min, args.reps)
+                r["tile_min_launch_ms"] = launch_ms(torch, kernels, tile_min, 4 * args.reps)
                 print(f"{key} {label}: K4 over {r['tile_min_rows']} dirty tasks: "
-                      f"{r['tile_min_ms']:.4f} ms {r['tile_min_sha']}", flush=True)
+                      f"{r['tile_min_ms']:.4f} ms, launch {r['tile_min_launch_ms']:.4f} ms "
+                      f"{r['tile_min_sha']}", flush=True)
+            if "repair_enter" in recorded:
+                (n_ep, n_er, n_w, n_ids, n_th), = recorded["repair_enter"]
+                r["enter"] = enter_ab(torch, kernels, sp, n_ep, n_er, n_w, n_ids, n_th, 0,
+                                      args.reps, f"{key} {label}")
+                if P == T:
+                    lo = T // SHARDS * (SHARDS - 1)
+                    r["enter_shard"] = enter_ab(
+                        torch, kernels, sp, n_ep, sp.slice_requirements(n_er, lo, T - lo), n_w,
+                        n_ids, n_th[lo:].contiguous(), lo, args.reps, f"{key} {label} shard")
             print(f"{key} {label}: in place {json.dumps(r['in_place'])} repair_blocks "
                   f"{r['repair_blocks']} parts {json.dumps(r['parts_sha'])}", flush=True)
         del ep, er, fp, fc, pt, pc, ep_prov, er_req

@@ -19,6 +19,7 @@ from protocol_tpu.ops.binpack import ffd_demand_order as j_order
 from protocol_tpu.ops.cost import INFEASIBLE
 from protocol_tpu.ops.cost import CostWeights as JCostWeights
 from protocol_tpu.sched.tpu_backend import _cost_only
+from protocol_tpu.trace import synth as j_synth
 from protocol_tpu_torch.ops.binpack import (
     assign_binpack_ffd,
     binpack_oracle,
@@ -30,7 +31,7 @@ from protocol_tpu_torch.sched.torch_backend import cost_only
 from tests.test_binpack import check_feasible, random_instance
 from tests.test_torch_kernels_cuda import BINPACK_KINDS, binpack_case, binpack_limit_L
 from tests.test_torch_dense import markets
-from tests.test_torch_encoding_cost import COST_ATOL, to_port
+from tests.test_torch_encoding_cost import COST_ATOL, encode_random, to_port
 
 
 def both(cost, demand, capacity, **kw):
@@ -181,10 +182,21 @@ def test_ffd_order_matches_the_reference(seed):
     assert ffd_demand_order(torch.tensor([[1.0, 1], [5, 5], [3, 3]])).tolist() == [1, 2, 0]
 
 
-@pytest.mark.parametrize("kind", ["synth", "encoded", "skew"])
+def edge_markets():
+    """The shapes K10's card tests use at their edges: one provider, one
+    slot, 65 providers (a lane pair and one more), every cell infeasible."""
+    yield "p1", encode_random(21, 1, 40)
+    yield "t1", encode_random(22, 70, 1)
+    yield "p65", (j_synth.synth_providers(np.random.default_rng(23), 65),
+                  j_synth.synth_requirements(np.random.default_rng(24), 30))
+    ep, er = encode_random(25, 50, 20)
+    yield "infeasible", (ep, dataclasses.replace(er, valid=np.zeros_like(np.asarray(er.valid))))
+
+
+@pytest.mark.parametrize("kind", ["synth", "encoded", "skew", "p1", "t1", "p65", "infeasible"])
 @pytest.mark.parametrize("proximity", [0.0, 0.001])
 def test_cost_only_matches_the_reference(kind, proximity):
-    ep, er = dict(markets())[kind]
+    ep, er = {**dict(markets()), **dict(edge_markets())}[kind]
     tp, tr = to_port(ep, er)
     jw = JCostWeights(priority=1.0, proximity=proximity)
     got = cost_only(tp, tr, CostWeights(**dataclasses.asdict(jw))).numpy()

@@ -776,6 +776,46 @@ def test_cost_block_matches_plain_bits(card, proximity):
     assert same_bits(got.contiguous(), cost_matrix(ep, er, w)[0])
 
 
+# K10's cases: name -> (P, T). The seams of its list launch: 256 providers
+# a block, two a lane (65 and 300 straddle a lane pair and a chunk), slot
+# rows staged 8 a step (13), single rows and columns; and the two extremes
+# of the check, every cell infeasible and every cell feasible.
+K10_CASES = {"p1": (1, 40), "t1": (70, 1), "p65": (65, 30), "p300": (300, 50), "t13": (500, 13),
+             "infeasible": (300, 40), "feasible": (300, 40)}
+
+
+@pytest.mark.parametrize("proximity", [0.0, 0.001])
+@pytest.mark.parametrize("name", sorted(K10_CASES))
+def test_cost_block_cases_match_plain_bits(card, name, proximity):
+    """K10 against cost_matrix, bit for bit, on each of K10_CASES at both
+    weights."""
+    import dataclasses
+
+    from protocol_tpu_torch import kernels
+    from protocol_tpu_torch.ops.cost import cost_matrix
+
+    P, T = K10_CASES[name]
+    ep = synth_providers(np.random.default_rng(41), P, device=card)
+    er = synth_requirements(np.random.default_rng(42), T, device=card)
+    if name == "infeasible":
+        er = dataclasses.replace(er, valid=torch.zeros_like(er.valid))
+    if name == "feasible":  # no limit on either side: every valid pair is compatible
+        ep = dataclasses.replace(ep, valid=torch.ones_like(ep.valid))
+        er = dataclasses.replace(
+            er, valid=torch.ones_like(er.valid), cpu_required=torch.zeros_like(er.cpu_required),
+            cpu_cores=torch.full_like(er.cpu_cores, -1), ram_mb=torch.full_like(er.ram_mb, -1),
+            storage_gb=torch.full_like(er.storage_gb, -1),
+            gpu_opt_valid=torch.zeros_like(er.gpu_opt_valid))
+    w = CostWeights(priority=1.0, proximity=proximity)
+    got = kernels.cost_block(ep, er, w)
+    ref = cost_matrix(ep, er, w)[0]
+    assert got.shape == (T, P) and same_bits(got.T.contiguous(), ref)
+    if name == "infeasible":
+        assert bool((got == 1e9).all())
+    if name == "feasible":
+        assert bool((got < 5e8).all())
+
+
 # ---------------- K11's cases (shared with tests/test_torch_binpack.py) ----------------
 # Each case is a bin-pack call whose inputs stress one seam of K11's
 # chain: the ring of column slots (a visit order far longer than the ring,
@@ -1445,6 +1485,53 @@ def test_enter_kernel_at_a_jitter_offset_matches_plain_bits(card):
         assert same_bits(got, ps._enter_plain(ep, er_s, w, p_ids, thresh, off))
         assert same_bits(got, kernels.repair_enter(ep, er, w, p_ids, fc[:, -1].contiguous())
                          [off:off + 1024])
+
+
+# K3's cases: name -> (P, T, dirty ids (an int: that many drawn at
+# random), jitter offset). The seams of its list launch: 256 dirty ids a
+# block (1, 257 and 700 of them), repeats, task counts that are no multiple
+# of the 8-row step, an offset whose keys reach 2^31 - 1.
+K3_CASES = {
+    "one": (500, 1000, [137], 0),
+    "ids_257": (3000, 512, 257, 0),
+    "ids_700": (3000, 512, 700, 0),
+    "duplicates": (800, 600, [5, 5, 9, 300, 300, 300, 799, 5], 0),
+    "t13": (300, 13, 40, 0),
+    "t5": (300, 5, 40, 0),
+    "offset_top": (600, 700, 60, (1 << 31) - 700),
+}
+
+
+@pytest.mark.parametrize("name", sorted(K3_CASES))
+def test_enter_kernel_cases_match_plain_bits(card, name):
+    """K3 against its plain version, bit for bit at proximity 0, on each of
+    K3_CASES, with thresholds that try the test's edges: even rows at their
+    least fresh cost exactly (``<=`` flags the tie), odd rows one ulp below
+    it, every fifth row INFEASIBLE, every seventh NaN (flags nothing)."""
+    from protocol_tpu_torch import kernels
+    from protocol_tpu_torch.ops.encoding import gather_providers
+    from protocol_tpu_torch.parallel import sparse as ps
+
+    P, T, ids, offset = K3_CASES[name]
+    ep = synth_providers(np.random.default_rng(31), P, device=card)
+    er = synth_requirements(np.random.default_rng(32), T, device=card)
+    w = CostWeights(proximity=0.0)
+    if isinstance(ids, int):
+        ids = np.random.default_rng(33).choice(P, ids, replace=False)
+    p_ids = torch.tensor(np.asarray(ids), dtype=torch.int64, device=card)
+    t_ids = torch.arange(offset, offset + T, device=card)
+    best = ps._jittered(gather_providers(ep, p_ids), er, w, p_ids, t_ids).min(dim=0).values
+    thresh = best.clone()
+    thresh[1::2] = torch.nextafter(best[1::2], torch.tensor(-float("inf"), device=card))
+    thresh[::5] = 1e9
+    thresh[::7] = float("nan")
+    got = kernels.repair_enter(ep, er, w, p_ids, thresh, offset=offset)
+    assert same_bits(got, ps._enter_plain(ep, er, w, p_ids, thresh, offset))
+    ties = torch.zeros(T, dtype=torch.bool, device=card)
+    ties[::2] = True
+    ties[::5] = ties[::7] = False
+    feasible = best < 5e8
+    assert bool(got[ties & feasible].all()) and not bool(got[::7].any())
 
 
 @pytest.mark.parametrize("d_fold", [2, 4, 8])

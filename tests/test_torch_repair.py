@@ -162,6 +162,53 @@ def test_enter_plain_matches_reference_enter_scan(kind):
     assert got.any()
 
 
+@pytest.mark.parametrize("case", ["ties", "duplicates", "infeasible_thresh", "offset"])
+def test_enter_plain_matches_reference_on_edge_cases(case):
+    """The plain enter scan on the seams K3's card tests use: thresholds set
+    exactly to a row's least fresh cost (``<=`` flags the tie) or one ulp
+    below it, repeated dirty ids, INFEASIBLE thresholds, and a shard's rows
+    at their jitter offset (the reference's scan over every row, sliced)."""
+    from protocol_tpu_torch.ops.encoding import gather_providers
+
+    P, T = 80, 96
+    ep, er = marketplace("synth", P, T, 11)
+    jw, tw = ZERO_PROX
+    fwd_c = np.asarray(j_candidates_topk_reverse(ep, er, jw, k=16, tile=12, reverse_r=8)[1])
+    dirty_p = np.array([4, 4, 33, 79, 79, 79] if case == "duplicates" else [4, 33, 79], np.int64)
+    ep2, _ = bump(ep, er, dirty_p, [])
+    tp, tr = to_port(ep2, er)
+    ids = torch.tensor(dirty_p)
+    fresh = ps._jittered(gather_providers(tp, ids), tr, tw, ids, torch.arange(T)).numpy()
+    best = fresh.min(axis=0)
+    thresh = fwd_c[:, -1].copy()
+    if case == "ties":
+        thresh[::2] = best[::2]
+        thresh[1::2] = np.nextafter(best[1::2], np.float32(-np.inf))
+    elif case == "infeasible_thresh":
+        thresh[::3] = np.float32(1e9)
+    ep_dirty = EncodedProviders(**{f.name: jnp.asarray(np.asarray(getattr(ep2, f.name))[dirty_p])
+                                   for f in dataclasses.fields(ep2)})
+    n = dirty_p.size
+    run = j_build_repair_enter(dataclasses.astuple(jw), 12, 8, n, jax.tree.structure(ep_dirty),
+                               jax.tree.structure(er))
+    ref = np.asarray(run(ep_dirty, jnp.asarray(dirty_p.astype(np.uint32)), jnp.ones(n, bool),
+                         jax.tree.map(jnp.asarray, er), jnp.asarray(thresh)))
+    if case == "offset":
+        off = 48
+        tr_s = ps.slice_requirements(tr, off, T - off)
+        got = ps.repair_enter(tp, tr_s, tw, ids, torch.tensor(thresh[off:]), offset=off)
+        np.testing.assert_array_equal(got.numpy(), ref[off:])
+        return
+    got = ps.repair_enter(tp, tr, tw, ids, torch.tensor(thresh)).numpy()
+    np.testing.assert_array_equal(got, ref)
+    feasible = best < 5e8
+    if case == "ties":  # every tie flags; one ulp below flags nothing
+        assert got[::2][feasible[::2]].all() and feasible[::2].any()
+        assert not got[1::2].any()
+    if case == "infeasible_thresh":
+        np.testing.assert_array_equal(got[::3], feasible[::3])
+
+
 def test_refold_plain_matches_reference_refold():
     ep, er = synth(48, 64, 9)
     _, _, rev_t, rev_c, pt, pc = (np.asarray(a) for a in j_candidates_topk_reverse(
