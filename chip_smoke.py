@@ -3468,12 +3468,12 @@ def main() -> int:
         rows.append(row(name, src, repl, err, ms, plain, bytes_, ops))
         print(f"{name} timed on its first-call arguments: {work}", flush=True)
     rows += [
-        row("dense_value_base", SRC_DENSE, "protocol_tpu/sched/tpu_backend.py:172", 0.0,
+        row("dense_value_base", SRC_K1, "protocol_tpu/sched/tpu_backend.py:172", 0.0,
             k6_ms, k6_plain_ms, k6_bytes, k6_ops),
         dict(row("dense_auction", SRC_DENSE, "protocol_tpu/ops/assign.py:176", 0.0, k7_ms,
                  k7_plain_ms, k7_bytes, k7_ops),
              price_route=kernels.dense_route(Pd), us_per_round=k7_ms * 1e3 / max(k7_rounds, 1)),
-        row("unbounded_best", SRC_DENSE, "protocol_tpu/sched/tpu_backend.py:189", 0.0, k8_ms,
+        row("unbounded_best", SRC_K1, "protocol_tpu/sched/tpu_backend.py:189", 0.0, k8_ms,
             k8_plain_ms, k8_bytes, k8_ops),
         k9_row,
     ] + phase_rows + backend_rows + stage_rows + mesh_rows + dense_rows + sink_rows

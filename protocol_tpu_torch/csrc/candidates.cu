@@ -19,7 +19,7 @@
 //            blocked Sinkhorn's biased rounding (kBias);
 //   reverse  (k1_reverse, kRev) the reverse selection alone (the cache's
 //            uncovered rows, the matcher's colocation phase at rt > 1).
-// Four list launches of a second kernel template, list_kernel<kMode>:
+// Six list launches of a second kernel template, list_kernel<kMode>:
 //   blocks   (k1_reverse_blocks; replaces parallel/sparse.py
 //            _build_repair_tile at rt = 1) rescores flagged (provider,
 //            tile) blocks into the pools in place, each block's first
@@ -36,11 +36,19 @@
 //   K10      (k10_cost_block; replaces sched/tpu_backend.py _cost_only,
 //            the unjittered cost_matrix of the matcher's phases 0 and 0.5
 //            and the greedy and sinkhorn RPCs) the slot-major [T, P] cost
-//            block.
+//            block;
+//   K6       (k6_value_base; replaces sched/tpu_backend.py _solve_bounded's
+//            cost_matrix + with_tie_jitter and the value_base /
+//            task_feasible of ops/assign.py assign_auction) the dense
+//            auction's slot-major [T, P] value rows and each slot's
+//            feasibility;
+//   K8       (k8_unbounded_best; replaces sched/tpu_backend.py
+//            _solve_unbounded) each provider's first argmin over the tasks
+//            of the unjittered cost.
 // The first three run the warm repair (parallel/sparse.py:
 // repair_topk_bidir). All hold a block's providers fixed and stream task
 // rows past them; the check and the scoring of a warp's step are
-// k1_kernel's (score_step, unjittered for K10).
+// k1_kernel's (score_step, unjittered for K10 and K8).
 //
 // Layout. A block is kWarps warps in G groups of S warps (G * S = kWarps,
 // S <= 2); a group owns rw <= 8 task rows, staged once in shared memory
@@ -88,11 +96,15 @@
 // below +inf, the parent's strict `<` from +inf (no NaN or +inf cell
 // wins; a block without a key decodes to (+inf, -1), as before), so its
 // key order over a tile's cells is `<` with the lowest task first among
-// ties, the first argmin, however the cells are split. K4 needs no key:
+// ties, the first argmin, however the cells are split. K8 keys only the
+// cells below INFEASIBLE/2 (a provider without one decodes to -1, as the
+// reference's test of its argmin's cost; a NaN never wins), with -0 folded
+// to +0 first: the unjittered cost can be -0, and the reference's argmin
+// holds -0 and +0 equal and takes the lower task. K4 needs no key:
 // fminf from the pad is exact in any order of the cells, as no cost is -0
-// and fminf passes over a NaN as the parent's did. Nor do K3, an OR of
-// per-cell tests (a NaN cost or threshold flags nothing, as before), and
-// K10, which stores each cell's cost once.
+// and fminf passes over a NaN as the parent's did. Nor do K3 and K6's
+// feasibility, ORs of per-cell tests (a NaN cost or threshold flags
+// nothing), and K10 and K6's rows, which store each cell once.
 //
 // What bounds it on the H100: operations. Every cell pays the capability
 // check, a feasible cell (22% at the main path's 65,536^2) the haversine
@@ -108,12 +120,15 @@
 // the scoring and the selection, then the block barrier of a chunk. The
 // list launches are bound the same way over far fewer cells (their work
 // is the flagged blocks', the dirty rows' or the dirty providers' cells;
-// K10's, every cell of a gathered block, whose 4 bytes a cell stored take
-// ~5% of its time at 4,096^2); the kernels they replaced walked a block's
-// (or a provider's, or a task's) cells one at a time a thread, thousands
-// of cycles a cell with few warps an SM, so a launch lasted one thread's
-// walk. A list launch spreads the cells over 16 or 32 blocks of 4 warps an
-// SM (list_target) and pays K1's check and scoring.
+// K10's and K6's, every cell of a gathered block, whose 4 bytes a cell
+// stored take ~5% of K10's time at 4,096^2; K8's, every cell of a gathered
+// block, with a key a provider flushed a block); the kernels they replaced
+// walked a block's (or a provider's, or a task's) cells one at a time a
+// thread, thousands of cycles a cell with few warps an SM, so a launch
+// lasted one thread's walk, or scored each cell in a thread of its own
+// from unstaged rows (K10, K6). A list launch spreads the cells over 16 or
+// 32 blocks of 4 warps an SM (list_target) and pays K1's check and
+// scoring.
 //
 // Numerics: built with -fmad=false and no fast-math, so every f32
 // operation rounds once, in the reference's order, as torch's eager ops
@@ -599,7 +614,7 @@ __global__ void __launch_bounds__(128) fold_kernel(const u64* __restrict__ rkey,
   }
 }
 
-// ---- the list launches: the repair's reverse blocks, K4, K3 and K10 ----
+// ---- the list launches: the repair's reverse blocks, K4, K3, K10, K6, K8 ----
 //
 // A block holds kListProv providers, 64 a warp (two a lane), for the whole
 // launch, and streams task rows past them kMaxRows a step, staged once in
@@ -628,8 +643,22 @@ __global__ void __launch_bounds__(128) fold_kernel(const u64* __restrict__ rkey,
 //     chunks, the rows a contiguous range of the slots, scored without
 //     jitter; each warp stores its step's cells from its cost tile, a row
 //     as two 128-byte runs of cost[t * P + p].
+//   value rows (K6, kListValue): K10's providers and ranges, scored with
+//     the jitter (keyed on the slot's row); each warp stores its step's
+//     cells as K10 does, -c where c < INFEASIBLE/2, else -1e18, and a row's
+//     feasibility is K3's hit: one ballot over the lanes' c < INFEASIBLE/2,
+//     the warps met in the shared word, 1s stored into task_feasible
+//     zeroed before the launch (an OR over the chunks' blocks).
+//   unbounded best (K8, kListBest): K10's providers and ranges, scored
+//     without jitter. Each lane keeps its two providers' least (cost, task)
+//     key over the range's feasible cells, the cost with -0 folded to +0;
+//     the ranges meet in a [P] key buffer set to all ones before the
+//     launch, by 64-bit atomicMin, and a decode launch writes the task, -1
+//     where no key came.
 constexpr int kListProv = kWarps * kStep;  // providers (or flagged entries) a block
-constexpr int kListBlocks = 0, kListTileMin = 1, kListEnter = 2, kListCost = 3;
+constexpr int kListBlocks = 0, kListTileMin = 1, kListEnter = 2, kListCost = 3, kListValue = 4,
+              kListBest = 5;
+constexpr float kNegValue = -1e18f;  // K6's value where the cost is >= INFEASIBLE/2 (_NEG)
 
 struct ListArgs {
   Prov prov;
@@ -643,20 +672,20 @@ struct ListArgs {
   const int32_t* blk_j;
   const int32_t* lo;
   int n_blocks, slice;
-  u64* rkey;
+  u64* rkey;             // blocks: [n_blocks]; K8: [P]
   // K4: the ascending dirty ids, the ranges over them, the pad, the output
   const int32_t* t_ids;
   int n_t, ranges;
   float pad;
   float* min_tile;
-  // K3 and K10: T rows in ranges of `slice`; the providers p_ids[0, n_p)
-  // (K3) or 0..P-1 (K10, n_p = P)
+  // K3, K10, K6 and K8: T rows in ranges of `slice`; the providers
+  // p_ids[0, n_p) (K3) or 0..P-1 (the others, n_p = P)
   int T, n_p;
   const int32_t* p_ids;
   uint32_t offset;       // K3: the jitter offset
   const float* thresh;   // K3: [T]
-  uint8_t* enter;        // K3: [T], zero before the launch
-  float* cost;           // K10: [T, P]
+  uint8_t* enter;        // K3: enter, K6: task_feasible; [T], zero before the launch
+  float* cost;           // K10: the cost, K6: the value rows; [T, P]
 };
 
 struct ListSmem {
@@ -694,8 +723,9 @@ __device__ int tile_cut(const int32_t* ids, int n, int i, int tile, int lane) {
   return n;
 }
 
-// K3: a 1 into enter for each row of the step at row0 that some warp hit
-// (bit j of *hits), and the word cleared for the next step. One thread.
+// K3 and K6: a 1 into enter for each row of the step at row0 that some
+// warp hit (bit j of *hits), and the word cleared for the next step. One
+// thread.
 __device__ __forceinline__ void flush_hits(uint32_t* hits, uint8_t* enter, int row0) {
   uint32_t m = *hits;
   *hits = 0;
@@ -709,7 +739,10 @@ __device__ __forceinline__ void flush_hits(uint32_t* hits, uint8_t* enter, int r
 template <int kMode>
 __global__ void __launch_bounds__(kThreads, 4) list_kernel(const ListArgs a) {
   constexpr bool kBlocks = kMode == kListBlocks;
-  constexpr bool kRange = kMode == kListEnter || kMode == kListCost;  // rows [y slice, ...)
+  constexpr bool kRange = kMode >= kListEnter;  // rows [y slice, ...)
+  constexpr bool kHits = kMode == kListEnter || kMode == kListValue;  // a row's OR of ballots
+  constexpr bool kKeys = kBlocks || kMode == kListBest;  // a lane's least (cost, task) keys
+  constexpr bool kJitter = kMode != kListCost && kMode != kListBest;  // K10 and K8 score without
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_range[4];
   const ListSmem L = list_smem(a.K);
@@ -753,7 +786,7 @@ __global__ void __launch_bounds__(kThreads, 4) list_kernel(const ListArgs a) {
       s_range[2] = r0;
       s_range[3] = min(a.slice, a.T - r0);
     }
-    if constexpr (kMode == kListEnter) *s_hits = 0;
+    if constexpr (kHits) *s_hits = 0;
   }
   if constexpr (kMode == kListTileMin) {
     if (warp == 0) {
@@ -783,14 +816,14 @@ __global__ void __launch_bounds__(kThreads, 4) list_kernel(const ListArgs a) {
   const uint32_t valid = (pv[0] ? 1u : 0u) | (pv[1] ? 2u : 0u);
   const bool live = warp * kStep < ne;  // warp-uniform
   const int* w_pid = s_pid + warp * kStep;
-  u64 best[2] = {kNoKey, kNoKey};  // blocks
+  u64 best[2] = {kNoKey, kNoKey};  // blocks, K8
   float m[2] = {a.pad, a.pad};     // K4: the current tile's minimum
   int cur = -1;                    // K4: the current tile
 
   for (int rs = 0; rs < n_rows; rs += kMaxRows) {
     const int nact = min(kMaxRows, n_rows - rs);
     __syncthreads();  // the last step's readers are done
-    if constexpr (kMode == kListEnter) {
+    if constexpr (kHits) {
       if (threadIdx.x == 0 && rs > 0) flush_hits(s_hits, a.enter, row0 + rs - kMaxRows);
     }
     for (int i = threadIdx.x; i < nact; i += kThreads) {
@@ -810,20 +843,22 @@ __global__ void __launch_bounds__(kThreads, 4) list_kernel(const ListArgs a) {
     __syncthreads();
     if (!live) continue;
     const ProvRow pr[2] = {s_prov[i0], s_prov[i0 + 32]};
-    score_step<kMode != kListCost>(pr, valid, s_prov + warp * kStep,
-                                   [w_pid](int l) { return w_pid[l]; }, s_caps, s_opt, s_tid,
-                                   s_task, nact, a.req, a.K, a.W, a.w, ctile, queue, lane);
-    uint32_t hits = 0;  // K3: bit j, row j hit by a lane of this warp
+    score_step<kJitter>(pr, valid, s_prov + warp * kStep, [w_pid](int l) { return w_pid[l]; },
+                        s_caps, s_opt, s_tid, s_task, nact, a.req, a.K, a.W, a.w, ctile, queue,
+                        lane);
+    uint32_t hits = 0;  // K3, K6: bit j, row j hit by a lane of this warp
     for (int j = 0; j < nact; ++j) {
       float c[2];
 #pragma unroll
       for (int h = 0; h < 2; ++h) c[h] = ctile[j * kStep + 32 * h + lane];
-      if constexpr (kBlocks) {
+      if constexpr (kKeys) {
         const uint32_t t = (uint32_t)s_tid[j];
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const u64 x = make_key(c[h], t);
-          if (pv[h] && c[h] < INFINITY && x < best[h]) best[h] = x;
+          // blocks: the cells below +inf; K8: the feasible cells, -0 as +0
+          const bool in = kBlocks ? c[h] < INFINITY : c[h] < kHalfInfeasible;
+          const u64 x = make_key(kBlocks ? c[h] : (c[h] == 0.0f ? 0.0f : c[h]), t);
+          if (pv[h] && in && x < best[h]) best[h] = x;
         }
       } else if constexpr (kMode == kListTileMin) {
         const int tj = s_tile[j];
@@ -843,18 +878,28 @@ __global__ void __launch_bounds__(kThreads, 4) list_kernel(const ListArgs a) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) hit |= pv[h] & (c[h] <= th) & (c[h] < kHalfInfeasible);
         hits |= (__ballot_sync(kFull, hit) != 0u ? 1u : 0u) << j;
-      } else {
+      } else if constexpr (kMode == kListValue) {
+        float* out = a.cost + (size_t)(row0 + rs + j) * a.P + e0 + i0;
+        bool hit = false;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const bool ok = c[h] < kHalfInfeasible;
+          hit |= pv[h] & ok;
+          if (pv[h]) out[32 * h] = ok ? -c[h] : kNegValue;
+        }
+        hits |= (__ballot_sync(kFull, hit) != 0u ? 1u : 0u) << j;
+      } else if constexpr (kMode == kListCost) {
         float* out = a.cost + (size_t)(row0 + rs + j) * a.P + e0 + i0;
 #pragma unroll
         for (int h = 0; h < 2; ++h)
           if (pv[h]) out[32 * h] = c[h];
       }
     }
-    if constexpr (kMode == kListEnter) {
+    if constexpr (kHits) {
       if (lane == 0 && hits) atomicOr(s_hits, hits);
     }
   }
-  if constexpr (kMode == kListEnter) {
+  if constexpr (kHits) {
     __syncthreads();  // every warp's hits of the last step are in
     if (threadIdx.x == 0) flush_hits(s_hits, a.enter, row0 + (n_rows - 1) / kMaxRows * kMaxRows);
     return;
@@ -863,7 +908,7 @@ __global__ void __launch_bounds__(kThreads, 4) list_kernel(const ListArgs a) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (!pv[h]) continue;
-    if constexpr (kBlocks) {
+    if constexpr (kKeys) {  // rkey by entry (blocks) or provider (K8)
       if (best[h] != kNoKey) atomicMin(a.rkey + e0 + i0 + 32 * h, best[h]);
     } else if constexpr (kMode == kListTileMin) {
       if (cur >= 0) a.min_tile[(size_t)(e0 + i0 + 32 * h) * a.n_tiles + cur] = m[h];
@@ -898,6 +943,16 @@ __global__ void __launch_bounds__(128) blocks_decode_kernel(const u64* __restric
   const size_t at = (size_t)blk_p[b] * n_tiles + blk_j[b];
   pool_t[at] = x == kNoKey ? -1 : (int32_t)(uint32_t)x;
   pool_c[at] = x == kNoKey ? INFINITY : order_float((uint32_t)(x >> 32));
+}
+
+// K8: one thread a provider, its key decoded into best[p]: the task, or -1
+// where no feasible cell keyed it.
+__global__ void __launch_bounds__(128) best_decode_kernel(const u64* __restrict__ rkey, int P,
+                                                          int32_t* __restrict__ best) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= P) return;
+  const u64 x = rkey[p];
+  best[p] = x == kNoKey ? -1 : (int32_t)(uint32_t)x;
 }
 
 // Blocks a list launch aims for: four times what the card holds at once
@@ -935,12 +990,14 @@ int run_list(const ListArgs& a, dim3 grid, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// K3 and K10: a.n_p providers in kListProv-wide chunks against a.T rows in
-// ranges of a.slice (a multiple of kMaxRows), as many ranges as bring the
-// launch to twice list_target blocks (at most one a step of rows): their
-// blocks are shorter than the other list launches', and 32 blocks an SM
-// took 4-8% less than 16 at 65,536 x 655 and 4,096^2 (2% more on a
-// 16,384-task shard).
+// K3, K10, K6 and K8: a.n_p providers in kListProv-wide chunks against
+// a.T rows in ranges of a.slice (a multiple of kMaxRows), as many ranges
+// as bring the launch to twice list_target blocks (at most one a step of
+// rows): their blocks are shorter than the other list launches', and 32
+// blocks an SM took 4-8% less than 16 at 65,536 x 655 and 4,096^2 (2% more
+// on a 16,384-task shard). Few rows give one step a block (K8 at 1,024 or
+// 64 tasks), which beat blocks of 16 or 32 rows (34 against 38-40 us for
+// K8's list launch on an H100 80GB HBM3 at 700 W).
 template <int kMode>
 int run_range_list(ListArgs& a, cudaStream_t stream) {
   const int chunks = (a.n_p + kListProv - 1) / kListProv;
@@ -1196,4 +1253,49 @@ extern "C" int k10_cost_block(const void* const* prov_cols, const void* const* r
   const cudaStream_t st = (cudaStream_t)stream;
   launch_prep(a.prov, a.req, a.w, P, T, aux, st);
   return run_range_list<kListCost>(a, st);
+}
+
+// K6: value_base [T, P] f32, slot-major: -(the jittered cost), the jitter
+// keyed on the slot's row, or -1e18 where the cost is >= INFEASIBLE/2; and
+// feasible [T] u8, 1 where some provider's cost is below INFEASIBLE/2
+// (zeroed here). The list launch over P's chunks and ranges of the slots.
+extern "C" int k6_value_base(const void* const* prov_cols, const void* const* req_cols, int P,
+                             int T, int K, int W, float w_price, float w_load, float w_prox,
+                             float w_prio, float* aux, float* value_base, uint8_t* feasible,
+                             void* stream) {
+  if (P < 1 || T < 1 || K > kMaxOpts) return (int)cudaErrorInvalidValue;
+  ListArgs a = list_args(prov_cols, req_cols, P, T, K, W, w_price, w_load, w_prox, w_prio, 1,
+                         aux);
+  a.T = T;
+  a.n_p = P;
+  a.cost = value_base;
+  a.enter = feasible;
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t e = cudaMemsetAsync(feasible, 0, (size_t)T, st);
+  if (e != cudaSuccess) return (int)e;
+  launch_prep(a.prov, a.req, a.w, P, T, aux, st);
+  return run_range_list<kListValue>(a, st);
+}
+
+// K8: best [P] i32, the first argmin over T of the unjittered cost (-0 and
+// +0 equal), -1 where that cost is >= INFEASIBLE/2: rkey [P] set to all
+// ones, the list launch over P's chunks and ranges of the tasks, a decode
+// launch.
+extern "C" int k8_unbounded_best(const void* const* prov_cols, const void* const* req_cols, int P,
+                                 int T, int K, int W, float w_price, float w_load, float w_prox,
+                                 float w_prio, float* aux, u64* rkey, int32_t* best,
+                                 void* stream) {
+  if (P < 1 || T < 1 || K > kMaxOpts) return (int)cudaErrorInvalidValue;
+  ListArgs a = list_args(prov_cols, req_cols, P, T, K, W, w_price, w_load, w_prox, w_prio, 1,
+                         aux);
+  a.T = T;
+  a.n_p = P;
+  a.rkey = rkey;
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t e = cudaMemsetAsync(rkey, 0xff, (size_t)P * sizeof(u64), st);
+  if (e != cudaSuccess) return (int)e;
+  launch_prep(a.prov, a.req, a.w, P, T, aux, st);
+  if (int rc = run_range_list<kListBest>(a, st)) return rc;
+  best_decode_kernel<<<(P + 127) / 128, 128, 0, st>>>(rkey, P, best);
+  return (int)cudaGetLastError();
 }

@@ -1,5 +1,6 @@
-// Shared by the candidate and list kernels (candidates.cu), the repair
-// refold (repair.cu) and the dense matcher kernels (dense.cu): the column
+// Shared by the candidate and list kernels (candidates.cu, among them the
+// dense matcher's K6, K8 and K10), the repair refold (repair.cu) and the
+// blocked kernels (blocked.cu): the column
 // layout, the per-row cost terms, the capability check, the exact
 // jittered cost of one (provider, task) cell, and the fold of per-tile
 // reverse pools into a provider's best r. Every kernel that scores a cell
@@ -324,8 +325,8 @@ __device__ __forceinline__ float cell_terms(float base, float plat, float plon, 
 // The exact cost of cell (p, t): compat, then cell_terms, INFEASIBLE off
 // the mask, plus tie_jitter on feasible cells when kJitter (the
 // candidate, repair and dense auction kernels), keyed on provider id pi
-// and the task's jkey; without it for the swarm phase's argmin
-// (dense.cu), which the reference scores unjittered.
+// and the task's jkey; without it for the swarm phase's argmin (K8) and
+// the pair cost (K15), which the reference scores unjittered.
 template <bool kJitter = true>
 __device__ __forceinline__ float cell_cost(const ProvRow& p, int pi, const TaskRow& t, int ti,
                                            const Req& R, int K, int W, const Weights& w) {

@@ -1,16 +1,9 @@
-// The batch matcher's dense route for Hopper (sm_90a): the kernels of
-// protocol_tpu/sched/tpu_backend.py::_solve_bounded and _solve_unbounded.
-// K10, _cost_only's dense cost block, is a list launch of K1's layout in
-// candidates.cu (k10_cost_block), bound there.
+// The batch matcher's dense auction for Hopper (sm_90a): K7, the auction
+// of protocol_tpu/sched/tpu_backend.py::_solve_bounded. Its inputs, K6's
+// value rows and task feasibility, and the swarm phase's argmin K8
+// (_solve_unbounded) are list launches of K1's layout in candidates.cu
+// (k6_value_base, k8_unbounded_best), as is K10 (k10_cost_block).
 //
-//   K6 value base   (_solve_bounded's cost_matrix + with_tie_jitter, and
-//                   the value_base / task_feasible of ops/assign.py::
-//                   assign_auction) one thread per (slot, provider) cell
-//                   writes value_base[t, p] = -(jittered cost), or -1e18
-//                   where the cost is >= INFEASIBLE/2, row per slot so the
-//                   auction's row scans read it coalesced; a block covers
-//                   256 providers of one slot and ORs task_feasible[t]. The
-//                   cost is cell_cost (cell.cuh), K1's own cell function.
 //   K7 auction      (ops/assign.py::assign_auction, the dense Jacobi
 //                   auction, its lax.while_loop) all rounds in ONE
 //                   cooperative launch of one persistent block of 1,024
@@ -51,40 +44,29 @@
 //                   (a release add on a generation word, acquire polls)
 //                   follows each step; the cooperative launch guarantees
 //                   every block is resident.
-//   K8 swarm argmin (_solve_unbounded) one warp per provider: each lane
-//                   walks a strided share of the tasks and keeps the first
-//                   argmin of the UNJITTERED cost (cell_cost<false>: the
-//                   reference applies no tie jitter here), the lanes merge
-//                   by (cost, index); -1 where that cost is >= INFEASIBLE/2.
-//                   The [P, T] cost never reaches device memory.
-//
-// What bounds them on the H100: K6 and K8 score every cell with
-// cell_cost, ~12 operations per cell and ~30 more per feasible one
-// (K6 also writes 4 bytes per cell: at 4,096 x 4,096, 64 MB, which is the
-// larger bound there). K7 reads the open slots' value rows each round,
-// bound by bytes: sum over rounds of open rows x P x 4 bytes. At 4,096^2 a round's bid step reads at ~2.8
-// TB/s where each warp has at most one row; the two grid barriers (~2,100
-// cycles each at 132 blocks, against ~2,800 for a fenced volatile spin),
-// the seat step's chain of L2 reads and the price staging take the rest,
-// about a quarter of a round. The open count never falls below ~1,450 of
+// What bounds it on the H100: K7 reads the open slots' value rows each
+// round, bound by bytes: sum over rounds of open rows x P x 4 bytes. At
+// 4,096^2 a round's bid step reads at ~2.8 TB/s where each warp has at
+// most one row; the two grid barriers (~2,100 cycles each at 132 blocks,
+// against ~2,800 for a fenced volatile spin), the seat step's chain of L2
+// reads and the price staging take the rest, about a quarter of a round. The open count never falls below ~1,450 of
 // 3,040 at 4,096^2 (300 rounds) nor ~190 of 32,768 (500 rounds) on the
 // main path's inputs, so no tail of a few rows is worth handing to one
 // cluster.
 //
 // Numerics: built like candidates.cu (-fmad=false, no fast-math), so each
 // f32 operation rounds once in the reference's order; the atomics are
-// order-independent integer maxima. At proximity 0 every output is
-// bit-identical to the plain torch versions (ops/assign.py,
-// sched/torch_backend.py).
+// order-independent integer maxima. Every output is bit-identical to the
+// plain torch version (ops/assign.py).
 
-#include "cell.cuh"
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr float kNeg = -1e18f;  // _NEG as f32
 constexpr float kV2Floor = -1e8f;
-constexpr int kThreads = 256;
 
 __device__ __forceinline__ uint32_t ordered_bits(float f) {
   const uint32_t u = __float_as_uint(f);
@@ -93,26 +75,6 @@ __device__ __forceinline__ uint32_t ordered_bits(float f) {
 
 __device__ __forceinline__ float from_ordered(uint32_t o) {
   return __uint_as_float((o & 0x80000000u) ? (o & 0x7fffffffu) : ~o);
-}
-
-// ---------------------------------------------------------------- K6
-
-__global__ void __launch_bounds__(kThreads) value_base_kernel(Prov prov, Req req, Aux aux,
-                                                              Weights w, int P, int K, int W,
-                                                              int n_chunks,
-                                                              float* __restrict__ value_base,
-                                                              uint8_t* __restrict__ feasible) {
-  const int t = blockIdx.x / n_chunks;
-  const int p = (blockIdx.x % n_chunks) * kThreads + threadIdx.x;
-  const TaskRow tr = load_task(req, aux, t, K);
-  bool ok = false;
-  if (p < P) {
-    const ProvRow pr = load_prov(prov, aux, p);
-    const float c = cell_cost(pr, p, tr, t, req, K, W, w);
-    ok = c < kHalfInfeasible;
-    value_base[(size_t)t * P + p] = ok ? -c : kNeg;
-  }
-  if (__syncthreads_or(ok) && threadIdx.x == 0) feasible[t] = 1;
 }
 
 // ---------------------------------------------------------------- K7
@@ -389,59 +351,10 @@ __global__ void __launch_bounds__(kAucThreads, 1) dense_auction_kernel(
   }
 }
 
-// ---------------------------------------------------------------- K8
-
-__global__ void __launch_bounds__(kThreads) unbounded_best_kernel(Prov prov, Req req, Aux aux,
-                                                                  Weights w, int P, int T, int K,
-                                                                  int W,
-                                                                  int32_t* __restrict__ best) {
-  const int p = (blockIdx.x * kThreads + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (p >= P) return;  // warp-uniform
-  const ProvRow pr = load_prov(prov, aux, p);
-  float bc = INFINITY;
-  int bt = T;
-  for (int t = lane; t < T; t += 32) {
-    const TaskRow tr = load_task(req, aux, t, K);
-    const float c = cell_cost<false>(pr, p, tr, t, req, K, W, w);
-    if (c < bc) {  // t grows: the first minimum of the lane stays
-      bc = c;
-      bt = t;
-    }
-  }
-  for (int o = 16; o > 0; o >>= 1) {
-    const float oc = __shfl_xor_sync(kFull, bc, o);
-    const int ot = __shfl_xor_sync(kFull, bt, o);
-    if (oc < bc || (oc == bc && ot < bt)) {
-      bc = oc;
-      bt = ot;
-    }
-  }
-  if (lane == 0) best[p] = bc < kHalfInfeasible ? bt : -1;
-}
-
 }  // namespace
 
 // Plain C interface (loaded with ctypes). Each returns the launch's
 // cudaError_t (0 = launched); nothing synchronises.
-
-// K6: value_base [T, P] f32 and feasible [T] u8 (zero on entry).
-extern "C" int k6_value_base(const void* const* prov_cols, const void* const* req_cols, int P,
-                             int T, int K, int W, float w_price, float w_load, float w_prox,
-                             float w_prio, float* aux, float* value_base, uint8_t* feasible,
-                             void* stream) {
-  if (P < 1 || T < 1 || K > kMaxOpts) return (int)cudaErrorInvalidValue;
-  const Weights w{w_price, w_load, w_prox, w_prio};
-  const Prov prov = make_prov(prov_cols);
-  const Req req = make_req(req_cols);
-  launch_prep(prov, req, w, P, T, aux, (cudaStream_t)stream);
-  const int n_chunks = (P + kThreads - 1) / kThreads;
-  const long long blocks = (long long)n_chunks * T;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  value_base_kernel<<<(int)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      prov, req, make_aux(aux, P, T), w, P, K, W, n_chunks, value_base, feasible);
-  return (int)cudaGetLastError();
-}
 
 // K7's route at P providers: 1 where the round's prices are staged in
 // shared memory, 0 where they are read through L2. kernels.dense_route
@@ -483,22 +396,5 @@ extern "C" int k7_dense_auction(const float* value_base, const uint8_t* feasible
   err = cudaLaunchCooperativeKernel((const void*)kern, dim3((unsigned)n_sm), dim3(kAucThreads),
                                     args, (size_t)smem, (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
-}
-
-// K8: best [P] i32, the first argmin over T of the unjittered cost, -1
-// where it is >= INFEASIBLE/2.
-extern "C" int k8_unbounded_best(const void* const* prov_cols, const void* const* req_cols, int P,
-                                 int T, int K, int W, float w_price, float w_load, float w_prox,
-                                 float w_prio, float* aux, int32_t* best, void* stream) {
-  if (P < 1 || T < 1 || K > kMaxOpts) return (int)cudaErrorInvalidValue;
-  const Weights w{w_price, w_load, w_prox, w_prio};
-  const Prov prov = make_prov(prov_cols);
-  const Req req = make_req(req_cols);
-  launch_prep(prov, req, w, P, T, aux, (cudaStream_t)stream);
-  const long long threads = (long long)P * 32;
-  unbounded_best_kernel<<<(int)((threads + kThreads - 1) / kThreads), kThreads, 0,
-                          (cudaStream_t)stream>>>(prov, req, make_aux(aux, P, T), w, P, T, K, W,
-                                                  best);
   return (int)cudaGetLastError();
 }

@@ -158,20 +158,23 @@ def _lib(name: str) -> ctypes.CDLL:
                 _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P, _I, _U, _P, _P, _P, _P,
             ]
             lib.k10_cost_block.argtypes = [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P]
+            lib.k6_value_base.argtypes = [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P, _P]
+            lib.k8_unbounded_best.argtypes = [
+                _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P, _P,
+            ]
             for fn in ("k1_reverse", "k1_bidir", "k1_forward_rows", "k1_reverse_blocks",
-                       "k4_repair_tile_min", "k3_repair_enter", "k10_cost_block"):
+                       "k4_repair_tile_min", "k3_repair_enter", "k10_cost_block",
+                       "k6_value_base", "k8_unbounded_best"):
                 getattr(lib, fn).restype = _I
         elif name == "repair":
             lib.k5_repair_refold.argtypes = [_P, _P, _I, _I, _I, _I, _P, _P, _P]
             lib.k5_repair_refold.restype = _I
         elif name == "dense":
-            lib.k6_value_base.argtypes = [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P, _P]
             lib.k7_dense_auction.argtypes = [
                 _P, _P, _I, _I, _F, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
             ]
             lib.k7_route.argtypes = [_I]
-            lib.k8_unbounded_best.argtypes = [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P]
-            for fn in ("k6_value_base", "k7_dense_auction", "k7_route", "k8_unbounded_best"):
+            for fn in ("k7_dense_auction", "k7_route"):
                 getattr(lib, fn).restype = _I
         elif name == "cleanup":
             lib.k9_greedy_cleanup.argtypes = [_P, _P, _I, _I, _P, _P, _I, _P, _P]
@@ -708,15 +711,15 @@ def repair_refold(pool_t, pool_c, r: int, d_fold: int = 1):
 
 @_on_device
 def dense_value_base(ep, er, weights):
-    """K6 (``csrc/dense.cu``): the dense auction's value rows, (value_base
-    [T, P] f32 = -(jittered cost), -1e18 where the cost is >= INFEASIBLE/2;
-    task_feasible [T] bool)."""
+    """K6 (``csrc/candidates.cu``, a list launch of K1's layout): the dense
+    auction's value rows, (value_base [T, P] f32 = -(jittered cost), -1e18
+    where the cost is >= INFEASIBLE/2; task_feasible [T] bool)."""
     if ep.num < 1 or er.num < 1:
         raise ValueError("K6 takes at least one provider and one task")
     dev, pcols, rcols, (P, T, K, W), w, aux = _k1_setup(ep, er, weights)
     value_base = torch.empty((T, P), dtype=torch.float32, device=dev)
-    feasible = torch.zeros(T, dtype=torch.uint8, device=dev)
-    _launch("dense_value_base", _lib("dense").k6_value_base,
+    feasible = torch.empty(T, dtype=torch.uint8, device=dev)  # zeroed by the C entry
+    _launch("dense_value_base", _lib("candidates").k6_value_base,
         pcols, rcols, P, T, K, W, *w, aux.data_ptr(), value_base.data_ptr(),
         feasible.data_ptr(), _stream(value_base),
     )
@@ -776,15 +779,17 @@ def dense_auction(value_base, task_feasible, eps: float, max_iters: int,
 
 @_on_device
 def unbounded_best(ep, er, weights):
-    """K8 (``csrc/dense.cu``): per provider, the first argmin over the
-    tasks of the unjittered cost, -1 where it is >= INFEASIBLE/2. Returns
-    best [P] i32."""
+    """K8 (``csrc/candidates.cu``, a list launch of K1's layout): per
+    provider, the first argmin over the tasks of the unjittered cost (-0
+    and +0 equal), -1 where it is >= INFEASIBLE/2. Returns best [P] i32."""
     if ep.num < 1 or er.num < 1:
         raise ValueError("K8 takes at least one provider and one task")
     dev, pcols, rcols, (P, T, K, W), w, aux = _k1_setup(ep, er, weights)
+    rkey = torch.empty(P, dtype=torch.int64, device=dev)  # the ranges' least keys
     best = torch.empty(P, dtype=torch.int32, device=dev)
-    _launch("unbounded_best", _lib("dense").k8_unbounded_best,
-        pcols, rcols, P, T, K, W, *w, aux.data_ptr(), best.data_ptr(), _stream(best),
+    _launch("unbounded_best", _lib("candidates").k8_unbounded_best,
+        pcols, rcols, P, T, K, W, *w, aux.data_ptr(), rkey.data_ptr(), best.data_ptr(),
+        _stream(best),
     )
     return best
 

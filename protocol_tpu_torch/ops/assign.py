@@ -9,7 +9,7 @@ marking incompatibility; ``provider_for_task`` i32 [T] (-1 = unassigned),
 Five functions hold hand kernels for Hopper; each dispatches on the
 device of its inputs, with no fallback:
 
-  auction_value_base -> K6 (``csrc/dense.cu``): the auction's value rows
+  auction_value_base -> K6 (``csrc/candidates.cu``): the auction's value rows
         straight from the encoded columns (cost_matrix + with_tie_jitter +
         value_base), a CPU tensor takes the plain torch ops;
   auction_dense      -> K7 (``csrc/dense.cu``): every round of

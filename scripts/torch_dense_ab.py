@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
-"""Time the dense cost block K10, the dense auction K7 and the sequential
+"""Time the dense route's list launches (the cost block K10, the value
+rows K6, the unbounded best K8), the dense auction K7 and the sequential
 greedy K12 on one NVIDIA card, for an A/B of two checkouts.
 
-    python3 scripts/torch_dense_ab.py [--root DIR] [--skip-large] [--k10-only]
+    python3 scripts/torch_dense_ab.py [--root DIR] [--skip-large] [--list-only]
 
 Imports ``protocol_tpu_torch`` and ``chip_smoke`` from ``--root`` (default:
 this checkout), so that one call can time a parent and a change in turn
 (parent, change, change, parent); works on checkouts from before the
-redesign of the three kernels too. Builds the kernels, then times, each
-the mean of three runs by CUDA events after a warm-up (K10 of ten, and of
-50 launches alone, ``launch_ms``: the wrapper's host work left out), with
-a sha256 of every output:
+redesign of these kernels too. Builds the kernels, then times, each
+the mean of three runs by CUDA events after a warm-up (K10, K6 and K8 of
+ten, and of 50 launches alone, ``launch_ms``: the wrapper's host work left
+out), with a sha256 of every output:
   - K10 on the colocation call (``chip_smoke.py``'s torch-route phase run:
     the 65,536-node pool with its phase tasks, the cold refresh's
     five-resource bin-pack call), on the wide run's phase 0 call (the
@@ -18,6 +19,14 @@ a sha256 of every output:
     backend's 4,096^2 block (the greedy RPC's market), with each refresh's
     K10 in-place device ms and the sha256 of its matching; and K1's fused
     cold pass at 65,536^2 (whose check and scoring K10 shares) as a guard;
+  - K6 on the dense route's first-refresh call (``chip_smoke.py``'s
+    4,096-node pool: 3,072 slots x 4,096 nodes) and on the backend's
+    auction RPC call (4,096^2); K8 on the dense route's first-refresh call
+    (4,096 nodes x 1,024 swarm tasks), the backend's best RPC call (4,096 x
+    1,024) and the torch route's phase 2 call (the 65,536-node pool's
+    cold refresh); each at the recorded weights and at proximity 0; and
+    K3 as a guard, on a 1% provider churn at 65,536^2 (655 dirty providers
+    against every task, thresholds the cold pass's k-th costs);
   - K7 on the dense route's first-refresh inputs (``chip_smoke.py``'s
     4,096-node pool: the value rows of its first K6 call, eps 0.05, 300
     rounds) and on ``chip_smoke.mesh_dense_cost`` at 32,768^2 (eps 0.05,
@@ -28,8 +37,8 @@ a sha256 of every output:
     (K13's rounding cost and visit order over its market), with us a step;
   - the dense route's two refreshes (the pool, then 1% of the nodes
     repriced and two tasks replaced): ``phase1_ms``, the refresh wall and
-    K7's in-place device ms.
-``--k10-only`` leaves out K7 and K12.
+    K6's, K7's and K8's in-place device ms.
+``--list-only`` leaves out K7 and K12.
 Prints the card's name and power limit and, last, one JSON line. Exits
 non-zero without a CUDA device.
 """
@@ -37,6 +46,7 @@ non-zero without a CUDA device.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import hashlib
 import json
 import os
@@ -89,31 +99,45 @@ def sha(*tensors) -> str:
     return h.hexdigest()[:16]
 
 
+def first_calls(cs, kernels, matcher, names) -> dict:
+    """The arguments of each wrapper's first call in a refresh of
+    ``matcher``: {name: args}."""
+    recorded, originals = cs.record_first_calls(kernels, {n: () for n in names})
+    try:
+        matcher.refresh()
+    finally:
+        for n, fn in originals.items():
+            setattr(kernels, n, fn)
+    return {n: args for n, (args, _) in recorded.items()}
+
+
 def dense_route_inputs(cs, kernels, tb, dev):
-    """The arguments of the dense route's first K6 call (chip_smoke.py's
-    4,096-node pool), and the matcher and store for its refreshes."""
+    """The arguments of the dense route's first K6 and K8 calls
+    (chip_smoke.py's 4,096-node pool), and the matcher and store for its
+    refreshes."""
     import numpy as np
 
     nodes, tasks = cs.make_pool(np.random.default_rng(cs.SEED + 20), *cs.DENSE_POOL)
     store = cs.mem_store(nodes, tasks)
     matcher = tb.TorchBatchMatcher(store, device=dev)
-    calls = []
-    orig = kernels.dense_value_base
-
-    def spy(*a, **k):
-        calls.append((a, k))
-        return orig(*a, **k)
-
-    kernels.dense_value_base = spy
-    try:
-        matcher.refresh()
-    finally:
-        kernels.dense_value_base = orig
-    return calls[0][0], matcher, store
+    calls = first_calls(cs, kernels, matcher, ("dense_value_base", "unbounded_best"))
+    return calls, matcher, store
 
 
-def backend_market(cs, seed: int, n: int, dev):
-    """One of the backend run's markets (chip_smoke.run_backend) on the card."""
+def torch_route_phase2(cs, kernels, tb, dev):
+    """The arguments of K8's call in the torch route's cold refresh
+    (chip_smoke.py's 65,536-node pool)."""
+    import numpy as np
+
+    nodes, tasks = cs.make_pool(np.random.default_rng(cs.SEED + 30), *cs.ARENA_POOL)
+    store = cs.mem_store(nodes, tasks)
+    matcher = tb.TorchBatchMatcher(store, native_engine="torch", device=dev)
+    return first_calls(cs, kernels, matcher, ("unbounded_best",))["unbounded_best"]
+
+
+def backend_market(cs, seed: int, n: int, dev, t: int | None = None):
+    """One of the backend run's markets (chip_smoke.run_backend) on the
+    card: n providers, t tasks (default n)."""
     import numpy as np
 
     from protocol_tpu_torch.ops.encoding import providers_from_numpy, requirements_from_numpy
@@ -121,7 +145,7 @@ def backend_market(cs, seed: int, n: int, dev):
 
     rng = np.random.default_rng(seed)
     ep = synth_provider_arrays(rng, n)
-    er = synth_requirement_arrays(rng, n)
+    er = synth_requirement_arrays(rng, n if t is None else t)
     return providers_from_numpy(ep, dev), requirements_from_numpy(er, dev)
 
 
@@ -192,7 +216,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--skip-large", action="store_true", help="leave out K7 at 32,768^2")
-    ap.add_argument("--k10-only", action="store_true", help="leave out K7 and K12")
+    ap.add_argument("--list-only", action="store_true", help="leave out K7 and K12")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
 
@@ -212,7 +236,7 @@ def main() -> int:
     print(f"root: {kernels.__file__}", flush=True)
     dev = "cuda"
     out = {"root": os.path.abspath(args.root), "card": card, "build_s": kernels.build()}
-    for name in ("dense", "greedy"):
+    for name in ("candidates", "dense", "greedy"):
         for line in kernels.BUILD_LOG.get(name, "").splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
@@ -271,18 +295,74 @@ def main() -> int:
         return sp.candidates_topk_reverse(ep, er, CostWeights(), k=64, tile=1024, reverse_r=8,
                                           with_pools=True)
 
+    parts = cold()
     out["k1_cold_pass"] = {"ms": cuda_ms(cold), "launch_ms": launch_ms(torch, kernels, cold, 5),
-                           "sha256": sha(*cold())}
+                           "sha256": sha(*parts)}
     print(f"K1 cold pass {cs.N}^2 (guard): {json.dumps(out['k1_cold_pass'])}", flush=True)
-    del ep, er
+
+    # K3 (guard): 1% of the providers repriced, against every task
+    rng = np.random.default_rng(7)
+    dirty = torch.from_numpy(np.sort(rng.choice(cs.N, int(cs.N * cs.CHURN), replace=False))).to(dev)
+    price = ep.price.clone()
+    price[dirty] = torch.from_numpy(rng.uniform(0.5, 4.0, dirty.numel()).astype(np.float32)).to(dev)
+    ep_churn = dataclasses.replace(ep, price=price)
+    thresh = parts[1][:, -1].contiguous()
+
+    def enter():
+        return kernels.repair_enter(ep_churn, er, CostWeights(), dirty, thresh)
+
+    got = enter()
+    out["k3_guard"] = {"providers": dirty.numel(), "tasks": er.num, "flagged": int(got.sum()),
+                       "ms": cuda_ms(enter, 10), "launch_ms": launch_ms(torch, kernels, enter, 20),
+                       "sha256": sha(got)}
+    print(f"K3 {dirty.numel()} x {cs.N} (guard): {json.dumps(out['k3_guard'])}", flush=True)
+    del ep, er, ep_churn, parts, got
     torch.cuda.empty_cache()
-    if args.k10_only:
+
+    # ---- K6 and K8 on their recorded calls
+    def both(w):  # the recorded weights and proximity 0
+        return (("", w), ("_prox0", dataclasses.replace(w, proximity=0.0)))
+
+    def k6(label, ep, er, w):
+        r = {"T": er.num, "P": ep.num}
+        for tag, wt in both(w):
+            vb, feas = kernels.dense_value_base(ep, er, wt)
+            r[f"sha256{tag}"] = sha(vb, feas)
+        r.update(feasible_cells=int((vb > -5e17).sum()), feasible_slots=int(feas.sum()),
+                 ms=cuda_ms(lambda: kernels.dense_value_base(ep, er, w), 10),
+                 launch_ms=launch_ms(torch, kernels,
+                                     lambda: kernels.dense_value_base(ep, er, w), 50))
+        print(f"K6 {label}: {json.dumps(r)}", flush=True)
+        return r
+
+    def k8(label, ep, er, w):
+        r = {"P": ep.num, "T": er.num}
+        for tag, wt in both(w):
+            best = kernels.unbounded_best(ep, er, wt)
+            r[f"sha256{tag}"] = sha(best)
+        r.update(seated=int((best >= 0).sum()),
+                 ms=cuda_ms(lambda: kernels.unbounded_best(ep, er, w), 10),
+                 launch_ms=launch_ms(torch, kernels, lambda: kernels.unbounded_best(ep, er, w), 50))
+        print(f"K8 {label}: {json.dumps(r)}", flush=True)
+        return r
+
+    calls, matcher, store = dense_route_inputs(cs, kernels, tb, dev)
+    out["k6_dense_route"] = k6("dense route", *calls["dense_value_base"])
+    out["k8_dense_route"] = k8("dense route", *calls["unbounded_best"])
+    ep, er = backend_market(cs, cs.SEED + 52, cs.BACKEND_N, dev)
+    out["k6_auction_rpc"] = k6("auction RPC", ep, er, CostWeights())
+    ep, er = backend_market(cs, cs.SEED + 53, cs.BACKEND_BEST[0], dev, cs.BACKEND_BEST[1])
+    out["k8_best_rpc"] = k8("best RPC", ep, er, CostWeights())
+    del ep, er
+    out["k8_torch_route"] = k8("torch route phase 2", *torch_route_phase2(cs, kernels, tb, dev))
+    torch.cuda.empty_cache()
+    if args.list_only:
         print(f"card: {card}", flush=True)
         print(json.dumps(out), flush=True)
         return 0
 
     # ---- K7: the dense route's first-refresh inputs, then 32,768^2
-    (ep6, er6, w6), matcher, store = dense_route_inputs(cs, kernels, tb, dev)
+    ep6, er6, w6 = calls["dense_value_base"]
     vb, feas = kernels.dense_value_base(ep6, er6, w6)
     out["k7_dense_route"] = k7("dense route", vb, feas, 0.05, 300)
     del vb, feas
@@ -304,13 +384,15 @@ def main() -> int:
         in_place = kernels.in_place_ms()
         kernels.time_in_place(False)
         st = matcher.last_solve_stats
-        k7_ip = in_place.get("dense_auction", {"ms": 0.0, "launches": 0})
         r = {"step": step, "wall_ms": wall, "phase1_ms": st["phase1_ms"],
-             "auction_rounds": int(st["auction_rounds"]), "assigned": st["assigned"],
-             "k7_in_place_ms": k7_ip["ms"], "k7_launches": k7_ip["launches"],
-             "assignment_sha256": hashlib.sha256(json.dumps(sorted(
-                 (a, store.task_store.get_task(t).name) for a, t in matcher._assignment.items()
-             )).encode()).hexdigest()[:16]}
+             "auction_rounds": int(st["auction_rounds"]), "assigned": st["assigned"]}
+        for tag, key in (("k6", "dense_value_base"), ("k7", "dense_auction"),
+                         ("k8", "unbounded_best")):
+            ip = in_place.get(key, {"ms": 0.0, "launches": 0})
+            r.update({f"{tag}_in_place_ms": ip["ms"], f"{tag}_launches": ip["launches"]})
+        r["assignment_sha256"] = hashlib.sha256(json.dumps(sorted(
+            (a, store.task_store.get_task(t).name) for a, t in matcher._assignment.items()
+        )).encode()).hexdigest()[:16]
         out["dense_refreshes"].append(r)
         print(f"dense route refresh: {json.dumps(r)}", flush=True)
     del matcher, store

@@ -28,12 +28,16 @@ from protocol_tpu_torch.ops.assign import (
     assign_auction_scaled,
     auction_dense,
 )
-from protocol_tpu_torch.ops.cost import CostWeights, with_tie_jitter
+from protocol_tpu_torch.ops.cost import CostWeights, cost_matrix, with_tie_jitter
 from protocol_tpu_torch.ops.encoding import FeatureEncoder
-from protocol_tpu_torch.sched.torch_backend import solve_bounded, solve_unbounded
+from protocol_tpu_torch.sched.torch_backend import (
+    _solve_unbounded_plain,
+    solve_bounded,
+    solve_unbounded,
+)
 
 from tests.test_encoding import random_requirements, random_specs
-from tests.test_torch_candidates import bits
+from tests.test_torch_candidates import bits, k1_order_key
 from tests.test_torch_encoding_cost import encode_random, to_port
 
 MODELS = ["H100", "A100", "RTX 4090", "L40S", "H200", "A6000"]
@@ -227,9 +231,25 @@ def markets():
     yield "encoded", encode_random(9, 96, 200)
     yield "skew", (j_synth.synth_providers(np.random.default_rng(4), 64),
                    j_synth.synth_requirements(np.random.default_rng(5), 256))
+    yield "dup", dup_market()
 
 
-@pytest.mark.parametrize("kind", ["synth", "encoded", "skew"])
+DUP_ROWS = 12  # the dup market's distinct requirement rows
+DUP_NO_FIT = 3  # its provider that fits no task
+
+
+def dup_market():
+    """40 providers x 36 tasks whose requirement rows repeat every DUP_ROWS
+    tasks (exact ties in each provider's row: the argmin takes the first
+    copy), and one provider, DUP_NO_FIT, that fits no task."""
+    ep, er = encode_random(13, 40, DUP_ROWS)
+    idx = np.arange(3 * DUP_ROWS) % DUP_ROWS
+    er = dataclasses.replace(er, **{f.name: getattr(er, f.name)[idx]
+                                    for f in dataclasses.fields(er)})
+    return dataclasses.replace(ep, valid=ep.valid.at[DUP_NO_FIT].set(False)), er
+
+
+@pytest.mark.parametrize("kind", ["synth", "encoded", "skew", "dup"])
 @pytest.mark.parametrize("proximity", [0.0, 0.001])
 def test_solve_bounded_and_unbounded_match_the_reference_bits(kind, proximity):
     ep, er = dict(markets())[kind]
@@ -250,3 +270,66 @@ def test_solve_bounded_and_unbounded_match_the_reference_bits(kind, proximity):
         np.testing.assert_array_equal(got_u, ref_u)
     else:
         np.testing.assert_array_equal(got_u >= 0, ref_u >= 0)
+    if kind == "dup":
+        assert got_u[DUP_NO_FIT] == -1 and (got_u < DUP_ROWS).all() and (got_u >= 0).sum() >= 10
+
+
+# ---------------- K8's key combine, modelled on the CPU ----------------
+# csrc/candidates.cu's K8 splits each provider's tasks into ranges, keeps
+# the least (order_bits(cost), task) key of the range's feasible cells
+# (cost < INFEASIBLE/2) with -0 folded to +0, and meets the ranges by the
+# least key; a provider without a key gets -1.
+
+
+NO_KEY = torch.iinfo(torch.int64).max  # the all-ones key in the mirror's signed order
+
+
+def zeros_market():
+    """24 providers x 40 tasks, every pair compatible, costs of -0 (odd,
+    located tasks at proximity -0) and +0 (even, unlocated ones): the
+    argmin holds them equal and takes task 0."""
+    ep = j_synth.synth_providers(np.random.default_rng(6), 24)
+    er = j_synth.synth_requirements(np.random.default_rng(7), 40)
+    ones = lambda a: np.ones(np.shape(a), bool)  # noqa: E731
+    loc = np.array(er.has_location, copy=True)
+    loc[0::2] = False
+    ep = dataclasses.replace(ep, valid=ones(ep.valid), price=np.full(24, -0.0, np.float32),
+                             load=np.full(24, -0.0, np.float32))
+    er = dataclasses.replace(
+        er, valid=ones(er.valid), cpu_required=~ones(er.cpu_required),
+        cpu_cores=np.full(40, -1, np.int32), ram_mb=np.full(40, -1, np.int32),
+        storage_gb=np.full(40, -1, np.int32), gpu_opt_valid=~ones(er.gpu_opt_valid),
+        priority=np.zeros(40, np.float32), has_location=loc)
+    return ep, er
+
+
+@pytest.mark.parametrize("kind", ["dup", "zeros"])
+def test_unbounded_keys_split_anywhere_equal_plain_and_reference(kind):
+    """Each provider's tasks split at random points, each part reduced to
+    its least key over the feasible cells (-0 as +0) and the parts met by
+    the least key: the plain K8 and the reference's _solve_unbounded."""
+    ep, er = dup_market() if kind == "dup" else zeros_market()
+    jw = JCostWeights(priority=1.0, proximity=0.0 if kind == "dup" else -0.0)
+    tw = CostWeights(**dataclasses.asdict(jw))
+    tp, tr = to_port(ep, er)
+    cost, _ = cost_matrix(tp, tr, tw)
+    P, T = cost.shape
+    tasks = torch.arange(T, dtype=torch.int32)
+    folded = torch.where(cost == 0.0, torch.zeros_like(cost), cost)
+    rng = np.random.default_rng(1)
+    got = np.full(P, -1, np.int32)
+    for p in range(P):
+        keys = torch.where(cost[p] < 5e8, k1_order_key(folded[p], tasks), NO_KEY)
+        cuts = np.sort(rng.choice(np.arange(1, T), rng.integers(0, 6), replace=False))
+        best = min(int(part.min()) for part in torch.tensor_split(keys, cuts.tolist()))
+        if best != NO_KEY:
+            got[p] = best & 0xFFFFFFFF
+    np.testing.assert_array_equal(got, _solve_unbounded_plain(tp, tr, tw).numpy())
+    np.testing.assert_array_equal(got, np.asarray(_solve_unbounded(ep, er, jw)[0]))
+    if kind == "zeros":  # the fold decides: unfolded keys put task 1's -0 first
+        assert bool(torch.signbit(cost[:, 1]).all()) and (got == 0).all()
+        raw = k1_order_key(cost, tasks.expand(P, T)).argmin(dim=1)
+        assert bool((raw == 1).all())
+    else:
+        assert got[DUP_NO_FIT] == -1 and (got < DUP_ROWS).all()
+

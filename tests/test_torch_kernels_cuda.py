@@ -638,6 +638,94 @@ def test_dense_kernels_match_plain_bits(card, proximity):
     assert same_bits(kernels.unbounded_best(ep, er, w), tb._solve_unbounded_plain(ep, er, w))
 
 
+# K6's and K8's cases: name -> (P, T, edit). The seams of their list
+# launches: 256 providers a block, two a lane (255 and 257 straddle a
+# chunk), rows staged 8 a step (7 and 9 straddle a step), single rows and
+# columns, every pair of the sizes; then requirement rows repeated every 35
+# tasks (exact ties across the ranges: K8 must take the first task),
+# providers that fit no task (K8 gives -1), slots that no provider fits
+# (K6's row all -1e18, not feasible), costs of -0 and +0 (K8 holds them
+# equal, as the plain argmin does), and the backend's best RPC shape.
+DENSE_CASES = {f"p{P}_t{T}": (P, T, None) for P in (1, 255, 257, 1000) for T in (1, 7, 9, 700)}
+DENSE_CASES.update(dup=(1000, 700, "dup"), nofit=(257, 9, "nofit"), noslot=(255, 700, "noslot"),
+                   zeros=(257, 700, "zeros"), best_rpc=(4096, 1024, None))
+DENSE_DUP_PERIOD = 35
+
+
+def dense_case(name: str, proximity: float, card):
+    """(ep, er, weights) of one of DENSE_CASES on the card."""
+    import dataclasses
+
+    from protocol_tpu_torch.ops.encoding import gather_requirements
+
+    P, T, edit = DENSE_CASES[name]
+    ep = synth_providers(np.random.default_rng(43), P, device=card)
+    er = synth_requirements(np.random.default_rng(44), T, device=card)
+    w = CostWeights(priority=1.0, proximity=proximity)
+    if edit == "dup":
+        er = gather_requirements(er, torch.arange(T, device=card) % DENSE_DUP_PERIOD)
+    if edit == "nofit":
+        valid = ep.valid.clone()
+        valid[[0, 100, P - 1]] = False
+        ep = dataclasses.replace(ep, valid=valid)
+    if edit == "noslot":
+        valid = er.valid.clone()
+        valid[[0, 5, T - 1]] = False
+        er = dataclasses.replace(er, valid=valid)
+    if edit == "zeros":
+        # base -0 + (-0 x distance) - 0 is -0 on a located pair, +0 on the
+        # others (the even tasks, from task 0 on); every pair compatible, so
+        # at proximity -0 each provider's row ties at 0
+        loc = er.has_location.clone()
+        loc[0::2] = False
+        ep = dataclasses.replace(ep, valid=torch.ones_like(ep.valid),
+                                 price=torch.full_like(ep.price, -0.0),
+                                 load=torch.full_like(ep.load, -0.0))
+        er = dataclasses.replace(
+            er, valid=torch.ones_like(er.valid), cpu_required=torch.zeros_like(er.cpu_required),
+            cpu_cores=torch.full_like(er.cpu_cores, -1), ram_mb=torch.full_like(er.ram_mb, -1),
+            storage_gb=torch.full_like(er.storage_gb, -1),
+            gpu_opt_valid=torch.zeros_like(er.gpu_opt_valid),
+            priority=torch.zeros_like(er.priority), has_location=loc)
+        w = CostWeights(priority=1.0, proximity=-0.0 if proximity == 0.0 else proximity)
+    return ep, er, w
+
+
+@pytest.mark.parametrize("proximity", [0.0, 0.001])
+@pytest.mark.parametrize("name", sorted(DENSE_CASES))
+def test_dense_kernels_cases_match_plain_bits(card, name, proximity):
+    """K6 against cost_matrix + with_tie_jitter, K8 against cost_matrix +
+    argmin and K7 fed K6's rows against the plain auction loop, bit for
+    bit, on each of DENSE_CASES at both weights."""
+    from protocol_tpu_torch import kernels
+    from protocol_tpu_torch.ops import assign as da
+    from protocol_tpu_torch.ops.cost import cost_matrix, with_tie_jitter
+    from protocol_tpu_torch.sched import torch_backend as tb
+
+    ep, er, w = dense_case(name, proximity, card)
+    P, T, edit = DENSE_CASES[name]
+    vb, feas = kernels.dense_value_base(ep, er, w)
+    cost, _ = cost_matrix(ep, er, w)
+    pvb, pfeas = da._value_base(with_tie_jitter(cost))
+    assert vb.shape == (T, P) and same_bits(vb, pvb) and torch.equal(feas, pfeas)
+    best = kernels.unbounded_best(ep, er, w)
+    assert same_bits(best, tb._solve_unbounded_plain(ep, er, w))
+    got = kernels.dense_auction(vb, feas, 0.05, 300)
+    ref = da._auction_dense_plain(vb, feas, 0.05, 300)
+    assert all(same_bits(a, b) for a, b in zip(got[:3], ref[:3])) and int(got[3]) == int(ref[3])
+    if edit == "dup":  # every tie goes to the first copy of a row
+        assert bool(((best >= 0) & (best < DENSE_DUP_PERIOD)).any())
+        assert bool((best < DENSE_DUP_PERIOD).all())
+    if edit == "nofit":
+        assert best[[0, 100, P - 1]].tolist() == [-1, -1, -1]
+    if edit == "noslot":
+        assert not feas[[0, 5, T - 1]].any()
+        assert bool((vb[[0, 5, T - 1]] == -1e18).all())
+    if edit == "zeros" and proximity == 0.0:  # +0 at task 0, -0 at task 1: the first wins
+        assert bool((cost == 0.0).all()) and bool(torch.signbit(cost[:, 1]).all())
+        assert not bool(torch.signbit(cost[:, 0]).any()) and bool((best == 0).all())
+
+
 @pytest.mark.parametrize("offset", [123_456_789, 2**31 - 1, -5])
 @pytest.mark.parametrize("tile", [256, 1024])
 def test_candidate_kernel_with_a_jitter_offset_matches_plain_bits(card, offset, tile):
