@@ -30,7 +30,10 @@ thread-block cluster, is held bit for bit at 65,536^2 (cold, eps 4, B
 4,096; carried, eps 0.02, B 512) at cluster sizes 1, 8 and its default
 and timed at both; during the cold ticks and the warm chain every launch
 is also timed in place (kernels.time_in_place: a CUDA event pair a
-launch, summed per kernel), and those sums are printed and ranked.
+launch, summed per kernel), and those sums are printed and ranked; K5's
+first launch in the process, which loads its module, is made before the
+chain, untimed. K5 is also timed against one torch.sort of its pools
+(its library_ms).
 
 Then the batch matcher (TorchBatchMatcher) on an in-memory store built
 from the port's own models, in two more runs with the counts set to 0
@@ -42,7 +45,9 @@ just before each:
     two refreshes (1% of the nodes repriced and two tasks replaced in
     between), timed in place (kernels.time_in_place; the sums printed):
     K6 + K7 (phase 1) and K8 (phase 2), each held against its plain
-    version on the first refresh's inputs;
+    version on the first refresh's inputs, K8 also on them with a NaN
+    price and a NaN priority (nan_columns: a provider with a NaN cell
+    gets -1);
   - the torch route (native_engine="torch") at 65,536 nodes x 65,536
     slots (4,096 tasks x 16 replicas): a cold refresh, then a warm one
     after 1% node churn.
@@ -329,6 +334,67 @@ def cuda_ms(torch, fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def launch_ms(torch, kernels, call, reps: int) -> float:
+    """Device ms of the launch a wrapper call makes, alone: ``call()`` runs
+    the wrapper once, and its C entry is then launched ``reps`` times more
+    back to back between two CUDA events while the wrapper's buffers are
+    alive (each rewrites the same outputs), uncounted. The wrapper's host
+    checks and syncs are left out."""
+    orig, got = kernels._launch, {}
+
+    def replay(key, fn, *args, what=None):
+        orig(key, fn, *args, what=what)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            kernels._check(fn(*args), key)
+        end.record()
+        end.synchronize()
+        got["ms"] = start.elapsed_time(end) / reps
+
+    kernels._launch = replay
+    try:
+        call()
+    finally:
+        kernels._launch = orig
+    return got["ms"]
+
+
+def sha16(torch, *tensors) -> str:
+    """The first 16 hex digits of the sha256 of the tensors' bytes."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+NAN_TASK, NAN_PROVIDER = 5, 7  # the NaN edits' rows
+
+
+def nan_columns(torch, ep, er, ram_mb: int | None = None):
+    """The NaN edits of the RPCs' unchecked wire columns, on copies of
+    encoded columns: a NaN price on NAN_PROVIDER, and a NaN priority on
+    NAN_TASK, every limit of it cleared but a RAM minimum of ``ram_mb`` (-1:
+    none, so every provider fits it; default the providers' median, which
+    about half of them fit). Returns (ep, er)."""
+    import dataclasses
+
+    if ram_mb is None:
+        ram_mb = int(ep.ram_mb.float().median())
+    price, prio = ep.price.clone(), er.priority.clone()
+    price[NAN_PROVIDER], prio[NAN_TASK] = float("nan"), float("nan")
+    cols = {"priority": prio}
+    for name, v in (("cpu_required", 0), ("cpu_cores", -1), ("storage_gb", -1),
+                    ("gpu_opt_valid", 0), ("valid", 1), ("ram_mb", ram_mb)):
+        a = getattr(er, name).clone()
+        a[NAN_TASK] = v
+        cols[name] = a
+    return dataclasses.replace(ep, price=price), dataclasses.replace(er, **cols)
 
 
 def bits_equal(torch, a, b) -> bool:
@@ -1386,18 +1452,13 @@ def rounding_near_ties(torch, rcost_tp, order, colmax, tol: float):
     return p4t, order_ties, step_tie
 
 
-def first_launches(torch, kernels, n: int) -> None:
-    """K12's and K13's first launches in a process load their kernels'
-    modules inside the C entry, between in-place timing's event pair, and
-    the backend run would make them. Make them here at the backend's shape
-    (n x n, a seeded cost on the card), untimed and uncounted, and print
-    the first and the second launch of each as timed by events around the
-    wrapper: the difference is the load."""
-    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 57)
-    cost = torch.rand((n, n), generator=gen, device=DEVICE)
-    order = torch.arange(n, dtype=torch.int32, device=DEVICE)
-    calls = {"greedy_assign": lambda: kernels.greedy_assign(cost, order),
-             "sinkhorn": lambda: kernels.sinkhorn(cost, SINKHORN_EPS, SINKHORN_ITERS)}
+def first_launches(torch, kernels, calls: dict, shape: str) -> None:
+    """A kernel's first launch in a process loads its module inside the C
+    entry, between in-place timing's event pair, so a run timed in place
+    must not make it. Make each of ``calls`` (name -> a call of its wrapper
+    at the run's shape) here twice, untimed and uncounted, and print the
+    first and the second launch as timed by events around the wrapper: the
+    difference is the load."""
     ms = {}
     with uncounted(kernels), kernels.untimed():
         for name, fn in calls.items():
@@ -1411,8 +1472,33 @@ def first_launches(torch, kernels, n: int) -> None:
                 end.record()
                 end.synchronize()
                 ms[name].append(start.elapsed_time(end))
-    print(f"first launches in the process ({n} x {n}, events around the wrapper): " + "; ".join(
+    print(f"first launches in the process ({shape}, events around the wrapper): " + "; ".join(
         f"{name} {a:.3f} ms, then {b:.3f} ms" for name, (a, b) in ms.items()), flush=True)
+
+
+def backend_first_launches(torch, kernels, n: int) -> None:
+    """K12's and K13's first launches, which the backend run would make, at
+    its shape (n x n, a seeded cost on the card)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 57)
+    cost = torch.rand((n, n), generator=gen, device=DEVICE)
+    order = torch.arange(n, dtype=torch.int32, device=DEVICE)
+    first_launches(torch, kernels, {
+        "greedy_assign": lambda: kernels.greedy_assign(cost, order),
+        "sinkhorn": lambda: kernels.sinkhorn(cost, SINKHORN_EPS, SINKHORN_ITERS),
+    }, f"{n} x {n}")
+
+
+def refold_first_launch(torch, kernels) -> None:
+    """K5's first launch, which the warm chain's first refold would make
+    (its library holds no other kernel; the chain's in-place sum was then
+    ~3 ms over 6 launches of ~0.04), at the chain's shape: N providers x 64
+    entries, r 8, seeded costs on the card."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 59)
+    pool_c = torch.rand((N, 64), generator=gen, device=DEVICE)
+    pool_t = torch.zeros((N, 64), dtype=torch.int32, device=DEVICE)
+    first_launches(torch, kernels, {
+        "repair_refold": lambda: kernels.repair_refold(pool_t, pool_c, 8),
+    }, f"{N} x 64")
 
 
 def run_backend(torch, kernels) -> tuple[list, dict]:
@@ -1420,7 +1506,7 @@ def run_backend(torch, kernels) -> tuple[list, dict]:
     localhost port, driven through the port's client over both wires with
     the counts set to 0 just before. Every answer is checked (compatible,
     a matching, v1 == v2, equal to the dispatch in process), every launch
-    timed in place after K12's and K13's first launches (first_launches);
+    timed in place after K12's and K13's first launches (backend_first_launches);
     K12 and K13 are held against their plain versions on their first
     calls. Returns (the kernels-line rows of K12 and K13,
     {"backend": launches}, the in-place sums)."""
@@ -1497,7 +1583,7 @@ def run_backend(torch, kernels) -> tuple[list, dict]:
               f"devices {health.device_count}", flush=True)
         if (health.status, health.platform) != ("ok", "gpu"):
             raise AssertionError("the backend's Health does not report a GPU")
-        first_launches(torch, kernels, n)
+        backend_first_launches(torch, kernels, n)
         torch.cuda.synchronize()
         kernels.reset_launches()
         kernels.time_in_place(True)
@@ -1918,7 +2004,7 @@ def run_stage_s(torch, kernels) -> tuple[list, dict, dict]:
     if not bits_equal(torch, got_p, ref_p):
         raise AssertionError("K15: not bit-identical to the plain cost_pairs on the referee's p4t")
     print("K1 biased (the rounding's call) and K15 (the referee's p4t) at full width: "
-          "bit-identical", flush=True)
+          f"bit-identical; K15's sha256 {sha16(torch, got_p)}", flush=True)
     del got_r, ref_r, got_c, ref_c, got_b, ref_b, got_p, ref_p
 
     # ---- times on those arguments, the plain versions' and the nearest
@@ -1934,6 +2020,7 @@ def run_stage_s(torch, kernels) -> tuple[list, dict, dict]:
     unbiased_ms = cuda_ms(torch, lambda: kernels.candidates_forward_rows(
         b_ep, b_er, b_w, b_k, b_ids), 3)
     pair_ms = cuda_ms(torch, lambda: kernels.pair_cost(ep, er, w, p4t_a), 10)
+    pair_launch_ms = launch_ms(torch, kernels, lambda: kernels.pair_cost(ep, er, w, p4t_a), 50)
     feas_plain = cuda_ms(torch, lambda: bl.feasibility_scan(k_block, size, starts), 1)
     row_plain = cuda_ms(torch, lambda: bl.streaming_row_logsumexp(kb_rows, r_v, starts, size,
                                                                    tile), 1)
@@ -1994,6 +2081,7 @@ def run_stage_s(torch, kernels) -> tuple[list, dict, dict]:
         r_["library_call"] = (f"{n_tiles} calls of torch.logsumexp over a materialised "
                               f"[P, {tile}] block of K + the potential, timed as one pass "
                               f"(the nearest call: the block is not recomputed)")
+    rows[4]["launch_ms"] = pair_launch_ms  # ms: the wrapper's, with its read of max(p4t)
     rows[4]["plain_cells"] = (f"the plain cost_pairs scores a [{oc._PAIR_CHUNK}, "
                               f"{oc._PAIR_CHUNK}] block per chunk of tasks and keeps its "
                               f"diagonal: {oc._PAIR_CHUNK}x the {size} cells K15 scores")
@@ -2313,13 +2401,21 @@ def run_mesh(torch, kernels, refresh) -> tuple[list, dict, dict]:
                 if not all(bits_equal(torch, a, b) for a, b in zip(got, ref)):
                     raise AssertionError(f"K5 at {d} lanes: not bit-identical to its plain version")
             print("K5 at 4 and 8 lanes: bit-identical to its plain version", flush=True)
-            ms = cuda_ms(torch, lambda: kernels.repair_refold(rf_pt, rf_pc, rf_r, d_fold=MESH_D), 10)
+            def k5_lanes():
+                return kernels.repair_refold(rf_pt, rf_pc, rf_r, d_fold=MESH_D)
+
+            ms = cuda_ms(torch, k5_lanes, 10)
             plain = cuda_ms(torch, lambda: ps._refold_plain(rf_pt, rf_pc, rf_r, 1, MESH_D), 1)
             n_tiles_rf = rf_pc.shape[1]
             k5_row = row("repair_refold_lanes", SRC_REPAIR, "protocol_tpu/parallel/sparse.py:835",
                          0.0, ms, plain, N * n_tiles_rf * 8 + N * rf_r * 8,
                          N * (n_tiles_rf + MESH_D * rf_r) * rf_r)
             k5_row.update(counter="repair_refold", runs=("mesh_arena",),
+                          launch_ms=launch_ms(torch, kernels, k5_lanes, 50),
+                          library_ms=cuda_ms(torch, lambda: torch.sort(rf_pc, dim=1, stable=True),
+                                             10),
+                          library_call="torch.sort(pool_c, dim=1, stable=True)",
+                          sha256=sha16(torch, *k5_lanes()),
                           note=f"{N} providers x {n_tiles_rf} tiles in {MESH_D} lanes")
             rows_out.append(k5_row)
 
@@ -3112,6 +3208,7 @@ def main() -> int:
         prov_churn()
         return warm.solve(ns(pa), ns(ra), default)
 
+    refold_first_launch(torch, kernels)
     torch.cuda.synchronize()
     kernels.reset_launches()
     kernels.time_in_place(True)
@@ -3144,6 +3241,7 @@ def main() -> int:
         return list(args), kw
 
     new_rows = []
+    row_extra: dict = {}  # more keys for a row of new_rows, by name
     p_row = row_bytes(ep)
     r_row = row_bytes(er)
 
@@ -3260,17 +3358,26 @@ def main() -> int:
                      N * n_t * OPS_PER_CELL + feas * OPS_PER_FEASIBLE_CELL,
                      f"{N} providers x {n_t} tasks"))
 
-    # K5 refold: structure only, bit-identical
+    # K5 refold: structure only, bit-identical; its library yardstick is
+    # one stable sort of the pool costs, which orders each row's entries
+    # as K5's selection does among the finite costs
     (rf_pt, rf_pc, rf_r), _ = args_of("repair_refold")
     got = kernels.repair_refold(rf_pt, rf_pc, rf_r)
     ref = ps._refold_plain(rf_pt, rf_pc, rf_r, 1)
     torch.cuda.synchronize()
     if not all(bits_equal(torch, a, b) for a, b in zip(got, ref)):
         return fail("repair_refold: not bit-identical to the plain version")
-    print("repair_refold: bit-identical", flush=True)
+    print(f"repair_refold: bit-identical, sha256 {sha16(torch, *got)}", flush=True)
     ms = cuda_ms(torch, lambda: kernels.repair_refold(rf_pt, rf_pc, rf_r), 10)
     plain = cuda_ms(torch, lambda: ps._refold_plain(rf_pt, rf_pc, rf_r, 1), 1)
     n_tiles_rf = rf_pc.shape[1]
+    row_extra["repair_refold"] = {
+        "launch_ms": launch_ms(torch, kernels, lambda: kernels.repair_refold(rf_pt, rf_pc, rf_r),
+                               50),
+        "library_ms": cuda_ms(torch, lambda: torch.sort(rf_pc, dim=1, stable=True), 10),
+        "library_call": "torch.sort(pool_c, dim=1, stable=True)",
+        "lanes_a_provider": kernels.refold_group(n_tiles_rf),
+    }
     new_rows.append(("repair_refold", SRC_REPAIR, "protocol_tpu/parallel/sparse.py:835", 0.0, ms,
                      plain, N * n_tiles_rf * 8 + N * rf_r * 8, N * n_tiles_rf * rf_r,
                      f"{N} providers x {n_tiles_rf} tiles"))
@@ -3376,12 +3483,28 @@ def main() -> int:
               f"seated {int((got[0] >= 0).sum())}/{int(feas.sum())} feasible slots", flush=True)
         if not all(checks.values()):
             return fail(f"dense kernels differ from their plain versions: {checks}")
+    # K8 on the NaN edits' cells: a provider with a NaN cell gets -1, as the
+    # plain argmin's first NaN fails its test
+    n_ep8, n_er8 = nan_columns(torch, ep8, er8)
+    for w in (m_zero, m_default):
+        best = kernels.unbounded_best(n_ep8, n_er8, w)
+        pbest = tb._solve_unbounded_plain(n_ep8, n_er8, w)
+        nan_row = torch.isnan(cost_matrix(n_ep8, n_er8, w)[0]).any(dim=1)
+        torch.cuda.synchronize()
+        ok = bits_equal(torch, best, pbest) and bool((best[nan_row] == -1).all())
+        print(f"K8 on NaN cells (proximity {w.proximity}): {int(nan_row.sum())} providers with a "
+              f"NaN cell, {int((best >= 0).sum())} seated, bit-identical {ok}", flush=True)
+        if not ok or not bool(nan_row.any()):
+            return fail("K8 on NaN cells differs from its plain version")
+    del n_ep8, n_er8
     k7_rounds, k7_open_rows = int(got[3]), int(work["open_rows"])
     k6_ms = cuda_ms(torch, lambda: kernels.dense_value_base(ep6, er6, m_default), 5)
     k6_plain_ms = cuda_ms(torch, lambda: plain_value_base(m_default), 3)
     k7_ms = cuda_ms(torch, lambda: kernels.dense_auction(vb, feas, 0.05, 300), 3)
     k7_plain_ms = cuda_ms(torch, lambda: da._auction_dense_plain(vb, feas, 0.05, 300), 1)
     k8_ms = cuda_ms(torch, lambda: kernels.unbounded_best(ep8, er8, m_default), 5)
+    k8_launch_ms = launch_ms(torch, kernels, lambda: kernels.unbounded_best(ep8, er8, m_default),
+                             50)
     k8_plain_ms = cuda_ms(torch, lambda: tb._solve_unbounded_plain(ep8, er8, m_default), 3)
     Pd, Td, Tu = ep6.num, er6.num, er8.num
     k6_feasible = int((vb > -5e17).sum())
@@ -3465,7 +3588,8 @@ def main() -> int:
         k2_row,
     ]
     for name, src, repl, err, ms, plain, bytes_, ops, work in new_rows:
-        rows.append(row(name, src, repl, err, ms, plain, bytes_, ops))
+        rows.append(dict(row(name, src, repl, err, ms, plain, bytes_, ops),
+                         **row_extra.get(name, {})))
         print(f"{name} timed on its first-call arguments: {work}", flush=True)
     rows += [
         row("dense_value_base", SRC_K1, "protocol_tpu/sched/tpu_backend.py:172", 0.0,
@@ -3473,8 +3597,8 @@ def main() -> int:
         dict(row("dense_auction", SRC_DENSE, "protocol_tpu/ops/assign.py:176", 0.0, k7_ms,
                  k7_plain_ms, k7_bytes, k7_ops),
              price_route=kernels.dense_route(Pd), us_per_round=k7_ms * 1e3 / max(k7_rounds, 1)),
-        row("unbounded_best", SRC_K1, "protocol_tpu/sched/tpu_backend.py:189", 0.0, k8_ms,
-            k8_plain_ms, k8_bytes, k8_ops),
+        dict(row("unbounded_best", SRC_K1, "protocol_tpu/sched/tpu_backend.py:189", 0.0, k8_ms,
+                 k8_plain_ms, k8_bytes, k8_ops), launch_ms=k8_launch_ms),
         k9_row,
     ] + phase_rows + backend_rows + stage_rows + mesh_rows + dense_rows + sink_rows
     for r_ in rows:

@@ -113,9 +113,23 @@
 // a row at -inf. So the masked potentials agree, and the masks are exact.
 //
 // K15 replaces ops/cost.py::_cost_pairs_vmapped (:137) / cost_pairs
-// (:149): one thread per task t scores the cell (p4t[t], t) with
-// cell_cost<false>, INFEASIBLE where p4t[t] < 0 (the stage-S quality
-// measure, O(T) cells where [P, T] cannot exist).
+// (:149): the unjittered cost of the cell (p4t[t], t) of every task t,
+// INFEASIBLE where p4t[t] < 0 (the stage-S quality measure, O(T) cells
+// where [P, T] cannot exist). One launch, one thread a task: no prep pass
+// over the P + T rows; the thread computes its task's terms and its
+// provider's with prep_kernel's functions (cell.cuh: prov_base, task_prio,
+// cosf) and scores the cell with cell_cost<false>, so the bits are the
+// per-row terms' bits. The task's columns are read at t, coalesced, in
+// the same wave as p4t[t]; the provider's columns are gathered at p only
+// where the task's rules read them (each is a 32-byte sector at a random
+// row): valid, price and load always; has_cpu and cpu_cores where the task
+// requires a CPU; ram_mb, storage_gb where it sets a minimum; the GPU
+// columns where it has a GPU option; has_location, lat, lon where it is
+// located. A field left unread takes a value the rule that reads it
+// ignores, so compat and cell_terms see the bits they would have seen.
+// Every load of a thread depends on p4t[t] or on nothing, so a thread's
+// gathers are in flight together, and the grid holds every pair at once
+// at stage S's 100,000.
 //
 // What bounds them on the H100: operations. The feasibility launch
 // checks P x T cells, ~12 operations each, and writes 2 x P x T / 8 bytes
@@ -123,8 +137,8 @@
 // leaves the answer open, none of trace/synth.py's cells.
 // A pass reads P x T / 8 bytes of bitmap and O(P + T) of rows, and does
 // the ~30 operations of the cost plus the division, the add and the exp
-// of the online sum-exp on each feasible cell only. K15 reads one
-// provider row per task: bytes.
+// of the online sum-exp on each feasible cell only. K15 reads one task
+// row and the needed part of one provider row per pair: bytes.
 //
 // Numerics: built like candidates.cu (-fmad=false, no fast-math). K =
 // -cost / eps is an IEEE division (__fdiv_rn), as the reference's and the
@@ -452,20 +466,65 @@ __global__ void __launch_bounds__(kLanes * kWarps) lse_kernel(
   }
 }
 
-__global__ void __launch_bounds__(kThreads) pair_cost_kernel(Prov prov, Req req, Aux aux,
-                                                             Weights w, int T, int K, int W,
+// K15: a task's row with its terms computed here (no aux); the jitter key
+// is unused (the pair cost is unjittered).
+__device__ __forceinline__ TaskRow pair_task(const Req& R, const Weights& w, int t, int K) {
+  TaskRow r;
+  r.jkey = (uint32_t)t;
+  r.cores = R.cpu_cores[t];
+  r.ram = R.ram_mb[t];
+  r.storage = R.storage_gb[t];
+  r.cpu_required = R.cpu_required[t] != 0;
+  bool any = false;
+  for (int k = 0; k < K; ++k) any |= R.gpu_opt_valid[t * K + k] != 0;
+  r.any_opt = any;
+  r.has_loc = R.has_location[t] != 0;
+  r.valid = R.valid[t] != 0;
+  r.lat = R.lat[t];
+  r.lon = R.lon[t];
+  r.coslat = r.has_loc ? cosf(r.lat) : 0.0f;  // read only where both sides are located
+  r.prio = task_prio(w, R.priority[t]);
+  return r;
+}
+
+// K15: provider p's row, gathered only where task t's rules read it (the
+// comment at the top of this file); a field left unread is one its rule
+// ignores: has_cpu / cores without cpu_required, ram / storage under an
+// absent minimum (ge_min passes), the GPU fields without an option,
+// has_loc false for an unlocated task (no distance term).
+__device__ __forceinline__ ProvRow pair_prov(const Prov& P, const Weights& w, int p,
+                                             const TaskRow& t) {
+  ProvRow r;
+  r.valid = P.valid[p] != 0;
+  r.base = prov_base(w, P.price[p], P.load[p]);
+  r.has_cpu = t.cpu_required ? P.has_cpu[p] != 0 : false;
+  r.cores = t.cpu_required ? P.cpu_cores[p] : 0;
+  r.ram = t.ram >= 0 ? P.ram_mb[p] : 0;
+  r.storage = t.storage >= 0 ? P.storage_gb[p] : 0;
+  r.has_gpu = t.any_opt ? P.has_gpu[p] != 0 : false;
+  r.count = t.any_opt ? P.gpu_count[p] : 0;
+  r.mem = t.any_opt ? P.gpu_mem_mb[p] : 0;
+  r.model = t.any_opt ? P.gpu_model_id[p] : 0;
+  r.has_loc = t.has_loc ? P.has_location[p] != 0 : false;
+  r.lat = t.has_loc ? P.lat[p] : 0.0f;
+  r.lon = t.has_loc ? P.lon[p] : 0.0f;
+  r.coslat = r.has_loc ? cosf(r.lat) : 0.0f;
+  return r;
+}
+
+__global__ void __launch_bounds__(kThreads) pair_cost_kernel(Prov prov, Req req, Weights w,
+                                                             int T, int K, int W,
                                                              const int32_t* __restrict__ p4t,
                                                              float* __restrict__ out) {
   const int t = blockIdx.x * kThreads + threadIdx.x;
   if (t >= T) return;
   const int p = p4t[t];
+  const TaskRow tr = pair_task(req, w, t, K);
   if (p < 0) {
     out[t] = kInfeasible;
     return;
   }
-  const TaskRow tr = load_task(req, aux, t, K);
-  const ProvRow pr = load_prov(prov, aux, p);
-  out[t] = cell_cost<false>(pr, p, tr, t, req, K, W, w);
+  out[t] = cell_cost<false>(pair_prov(prov, w, p, tr), p, tr, t, req, K, W, w);
 }
 
 // Where the packed rows start in aux, in floats: past prep_kernel's 2 (P +
@@ -602,17 +661,13 @@ extern "C" int k14_col_partial(const void* const* prov_cols, const void* const* 
 }
 
 // K15: out [T] f32, the unjittered cost of (p4t[t], t), INFEASIBLE where
-// p4t[t] < 0 (every p4t[t] < P).
+// p4t[t] < 0 (every p4t[t] < P, which the wrapper checks): one launch.
 extern "C" int k15_pair_cost(const void* const* prov_cols, const void* const* req_cols, int P,
                              int T, int K, int W, float w_price, float w_load, float w_prox,
-                             float w_prio, const int32_t* p4t, float* aux, float* out,
-                             void* stream) {
+                             float w_prio, const int32_t* p4t, float* out, void* stream) {
   if (P < 1 || T < 1 || K > kMaxOpts) return (int)cudaErrorInvalidValue;
   const Weights w{w_price, w_load, w_prox, w_prio};
-  const Prov prov = make_prov(prov_cols);
-  const Req req = make_req(req_cols);
-  launch_prep(prov, req, w, P, T, aux, (cudaStream_t)stream);
   pair_cost_kernel<<<(T + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(
-      prov, req, make_aux(aux, P, T), w, T, K, W, p4t, out);
+      make_prov(prov_cols), make_req(req_cols), w, T, K, W, p4t, out);
   return (int)cudaGetLastError();
 }

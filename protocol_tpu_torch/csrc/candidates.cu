@@ -92,15 +92,24 @@
 // in round-to-nearest -0 + (+0) = +0, a larger cost is positive, an
 // infeasible cell is 1e9; so a selection c + bias[p] is -0 only for c = -0.
 // With unique keys any order of scoring gives the same selections, which
-// are the parent's at every weight. The blocks launch keys only cells
+// are the parent's at every weight. NaN costs follow the reference: the
+// forward selection (lax.top_k) and the reverse at rt > 1 put NaN cells
+// last, where a NaN's key lies (a NaN cell is never admitted, and a row
+// with fewer than k other cells ends with (-1, NaN) places); the reverse
+// at rt = 1 (an argmin, which returns a row's first NaN) keys a NaN cell
+// below every cost (rev_key), and the fold never takes a NaN into a list.
+// The blocks launch keys only cells
 // below +inf, the parent's strict `<` from +inf (no NaN or +inf cell
 // wins; a block without a key decodes to (+inf, -1), as before), so its
 // key order over a tile's cells is `<` with the lowest task first among
-// ties, the first argmin, however the cells are split. K8 keys only the
-// cells below INFEASIBLE/2 (a provider without one decodes to -1, as the
-// reference's test of its argmin's cost; a NaN never wins), with -0 folded
-// to +0 first: the unjittered cost can be -0, and the reference's argmin
-// holds -0 and +0 equal and takes the lower task. K4 needs no key:
+// ties, the first argmin, however the cells are split. K8 keys the cells
+// below INFEASIBLE/2, with -0 folded to +0 first (the unjittered cost can
+// be -0, and the reference's argmin holds -0 and +0 equal and takes the
+// lower task), and every NaN cell as kNanKey, 0, below every real key
+// (order_bits(-inf) is 0x007fffff): the reference's argmin returns a row's
+// first NaN, whose cost then fails its test, so a provider with a NaN cell
+// decodes to -1, as does one without a key. An incompatible cell is
+// INFEASIBLE, never NaN; -inf is a real cost and keeps its task. K4 needs no key:
 // fminf from the pad is exact in any order of the cells, as no cost is -0
 // and fminf passes over a NaN as the parent's did. Nor do K3 and K6's
 // feasibility, ORs of per-cell tests (a NaN cost or threshold flags
@@ -164,6 +173,27 @@ __device__ __forceinline__ float order_float(uint32_t u) {
 
 __device__ __forceinline__ u64 make_key(float f, uint32_t idx) {
   return ((u64)order_bits(f) << 32) | idx;
+}
+
+// A reverse key of cell (cost c, task t). At rt = 1 the reference takes
+// each tile's argmin, which returns the row's first NaN, so the key's high
+// word is order_bits(c) + 1 (mod 2^32): the card's NaN, 0x7fffffff, whose
+// order_bits is 0xffffffff, becomes 0, below every cost (the largest
+// other, +inf's, is 0xff800000, and -inf's + 1 is 0x00800000), at one add
+// a cell; the order of the costs is kept. rev_cost decodes it. At rt > 1
+// the reference takes lax.top_k of the negated costs, which puts a NaN
+// last, as order_bits does.
+template <bool kMulti>
+__device__ __forceinline__ u64 rev_key(float c, uint32_t t) {
+  return ((u64)(order_bits(c) + (kMulti ? 0u : 1u)) << 32) | t;
+}
+
+// A reverse key's cost: the NaN of a high word 0 at rt = 1, else the cost.
+template <bool kMulti>
+__device__ __forceinline__ float rev_cost(u64 x) {
+  const uint32_t hi = (uint32_t)(x >> 32);
+  if (kMulti) return order_float(hi);
+  return hi == 0 ? __int_as_float(0x7fffffff) : order_float(hi - 1u);
 }
 
 // Keys of a sorted list below x: its place in the list.
@@ -507,8 +537,17 @@ __global__ void __launch_bounds__(kThreads, 4) k1_kernel(const K1Args a) {
           if constexpr (kRev) {
             const uint32_t t = (uint32_t)w_tid[j];
 #pragma unroll
-            for (int h = 0; h < 2; ++h)
-              if (pv[h]) insert_key<kMulti>(best[h], make_key(c[h], t), a.rt);
+            for (int h = 0; h < 2; ++h) {
+              if (!pv[h]) continue;
+              if constexpr (kMulti) {
+                insert_key<true>(best[h], rev_key<true>(c[h], t), a.rt);
+              } else {
+                // the rows' tasks ascend, so a key is below the lane's least
+                // exactly when its high word is: one 32-bit compare
+                const u64 x = rev_key<false>(c[h], t);
+                if ((uint32_t)(x >> 32) < (uint32_t)(best[h][0] >> 32)) best[h][0] = x;
+              }
+            }
           }
         }
         if constexpr (kRev) {
@@ -583,16 +622,27 @@ __global__ void __launch_bounds__(kThreads, 4) k1_kernel(const K1Args a) {
           a.out_c[(size_t)row * a.k + rank] = c;
         }
       }
+      // a row with fewer than k cells that are not NaN (every such cell is
+      // admitted while its list is short): the rest of its k places are
+      // NaN cells, which the plain stable sort puts last, at -1 (a NaN
+      // fails the test against INFEASIBLE/2) and the card's NaN
+      int n_all = 0;
+      for (int s = 0; s < a.split; ++s) n_all += s_nlist[(g * a.split + s) * kMaxRows + j];
+      for (int e = n_all + lane; e < a.k; e += 32) {
+        a.out_p[(size_t)row * a.k + e] = -1;
+        a.out_c[(size_t)row * a.k + e] = __int_as_float(0x7fffffff);
+      }
     }
   }
 }
 
-// One thread per provider: decode its reverse keys into the pools
-// [P, n_pool] (tile order), then fold them into its best r from an
-// (INFEASIBLE, -1) carry, the carry winning ties.
+// One thread per provider: decode its reverse keys (rev_key's, at rt > 1
+// when multi) into the pools [P, n_pool] (tile order), then fold them into
+// its best r from an (INFEASIBLE, -1) carry, the carry winning ties.
 __global__ void __launch_bounds__(128) fold_kernel(const u64* __restrict__ rkey, int P,
-                                                   int n_pool, int r, int32_t* pool_t,
-                                                   float* pool_c, int32_t* __restrict__ rev_t,
+                                                   int n_pool, int r, bool multi,
+                                                   int32_t* pool_t, float* pool_c,
+                                                   int32_t* __restrict__ rev_t,
                                                    float* __restrict__ rev_c) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= P) return;
@@ -600,7 +650,7 @@ __global__ void __launch_bounds__(128) fold_kernel(const u64* __restrict__ rkey,
   for (int e = 0; e < n_pool; ++e) {
     const u64 x = rkey[base + e];
     pool_t[base + e] = (int32_t)(uint32_t)x;
-    pool_c[base + e] = order_float((uint32_t)(x >> 32));
+    pool_c[base + e] = multi ? rev_cost<true>(x) : rev_cost<false>(x);
   }
   float rc[kMaxR];
   int32_t rv[kMaxR];
@@ -651,14 +701,16 @@ __global__ void __launch_bounds__(128) fold_kernel(const u64* __restrict__ rkey,
 //     zeroed before the launch (an OR over the chunks' blocks).
 //   unbounded best (K8, kListBest): K10's providers and ranges, scored
 //     without jitter. Each lane keeps its two providers' least (cost, task)
-//     key over the range's feasible cells, the cost with -0 folded to +0;
-//     the ranges meet in a [P] key buffer set to all ones before the
-//     launch, by 64-bit atomicMin, and a decode launch writes the task, -1
-//     where no key came.
+//     key over the range's feasible cells, the cost with -0 folded to +0,
+//     and a NaN cell's key kNanKey below them all; the ranges meet in a [P]
+//     key buffer set to all ones before the launch, by 64-bit atomicMin,
+//     and a decode launch writes the task, -1 where no key or kNanKey
+//     came.
 constexpr int kListProv = kWarps * kStep;  // providers (or flagged entries) a block
 constexpr int kListBlocks = 0, kListTileMin = 1, kListEnter = 2, kListCost = 3, kListValue = 4,
               kListBest = 5;
 constexpr float kNegValue = -1e18f;  // K6's value where the cost is >= INFEASIBLE/2 (_NEG)
+constexpr u64 kNanKey = 0;           // K8: a NaN cell's key, below every real one
 
 struct ListArgs {
   Prov prov;
@@ -855,10 +907,15 @@ __global__ void __launch_bounds__(kThreads, 4) list_kernel(const ListArgs a) {
         const uint32_t t = (uint32_t)s_tid[j];
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          // blocks: the cells below +inf; K8: the feasible cells, -0 as +0
-          const bool in = kBlocks ? c[h] < INFINITY : c[h] < kHalfInfeasible;
-          const u64 x = make_key(kBlocks ? c[h] : (c[h] == 0.0f ? 0.0f : c[h]), t);
-          if (pv[h] && in && x < best[h]) best[h] = x;
+          // blocks: the cells below +inf; K8: the feasible cells, -0 as
+          // +0, and every NaN cell as kNanKey
+          const bool nan = !kBlocks && c[h] != c[h];
+          const bool in = kBlocks ? c[h] < INFINITY : (c[h] < kHalfInfeasible) | nan;
+          const u64 x =
+              nan ? kNanKey : make_key(kBlocks ? c[h] : (c[h] == 0.0f ? 0.0f : c[h]), t);
+          // the rows' tasks ascend, so a key is below the lane's least
+          // exactly when its high word is: one 32-bit compare
+          if (pv[h] && in && (uint32_t)(x >> 32) < (uint32_t)(best[h] >> 32)) best[h] = x;
         }
       } else if constexpr (kMode == kListTileMin) {
         const int tj = s_tile[j];
@@ -946,13 +1003,13 @@ __global__ void __launch_bounds__(128) blocks_decode_kernel(const u64* __restric
 }
 
 // K8: one thread a provider, its key decoded into best[p]: the task, or -1
-// where no feasible cell keyed it.
+// where no feasible cell keyed it or a NaN cell did.
 __global__ void __launch_bounds__(128) best_decode_kernel(const u64* __restrict__ rkey, int P,
                                                           int32_t* __restrict__ best) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= P) return;
   const u64 x = rkey[p];
-  best[p] = x == kNoKey ? -1 : (int32_t)(uint32_t)x;
+  best[p] = x == kNoKey || x == kNanKey ? -1 : (int32_t)(uint32_t)x;
 }
 
 // Blocks a list launch aims for: four times what the card holds at once
@@ -1118,7 +1175,8 @@ extern "C" int k1_reverse(const void* const* prov_cols, const void* const* req_c
   const int rc = rt == 1 ? run_k1<false, true, false, false>(a, blocks, st)
                          : run_k1<false, true, false, true>(a, blocks, st);
   if (rc) return rc;
-  fold_kernel<<<(P + 127) / 128, 128, 0, st>>>(rkey, P, a.n_pool, r, pool_t, pool_c, rev_t, rev_c);
+  fold_kernel<<<(P + 127) / 128, 128, 0, st>>>(rkey, P, a.n_pool, r, rt > 1, pool_t, pool_c,
+                                               rev_t, rev_c);
   return (int)cudaGetLastError();
 }
 
@@ -1151,7 +1209,8 @@ extern "C" int k1_bidir(const void* const* prov_cols, const void* const* req_col
   const int rc = rt == 1 ? run_k1<true, true, false, false>(a, blocks, st)
                          : run_k1<true, true, false, true>(a, blocks, st);
   if (rc) return rc;
-  fold_kernel<<<(P + 127) / 128, 128, 0, st>>>(rkey, P, a.n_pool, r, pool_t, pool_c, rev_t, rev_c);
+  fold_kernel<<<(P + 127) / 128, 128, 0, st>>>(rkey, P, a.n_pool, r, rt > 1, pool_t, pool_c,
+                                               rev_t, rev_c);
   return (int)cudaGetLastError();
 }
 
@@ -1278,7 +1337,8 @@ extern "C" int k6_value_base(const void* const* prov_cols, const void* const* re
 }
 
 // K8: best [P] i32, the first argmin over T of the unjittered cost (-0 and
-// +0 equal), -1 where that cost is >= INFEASIBLE/2: rkey [P] set to all
+// +0 equal, a NaN below every cost), -1 where that cost is >= INFEASIBLE/2
+// or NaN: rkey [P] set to all
 // ones, the list launch over P's chunks and ranges of the tasks, a decode
 // launch.
 extern "C" int k8_unbounded_best(const void* const* prov_cols, const void* const* req_cols, int P,

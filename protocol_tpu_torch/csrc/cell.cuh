@@ -144,16 +144,28 @@ __device__ __forceinline__ TaskRow load_task(const Req& R, const Aux& x, int t, 
   return r;
 }
 
+// The terms of cost_matrix that depend on one side: a provider's base,
+// weights.price * price + weights.load * load, one rounding per op, and a
+// task's weighted priority. prep_kernel writes them for every row; the
+// pair cost (K15) computes them for the rows it reads. A row's coslat is
+// cosf(lat) in both.
+__device__ __forceinline__ float prov_base(const Weights& w, float price, float load) {
+  return __fadd_rn(__fmul_rn(w.price, price), __fmul_rn(w.load, load));
+}
+
+__device__ __forceinline__ float task_prio(const Weights& w, float priority) {
+  return __fmul_rn(w.priority, priority);
+}
+
 // One thread per row: the terms of cost_matrix that depend on one side.
 __global__ void prep_kernel(Prov prov, Req req, Weights w, int P, int T, float* aux) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < P) {
-    // weights.price * price + weights.load * load, one rounding per op
-    aux[i] = __fadd_rn(__fmul_rn(w.price, prov.price[i]), __fmul_rn(w.load, prov.load[i]));
+    aux[i] = prov_base(w, prov.price[i], prov.load[i]);
     aux[P + i] = cosf(prov.lat[i]);
   }
   if (i < T) {
-    aux[2 * P + i] = __fmul_rn(w.priority, req.priority[i]);
+    aux[2 * P + i] = task_prio(w, req.priority[i]);
     aux[2 * P + T + i] = cosf(req.lat[i]);
   }
 }

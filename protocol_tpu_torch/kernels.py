@@ -168,7 +168,9 @@ def _lib(name: str) -> ctypes.CDLL:
                 getattr(lib, fn).restype = _I
         elif name == "repair":
             lib.k5_repair_refold.argtypes = [_P, _P, _I, _I, _I, _I, _P, _P, _P]
-            lib.k5_repair_refold.restype = _I
+            lib.k5_group.argtypes = [_I]
+            for fn in ("k5_repair_refold", "k5_group"):
+                getattr(lib, fn).restype = _I
         elif name == "dense":
             lib.k7_dense_auction.argtypes = [
                 _P, _P, _I, _I, _F, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -197,7 +199,7 @@ def _lib(name: str) -> ctypes.CDLL:
             lib.k14_col_partial.argtypes = [
                 _P, _P, _I, _I, _F, _F, _F, _F, _F, _P, _P, _P, _P, _P, _P,
             ]
-            lib.k15_pair_cost.argtypes = [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P, _P]
+            lib.k15_pair_cost.argtypes = [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P]
             for fn in ("k14_feasibility", "k14_lse", "k14_col_partial", "k15_pair_cost"):
                 getattr(lib, fn).restype = _I
         elif name == "mesh_auction":
@@ -358,6 +360,9 @@ _TORCH_DTYPES = {
 
 
 def _k1_setup(ep, er, weights, aux_floats: int | None = None):
+    """(device, provider and requirement column pointers, (P, T, K, W),
+    the weights, aux): aux holds ``aux_floats`` floats (default the 2 (P +
+    T) per-row terms the launches' prep step writes), None at 0."""
     from protocol_tpu_torch.native.arena import _P_SPEC, _R_SPEC
 
     dev = ep.gpu_count.device
@@ -369,7 +374,8 @@ def _k1_setup(ep, er, weights, aux_floats: int | None = None):
     shape = (ep.num, er.num, K, int(er.gpu_model_mask.shape[2]))
     w = (weights.price, weights.load, weights.proximity, weights.priority)
     # per-row cost terms the launch's prep step writes (see candidates.cu)
-    aux = torch.empty(aux_floats or 2 * (ep.num + er.num), dtype=torch.float32, device=dev)
+    n_aux = 2 * (ep.num + er.num) if aux_floats is None else aux_floats
+    aux = torch.empty(n_aux, dtype=torch.float32, device=dev) if n_aux else None
     return dev, pcols, rcols, shape, w, aux
 
 
@@ -687,13 +693,30 @@ def repair_tile_min(ep, er, weights, t_ids, tile: int, pad: float):
     return min_tile
 
 
+# K5's lanes a provider (csrc/repair.cu: k5_group), mirrored so that the
+# layout is known from the shape without a card: the power of two at or
+# above n_tiles / K5_LANE_ENTRIES, from 1 to 32
+K5_LANE_ENTRIES = 32
+
+
+def refold_group(n_tiles: int) -> int:
+    """Lanes K5 gives a provider with ``n_tiles`` pool entries."""
+    g = 1
+    while g < 32 and g * K5_LANE_ENTRIES < n_tiles:
+        g *= 2
+    return g
+
+
 @_on_device
 def repair_refold(pool_t, pool_c, r: int, d_fold: int = 1):
-    """K5 (``csrc/repair.cu``): each provider's pools [P, n_tiles] (one
-    contribution per tile) folded in ``d_fold`` lanes of n_tiles / d_fold
-    consecutive tiles, each in tile order into a best r (the carry first
-    among ties), the lanes then merged in lane order (stable). Returns
-    (rev_t [P, r] with -1 where the cost is >= INFEASIBLE/2, rev_c [P, r])."""
+    """K5 (``csrc/repair.cu``): each provider's best r of its pool entries
+    [P, n_tiles] from the (INFEASIBLE, -1) carry, as the reference folds
+    them in ``d_fold`` lanes of consecutive tiles and merges the lanes: the
+    stable top-r in the IEEE total order of the costs (-0 before +0; an
+    entry enters below INFEASIBLE, a negative NaN too). A group of
+    :func:`refold_group` lanes a provider. Returns (rev_t [P, r] with -1
+    where the cost is not below INFEASIBLE/2, rev_c [P, r], the entries'
+    cost bits)."""
     dev = pool_c.device
     P, n_tiles = pool_c.shape
     _pools(pool_t, pool_c, P, n_tiles, dev, "repair_refold")
@@ -781,7 +804,9 @@ def dense_auction(value_base, task_feasible, eps: float, max_iters: int,
 def unbounded_best(ep, er, weights):
     """K8 (``csrc/candidates.cu``, a list launch of K1's layout): per
     provider, the first argmin over the tasks of the unjittered cost (-0
-    and +0 equal), -1 where it is >= INFEASIBLE/2. Returns best [P] i32."""
+    and +0 equal, a NaN below every cost, as the reference's argmin returns
+    a row's first NaN), -1 where it is >= INFEASIBLE/2 or NaN. Returns best
+    [P] i32."""
     if ep.num < 1 or er.num < 1:
         raise ValueError("K8 takes at least one provider and one task")
     dev, pcols, rcols, (P, T, K, W), w, aux = _k1_setup(ep, er, weights)
@@ -1107,9 +1132,11 @@ def blocked_col_partial(ep_local, er, weights, eps: float, u_local: torch.Tensor
 
 @_on_device
 def pair_cost(ep, er, weights, p4t: torch.Tensor):
-    """K15 (``csrc/blocked.cu``): per task t, the unjittered cost of the
-    cell (p4t[t], t), INFEASIBLE where p4t[t] < 0. Returns [T] f32."""
-    dev, pcols, rcols, (P, T, K, W), w, aux = _k1_setup(ep, er, weights)
+    """K15 (``csrc/blocked.cu``, one launch): per task t, the unjittered
+    cost of the cell (p4t[t], t), INFEASIBLE where p4t[t] < 0. Returns [T]
+    f32. A provider id at or above P raises before the launch (one read
+    of max(p4t) back to the host)."""
+    dev, pcols, rcols, (P, T, K, W), w, _ = _k1_setup(ep, er, weights, aux_floats=0)
     if p4t.device != dev or p4t.dim() != 1 or p4t.shape[0] != T or P < 1 or T < 1:
         raise ValueError(f"pair_cost: p4t must be a [{T}] tensor on {dev}")
     p4t = p4t.to(torch.int32).contiguous()
@@ -1117,8 +1144,7 @@ def pair_cost(ep, er, weights, p4t: torch.Tensor):
         raise ValueError(f"pair_cost: provider ids out of range [-1, {P})")
     out = torch.empty(T, dtype=torch.float32, device=dev)
     _launch("pair_cost", _lib("blocked").k15_pair_cost,
-        pcols, rcols, P, T, K, W, *w, p4t.data_ptr(), aux.data_ptr(), out.data_ptr(),
-        _stream(out),
+        pcols, rcols, P, T, K, W, *w, p4t.data_ptr(), out.data_ptr(), _stream(out),
     )
     return out
 

@@ -209,14 +209,30 @@ def _reverse_blocks_plain(ep, er, weights, tile: int, rt: int, blk_p, blk_j, poo
             pool_c[sc, j * rt:(j + 1) * rt] = torch.gather(cost, 1, jx)
 
 
+def _total_order(c: torch.Tensor) -> torch.Tensor:
+    """int64 keys of f32 costs in the IEEE total order (-NaN < -inf < ... <
+    -0 < +0 < ... < +inf < +NaN), the order of the reference's ``lax.top_k``
+    of the negated costs: the sign bit set on a non-negative float, every
+    bit flipped on a negative one, read unsigned."""
+    u = c.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return torch.where(u >= 1 << 31, u ^ 0xFFFFFFFF, u | (1 << 31))
+
+
+def _smallest_total(c: torch.Tensor, n: int) -> torch.Tensor:
+    """Indices of each row's n least costs in the total order, the earlier
+    entry first among equal bits (``lax.top_k`` of the negation)."""
+    return torch.sort(_total_order(c), dim=-1, stable=True).indices[..., :n]
+
+
 def _merge_rev_pools(rev_c_all, rev_t_all, r: int):
-    """Best r of the D per-lane [P, r] fold results (stable), -1 where the
-    cost is >= INFEASIBLE/2: (rev_t [P, r], rev_c). At D = 1 a stable top-r
-    of r sorted entries, so only the mask acts."""
+    """Best r of the D per-lane [P, r] fold results (stable, in the total
+    order), -1 where the cost is not below INFEASIBLE/2: (rev_t [P, r],
+    rev_c). At D = 1 a stable top-r of r sorted entries, so only the mask
+    acts."""
     D, P, _ = rev_c_all.shape
     rev_c_cat = rev_c_all.movedim(0, 1).reshape(P, D * r)
     rev_t_cat = rev_t_all.movedim(0, 1).reshape(P, D * r)
-    m = _smallest_stable(rev_c_cat, r)
+    m = _smallest_total(rev_c_cat, r)
     rev_c = torch.gather(rev_c_cat, 1, m)
     rev_t = torch.gather(rev_t_cat, 1, m)
     return torch.where(rev_c < INFEASIBLE * 0.5, rev_t, -1), rev_c
@@ -225,8 +241,9 @@ def _merge_rev_pools(rev_c_all, rev_t_all, r: int):
 def _refold_plain(pool_t, pool_c, r: int, rt: int, d_fold: int = 1):
     """Plain torch version of K5: the generation fold replayed over the
     pools in ``d_fold`` lanes of consecutive tiles, each in tile order
-    (stable top-r of carry then tile, the carry first), then the lanes'
-    merge."""
+    (stable top-r of carry then tile, the carry first, in the total order
+    of ``lax.top_k``: -0 before +0, a negative NaN below every cost), then
+    the lanes' merge."""
     P = pool_c.shape[0]
     ntl = pool_c.shape[1] // rt // d_fold
     lanes_c = pool_c.reshape(P, d_fold, ntl * rt).movedim(1, 0)  # [D, P, ntl*rt]
@@ -236,7 +253,7 @@ def _refold_plain(pool_t, pool_c, r: int, rt: int, d_fold: int = 1):
     for j in range(ntl):
         merged_c = torch.cat([rev_c, lanes_c[:, :, j * rt:(j + 1) * rt]], dim=2)
         merged_t = torch.cat([rev_t, lanes_t[:, :, j * rt:(j + 1) * rt]], dim=2)
-        m = torch.sort(merged_c, dim=2, stable=True).indices[:, :, :r]
+        m = _smallest_total(merged_c, r)
         rev_c = torch.gather(merged_c, 2, m)
         rev_t = torch.gather(merged_t, 2, m)
     return _merge_rev_pools(rev_c, rev_t, r)

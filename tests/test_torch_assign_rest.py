@@ -289,6 +289,17 @@ def reference_potentials(cost: np.ndarray, eps: float, num_iters: int):
     return np.asarray(u), np.asarray(v)
 
 
+def test_sinkhorn_on_nan_cells_matches_the_reference():
+    """The sinkhorn RPC's solve on NaN cells (k13_cases' nan: a NaN
+    column where 90% of the providers fit, a provider's feasible cells NaN):
+    NaN is infeasible to both (cost < INFEASIBLE/2 fails), so the plain
+    plan and matching equal the reference's, and no NaN cell is seated."""
+    cost, eps, iters = K13_CASES["nan"]
+    p4t = assert_sinkhorn_same(cost, eps, min(iters, K13_CPU_ROUNDS))
+    assert p4t[5] == -1 and (p4t >= 0).sum() > 100
+    assert_plan_close(cost, eps, min(iters, K13_CPU_ROUNDS))
+
+
 @pytest.mark.parametrize("layout", ["packed", "dense"])
 @pytest.mark.parametrize("name", sorted(K13_CASES))
 def test_sinkhorn_skipping_infeasible_cells_matches_the_reference(name, layout):

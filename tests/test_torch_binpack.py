@@ -193,7 +193,8 @@ def edge_markets():
     yield "infeasible", (ep, dataclasses.replace(er, valid=np.zeros_like(np.asarray(er.valid))))
 
 
-@pytest.mark.parametrize("kind", ["synth", "encoded", "skew", "p1", "t1", "p65", "infeasible"])
+@pytest.mark.parametrize("kind", ["synth", "encoded", "skew", "p1", "t1", "p65", "infeasible",
+                                  "nan"])
 @pytest.mark.parametrize("proximity", [0.0, 0.001])
 def test_cost_only_matches_the_reference(kind, proximity):
     ep, er = {**dict(markets()), **dict(edge_markets())}[kind]

@@ -19,6 +19,7 @@ Tolerances:
     the costs carry no transcendental and are compared bit for bit.
 """
 
+import dataclasses
 import json
 import pathlib
 import runpy
@@ -51,7 +52,12 @@ from tests.test_assign import check_feasible, matching_cost
 from tests.test_sparse import encode_random_marketplace
 from tests.test_torch_candidates import bits, synth
 from tests.test_torch_encoding_cost import COST_ATOL, to_port
-from tests.test_torch_kernels_cuda import feasibility_cases  # shared with the card tests
+from tests.test_torch_kernels_cuda import (  # shared with the card tests
+    NAN_PROVIDER,
+    NAN_TASK,
+    feasibility_cases,
+    nan_edit,
+)
 
 UV_ATOL = 1e-3
 PLAN_ATOL = 1e-4
@@ -461,17 +467,31 @@ def test_provider_offset_of_the_wrong_shape_is_refused():
 # ---------------------------------------------------------------- pairwise cost
 
 
-@pytest.mark.parametrize("data", ["marketplace", "synth"])
+@pytest.mark.parametrize("data", ["marketplace", "synth", "nan"])
 @pytest.mark.parametrize("proximity", [0.0, 0.001])
 def test_cost_pairs_matches_the_reference(data, proximity):
     """As tests/test_blocked.py::TestCostPairs: unassigned rows and a T
-    that is no multiple of the plain version's chunk included."""
+    that is no multiple of the plain version's chunk included; nan: the
+    NaN price and priority of nan_edit and an inf price and priority, each
+    on an assigned compatible pair (the priority's weight is 0 by default:
+    0 x -inf is NaN too)."""
     if data == "marketplace":
         ep, er = encode_random_marketplace(3, 96, 100)
     else:
         ep, er = synth(96, 1100)
     T = np.asarray(er.cpu_cores).shape[0]
     p4t = np.random.default_rng(0).integers(-1, 96, size=T).astype(np.int32)
+    if data == "nan":  # each edited row on a compatible pair
+        ep, er = nan_edit(ep, er)
+        ep = dataclasses.replace(ep, price=np.where(np.arange(96) == 11, np.float32(np.inf),
+                                                    ep.price))
+        er = dataclasses.replace(er, priority=np.where(np.arange(T) == 9, np.float32(-np.inf),
+                                                       er.priority))
+        fits = cost_matrix(*to_port(ep, er), CostWeights())[1].numpy()
+        t_nan_p = next(t for t in range(10, T) if fits[NAN_PROVIDER, t])
+        t_inf_p = next(t for t in range(t_nan_p + 1, T) if fits[11, t])
+        p4t[[NAN_TASK, t_nan_p, t_inf_p, 9]] = [3, NAN_PROVIDER, 11, int(fits[:, 9].argmax())]
+        edited = [NAN_TASK, t_nan_p, t_inf_p, 9]
     ref = np.asarray(j_cost_pairs(ep, er, jnp.asarray(p4t), JCostWeights(proximity=proximity)))
     tp, tr = to_port(ep, er)
     got = cost_pairs(tp, tr, torch.from_numpy(p4t), CostWeights(proximity=proximity)).numpy()
@@ -481,6 +501,8 @@ def test_cost_pairs_matches_the_reference(data, proximity):
         np.testing.assert_array_equal(bits(got), bits(ref))
     else:
         np.testing.assert_allclose(got, ref, rtol=0, atol=COST_ATOL)
+    if data == "nan":
+        assert np.isnan(got[edited[:2]]).all() and np.isinf(got[edited[2]])
 
 
 def test_cost_pairs_accepts_numpy_and_defaults_its_weights():

@@ -35,6 +35,7 @@ from protocol_tpu_torch.ops.sparse import (
 )
 
 from tests.test_torch_encoding_cost import COST_ATOL, encode_random, encode_wide_vocab, to_port
+from tests.test_torch_kernels_cuda import NAN_TASK, nan_edit  # shared with the card tests
 
 
 def bits(a):
@@ -71,6 +72,27 @@ def test_reverse_with_pools_bit_identical_without_proximity(P, T, k, tile, r):
     assert len(got) == 6
     for name, a, b in zip(("fwd_p", "fwd_c", "rev_t", "rev_c", "pool_t", "pool_c"), got, ref):
         np.testing.assert_array_equal(bits(a.numpy()), bits(b), err_msg=name)
+
+
+@pytest.mark.parametrize("P,T,k,tile,r", [(96, 128, 16, 16, 8), (20, 64, 20, 16, 8)])
+def test_reverse_with_pools_on_nan_cells_matches_the_reference(P, T, k, tile, r):
+    """NaN cells (nan_edit: a NaN price, a NaN priority on a task every
+    provider fits) through the plain fused pass (the topk RPC's cold pass
+    on the CPU) and the plain forward rows against the reference: the NaN
+    task's forward row is k places of (-1, NaN), NaN cells last in both."""
+    ep, er = nan_edit(*synth(P, T))
+    ref = j_candidates_topk_reverse(
+        ep, er, JCostWeights(proximity=0.0), k=k, tile=tile, reverse_r=r, with_pools=True
+    )
+    tp, tr = to_port(ep, er)
+    w = CostWeights(proximity=0.0)
+    got = candidates_topk_reverse(tp, tr, w, k=k, tile=tile, reverse_r=r, with_pools=True)
+    for name, a, b in zip(("fwd_p", "fwd_c", "rev_t", "rev_c", "pool_t", "pool_c"), got, ref):
+        np.testing.assert_array_equal(bits(a.numpy()), bits(b), err_msg=name)
+    fwd = _forward_plain(tp, tr, w, k, tile)
+    for a, b in zip(fwd, got[:2]):
+        np.testing.assert_array_equal(bits(a.numpy()), bits(b.numpy()))
+    assert (got[0][NAN_TASK] == -1).all() and torch.isnan(got[1][NAN_TASK]).all()
 
 
 @pytest.mark.parametrize("maker", [encode_random, encode_wide_vocab])

@@ -39,6 +39,7 @@ from protocol_tpu_torch.sched.torch_backend import (
 from tests.test_encoding import random_requirements, random_specs
 from tests.test_torch_candidates import bits, k1_order_key
 from tests.test_torch_encoding_cost import encode_random, to_port
+from tests.test_torch_kernels_cuda import NAN_PROVIDER, median_ram, nan_edit
 
 MODELS = ["H100", "A100", "RTX 4090", "L40S", "H200", "A6000"]
 
@@ -232,6 +233,16 @@ def markets():
     yield "skew", (j_synth.synth_providers(np.random.default_rng(4), 64),
                    j_synth.synth_requirements(np.random.default_rng(5), 256))
     yield "dup", dup_market()
+    yield "nan", nan_market()
+
+
+def nan_market():
+    """The synth market with the NaN edits (nan_edit): a NaN price on one
+    provider and a NaN priority on a task that about half the providers
+    fit."""
+    ep = j_synth.synth_providers(np.random.default_rng(2), 256)
+    er = j_synth.synth_requirements(np.random.default_rng(3), 128)
+    return nan_edit(ep, er, ram_mb=median_ram(ep))
 
 
 DUP_ROWS = 12  # the dup market's distinct requirement rows
@@ -249,7 +260,7 @@ def dup_market():
     return dataclasses.replace(ep, valid=ep.valid.at[DUP_NO_FIT].set(False)), er
 
 
-@pytest.mark.parametrize("kind", ["synth", "encoded", "skew", "dup"])
+@pytest.mark.parametrize("kind", ["synth", "encoded", "skew", "dup", "nan"])
 @pytest.mark.parametrize("proximity", [0.0, 0.001])
 def test_solve_bounded_and_unbounded_match_the_reference_bits(kind, proximity):
     ep, er = dict(markets())[kind]
@@ -272,6 +283,9 @@ def test_solve_bounded_and_unbounded_match_the_reference_bits(kind, proximity):
         np.testing.assert_array_equal(got_u >= 0, ref_u >= 0)
     if kind == "dup":
         assert got_u[DUP_NO_FIT] == -1 and (got_u < DUP_ROWS).all() and (got_u >= 0).sum() >= 10
+    if kind == "nan":  # a provider with a NaN cell gets -1; the others keep their task
+        nan_row = torch.isnan(cost_matrix(tp, tr, tw)[0]).any(dim=1).numpy()
+        assert nan_row.sum() > 50 and (got_u[nan_row] == -1).all() and (got_u >= 0).any()
 
 
 # ---------------- K8's key combine, modelled on the CPU ----------------
@@ -303,13 +317,25 @@ def zeros_market():
     return ep, er
 
 
-@pytest.mark.parametrize("kind", ["dup", "zeros"])
+NAN_KEY = torch.iinfo(torch.int64).min  # K8's NaN key, 0, in the mirror's signed order
+NEG_INF_TASK = 9  # the nan case's task with priority +inf: cost -inf where it fits
+
+
+@pytest.mark.parametrize("kind", ["dup", "zeros", "nan"])
 def test_unbounded_keys_split_anywhere_equal_plain_and_reference(kind):
     """Each provider's tasks split at random points, each part reduced to
-    its least key over the feasible cells (-0 as +0) and the parts met by
-    the least key: the plain K8 and the reference's _solve_unbounded."""
-    ep, er = dup_market() if kind == "dup" else zeros_market()
-    jw = JCostWeights(priority=1.0, proximity=0.0 if kind == "dup" else -0.0)
+    its least key over the feasible cells (-0 as +0; a NaN cell's key
+    below every other) and the parts met by the least key: the plain K8
+    and the reference's _solve_unbounded. The nan case: nan_edit's cells and a
+    task whose +inf priority makes its cells -inf, a real cost."""
+    if kind == "nan":
+        ep, er = nan_market()
+        prio = np.array(er.priority, copy=True)
+        prio[NEG_INF_TASK] = np.inf
+        er = dataclasses.replace(er, priority=prio)
+    else:
+        ep, er = dup_market() if kind == "dup" else zeros_market()
+    jw = JCostWeights(priority=1.0, proximity=-0.0 if kind == "zeros" else 0.0)
     tw = CostWeights(**dataclasses.asdict(jw))
     tp, tr = to_port(ep, er)
     cost, _ = cost_matrix(tp, tr, tw)
@@ -320,9 +346,10 @@ def test_unbounded_keys_split_anywhere_equal_plain_and_reference(kind):
     got = np.full(P, -1, np.int32)
     for p in range(P):
         keys = torch.where(cost[p] < 5e8, k1_order_key(folded[p], tasks), NO_KEY)
+        keys = torch.where(torch.isnan(cost[p]), NAN_KEY, keys)
         cuts = np.sort(rng.choice(np.arange(1, T), rng.integers(0, 6), replace=False))
         best = min(int(part.min()) for part in torch.tensor_split(keys, cuts.tolist()))
-        if best != NO_KEY:
+        if best not in (NO_KEY, NAN_KEY):
             got[p] = best & 0xFFFFFFFF
     np.testing.assert_array_equal(got, _solve_unbounded_plain(tp, tr, tw).numpy())
     np.testing.assert_array_equal(got, np.asarray(_solve_unbounded(ep, er, jw)[0]))
@@ -330,6 +357,11 @@ def test_unbounded_keys_split_anywhere_equal_plain_and_reference(kind):
         assert bool(torch.signbit(cost[:, 1]).all()) and (got == 0).all()
         raw = k1_order_key(cost, tasks.expand(P, T)).argmin(dim=1)
         assert bool((raw == 1).all())
+    elif kind == "nan":
+        nan_row = torch.isnan(cost).any(dim=1).numpy()
+        neg_inf = (cost[:, NEG_INF_TASK] == -np.inf).numpy()
+        assert (got[nan_row] == -1).all() and nan_row[NAN_PROVIDER]
+        assert (neg_inf & ~nan_row).any() and (got[neg_inf & ~nan_row] == NEG_INF_TASK).all()
     else:
         assert got[DUP_NO_FIT] == -1 and (got < DUP_ROWS).all()
 

@@ -37,6 +37,49 @@ def same_bits(a, b):
     return torch.equal(a, b)
 
 
+# ---------------- NaN cells (shared with the CPU tests) ----------------
+# The wire columns the backend's RPCs decode are not checked, so a NaN
+# priority or price reaches the kernels. nan_edit makes both: a NaN price
+# on one provider (every cell of its row that is compatible costs NaN) and
+# a NaN priority on a task freed of every requirement (compatible with
+# every valid provider, so its whole column is NaN, and K1's forward row
+# of it has no cell that is not NaN). The CPU tests hold the plain
+# versions against the reference on the edit; the card tests hold the
+# kernels against the plain versions.
+
+NAN_TASK, NAN_PROVIDER = 5, 7
+
+
+def _with(cols, idx, **values):
+    """A copy of encoded columns (the reference's numpy arrays or the
+    port's tensors) with ``values`` set at row ``idx``."""
+    import dataclasses
+
+    out = {}
+    for name, v in values.items():
+        a = getattr(cols, name)
+        a = a.clone() if torch.is_tensor(a) else np.array(a, copy=True)
+        a[idx] = v
+        out[name] = a
+    return dataclasses.replace(cols, **out)
+
+
+def nan_edit(ep, er, ram_mb: int = -1, task: int = NAN_TASK, provider: int = NAN_PROVIDER):
+    """(ep, er) with a NaN price on ``provider`` and a NaN priority on
+    ``task``, which asks for nothing but ``ram_mb`` (-1: no limit; the
+    providers' median RAM: about half of them fit it)."""
+    nan = float("nan")
+    ep = _with(ep, provider, price=nan)
+    er = _with(er, task, priority=nan, cpu_required=False, cpu_cores=-1, ram_mb=ram_mb,
+               storage_gb=-1, gpu_opt_valid=False, valid=True)
+    return ep, er
+
+
+def median_ram(ep) -> int:
+    ram = ep.ram_mb.cpu().numpy() if torch.is_tensor(ep.ram_mb) else np.asarray(ep.ram_mb)
+    return int(np.median(ram))
+
+
 # ---------------- K2's cluster cases (shared with tests/test_torch_auction.py) ----------------
 # Each case is a phase call (candidates, state, eps, rounds, frontier) that
 # stresses one seam of K2's cluster layout: the open set's words split into
@@ -402,6 +445,38 @@ def test_rows_kernel_at_the_repairs_row_counts_matches_plain_bits(card, rows, bi
     assert same_bits(got[0], fp[ids.long()]) and same_bits(got[1], fc[ids.long()])
 
 
+# K1 on nan_edit's cells: (P, T, k, tile); at k = P (the second) every row
+# with a NaN cell has NaN places
+K1_NAN_CASES = [(3000, 1024, 64, 256), (20, 512, 20, 64)]
+
+
+@pytest.mark.parametrize("P,T,k,tile", K1_NAN_CASES)
+def test_candidate_kernels_on_nan_cells_match_plain_bits(card, P, T, k, tile):
+    """K1's fused launch (the topk RPC's cold pass), its rows launch over
+    every task and its reverse launch, on nan_edit's cells, bit for bit
+    against the plain fused pass at proximity 0: the NaN task's forward row
+    is k places of (-1, NaN), where the plain stable sort puts NaN cells; at
+    rt = 1 (the second case) a tile's pool is its first NaN where it has
+    one, as the plain argmin's; no NaN cell enters a reverse list."""
+    from protocol_tpu_torch import kernels
+
+    ep, er = nan_edit(synth_providers(np.random.default_rng(P), P, device=card),
+                      synth_requirements(np.random.default_rng(T), T, device=card))
+    w = CostWeights(proximity=0.0)
+    rt = max(1, -(-8 // (T // tile)))
+    got = sp.candidates_fused(ep, er, w, k, tile, 8, rt)
+    ref = sp._bidir_plain(ep, er, w, k, tile, 8, rt, 0)
+    assert all(same_bits(a, b) for a, b in zip(got, ref))
+    ids = torch.arange(T, dtype=torch.int32, device=card)
+    rows = kernels.candidates_forward_rows(ep, er, w, k, ids)
+    assert all(same_bits(a, b) for a, b in zip(rows, ref[:2]))
+    rev = kernels.candidates_reverse(ep, er, w, tile, 8, rt)
+    assert all(same_bits(a, b) for a, b in zip(rev, ref[2:]))
+    fp, fc = got[:2]
+    assert bool((fp[NAN_TASK] == -1).all()) and bool(torch.isnan(fc[NAN_TASK]).all())
+    assert not bool(torch.isnan(got[3]).any())
+
+
 def test_candidate_kernel_refuses_what_it_does_not_take(card):
     """A shape K1 does not take raises, from the wrapper or from the refused
     launch; no path falls back to a plain version."""
@@ -648,7 +723,7 @@ def test_dense_kernels_match_plain_bits(card, proximity):
 # equal, as the plain argmin does), and the backend's best RPC shape.
 DENSE_CASES = {f"p{P}_t{T}": (P, T, None) for P in (1, 255, 257, 1000) for T in (1, 7, 9, 700)}
 DENSE_CASES.update(dup=(1000, 700, "dup"), nofit=(257, 9, "nofit"), noslot=(255, 700, "noslot"),
-                   zeros=(257, 700, "zeros"), best_rpc=(4096, 1024, None))
+                   zeros=(257, 700, "zeros"), best_rpc=(4096, 1024, None), nan=(1000, 700, "nan"))
 DENSE_DUP_PERIOD = 35
 
 
@@ -672,6 +747,8 @@ def dense_case(name: str, proximity: float, card):
         valid = er.valid.clone()
         valid[[0, 5, T - 1]] = False
         er = dataclasses.replace(er, valid=valid)
+    if edit == "nan":  # nan_edit, the NaN task fitting about half the providers
+        ep, er = nan_edit(ep, er, ram_mb=median_ram(ep))
     if edit == "zeros":
         # base -0 + (-0 x distance) - 0 is -0 on a located pair, +0 on the
         # others (the even tasks, from task 0 on); every pair compatible, so
@@ -721,6 +798,10 @@ def test_dense_kernels_cases_match_plain_bits(card, name, proximity):
     if edit == "noslot":
         assert not feas[[0, 5, T - 1]].any()
         assert bool((vb[[0, 5, T - 1]] == -1e18).all())
+    if edit == "nan":  # a provider with a NaN cell gets -1; the NaN slot is infeasible
+        nan_row = torch.isnan(cost).any(dim=1)
+        assert bool(nan_row.any()) and bool((best[nan_row] == -1).all())
+        assert bool((best[~nan_row] >= 0).any()) and not bool(feas[NAN_TASK])
     if edit == "zeros" and proximity == 0.0:  # +0 at task 0, -0 at task 1: the first wins
         assert bool((cost == 0.0).all()) and bool(torch.signbit(cost[:, 1]).all())
         assert not bool(torch.signbit(cost[:, 0]).any()) and bool((best == 0).all())
@@ -869,7 +950,7 @@ def test_cost_block_matches_plain_bits(card, proximity):
 # rows staged 8 a step (13), single rows and columns; and the two extremes
 # of the check, every cell infeasible and every cell feasible.
 K10_CASES = {"p1": (1, 40), "t1": (70, 1), "p65": (65, 30), "p300": (300, 50), "t13": (500, 13),
-             "infeasible": (300, 40), "feasible": (300, 40)}
+             "infeasible": (300, 40), "feasible": (300, 40), "nan": (300, 50)}
 
 
 @pytest.mark.parametrize("proximity", [0.0, 0.001])
@@ -894,10 +975,15 @@ def test_cost_block_cases_match_plain_bits(card, name, proximity):
             cpu_cores=torch.full_like(er.cpu_cores, -1), ram_mb=torch.full_like(er.ram_mb, -1),
             storage_gb=torch.full_like(er.storage_gb, -1),
             gpu_opt_valid=torch.zeros_like(er.gpu_opt_valid))
+    if name == "nan":  # nan_edit: a NaN column and a NaN row stored as they are
+        ep, er = nan_edit(ep, er)
     w = CostWeights(priority=1.0, proximity=proximity)
     got = kernels.cost_block(ep, er, w)
     ref = cost_matrix(ep, er, w)[0]
     assert got.shape == (T, P) and same_bits(got.T.contiguous(), ref)
+    if name == "nan":
+        assert bool(torch.isnan(got[NAN_TASK]).all())
+        assert bool(torch.isnan(got[:, NAN_PROVIDER]).any())
     if name == "infeasible":
         assert bool((got == 1e9).all())
     if name == "feasible":
@@ -1351,6 +1437,14 @@ def k13_cases() -> dict:
         c[11, :] = 1e9
         c[:, 7] = 1e9
         cases[name] = (c, 0.05, 200)
+    # nan_edit's cells as K10 writes them for the sinkhorn RPC: a task with a NaN
+    # priority fitting 90% of the providers (a NaN column there), a
+    # provider with a NaN price (NaN on its feasible cells)
+    c = cost(15, 300, 200, 0.5)
+    fits = np.random.default_rng(16).uniform(size=300) < 0.9
+    c[:, NAN_TASK] = np.where(fits, np.nan, 1e9)
+    c[NAN_PROVIDER] = np.where(c[NAN_PROVIDER] < 5e8, np.nan, c[NAN_PROVIDER])
+    cases["nan"] = (c.astype(np.float32), 0.05, 200)
     return cases
 
 
@@ -1521,26 +1615,84 @@ def test_candidate_kernel_with_a_provider_bias_matches_plain_bits(card, layout):
     assert all(same_bits(a, b) for a, b in zip(got, ref))
 
 
+# K15's cases: name -> (P, T). base: 2,000 providers under 3,000 tasks, a
+# random p4t; repeats: 50 providers under 3,001 tasks (each provider on ~50
+# pairs, a third of the tasks unassigned, T no multiple of the 256-thread
+# block); nan_inf: nan_edit's NaN price and priority and an inf price and
+# priority, each on a compatible pair; one provider, one task.
+K15_CASES = {"base": (2000, 3000), "repeats": (50, 3001), "nan_inf": (300, 700), "p1": (1, 513),
+             "t1": (1000, 1)}
+
+
+def k15_case(name: str, card):
+    """(ep, er, p4t) of one of K15_CASES on the card."""
+    from protocol_tpu_torch.ops.cost import cost_matrix
+
+    P, T = K15_CASES[name]
+    ep = synth_providers(np.random.default_rng(60), P, device=card)
+    er = synth_requirements(np.random.default_rng(61), T, device=card)
+    rng = np.random.default_rng(62)
+    p4t = rng.integers(-1, P, T).astype(np.int32)
+    if name == "repeats":
+        p4t[rng.uniform(size=T) < 0.3] = -1
+    if name == "nan_inf":
+        ep, er = nan_edit(ep, er)
+        ep = _with(ep, 11, price=float("inf"))
+        er = _with(er, 9, priority=float("inf"))
+        fits = cost_matrix(ep, er, CostWeights())[1].cpu().numpy()
+        t_nan_p = next(t for t in range(10, T) if fits[NAN_PROVIDER, t])
+        t_inf_p = next(t for t in range(t_nan_p + 1, T) if fits[11, t])
+        p4t[[NAN_TASK, t_nan_p, t_inf_p, 9]] = [3, NAN_PROVIDER, 11, int(fits[:, 9].argmax())]
+    return ep, er, torch.from_numpy(p4t).to(card)
+
+
+def pair_costs_close(got, ref, atol: float) -> bool:
+    """NaN where ref is NaN, the same infinities, finite costs within atol."""
+    nan, inf = torch.isnan(ref), torch.isinf(ref)
+    if not torch.equal(torch.isnan(got), nan) or not torch.equal(got[inf], ref[inf]):
+        return False
+    fin = ~(nan | inf)
+    return bool(torch.isfinite(got[fin]).all()) and float((got - ref)[fin].abs().max()) <= atol
+
+
 @pytest.mark.parametrize("proximity", [0.0, 0.001])
-def test_pair_cost_kernel_matches_plain(card, proximity):
-    """K15 against the plain cost_pairs: bit for bit at proximity 0,
-    within the haversine tolerance (1e-3) otherwise."""
+@pytest.mark.parametrize("name", sorted(K15_CASES))
+def test_pair_cost_kernel_matches_plain(card, name, proximity):
+    """K15 on each of K15_CASES against the plain cost_pairs: bit for bit
+    at proximity 0, within the haversine tolerance (1e-3) otherwise; the
+    public entry point launches it."""
     from protocol_tpu_torch import kernels
     from protocol_tpu_torch.ops import cost as oc
 
-    P, T = 2000, 3000
-    ep = synth_providers(np.random.default_rng(8), P, device=card)
-    er = synth_requirements(np.random.default_rng(9), T, device=card)
-    p4t = torch.from_numpy(np.random.default_rng(0).integers(-1, P, T).astype(np.int32)).to(card)
-    w = CostWeights(proximity=proximity)
+    ep, er, p4t = k15_case(name, card)
+    w = CostWeights(priority=1.0, proximity=proximity)
     got = kernels.pair_cost(ep, er, w, p4t)
     ref = oc._cost_pairs_plain(ep, er, p4t, w)
     if proximity == 0.0:
         assert same_bits(got, ref)
     else:
-        assert float((got - ref).abs().max()) <= 1e-3
+        assert pair_costs_close(got, ref, 1e-3)
+    assert bool((got[p4t < 0] == 1e9).all())
+    if name == "nan_inf":
+        assert int(torch.isnan(got).sum()) >= 2 and bool(torch.isinf(got).any())
     before = kernels.LAUNCHES["pair_cost"]
-    oc.cost_pairs(ep, er, p4t, w)  # the public entry point launches K15 on a card
+    oc.cost_pairs(ep, er, p4t, w)
+    assert kernels.LAUNCHES["pair_cost"] == before + 1
+
+
+def test_pair_cost_kernel_refuses_a_provider_out_of_range(card):
+    """A provider id at or above P raises before the launch; P - 1 runs."""
+    from protocol_tpu_torch import kernels
+
+    ep = synth_providers(np.random.default_rng(8), 40, device=card)
+    er = synth_requirements(np.random.default_rng(9), 300, device=card)
+    p4t = torch.full((300,), -1, dtype=torch.int32, device=card)
+    p4t[17] = 39
+    before = kernels.LAUNCHES["pair_cost"]
+    kernels.pair_cost(ep, er, CostWeights(), p4t)
+    p4t[18] = 40
+    with pytest.raises(ValueError, match="out of range"):
+        kernels.pair_cost(ep, er, CostWeights(), p4t)
     assert kernels.LAUNCHES["pair_cost"] == before + 1
 
 
@@ -1620,6 +1772,80 @@ def test_enter_kernel_cases_match_plain_bits(card, name):
     ties[::5] = ties[::7] = False
     feasible = best < 5e8
     assert bool(got[ties & feasible].all()) and not bool(got[::7].any())
+
+
+# K5's cases (shared with tests/test_torch_repair.py): pools at the seams of
+# its groups (n_tiles 1, 7, 8 and 9 around one lane's batch of 8, 64 at 8
+# lanes, 256 at 32), rows of every kind below, at r 1 and 8.
+K5_TILES = (1, 7, 8, 9, 64, 256)
+K5_ROWS = ("ties", "zeros", "high", "nan", "neginf", "empty", "few", "mixed")
+
+
+def k5_pool(n_tiles: int, seed: int = 0, rows_a_kind: int = 3):
+    """(pool_t [P, n_tiles] i32, pool_c f32) with rows_a_kind rows of each of
+    K5_ROWS: equal costs across a lane's batches and across lanes (ties);
+    -0, +0 and 1 (zeros); entries equal to INFEASIBLE, in [INFEASIBLE/2,
+    INFEASIBLE), above it, +inf, and one or two costs below (high: fewer
+    entries than r); +NaN and -NaN among costs (nan); -inf (neginf); all
+    INFEASIBLE (empty); one cost, the last entry (few); a mixture of all."""
+    rng = np.random.default_rng(seed)
+    pos_nan = np.array([0x7FC00000], np.uint32).view(np.float32)[0]
+    neg_nan = np.array([0xFFC00000], np.uint32).view(np.float32)[0]
+    special = np.float32([1e9, 7.5e8, 5e8, 9.9999994e8, 2e9, np.inf, pos_nan, neg_nan, -np.inf,
+                          0.0, -0.0])
+    n = n_tiles
+    rows = []
+    for kind in K5_ROWS:
+        for _ in range(rows_a_kind):
+            if kind == "ties":
+                c = rng.choice(np.float32([0.5, 1.0, 1.5, 2.0]), n)
+            elif kind == "zeros":
+                c = rng.choice(np.float32([0.0, -0.0, 1.0]), n)
+            elif kind == "high":
+                c = rng.choice(special[:6], n)
+                c[rng.choice(n, min(n, 2), replace=False)] = rng.uniform(0, 3, min(n, 2))
+            elif kind == "nan":
+                c = rng.choice(np.float32([pos_nan, neg_nan, 1.0, 3.0, 1e9]), n)
+            elif kind == "neginf":
+                c = rng.choice(np.float32([-np.inf, -np.inf, 0.25, 1e9]), n)
+            elif kind == "empty":
+                c = np.full(n, 1e9, np.float32)
+            elif kind == "few":
+                c = np.full(n, 1e9, np.float32)
+                c[-1] = 2.5
+            else:
+                c = rng.uniform(-1, 4, n).astype(np.float32)
+                pick = rng.uniform(size=n) < 0.4
+                c[pick] = rng.choice(special, int(pick.sum()))
+            rows.append(np.asarray(c, np.float32))
+    pool_c = np.stack(rows)
+    pool_t = rng.integers(0, 1 << 20, pool_c.shape).astype(np.int32)
+    return pool_t, pool_c
+
+
+@pytest.mark.parametrize("r", [1, 8])
+@pytest.mark.parametrize("n_tiles", K5_TILES)
+def test_refold_kernel_cases_match_plain_bits(card, n_tiles, r):
+    """K5 on k5_pool's rows, at every d_fold of 1 and 4 that divides
+    n_tiles, against the plain refold bit for bit."""
+    from protocol_tpu_torch import kernels
+    from protocol_tpu_torch.parallel import sparse as ps
+
+    pt, pc = (torch.from_numpy(a).to(card) for a in k5_pool(n_tiles, seed=n_tiles))
+    for d_fold in (d for d in (1, 4) if n_tiles % d == 0):
+        got = kernels.repair_refold(pt, pc, r, d_fold)
+        ref = ps._refold_plain(pt, pc, r, 1, d_fold)
+        assert all(same_bits(a, b) for a, b in zip(got, ref)), d_fold
+
+
+def test_refold_group_mirrors_the_library(card):
+    """kernels.refold_group, K5's lanes a provider from the shape, equals
+    the library's at and around every power of two."""
+    from protocol_tpu_torch import kernels
+
+    lib = kernels._lib("repair")
+    for n in (1, 7, 8, 9, 15, 16, 17, 63, 64, 65, 128, 129, 255, 256, 257, 1000, 5000):
+        assert kernels.refold_group(n) == lib.k5_group(n), n
 
 
 @pytest.mark.parametrize("d_fold", [2, 4, 8])

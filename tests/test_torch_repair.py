@@ -29,6 +29,7 @@ from protocol_tpu_torch.parallel import sparse as ps
 
 from tests.test_torch_candidates import bits, k1_key_cost, k1_order_key, synth
 from tests.test_torch_encoding_cost import encode_random, to_port
+from tests.test_torch_kernels_cuda import K5_TILES, k5_pool  # shared with the card tests
 
 PARTS = ("cand_p", "cand_c", "fwd_p", "fwd_c", "pool_t", "pool_c")
 ZERO_PROX = (JCostWeights(proximity=0.0), CostWeights(proximity=0.0))
@@ -219,6 +220,107 @@ def test_refold_plain_matches_reference_refold():
     np.testing.assert_array_equal(bits(got_c.numpy()), bits(np.asarray(ref_c)))
     # the refold replays the cold pass's own fold
     np.testing.assert_array_equal(got_t.numpy(), np.where(rev_c < 5e8, rev_t, -1))
+
+
+# ---------------- K5's key order, modelled on the CPU ----------------
+# csrc/repair.cu's K5 keys each pool entry (order_bits(cost) << 32 |
+# position), the all-ones key where it does not enter (at or above
+# INFEASIBLE in the total order); a group of refold_group(n_tiles) lanes
+# takes positions g, g + G, ... in batches of 8, each lane sorts a batch
+# with an odd-even network and keeps the least 8 of it and its list
+# (min(a[i], b[7 - i]), then a bitonic merge), then the lanes meet over
+# log2(G) shuffle rounds the same way. The model runs those networks over
+# numpy arrays, every lane of every row at once.
+
+K5_NO_KEY = np.uint64(0xFFFFFFFFFFFFFFFF)
+
+
+def k5_order2(k, i, j):
+    lo, hi = np.minimum(k[..., i], k[..., j]), np.maximum(k[..., i], k[..., j])
+    k[..., i], k[..., j] = lo, hi
+
+
+def k5_bitonic_merge(k):
+    for stride in (4, 2, 1):
+        for i in range(8):
+            if i ^ stride > i:
+                k5_order2(k, i, i ^ stride)
+
+
+# csrc/repair.cu's sort8: Batcher's odd-even merge sort of 8 keys
+K5_SORT8 = ((0, 1), (2, 3), (4, 5), (6, 7), (0, 2), (1, 3), (4, 6), (5, 7), (1, 2), (5, 6),
+            (0, 4), (1, 5), (2, 6), (3, 7), (2, 4), (3, 5), (1, 2), (3, 4), (5, 6))
+
+
+def k5_sort8(k):
+    for i, j in K5_SORT8:
+        k5_order2(k, i, j)
+
+
+def k5_keep_least(a, b):
+    a[...] = np.minimum(a, b[..., ::-1])
+    k5_bitonic_merge(a)
+
+
+def k5_model(pool_t, pool_c, r):
+    """K5's (rev_t, rev_c) by the kernel's groups, batches and rounds."""
+    from protocol_tpu_torch.kernels import refold_group
+
+    P, n = pool_c.shape
+    G = refold_group(n)
+    u = pool_c.view(np.uint32).astype(np.uint64)
+    order = np.where(u >= 1 << 31, u ^ 0xFFFFFFFF, u | (1 << 31))
+    cap = np.uint64(np.float32(1e9).view(np.uint32) | (1 << 31))
+    keys = np.where(order < cap, order << np.uint64(32) | np.arange(n, dtype=np.uint64), K5_NO_KEY)
+    batches = -(-n // (8 * G))
+    padded = np.full((P, batches * 8 * G), K5_NO_KEY, np.uint64)
+    padded[:, :n] = keys
+    lanes = padded.reshape(P, batches, 8, G).transpose(0, 3, 1, 2)  # entry b 8G + e G + g
+    best = None
+    for b in range(batches):
+        k = lanes[:, :, b].copy()
+        k5_sort8(k)
+        if best is None:
+            best = k
+        else:
+            k5_keep_least(best, k)
+    off = 1
+    while off < G:
+        k5_keep_least(best, best[:, np.arange(G) ^ off].copy())
+        off *= 2
+    assert (best == best[:, :1]).all()  # every lane of a group holds the group's list
+    top = best[:, 0, :r]
+    hit = top != K5_NO_KEY
+    at = np.where(hit, top & 0xFFFFFFFF, 0).astype(np.int64)
+    rev_c = np.where(hit, np.take_along_axis(pool_c, at, 1), np.float32(1e9))
+    rev_t = np.where(hit, np.take_along_axis(pool_t, at, 1), -1)
+    return np.where(rev_c < 5e8, rev_t, -1).astype(np.int32), rev_c.astype(np.float32)
+
+
+@pytest.mark.parametrize("r", [1, 8])
+@pytest.mark.parametrize("n_tiles", K5_TILES)
+def test_refold_key_model_and_plain_match_the_reference(n_tiles, r):
+    """K5's CPU model and the plain refold against the reference's
+    _build_repair_refold at d_fold 1, 2 and 4 (where they divide n_tiles) on
+    k5_pool's rows: ties across batches and lanes, -0 / +0, INFEASIBLE,
+    [INFEASIBLE/2, INFEASIBLE), above, +inf, +NaN and -NaN, -inf, fewer
+    entries than r. The reference ranks by the IEEE total order: -0 before
+    +0, a negative NaN before every cost (rev_t -1 there)."""
+    pt, pc = k5_pool(n_tiles, seed=n_tiles)
+    got_t, got_c = k5_model(pt, pc, r)
+    plain = ps._refold_plain(torch.from_numpy(pt), torch.from_numpy(pc), r, 1)
+    np.testing.assert_array_equal(got_t, plain[0].numpy())
+    np.testing.assert_array_equal(bits(got_c), bits(plain[1].numpy()))
+    for d_fold in (d for d in (1, 2, 4) if n_tiles % d == 0):
+        ref_t, ref_c = j_build_repair_refold(pt.shape[0], n_tiles, 1, r, d_fold)(
+            jnp.asarray(pt), jnp.asarray(pc))
+        np.testing.assert_array_equal(got_t, np.asarray(ref_t), err_msg=str(d_fold))
+        np.testing.assert_array_equal(bits(got_c), bits(np.asarray(ref_c)), err_msg=str(d_fold))
+        lanes = ps._refold_plain(torch.from_numpy(pt), torch.from_numpy(pc), r, 1, d_fold)
+        np.testing.assert_array_equal(bits(lanes[1].numpy()), bits(got_c))
+    if n_tiles >= 8 and r == 8:  # the edges are reached
+        neg0 = got_c.view(np.uint32) == 0x80000000
+        assert neg0.any() and (got_t[np.isnan(got_c)] == -1).all() and np.isnan(got_c).any()
 
 
 def test_tile_min_plain_is_the_dirty_column_minimum():
