@@ -182,6 +182,22 @@ in two more runs with the counts set to 0 just before each:
     referee; K14's partial column mode is held against its plain
     per-shard version at 2,048^2 and at full width on its first call,
     and shard 0's bitmaps against the plain packer's word for word.
+Then the flight recorder's replay (trace/replay.py), in two more runs
+with the counts set to 0 just before each (run_replay):
+
+  - replay_golden: the committed golden trace (512 x 512, 9 ticks, recorded
+    by the reference's jax engine) through inproc at D = 1 and at D = 4
+    views, through wire-v1 and through wire-v2 (the port's server on a
+    free localhost port): all four equal on every tick, the D = 1 quality
+    roll-up within the jax_ab_* bounds of scripts/perf_floor.json against
+    the trace's recorded roll-up, the rows that differ from the recorded
+    outcomes printed;
+  - replay_full: synth_trace at 65,536 x 65,536, 8 ticks of 1% provider
+    churn, k 64, in a temporary directory, recorded through inproc, then
+    replayed through inproc and wire-v2 with every tick verified
+    (divergence None) and at least 0.99 of the tasks assigned on every
+    tick; cold_ms, warm_median_ms, warm_percentiles and the wire bytes
+    printed beside the card's name and power limit.
 Prints:
 
   - the card's name and power limit (nvidia-smi),
@@ -2892,6 +2908,150 @@ def run_mesh_sinkhorn(torch, kernels, reference: dict) -> tuple[list, dict]:
     return [part_row, row_row, feas_row], {"mesh_sinkhorn": launches}
 
 
+REPLAY_GOLDEN = "artifacts/golden_trace_512x512_jax.trace"  # the North star's referee (b)
+REPLAY_TICKS = 8  # delta ticks of the full-width trace (ladder #4's one-chip rung)
+REPLAY_CHURN = 0.01  # provider rows repriced a tick
+REPLAY_ASSIGNED_FLOOR = 0.99  # assigned fraction of the tasks on every replayed tick
+# what every replay run launches (K4 and K9 run only where the churn or the
+# ladder's open tasks call for them: counted, not required)
+REPLAY_KERNELS = ("candidates_bidir", "candidates_forward_rows", "auction_phase", "repair_enter",
+                  "candidates_reverse_blocks", "repair_refold")
+
+
+def run_replay(torch, kernels) -> dict:
+    """The flight recorder's replay (trace/replay.py) through the port, in
+    two runs with the counts set to 0 just before each:
+
+      - the committed golden (REPLAY_GOLDEN, recorded by the reference's jax
+        engine) through inproc at D = 1 and at D = 4 views of the card, and
+        through wire-v1 and wire-v2 (the port's server on a free localhost
+        port), every tick: the four must agree bit for bit, and the D = 1
+        replay's quality roll-up must stay within the jax_ab_* bounds of
+        scripts/perf_floor.json against the roll-up of the trace's recorded
+        outcome metrics; the rows that differ from the recorded outcomes
+        (the haversine's ulps, then the carried plans) are printed;
+      - full width: synth_trace writes a N x N trace, REPLAY_TICKS ticks at
+        REPLAY_CHURN provider churn, k 64, into a temporary directory; the
+        port records it through inproc, then replays the recording through
+        inproc and through wire-v2, and both must verify every tick
+        (divergence None): the port on the card is deterministic from run
+        to run. Every tick of the three must assign REPLAY_ASSIGNED_FLOOR
+        of the tasks.
+    Returns {"replay_golden": launches, "replay_full": launches}; raises on
+    any failed check."""
+    import pathlib
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from protocol_tpu_torch.obs.quality import aggregate_quality
+    from protocol_tpu_torch.trace import format as tfmt
+    from protocol_tpu_torch.trace.replay import replay
+    from protocol_tpu_torch.trace.synth import synth_trace
+    from protocol_tpu_torch.utils import platform
+
+    root = pathlib.Path(__file__).resolve().parent
+    floor = json.loads((root / "scripts" / "perf_floor.json").read_text())
+    golden = str(root / REPLAY_GOLDEN)
+    trace = tfmt.read_trace(golden)
+    runs = {}
+
+    def check_launches(label: str) -> dict:
+        launches = dict(kernels.LAUNCHES)
+        print(f"kernels ({label}): {json.dumps(launches)}", flush=True)
+        missing = [k_ for k_ in REPLAY_KERNELS if launches[k_] == 0]
+        if missing:
+            raise AssertionError(f"{label}: the replays launched no {missing}")
+        return launches
+
+    # ---- the golden, four ways, the counts set to 0 just before
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    reps = {}
+    for label, engine, transport in (("inproc D=1", "jax:1", "inproc"),
+                                     ("inproc D=4", "jax:4", "inproc"),
+                                     ("wire-v1", "jax:1", "wire-v1"),
+                                     ("wire-v2", "jax:1", "wire-v2")):
+        prev = platform.force_virtual_devices(MESH_D, "cuda") if engine == "jax:4" else None
+        try:
+            reps[label] = replay(golden, engine=engine, transport=transport, verify=False,
+                                 keep_p4t=True)
+        finally:
+            if engine == "jax:4":
+                platform.force_virtual_devices(prev, "cuda")
+    torch.cuda.synchronize()
+    runs["replay_golden"] = check_launches("golden replays")
+    base = reps["inproc D=1"]
+    if base["ticks"] != trace.ticks:
+        raise AssertionError(f"golden: {base['ticks']} ticks replayed of {trace.ticks}")
+    for label, rep in reps.items():
+        same = len(rep["p4ts"]) == trace.ticks and all(
+            np.array_equal(a, b) for a, b in zip(rep["p4ts"], base["p4ts"]))
+        print(f"golden {label}: {rep['ticks']} ticks, assigned {rep['assigned']}, walls "
+              f"{rep['tick_wall_ms']} ms; equal to inproc D=1 on every tick {same}", flush=True)
+        if not same:
+            raise AssertionError(f"golden: {label} differs from inproc D=1")
+    rows = [int((p4t != trace.outcome_for(t).provider_for_task).sum())
+            for t, p4t in enumerate(base["p4ts"])]
+    recorded = aggregate_quality([
+        {k_: v for k_, v in o.metrics.items() if isinstance(v, (int, float, bool))}
+        for o in trace.outcomes])
+    q = base["quality"]
+    checks = {
+        "gap_per_task_delta": (abs(q["gap_per_task_mean"] - recorded["gap_per_task_mean"]),
+                               floor["jax_ab_gap_per_task_delta_max"]),
+        "plan_cost_ratio": (q["plan_cost_mean"] / recorded["plan_cost_mean"],
+                            floor["jax_ab_plan_cost_ratio_max"]),
+        "churn_ratio_delta": (abs(q["churn_ratio_mean"] - recorded["churn_ratio_mean"]),
+                              floor["jax_ab_churn_ratio_delta_max"]),
+        "assigned_min_frac_delta": (
+            (min(o.num_assigned for o in trace.outcomes) - min(base["assigned"]))
+            / base["tasks"], floor["jax_ab_assigned_min_frac_delta_max"]),
+    }
+    print(f"golden against its recorded outcomes: rows differing a tick {rows}; quality "
+          f"{json.dumps(q)}; recorded {json.dumps(recorded)}; bounds " + ", ".join(
+              f"{k_} {v:.6f} <= {b}" for k_, (v, b) in checks.items()), flush=True)
+    over = [k_ for k_, (v, b) in checks.items() if not v <= b]
+    if over:
+        raise AssertionError(f"golden: the quality roll-up is past its jax_ab bounds: {over}")
+    del reps, base
+
+    # ---- full width: synth, record, replay twice, the counts set to 0
+    # just before the recording
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    try:
+        src = synth_trace(str(pathlib.Path(tmp) / "synth.trace"), n_providers=N, n_tasks=N,
+                          ticks=REPLAY_TICKS, churn=REPLAY_CHURN, seed=SEED, kernel="jax:1",
+                          top_k=64)
+        rec = str(pathlib.Path(tmp) / "recorded.trace")
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        full = {"record": replay(src, engine="jax:1", verify=False, record_path=rec)}
+        full["inproc"] = replay(rec)
+        full["wire-v2"] = replay(rec, transport="wire-v2")
+        torch.cuda.synchronize()
+        runs["replay_full"] = check_launches("full-width replays")
+        for label, rep in full.items():
+            low = [a for a in rep["assigned"] if a < REPLAY_ASSIGNED_FLOOR * N]
+            print(f"replay {label} at {N}x{N}, {rep['ticks']} ticks, card {card_line()}: "
+                  f"cold_ms {rep['cold_ms']}, warm_median_ms {rep['warm_median_ms']}, "
+                  f"warm_percentiles {json.dumps(rep['warm_percentiles'])}, tick walls "
+                  f"{rep['tick_wall_ms']}, assigned {rep['assigned']}, verified "
+                  f"{rep['verified_ticks']}, divergence {rep['divergence']}, wire bytes out "
+                  f"{rep.get('wire_bytes_out')} in {rep.get('wire_bytes_in')}", flush=True)
+            if rep["ticks"] != REPLAY_TICKS + 1 or low:
+                raise AssertionError(f"replay {label}: {rep['ticks']} ticks, assigned below "
+                                     f"{REPLAY_ASSIGNED_FLOOR}: {low}")
+            if label != "record" and (rep["divergence"] is not None
+                                      or rep["verified_ticks"] != REPLAY_TICKS + 1):
+                raise AssertionError(f"replay {label}: the recording did not verify: "
+                                     f"{rep['divergence']}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return runs
+
+
 def main() -> int:
     try:
         import torch
@@ -3558,9 +3718,13 @@ def main() -> int:
     sink_rows, sink_runs = run_mesh_sinkhorn(torch, kernels, stage_ref)
     del stage_ref
 
+    # ---- the flight recorder's replay: the golden and a full-width trace
+    replay_runs = run_replay(torch, kernels)
+
     runs = {"cold_ticks": launches, "warm_chain": launches_warm,
             "matcher_dense": launches_dense, "matcher_torch": launches_torch, **phase_runs,
-            **route_runs, **backend_runs, **stage_runs, **mesh_runs, **dense_runs, **sink_runs}
+            **route_runs, **backend_runs, **stage_runs, **mesh_runs, **dense_runs, **sink_runs,
+            **replay_runs}
 
     # K1's forward launch timed over every task id; its call on the warm
     # repair's dirty rows rides along as "repair_call"

@@ -64,7 +64,11 @@
 // fsub(fadd(base, near_lo), prio) and hi = fsub(fadd(base, near_hi), prio)
 // (a zero's sign changes no comparison). So hi < INFEASIBLE/2 makes the
 // cell feasible, lo >= INFEASIBLE/2 infeasible, and only a cell between
-// the two, or one whose lo or hi is NaN, runs the exact cell_terms. An
+// the two, or one whose lo or hi is NaN, runs the exact cell_terms. The
+// bracket assumes a finite distance: a located pair with a coordinate
+// that is NaN or infinite costs NaN (cell_terms keeps the NaN, as the
+// reference's clip does), so such a provider's ends are NaN and such a
+// task's located cells are sent to the exact path. An
 // unlocated cell's bracket is [0, 0]: lo = hi is its exact cost. A
 // proximity that is not finite makes near_lo and near_hi NaN, so every
 // located cell takes the exact path. With finite ends, fadd(base, near)
@@ -230,6 +234,13 @@ __device__ __forceinline__ uint32_t cost_feasible(uint32_t f, const ProvRow* p, 
     sure |= (hi < kHalfInfeasible ? 1u : 0u) << h;
     open |= (!(hi < kHalfInfeasible) && !(lo >= kHalfInfeasible) ? 1u : 0u) << h;
   }
+  if (t.z != t.z) {  // warp-uniform: a located task whose coordinates are not finite
+    uint32_t ploc = 0u;
+#pragma unroll
+    for (int h = 0; h < kN; ++h) ploc |= (p[h].has_loc ? 1u : 0u) << h;
+    sure &= ~ploc;
+    open |= ploc;
+  }
   open &= f;
   if (open) {
 #pragma unroll
@@ -259,7 +270,12 @@ __global__ void __launch_bounds__(kFeasThreads, 3) feasibility_kernel(const Feas
   for (int j = threadIdx.x; j < n_t; j += kFeasThreads) {
     const TaskRow tr = load_task(a.req, a.aux, t0 + j, a.K);
     s_caps[j] = load_row_caps(tr);
-    s_terms[j] = make_float4(tr.lat, tr.lon, tr.has_loc ? tr.coslat : kNoLoc, tr.prio);
+    // a located row with a coordinate that is not finite packs coslat as
+    // NaN: its located cells cost NaN (cell_terms), which the bracket
+    // cannot see, so cost_feasible sends them to the exact path
+    const bool finite = isfinite(tr.lat) & isfinite(tr.lon);
+    s_terms[j] = make_float4(tr.lat, tr.lon,
+                             !tr.has_loc ? kNoLoc : finite ? tr.coslat : NAN, tr.prio);
   }
   for (int e = threadIdx.x; e < n_t * a.K; e += kFeasThreads)
     s_opt[e] = load_opt(a.req, t0 * a.K + e);
@@ -291,8 +307,11 @@ __global__ void __launch_bounds__(kFeasThreads, 3) feasibility_kernel(const Feas
         valid |= (p < p_hi ? 1u : 0u) << h;
         pr[h] = load_prov(a.prov, a.aux, p < p_hi ? p : 0);
         b0[h] = __fadd_rn(pr[h].base, 0.0f);
-        blo[h] = pr[h].has_loc ? __fadd_rn(pr[h].base, near_lo) : b0[h];
-        bhi[h] = pr[h].has_loc ? __fadd_rn(pr[h].base, near_hi) : b0[h];
+        // a located provider with a coordinate that is not finite: NaN
+        // ends, so each of its located cells takes the exact path
+        const bool open_loc = !(isfinite(pr[h].lat) & isfinite(pr[h].lon));
+        blo[h] = pr[h].has_loc ? (open_loc ? NAN : __fadd_rn(pr[h].base, near_lo)) : b0[h];
+        bhi[h] = pr[h].has_loc ? (open_loc ? NAN : __fadd_rn(pr[h].base, near_hi)) : b0[h];
       }
       uint32_t any = 0u;  // bit h: provider h has a feasible task among the block's
 #pragma unroll

@@ -98,11 +98,11 @@
 // with fewer than k other cells ends with (-1, NaN) places); the reverse
 // at rt = 1 (an argmin, which returns a row's first NaN) keys a NaN cell
 // below every cost (rev_key), and the fold never takes a NaN into a list.
-// The blocks launch keys only cells
-// below +inf, the parent's strict `<` from +inf (no NaN or +inf cell
-// wins; a block without a key decodes to (+inf, -1), as before), so its
-// key order over a tile's cells is `<` with the lowest task first among
-// ties, the first argmin, however the cells are split. K8 keys the cells
+// The blocks launch rescores a
+// block with the reference's jnp.argmin, so it keys every cell with
+// rev_key at rt = 1: a NaN below every cost, then `<` with the lowest
+// task first among ties, the first argmin however the cells are split (a
+// block of +inf cells gives its first task, as the argmin does). K8 keys the cells
 // below INFEASIBLE/2, with -0 folded to +0 first (the unjittered cost can
 // be -0, and the reference's argmin holds -0 and +0 equal and takes the
 // lower task), and every NaN cell as kNanKey, 0, below every real key
@@ -110,8 +110,9 @@
 // first NaN, whose cost then fails its test, so a provider with a NaN cell
 // decodes to -1, as does one without a key. An incompatible cell is
 // INFEASIBLE, never NaN; -inf is a real cost and keeps its task. K4 needs no key:
-// fminf from the pad is exact in any order of the cells, as no cost is -0
-// and fminf passes over a NaN as the parent's did. Nor do K3 and K6's
+// a min from the pad is exact in any order of the cells, as no cost is
+// -0, and it takes min.NaN (fmin_nan), so a tile with a NaN cell has a NaN
+// minimum, as the reference's jnp.min gives. Nor do K3 and K6's
 // feasibility, ORs of per-cell tests (a NaN cost or threshold flags
 // nothing), and K10 and K6's rows, which store each cell once.
 //
@@ -194,6 +195,14 @@ __device__ __forceinline__ float rev_cost(u64 x) {
   const uint32_t hi = (uint32_t)(x >> 32);
   if (kMulti) return order_float(hi);
   return hi == 0 ? __int_as_float(0x7fffffff) : order_float(hi - 1u);
+}
+
+// The least of a and b where neither is NaN, else the card's NaN: the
+// reference's jnp.min, which a NaN cell makes NaN (min.NaN, sm_80 on).
+__device__ __forceinline__ float fmin_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
 
 // Keys of a sorted list below x: its place in the list.
@@ -671,15 +680,15 @@ __global__ void __launch_bounds__(128) fold_kernel(const u64* __restrict__ rkey,
 // shared memory for its 4 warps; each warp runs score_step on the step.
 //   blocks (kListBlocks): the providers are a chunk of the flagged entries
 //     of one tile (entries come ordered by tile, so a tile's are one run);
-//     the rows are a slice of that tile. Each lane keeps the least (cost,
-//     task) key of its two entries over the slice's cells with cost <
-//     +inf (the parent's strict `<` from +inf: NaN and +inf never win),
-//     and the slices meet in a [n_blocks] key buffer by 64-bit atomicMin;
-//     a decode launch writes the pools, (+inf, -1) where no key came.
+//     the rows are a slice of that tile. Each lane keeps the least
+//     rev_key (rt = 1: a NaN cell first, then (cost, task)) of its two
+//     entries over the slice's cells, and the slices meet in a [n_blocks]
+//     key buffer by 64-bit atomicMin; a decode launch writes the pools,
+//     (+inf, -1) where no key came (a slice of no rows).
 //   tile minima (K4, kListTileMin): the providers are P's kListProv-wide
 //     chunks; the rows are a range of the dirty task ids cut at tile
 //     boundaries, so a block sees every dirty task of its tiles. A lane
-//     keeps a running fminf from the pad over the current tile
+//     keeps a running fmin_nan from the pad over the current tile
 //     (warp-uniform: the ids ascend) and stores it when the tile changes.
 //   enter (K3, kListEnter): the providers are a kListProv-wide chunk of
 //     the dirty ids, the rows a contiguous range of the tasks, each with
@@ -907,12 +916,13 @@ __global__ void __launch_bounds__(kThreads, 4) list_kernel(const ListArgs a) {
         const uint32_t t = (uint32_t)s_tid[j];
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          // blocks: the cells below +inf; K8: the feasible cells, -0 as
-          // +0, and every NaN cell as kNanKey
+          // blocks: every cell, keyed as K1's reverse at rt = 1 (a NaN
+          // below every cost); K8: the feasible cells, -0 as +0, and every
+          // NaN cell as kNanKey
           const bool nan = !kBlocks && c[h] != c[h];
-          const bool in = kBlocks ? c[h] < INFINITY : (c[h] < kHalfInfeasible) | nan;
-          const u64 x =
-              nan ? kNanKey : make_key(kBlocks ? c[h] : (c[h] == 0.0f ? 0.0f : c[h]), t);
+          const bool in = kBlocks || (c[h] < kHalfInfeasible) | nan;
+          const u64 x = kBlocks ? rev_key<false>(c[h], t)
+                                : nan ? kNanKey : make_key(c[h] == 0.0f ? 0.0f : c[h], t);
           // the rows' tasks ascend, so a key is below the lane's least
           // exactly when its high word is: one 32-bit compare
           if (pv[h] && in && (uint32_t)(x >> 32) < (uint32_t)(best[h] >> 32)) best[h] = x;
@@ -928,7 +938,7 @@ __global__ void __launch_bounds__(kThreads, 4) list_kernel(const ListArgs a) {
           cur = tj;
         }
 #pragma unroll
-        for (int h = 0; h < 2; ++h) m[h] = fminf(m[h], c[h]);
+        for (int h = 0; h < 2; ++h) m[h] = fmin_nan(m[h], c[h]);
       } else if constexpr (kMode == kListEnter) {
         const float th = s_th[j];
         bool hit = false;
@@ -999,7 +1009,7 @@ __global__ void __launch_bounds__(128) blocks_decode_kernel(const u64* __restric
   const u64 x = rkey[b];
   const size_t at = (size_t)blk_p[b] * n_tiles + blk_j[b];
   pool_t[at] = x == kNoKey ? -1 : (int32_t)(uint32_t)x;
-  pool_c[at] = x == kNoKey ? INFINITY : order_float((uint32_t)(x >> 32));
+  pool_c[at] = x == kNoKey ? INFINITY : rev_cost<false>(x);
 }
 
 // K8: one thread a provider, its key decoded into best[p]: the task, or -1

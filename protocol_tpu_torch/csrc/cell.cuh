@@ -317,6 +317,19 @@ __device__ __forceinline__ uint32_t compat_many(const ProvRow* p, const RowCaps&
 // from the provider's (base, lat, lon, coslat) and the task's (lat, lon,
 // coslat, prio). Halving is a multiplication by 0.5, which rounds to the
 // same bits as the reference's division by 2.
+//
+// The clamp of a to [0, 1] keeps a NaN, as the reference's jnp.clip and
+// the plain torch.clamp do: a located pair with a coordinate that is NaN
+// or infinite costs NaN (the card's NaN, 0x7fffffff). max.NaN and min.NaN
+// (sm_80 on) return that NaN where an operand is NaN and are max and min
+// on every other input, so the clamp keeps its bits and its two
+// instructions.
+__device__ __forceinline__ float clamp01_nan(float a) {
+  float r;
+  asm("max.NaN.f32 %0, %1, 0f00000000;\n\tmin.NaN.f32 %0, %0, 0f3F800000;" : "=f"(r) : "f"(a));
+  return r;
+}
+
 __device__ __forceinline__ float cell_terms(float base, float plat, float plon, float pcos,
                                             bool p_loc, float tlat, float tlon, float tcos,
                                             bool t_loc, float prio, float proximity) {
@@ -327,7 +340,7 @@ __device__ __forceinline__ float cell_terms(float base, float plat, float plon, 
     const float s1 = sinf(__fmul_rn(dlat, 0.5f));
     const float s2 = sinf(__fmul_rn(dlon, 0.5f));
     float a = __fadd_rn(__fmul_rn(s1, s1), __fmul_rn(__fmul_rn(pcos, tcos), __fmul_rn(s2, s2)));
-    a = fminf(fmaxf(a, 0.0f), 1.0f);
+    a = clamp01_nan(a);
     const float dist = __fmul_rn(kTwoR, asinf(__fsqrt_rn(a)));
     near = __fmul_rn(proximity, dist);
   }

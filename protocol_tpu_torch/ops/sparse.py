@@ -116,10 +116,22 @@ def _select_forward(cost: torch.Tensor, k: int, provider_offset: torch.Tensor | 
     return provider, cost_k
 
 
+def _total_order(c: torch.Tensor) -> torch.Tensor:
+    """int64 keys of f32 costs in the IEEE total order (-NaN < -inf < ... <
+    -0 < +0 < ... < +inf < +NaN), the order of the reference's ``lax.top_k``
+    of the negated costs: the sign bit set on a non-negative float, every
+    bit flipped on a negative one, read unsigned."""
+    u = c.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return torch.where(u >= 1 << 31, u ^ 0xFFFFFFFF, u | (1 << 31))
+
+
 def _smallest_stable(c: torch.Tensor, n: int) -> torch.Tensor:
-    """Column indices of each row's n smallest values, earlier column
-    first among ties (``lax.top_k`` of the negation)."""
-    return torch.sort(c, dim=1, stable=True).indices[:, :n]
+    """Column indices of each row's n smallest values in the total order,
+    earlier column first among equal bits (``lax.top_k`` of the negation:
+    a positive NaN last, a negative NaN, which an infinite coordinate's
+    sin gives on the CPU, first; the card's arithmetic makes only the
+    positive NaN 0x7fffffff)."""
+    return torch.sort(_total_order(c), dim=1, stable=True).indices[:, :n]
 
 
 def _forward_plain(ep, er, weights, k: int, tile: int, task_offset: int = 0,

@@ -87,6 +87,7 @@ from protocol_tpu_torch.ops.sparse import (
     _refuse_unported,
     _report_stall,
     _smallest_stable,
+    _total_order,
     _unassign_unhappy,
     candidates_fused,
     frontier_bids,
@@ -207,15 +208,6 @@ def _reverse_blocks_plain(ep, er, weights, tile: int, rt: int, blk_p, blk_j, poo
                 jx = _smallest_stable(cost, rt)
             pool_t[sc, j * rt:(j + 1) * rt] = tid[jx]
             pool_c[sc, j * rt:(j + 1) * rt] = torch.gather(cost, 1, jx)
-
-
-def _total_order(c: torch.Tensor) -> torch.Tensor:
-    """int64 keys of f32 costs in the IEEE total order (-NaN < -inf < ... <
-    -0 < +0 < ... < +inf < +NaN), the order of the reference's ``lax.top_k``
-    of the negated costs: the sign bit set on a non-negative float, every
-    bit flipped on a negative one, read unsigned."""
-    u = c.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
-    return torch.where(u >= 1 << 31, u ^ 0xFFFFFFFF, u | (1 << 31))
 
 
 def _smallest_total(c: torch.Tensor, n: int) -> torch.Tensor:

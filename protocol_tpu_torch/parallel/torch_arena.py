@@ -461,7 +461,7 @@ class TorchSolveArena:
             "solve_ms": round((t_solve - t_gen) * 1e3, 3),
             **({f"eng_{k}": v for k, v in eng.items()} if eng else {}),
         }
-        return p4t
+        return p4t.copy()  # the carried p4t changes in place at the next tick
 
     def _unseat_lost(self, changed: np.ndarray) -> None:
         """Seat guard: a seat whose provider left its row's candidate list
@@ -580,7 +580,7 @@ class TorchSolveArena:
             "solve_ms": round((t_solve - t_gen) * 1e3, 3),
             **({f"eng_{k}": v for k, v in eng.items()} if eng else {}),
         }
-        return p4t
+        return p4t.copy()  # the carried p4t changes in place at the next tick
 
     def reconcile(self) -> np.ndarray:
         """Full batch re-solve over the current candidate structure from
@@ -616,7 +616,7 @@ class TorchSolveArena:
             "solve_ms": round((t_solve - t0) * 1e3, 3),
             **({f"eng_{k}": v for k, v in eng.items()} if eng else {}),
         }
-        return p4t
+        return p4t.copy()  # the carried p4t changes in place at the next tick
 
     # ---------------- the solve ----------------
 
@@ -694,7 +694,7 @@ class TorchSolveArena:
             "solve_ms": round((t_solve - t_gen) * 1e3, 3),
             **({f"eng_{k}": v for k, v in eng.items()} if eng else {}),
         }
-        return p4t
+        return p4t.copy()  # the carried p4t changes in place at the next tick
 
     def _short_circuit(self, rf: dict, T: int) -> np.ndarray:
         """Byte-identical marketplace: the carried matching is the solve,

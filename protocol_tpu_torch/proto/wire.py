@@ -10,14 +10,22 @@ as the reference's do: the servicer places decoded columns on its device
 (``protocol_tpu_torch.services.scheduler_grpc``), and the encoders take
 numpy or torch columns.
 
-The session helpers (epoch fingerprints, dirty rows, snapshot chunks) are
-not here yet: they come with the sessions.
+Session epochs, as in the reference: a snapshot's identity is
+:func:`epoch_fingerprint` (sha1 over every column's bytes plus the solve
+parameters); the servicer pins per-``(session_id, fingerprint)`` warm
+state, and a delta tick against an unknown or mismatched session is
+refused. Snapshots stream as bounded :func:`chunk_snapshot` frames and
+are reassembled, within :data:`MAX_SNAPSHOT_BYTES`, by
+:func:`assemble_snapshot`.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import gzip as _gzip
+import hashlib
+import zlib
+from typing import Iterable, Iterator, Optional
 
 import numpy as np
 
@@ -165,3 +173,123 @@ def strip_padding(enc):
     return dataclasses.replace(
         enc, **{f.name: host(getattr(enc, f.name))[:n] for f in dataclasses.fields(enc)}
     )
+
+
+# ---------------- session epochs ----------------
+
+
+def epoch_fingerprint(p_cols: dict[str, np.ndarray], r_cols: dict[str, np.ndarray], weights,
+                      kernel: str, top_k: int, eps: float, max_iters: int) -> str:
+    """Identity of a session epoch: the full snapshot content and every
+    solve parameter. ``top_k`` is normalised as the servicer's dispatch
+    normalises it (0 means the default 64), and the weights and eps are
+    hashed at wire precision (f32), so a client and a server that decoded
+    the same request agree."""
+    top_k = max(int(top_k) or 64, 1)
+    h = hashlib.sha1()
+    for spec, cols in ((P_WIRE_DTYPES, p_cols), (R_WIRE_DTYPES, r_cols)):
+        for name in spec:
+            a = cols[name]
+            h.update(name.encode())
+            h.update(str(a.shape).encode())
+            h.update(a.tobytes())
+    params = np.array([weights.price, weights.load, weights.proximity, weights.priority, eps],
+                      np.float32)
+    h.update(params.tobytes())
+    h.update(f"{kernel}:{int(top_k)}:{int(max_iters)}".encode())
+    return h.hexdigest()
+
+
+def dirty_rows(new: dict[str, np.ndarray], old: dict[str, np.ndarray]) -> np.ndarray:
+    """Row indices whose value changed in any column (trailing axes
+    collapsed): the client's churn detector for AssignDelta ticks."""
+    names = list(new)
+    n = new[names[0]].shape[0]
+    dirty = np.zeros(n, bool)
+    for name in names:
+        diff = new[name] != old[name]
+        dirty |= diff.reshape(n, -1).any(axis=1)
+    return np.flatnonzero(dirty).astype(np.int32)
+
+
+def take_rows(cols: dict[str, np.ndarray], rows: np.ndarray) -> object:
+    """A duck-typed encoded view holding only the given rows (for packing a
+    delta batch through ``encode_*_v2``)."""
+    ns = type("_Rows", (), {})()
+    for name, arr in cols.items():
+        setattr(ns, name, arr[rows])
+    return ns
+
+
+# ---------------- streaming snapshots ----------------
+
+DEFAULT_CHUNK_BYTES = 1 << 20
+
+
+def chunk_snapshot(session_id: str, fingerprint: str, request: pb.AssignRequestV2,
+                   chunk_bytes: int = DEFAULT_CHUNK_BYTES,
+                   use_gzip: bool = True) -> Iterator[pb.SnapshotChunk]:
+    """A full-snapshot request as bounded SnapshotChunk frames, the first
+    carrying the header; gzip (level 1) where it makes the payload
+    smaller."""
+    payload = request.SerializeToString()
+    codec = ""
+    if use_gzip:
+        gz = _gzip.compress(payload, compresslevel=1)
+        if len(gz) < len(payload):
+            payload, codec = gz, "gzip"
+    total = len(payload)
+    first = True
+    for off in range(0, max(total, 1), chunk_bytes):
+        part = payload[off:off + chunk_bytes]
+        if first:
+            yield pb.SnapshotChunk(session_id=session_id, epoch_fingerprint=fingerprint,
+                                   payload=part, codec=codec, total_bytes=total)
+            first = False
+        else:
+            yield pb.SnapshotChunk(payload=part)
+
+
+# the reassembled (and decompressed) snapshot has the unary paths' bound,
+# the channel's 1 GiB message cap
+MAX_SNAPSHOT_BYTES = 1 << 30
+
+
+def assemble_snapshot(chunks: Iterable[pb.SnapshotChunk], max_bytes: int = MAX_SNAPSHOT_BYTES
+                      ) -> tuple[str, str, pb.AssignRequestV2, int]:
+    """The servicer's inverse of :func:`chunk_snapshot`: (session_id,
+    claimed fingerprint, parsed request, wire bytes received).
+    ``max_bytes`` bounds both the stream and the decompressed payload
+    (ValueError past it)."""
+    session_id = fingerprint = codec = None
+    total = 0
+    received = 0
+    parts: list[bytes] = []
+    for ch in chunks:
+        if session_id is None:
+            session_id = ch.session_id
+            fingerprint = ch.epoch_fingerprint
+            codec = ch.codec
+            total = int(ch.total_bytes)
+            if total > max_bytes:
+                raise ValueError(f"snapshot stream declares {total} bytes (cap {max_bytes})")
+        received += len(ch.payload)
+        if received > max_bytes:
+            raise ValueError(f"snapshot stream exceeds {max_bytes} bytes")
+        parts.append(ch.payload)
+    if session_id is None:
+        raise ValueError("empty snapshot stream")
+    payload = b"".join(parts)
+    if total and len(payload) != total:
+        raise ValueError(f"snapshot stream truncated: {len(payload)}/{total} bytes")
+    if codec == "gzip":
+        d = zlib.decompressobj(16 + zlib.MAX_WBITS)
+        out = d.decompress(payload, max_bytes + 1)
+        if len(out) > max_bytes:
+            raise ValueError(f"decompressed snapshot exceeds {max_bytes} bytes")
+        payload = out + d.flush()
+    elif codec:
+        raise ValueError(f"unknown snapshot codec {codec!r}")
+    req = pb.AssignRequestV2()
+    req.ParseFromString(payload)
+    return session_id, fingerprint, req, received

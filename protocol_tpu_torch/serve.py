@@ -4,8 +4,9 @@
         [--max-workers 4] [--device cuda|cpu]
 
 ``scheduler`` is the gRPC kernel backend (``serve_scheduler``,
-``protocol_tpu/serve.py:566``) on one card: the stateless ``Assign`` /
-``AssignV2`` / ``Health`` RPCs. The reference's fleet flags
+``protocol_tpu/serve.py:566``) on one card: the ``Assign`` / ``AssignV2``
+/ ``Health`` RPCs and the v2 sessions (``OpenSession``, ``AssignDelta``).
+The reference's fleet flags
 (``--metrics-port``, ``--proc-id``, ``--ckpt-dir``, ``--endpoint``) are
 refused: their layers (the obs endpoint, checkpointed sessions, the
 distributed fleet) are not ported yet.

@@ -22,11 +22,17 @@ Kernels, on the batches' device (the hand kernels on a card):
               and seeds when both match the batch (K2 from a carried
               state).
 
-"native", "native-mt[:N]", "sinkhorn-mt[:N]" and "jax[:D]" are refused
-with :class:`KernelNotServed` (gRPC ``FAILED_PRECONDITION``: the
-reference's client reads ``UNIMPLEMENTED`` as an old server and demotes
-its wire), any other name with :class:`UnknownKernel`
-(``INVALID_ARGUMENT``).
+  "jax[:D]"   (or the port's spelling "torch[:D]") the persistent warm
+              arena (``protocol_tpu/services/scheduler_grpc.py:565-640``):
+              one :class:`~protocol_tpu_torch.parallel.torch_arena.
+              TorchSolveArena` over D views of the batches' device (0 =
+              all), made anew when k or D changes; repeat calls with
+              churned batches run its warm repair (K1, K3, K4, K5, K2).
+
+"native", "native-mt[:N]" and "sinkhorn-mt[:N]" are refused with
+:class:`KernelNotServed` (gRPC ``FAILED_PRECONDITION``: the reference's
+client reads ``UNIMPLEMENTED`` as an old server and demotes its wire), any
+other name with :class:`UnknownKernel` (``INVALID_ARGUMENT``).
 """
 
 from __future__ import annotations
@@ -50,6 +56,11 @@ from protocol_tpu_torch.ops.sparse import (
 )
 from protocol_tpu_torch.sched.cand_cache import CandidateMemo
 from protocol_tpu_torch.sched.torch_backend import cost_only, solve_unbounded
+from protocol_tpu_torch.services.session_store import (
+    KernelNotServed,
+    make_solve_arena,
+    parse_session_kernel,
+)
 
 # candidates a task K1's forward launch selects at most
 MAX_TOP_K_ON_CARD = 64
@@ -59,18 +70,15 @@ class UnknownKernel(ValueError):
     """A kernel name the backend does not know (``INVALID_ARGUMENT``)."""
 
 
-class KernelNotServed(RuntimeError):
-    """A kernel the reference serves and the port does not yet
-    (``FAILED_PRECONDITION``); the message names its ROADMAP item."""
-
-
 class _SolveOut(NamedTuple):
     """Kernel output over the real (unpadded) row counts, on the host."""
 
     p4t: np.ndarray  # [T] i32, -1 = unassigned
     t4p: np.ndarray  # [P] i32, -1 = idle
     num_assigned: int
-    price: Optional[np.ndarray]  # [P] f32 ("topk" only)
+    price: Optional[np.ndarray]  # [P] f32 ("topk" and the arena)
+    # the unary arena's last_stats, copied under the lock
+    arena_stats: Optional[dict] = None
 
 
 def _pad_pow2(enc, n_real: int):
@@ -98,13 +106,15 @@ def _host_i32(t: torch.Tensor, n: int) -> np.ndarray:
 
 
 class KernelDispatch:
-    """The backend's stateless solve. One lock serializes every solve:
-    the candidate memo and the kernels' launch counters are not
-    thread-safe, and the server runs several workers."""
+    """The backend's solve. One lock, ``lock``, serializes every solve on
+    the device: the candidate memo, the unary arena and the kernels'
+    launch counters are not thread-safe, and the server runs several
+    workers. The servicer's session solves take the same lock."""
 
     def __init__(self):
         self.memo = CandidateMemo()
-        self._lock = threading.Lock()
+        self.lock = threading.Lock()
+        self.arena = None  # the unary jax[:D] arena, made at its first call
 
     def solve(self, ep, er, weights, kernel: str, top_k: int = 0, eps: float = 0.0,
               max_iters: int = 0, warm_price: Optional[np.ndarray] = None,
@@ -118,22 +128,40 @@ class KernelDispatch:
             raise KernelNotServed(
                 f"kernel {kernel!r}: the reference's native C++ engines are not served "
                 "by the port (ROADMAP queue A, M5)")
-        if kernel.startswith("jax"):
-            raise KernelNotServed(
-                f"kernel {kernel!r}: the unary arena engines come with the sessions "
-                "(ROADMAP queue A, M4b)")
-        if kernel not in ("best", "auction", "greedy", "sinkhorn", "topk"):
+        arena = kernel.partition(":")[0] in ("jax", "torch")
+        if arena:
+            parsed = parse_session_kernel(kernel)
+            if parsed is None:
+                raise UnknownKernel(f"bad arena device suffix {kernel!r}")
+        elif kernel not in ("best", "auction", "greedy", "sinkhorn", "topk"):
             raise UnknownKernel(f"unknown kernel {kernel!r}")
         P, T = ep.num, er.num
         if P == 0 or T == 0:  # degenerate batches are legal: nothing to match
             return _SolveOut(np.full(T, -1, np.int32), np.full(P, -1, np.int32), 0, None)
         k = max(top_k or 64, 1)
-        if kernel == "topk" and ep.gpu_count.is_cuda and k > MAX_TOP_K_ON_CARD:
+        if (kernel == "topk" or arena) and ep.gpu_count.is_cuda and k > MAX_TOP_K_ON_CARD:
             raise KernelNotServed(
                 f"top_k={k}: K1 selects at most {MAX_TOP_K_ON_CARD} candidates a task")
-        with self._lock:
+        with self.lock:
+            if arena:
+                return self._arena_locked(_pad_pow2(ep, P), _pad_pow2(er, T), P, T, weights,
+                                          k, parsed[1])
             return self._solve_locked(_pad_pow2(ep, P), _pad_pow2(er, T), P, T, weights,
                                       kernel, k, eps, max_iters, warm_price, seed_p4t)
+
+    def _arena_locked(self, ep, er, P, T, weights, k: int, devices: int) -> _SolveOut:
+        """The persistent warm arena over the padded batches: a changed k or
+        device count changes the carried structure, so it makes a fresh
+        arena (a cold solve)."""
+        if self.arena is None or self.arena.k != k or self.arena.devices != devices:
+            self.arena = make_solve_arena("jax", k=k, threads=devices,
+                                          device=ep.gpu_count.device)
+        p4t = np.asarray(self.arena.solve(ep, er, weights))[:T]
+        t4p = np.full(P, -1, np.int32)
+        seated = np.flatnonzero((p4t >= 0) & (p4t < P))
+        t4p[p4t[seated]] = seated.astype(np.int32)
+        price = np.asarray(self.arena.price)[:P].astype(np.float32)
+        return _SolveOut(p4t, t4p, int((p4t >= 0).sum()), price, dict(self.arena.last_stats))
 
     def _solve_locked(self, ep, er, P, T, weights, kernel, k, eps, max_iters, warm_price,
                       seed_p4t) -> _SolveOut:

@@ -2,6 +2,7 @@
 synthetic generators, held against the JAX reference on the same numpy
 inputs (protocol_tpu_torch vs protocol_tpu)."""
 
+import pathlib
 import random
 import subprocess
 import sys
@@ -152,6 +153,41 @@ def test_cost_matrix_without_proximity_is_bit_exact():
     np.testing.assert_array_equal(got_c.numpy().view(np.uint32), np.asarray(ref_c).view(np.uint32))
 
 
+@pytest.mark.parametrize("proximity", [0.0, 0.001])
+def test_cost_matrix_on_nan_coordinates_matches_the_reference(proximity):
+    """C5: a located pair with a NaN or infinite coordinate costs NaN in
+    the reference (jnp.clip keeps the NaN) and in the port's plain
+    cost_matrix (torch.clamp keeps it), at every proximity (0 x NaN is
+    NaN); an unlocated pair keeps its cost. The NaN cells are the same
+    and every other cell is as test_cost_matrix_within_haversine_tolerance
+    holds it (bit for bit at proximity 0). The card's cell_terms is held
+    against the plain version on the same edit
+    (tests/test_torch_kernels_cuda.py::
+    test_cell_kernels_on_nan_coordinates_match_plain_bits)."""
+    import dataclasses
+
+    from tests.test_torch_kernels_cuda import nan_coord_edit
+
+    ep = j_synth.synth_providers(np.random.default_rng(2), 64)
+    er = j_synth.synth_requirements(np.random.default_rng(3), 48)
+    ep, er = nan_coord_edit(ep, er)
+    loc = np.array(ep.has_location, copy=True)
+    loc[20] = False  # an unlocated provider: no NaN from a located task's NaN
+    ep = dataclasses.replace(ep, has_location=loc)
+    jw = JCostWeights(proximity=proximity, priority=0.25)
+    ref_c = np.asarray(j_cost_matrix(ep, er, jw)[0])
+    tp, tr = to_port(ep, er)
+    got_c = cost_matrix(tp, tr, CostWeights(proximity=proximity, priority=0.25))[0].numpy()
+    nan = np.isnan(ref_c)
+    np.testing.assert_array_equal(np.isnan(got_c), nan)
+    assert nan[3].sum() > 0 and nan[13].sum() > 0 and nan[:, 9].sum() > 0
+    assert not nan[20].any()
+    if proximity == 0.0:
+        np.testing.assert_array_equal(got_c[~nan].view(np.uint32), ref_c[~nan].view(np.uint32))
+    else:
+        np.testing.assert_allclose(got_c[~nan], ref_c[~nan], rtol=0, atol=COST_ATOL)
+
+
 @pytest.mark.parametrize("seed,n", [(2, 300), (7, 64)])
 def test_synth_copies_match_reference(seed, n):
     jp = j_synth.synth_providers(np.random.default_rng(seed), n)
@@ -179,7 +215,10 @@ def test_port_imports_neither_jax_nor_the_reference():
         "for name in mods:\n"
         "    importlib.import_module(name)\n"
         "need = {'protocol_tpu_torch.services.scheduler_grpc', 'protocol_tpu_torch.serve',\n"
-        "        'protocol_tpu_torch.proto.wire', 'protocol_tpu_torch.kernels'}\n"
+        "        'protocol_tpu_torch.proto.wire', 'protocol_tpu_torch.kernels',\n"
+        "        'protocol_tpu_torch.services.session_store', 'protocol_tpu_torch.trace.format',\n"
+        "        'protocol_tpu_torch.trace.replay', 'protocol_tpu_torch.trace.__main__',\n"
+        "        'protocol_tpu_torch.obs.metrics'}\n"
         "assert need <= set(mods), need - set(mods)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'protocol_tpu' or m.startswith('protocol_tpu.')]\n"
@@ -207,3 +246,10 @@ def test_entry_points_raise_without_a_card():
         SchedulerBackendServicer()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve("127.0.0.1:0")
+    from protocol_tpu_torch.trace.replay import replay
+
+    golden = str(pathlib.Path(__file__).resolve().parent.parent / "artifacts"
+                 / "golden_trace_512x512_jax.trace")
+    for transport in ("inproc", "wire-v2"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            replay(golden, transport=transport)

@@ -112,7 +112,6 @@ def test_every_kernel_feasible(port_server, kernel):
     ("native-mt", grpc.StatusCode.FAILED_PRECONDITION),
     ("native-mt:2", grpc.StatusCode.FAILED_PRECONDITION),
     ("sinkhorn-mt:4", grpc.StatusCode.FAILED_PRECONDITION),
-    ("jax:1", grpc.StatusCode.FAILED_PRECONDITION),
 ])
 def test_unserved_kernels_fail_with_a_status(port_server, kernel, code):
     _, client = port_server
@@ -126,18 +125,48 @@ def test_unserved_kernels_fail_with_a_status(port_server, kernel, code):
             assert "ROADMAP" in e.value.details()
 
 
+@pytest.mark.parametrize("kernel", ["jax:1", "torch:1"])
+def test_arena_kernels_are_served_on_both_wires(port_server, kernel):
+    """The unary arena kernel (the servicer's persistent warm arena) answers
+    on v1 and v2 with a valid matching and its prices; the same columns
+    again take the arena's short circuit, with the same answer."""
+    _, client = port_server
+    ep, er, specs, reqs = build_batch(seed=2, P=12, T=10)
+    v1 = client.assign(tg.encoded_to_proto(ep, er, kernel=kernel), timeout=TIMEOUT)
+    v2 = client.assign_v2(tg.encoded_to_proto_v2(ep, er, kernel=kernel), timeout=TIMEOUT)
+    p4t = list(v1.provider_for_task)
+    assert wire.unblob(v2.provider_for_task, np.int32).tolist() == p4t
+    assert len(v1.price) == 12 and v2.HasField("price") and v1.num_assigned > 0
+    used = set()
+    for t, p in enumerate(p4t):
+        if p >= 0:
+            assert specs[p].meets(reqs[t]) and p not in used and v1.task_for_provider[p] == t
+            used.add(p)
+
+
 def test_session_rpcs_are_not_served(port_server):
+    """Of the session RPCs, ``Migrate`` (live migration, ROADMAP queue A,
+    M4b) is not served: gRPC ``UNIMPLEMENTED`` naming ROADMAP. The v2
+    sessions are (tests/test_torch_sessions.py): an empty snapshot stream
+    to ``OpenSession`` answers ``ok=false``, not an RPC error."""
     server, _ = port_server
     channel = grpc.insecure_channel(f"127.0.0.1:{server.port}")
+    migrate = channel.unary_unary(
+        f"/{tg.SERVICE_NAME}/Migrate",
+        request_serializer=pb.MigrateRequest.SerializeToString,
+        response_deserializer=pb.MigrateResponse.FromString,
+    )
+    with pytest.raises(grpc.RpcError) as e:
+        migrate(pb.MigrateRequest(target_endpoint="x:1", target_proc_id="p"), timeout=TIMEOUT)
+    assert e.value.code() == grpc.StatusCode.UNIMPLEMENTED and "ROADMAP" in e.value.details()
     open_session = channel.stream_unary(
         f"/{tg.SERVICE_NAME}/OpenSession",
         request_serializer=pb.SnapshotChunk.SerializeToString,
         response_deserializer=pb.OpenSessionResponse.FromString,
     )
-    with pytest.raises(grpc.RpcError) as e:
-        open_session(iter([pb.SnapshotChunk(session_id="s")]), timeout=TIMEOUT)
+    resp = open_session(iter([pb.SnapshotChunk(session_id="s")]), timeout=TIMEOUT)
     channel.close()
-    assert e.value.code() == grpc.StatusCode.UNIMPLEMENTED
+    assert not resp.ok and resp.error
 
 
 @pytest.mark.parametrize("kernel", KERNELS)

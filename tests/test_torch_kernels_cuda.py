@@ -75,6 +75,43 @@ def nan_edit(ep, er, ram_mb: int = -1, task: int = NAN_TASK, provider: int = NAN
     return ep, er
 
 
+# NaN coordinates (ROADMAP C5): the reference's haversine clips with
+# jnp.clip, which keeps a NaN, so a located pair with a NaN or infinite
+# coordinate costs NaN, at every proximity (0 x NaN is NaN).
+# nan_coord_edit puts a NaN latitude on one provider, an infinite
+# longitude on another, and a NaN longitude on a task that asks for
+# nothing but ``ram_mb``; all of them located and valid.
+NAN_LAT_PROVIDER, INF_LON_PROVIDER, NAN_LON_TASK = 3, 13, 9
+
+
+def nan_coord_edit(ep, er, ram_mb: int = -1):
+    ep = _with(ep, NAN_LAT_PROVIDER, lat=float("nan"), has_location=True, valid=True)
+    ep = _with(ep, INF_LON_PROVIDER, lon=float("inf"), has_location=True, valid=True)
+    er = _with(er, NAN_LON_TASK, lon=float("nan"), has_location=True, cpu_required=False,
+               cpu_cores=-1, ram_mb=ram_mb, storage_gb=-1, gpu_opt_valid=False, valid=True)
+    return ep, er
+
+
+def nan_arrays(pa: dict, ra: dict, tile: int) -> None:
+    """nan_edit and nan_coord_edit on numpy column dicts, in place, and an
+    infinite price on provider 11 with every task of tile 2 asking for
+    nothing: the block (11, 2) is +inf in every cell."""
+    pa["price"][NAN_PROVIDER] = np.nan
+    pa["price"][11] = np.inf
+    pa["lat"][NAN_LAT_PROVIDER] = np.nan
+    pa["lon"][INF_LON_PROVIDER] = np.inf
+    for p in (NAN_PROVIDER, 11, NAN_LAT_PROVIDER, INF_LON_PROVIDER):
+        pa["valid"][p] = pa["has_location"][p] = True
+    free = np.r_[NAN_TASK, NAN_LON_TASK, np.arange(2 * tile, 3 * tile)]
+    ra["cpu_required"][free] = False
+    for name in ("cpu_cores", "ram_mb", "storage_gb"):
+        ra[name][free] = -1
+    ra["gpu_opt_valid"][free] = False
+    ra["valid"][free] = ra["has_location"][free] = True
+    ra["priority"][NAN_TASK] = np.nan
+    ra["lon"][NAN_LON_TASK] = np.nan
+
+
 def median_ram(ep) -> int:
     ram = ep.ram_mb.cpu().numpy() if torch.is_tensor(ep.ram_mb) else np.asarray(ep.ram_mb)
     return int(np.median(ram))
@@ -477,6 +514,100 @@ def test_candidate_kernels_on_nan_cells_match_plain_bits(card, P, T, k, tile):
     assert not bool(torch.isnan(got[3]).any())
 
 
+@pytest.mark.parametrize("proximity", [0.0, 0.001])
+def test_cell_kernels_on_nan_coordinates_match_plain_bits(card, proximity):
+    """Every kernel that scores cells with cell_terms, on nan_coord_edit's
+    and nan_edit's cells (C5): K1's fused, rows, reverse and biased
+    launches, K3, K4, the reverse blocks, K6, K8, K10, K14's feasibility
+    launch and K15 against their plain versions. A located pair with a NaN
+    or infinite coordinate costs NaN in both. At proximity 0 every output
+    is bit for bit (0 x NaN is NaN, 0 x a finite distance 0); at 0.001 the
+    kernels whose plain versions share the card's sin, cos and asin (K6,
+    K8, K10, K14's mask) are bit for bit, and K15 is held as its own test
+    holds it."""
+    from protocol_tpu_torch import kernels
+    from protocol_tpu_torch.ops import assign as da
+    from protocol_tpu_torch.ops import blocked as bl
+    from protocol_tpu_torch.ops import cost as oc
+    from protocol_tpu_torch.parallel import sparse as ps
+    from protocol_tpu_torch.sched import torch_backend as tb
+
+    P, T, tile, k = 1000, 1024, 256, 32
+    ep = synth_providers(np.random.default_rng(70), P, device=card)
+    er = synth_requirements(np.random.default_rng(71), T, device=card)
+    ep, er = nan_coord_edit(ep, er, ram_mb=median_ram(ep))
+    ep, er = nan_edit(ep, er)
+    w = CostWeights(priority=1.0, proximity=proximity)
+    cost, fits = oc.cost_matrix(ep, er, w)
+    assert bool(torch.isnan(cost[NAN_LAT_PROVIDER]).any())
+    assert bool(torch.isnan(cost[INF_LON_PROVIDER]).any())
+    assert bool(torch.isnan(cost[:, NAN_LON_TASK]).any())
+    # the dense kernels (K10, K6, K8) and K14's mask
+    assert same_bits(kernels.cost_block(ep, er, w).T.contiguous(), cost)
+    vb, feas = kernels.dense_value_base(ep, er, w)
+    pvb, pfeas = da._value_base(oc.with_tie_jitter(cost))
+    assert same_bits(vb, pvb) and torch.equal(feas, pfeas)
+    assert same_bits(kernels.unbounded_best(ep, er, w), tb._solve_unbounded_plain(ep, er, w))
+    row_any, col_any, bits = kernels.blocked_feasibility(ep, er, w)
+    p_row, p_col = bl.feasibility_scan(bl.make_k_block(ep, er, w, 0.05, tile), P,
+                                       range(0, T, tile))
+    assert torch.equal(row_any, p_row) and torch.equal(col_any, p_col.reshape(T))
+    mask = cost < 5e8
+    assert torch.equal(bl.unpack_words(bits.rows, T), mask)
+    assert torch.equal(bl.unpack_words(bits.cols, P).T, mask)
+    assert not bool(mask[NAN_LAT_PROVIDER][er.has_location].any())
+    # K15 on pairs of the NaN rows
+    rng = np.random.default_rng(72)
+    p4t = rng.integers(-1, P, T).astype(np.int32)
+    f = fits.cpu().numpy()
+    p4t[NAN_LON_TASK] = int(f[:, NAN_LON_TASK].argmax())
+    p4t[[20, 21]] = [NAN_LAT_PROVIDER, INF_LON_PROVIDER]
+    p4t = torch.from_numpy(p4t).to(card)
+    got = kernels.pair_cost(ep, er, w, p4t)
+    ref = oc._cost_pairs_plain(ep, er, p4t, w)
+    assert bool(torch.isnan(got[NAN_LON_TASK]))
+    assert same_bits(got, ref) if proximity == 0.0 else pair_costs_close(got, ref, 1e-3)
+    if proximity != 0.0:  # K1's and the repair's plain versions take torch's haversine
+        return
+    # K1: fused, rows over every task, reverse (rt 1), biased rows
+    got = sp.candidates_fused(ep, er, w, k, tile, 8, 2)
+    ref = sp._bidir_plain(ep, er, w, k, tile, 8, 2, 0)
+    assert all(same_bits(a, b) for a, b in zip(got, ref))
+    ids = torch.arange(T, dtype=torch.int32, device=card)
+    rows = kernels.candidates_forward_rows(ep, er, w, k, ids)
+    assert all(same_bits(a, b) for a, b in zip(rows, ref[:2]))
+    ref1 = sp._bidir_plain(ep, er, w, k, 1024, 8, 8, 0)
+    rev = kernels.candidates_reverse(ep, er, w, 1024, 8, 8)
+    assert all(same_bits(a, b) for a, b in zip(rev, ref1[2:]))
+    ref1 = sp._bidir_plain(ep, er, w, k, 64, 8, 1, 0)
+    rev = kernels.candidates_reverse(ep, er, w, 64, 8, 1)
+    assert all(same_bits(a, b) for a, b in zip(rev, ref1[2:]))
+    bias = torch.from_numpy(rng.normal(0, 1, P).astype(np.float32)).to(card)
+    got = kernels.candidates_forward_rows(ep, er, w, k, ids, bias=bias)
+    ref = sp._forward_plain(ep, er, w, k, tile, provider_offset=bias)
+    assert all(same_bits(a, b) for a, b in zip(got, ref))
+    # the repair: K3, K4, the reverse blocks
+    p_ids = torch.tensor([NAN_PROVIDER, NAN_LAT_PROVIDER, 11, INF_LON_PROVIDER, 500],
+                         device=card)
+    thresh = cost.min(dim=0).values
+    assert same_bits(kernels.repair_enter(ep, er, w, p_ids, thresh),
+                     ps._enter_plain(ep, er, w, p_ids, thresh))
+    t_ids = torch.tensor([NAN_TASK, NAN_LON_TASK, 300, 301, 900], device=card)
+    assert same_bits(kernels.repair_tile_min(ep, er, w, t_ids, tile, ps._PAD_COST),
+                     ps._tile_min_plain(ep, er, w, t_ids, tile, ps._PAD_COST))
+    *_, pt, pc = sp.candidates_topk_reverse(ep, er, w, k=k, tile=tile, reverse_r=2,
+                                            with_pools=True)
+    flag = torch.zeros(P, T // tile, dtype=torch.bool, device=card)
+    flag[p_ids] = True
+    flag[:, 0] = True
+    blk_j, blk_p = torch.nonzero(flag.T, as_tuple=True)
+    got, ref = (pt.clone(), pc.clone()), (pt.clone(), pc.clone())
+    kernels.candidates_reverse_blocks(ep, er, w, tile, blk_p, blk_j, *got)
+    ps._reverse_blocks_plain(ep, er, w, tile, 1, blk_p, blk_j, *ref)
+    assert all(same_bits(a, b) for a, b in zip(got, ref))
+    assert bool(torch.isnan(got[1][NAN_LAT_PROVIDER]).any())
+
+
 def test_candidate_kernel_refuses_what_it_does_not_take(card):
     """A shape K1 does not take raises, from the wrapper or from the refused
     launch; no path falls back to a plain version."""
@@ -600,6 +731,15 @@ def repair_list_cases() -> dict:
     pa, ra = market(700, 1024, 6)
     ids = np.array([250, 251, 252, 253, 254, 255, 256, 257, 510, 511, 512, 767, 768])
     cases["cross_step"] = (pa, ra, 256, None, ids)
+    # NaN cells (C4, C5): nan_arrays' NaN price, NaN priority, NaN and
+    # infinite coordinates and the all-+inf block (11, 2); every block of
+    # those providers flagged, the NaN tasks among the dirty ids
+    pa, ra = market(400, 1024, 7)
+    nan_arrays(pa, ra, 256)
+    flag = np.random.default_rng(7).random((400, 4)) < 0.05
+    flag[[NAN_PROVIDER, 11, NAN_LAT_PROVIDER, INF_LON_PROVIDER]] = True
+    ids = np.array([NAN_TASK, NAN_LON_TASK, 100, 513, 514, 600, 1000])
+    cases["nan"] = (pa, ra, 256, flag, ids)
     return cases
 
 
@@ -627,8 +767,13 @@ def test_repair_list_kernels_cases_match_plain_bits(card, name):
     ps._reverse_blocks_plain(ep, er, w, tile, 1, blk_p, blk_j, *ref)
     assert all(same_bits(a, b) for a, b in zip(got, ref))
     ids = torch.from_numpy(np.asarray(t_ids)).to(card)
-    assert same_bits(kernels.repair_tile_min(ep, er, w, ids, tile, ps._PAD_COST),
-                     ps._tile_min_plain(ep, er, w, ids.long(), tile, ps._PAD_COST))
+    mins = kernels.repair_tile_min(ep, er, w, ids, tile, ps._PAD_COST)
+    assert same_bits(mins, ps._tile_min_plain(ep, er, w, ids.long(), tile, ps._PAD_COST))
+    if name == "nan":  # a NaN cell's block is its first NaN, the +inf block its first task
+        assert int(got[0][11, 2]) == 512 and float(got[1][11, 2]) == float("inf")
+        assert bool(torch.isnan(got[1][NAN_PROVIDER]).any())
+        assert bool(torch.isnan(got[1][NAN_LAT_PROVIDER]).any())
+        assert bool(torch.isnan(mins[:, 0]).any()) and bool(torch.isnan(mins[NAN_PROVIDER]).any())
 
 
 def test_card_repair_equals_card_regen(card):

@@ -20,6 +20,7 @@ from protocol_tpu.ops.cost import CostWeights as JCostWeights
 from protocol_tpu.ops.encoding import EncodedProviders
 from protocol_tpu.ops.sparse import candidates_topk_reverse as j_candidates_topk_reverse
 from protocol_tpu.parallel.sparse import _build_repair_enter as j_build_repair_enter
+from protocol_tpu.parallel.sparse import _build_repair_forward as j_build_repair_forward
 from protocol_tpu.parallel.sparse import _build_repair_refold as j_build_repair_refold
 from protocol_tpu.parallel.sparse import _build_repair_tile as j_build_repair_tile
 from protocol_tpu.parallel.sparse import repair_topk_bidir_sharded as j_repair
@@ -27,9 +28,16 @@ from protocol_tpu_torch.ops.cost import CostWeights
 from protocol_tpu_torch.ops.sparse import candidates_topk_reverse, merge_reverse_candidates
 from protocol_tpu_torch.parallel import sparse as ps
 
-from tests.test_torch_candidates import bits, k1_key_cost, k1_order_key, synth
+from tests.test_torch_candidates import bits, k1_key_cost, synth
 from tests.test_torch_encoding_cost import encode_random, to_port
-from tests.test_torch_kernels_cuda import K5_TILES, k5_pool  # shared with the card tests
+from tests.test_torch_kernels_cuda import (  # shared with the card tests
+    K5_TILES,
+    NAN_LAT_PROVIDER,
+    NAN_PROVIDER,
+    k5_pool,
+    nan_arrays,
+    repair_list_cases,
+)
 
 PARTS = ("cand_p", "cand_c", "fwd_p", "fwd_c", "pool_t", "pool_c")
 ZERO_PROX = (JCostWeights(proximity=0.0), CostWeights(proximity=0.0))
@@ -348,21 +356,48 @@ def test_forward_rows_plain_are_the_full_pass_rows():
 
 # ---------------- the list launches' exactness, modelled on the CPU ------
 # csrc/candidates.cu's reverse blocks split a tile's cells over row slices
-# and combine them by the least (order_bits(cost), task) key; K4 cuts the
-# dirty ids into ranges at tile boundaries and keeps a running fminf per
-# tile. Both are modelled here in numpy / torch.
+# and combine them by the least rev_key at rt = 1 ((order_bits(cost) + 1)
+# << 32 | task: the card's NaN, 0x7fffffff, keys below every cost); K4
+# cuts the dirty ids into ranges at tile boundaries and keeps a running
+# NaN-propagating min per tile. Both are modelled here in numpy / torch.
+
+CARD_NAN = np.uint32(0x7FFFFFFF).view(np.float32)  # every NaN the card's arithmetic makes
 
 
-NO_KEY = torch.iinfo(torch.int64).max  # K1's all-ones key in the mirror's signed order
+def k1_rev_key(cost, idx):
+    """A mirror of K1's rt = 1 reverse key (``csrc/candidates.cu``
+    rev_key<false>) in k1_order_key's signed int64 order: the high word
+    order_bits(cost) + 1 mod 2^32. A NaN is taken as the card's NaN, whose
+    high word becomes 0."""
+    c = torch.where(torch.isnan(cost), torch.tensor(CARD_NAN), cost.to(torch.float32))
+    u = c.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    hi = (torch.where(u >= 1 << 31, u ^ 0xFFFFFFFF, u | (1 << 31)) + 1) & 0xFFFFFFFF
+    return ((hi - (1 << 31)) << 32) | idx.to(torch.int64)
 
 
-@pytest.mark.parametrize("case", ["synth", "ties", "infeasible_tile"])
+def k1_rev_key_cost(keys):
+    """The cost a k1_rev_key holds (csrc's rev_cost<false>), NaN for a high
+    word 0."""
+    hi = (keys >> 32) + (1 << 31)
+    nan = hi == 0
+    c = k1_key_cost(((hi - 1 - (1 << 31)) << 32) | (keys & 0xFFFFFFFF))
+    return torch.where(nan, torch.tensor(float("nan")), c)
+
+
+@pytest.mark.parametrize("case", ["synth", "ties", "infeasible_tile", "nan"])
 def test_block_keys_split_anywhere_equal_plain_and_reference(case):
     """Each (provider, tile) block's cells split at random points, each part
     reduced to its least key and the parts combined by the least key: the
-    plain blocks and the reference's _build_repair_tile (first argmin)."""
+    plain blocks and the reference's _build_repair_tile (first argmin, so
+    the first NaN of a block with one, the first +inf of a block of +inf)."""
     P, T, tile = 24, 64, 16
     ep, er = synth(P, T, 3)
+    if case == "nan":  # nan_arrays' NaN price, priority and coordinates, the +inf block
+        pa, ra = dataclasses.asdict(ep), dataclasses.asdict(er)
+        pa = {n: np.array(a, copy=True) for n, a in pa.items()}
+        ra = {n: np.array(a, copy=True) for n, a in ra.items()}
+        nan_arrays(pa, ra, tile)
+        ep, er = type(ep)(**pa), type(er)(**ra)
     if case == "ties":  # no jitter above INFEASIBLE/2, equal priorities: whole rows tie
         price = np.array(ep.price, copy=True)
         price[::3] = np.float32(6e8)
@@ -383,18 +418,17 @@ def test_block_keys_split_anywhere_equal_plain_and_reference(case):
         for j in range(n_tiles):
             tasks = torch.arange(j * tile, (j + 1) * tile, dtype=torch.int32)
             c = cost[p, j * tile:(j + 1) * tile]
-            keys = torch.where(c < np.inf, k1_order_key(c, tasks), NO_KEY)
+            keys = k1_rev_key(c, tasks)
             cuts = np.sort(rng.choice(np.arange(1, tile), rng.integers(0, 5), replace=False))
             best = min(int(part.min()) for part in torch.tensor_split(keys, cuts.tolist()))
-            assert best != NO_KEY
             got_t[p, j] = best & 0xFFFFFFFF
-            got_c[p, j] = k1_key_cost(torch.tensor([best]))[0]
+            got_c[p, j] = k1_rev_key_cost(torch.tensor([best]))[0]
     blk_j, blk_p = torch.nonzero(torch.ones(n_tiles, P, dtype=torch.bool), as_tuple=True)
     pool_t = torch.zeros((P, n_tiles), dtype=torch.int32)
     pool_c = torch.zeros((P, n_tiles), dtype=torch.float32)
     ps._reverse_blocks_plain(tp, tr, tw, tile, 1, blk_p, blk_j, pool_t, pool_c)
     np.testing.assert_array_equal(got_t, pool_t.numpy())
-    np.testing.assert_array_equal(bits(got_c), bits(pool_c.numpy()))
+    np.testing.assert_array_equal(nan_bits(got_c), nan_bits(pool_c.numpy()))
     ep_rows = jax.tree.map(jnp.asarray, ep)
     for j in range(n_tiles):
         er_tile = jax.tree.map(lambda a: jnp.asarray(np.asarray(a)[j * tile:(j + 1) * tile]), er)
@@ -402,11 +436,74 @@ def test_block_keys_split_anywhere_equal_plain_and_reference(case):
                                   jax.tree.structure(er_tile))
         tt, tc = run(ep_rows, jnp.arange(P, dtype=jnp.uint32), er_tile, jnp.uint32(j * tile))
         np.testing.assert_array_equal(got_t[:, j], np.asarray(tt)[:, 0])
-        np.testing.assert_array_equal(bits(got_c[:, j]), bits(np.asarray(tc)[:, 0]))
+        np.testing.assert_array_equal(nan_bits(got_c[:, j]), nan_bits(np.asarray(tc)[:, 0]))
+    if case == "nan":
+        assert np.isnan(got_c[NAN_PROVIDER]).any() and np.isnan(got_c[NAN_LAT_PROVIDER]).any()
+        assert got_c[11, 2] == np.inf and got_t[11, 2] == 2 * tile
     if case == "ties":
         assert (got_c[::3] >= 5e8).all() and (got_t[::3] % tile == 0).any()
     if case == "infeasible_tile":
         assert (got_c[:, 1] == np.float32(1e9)).all() and (got_t[:, 1] == tile).all()
+
+
+def nan_bits(a):
+    """f32 bits with every NaN as one value: the reference's, the CPU's and
+    the card's NaNs carry different payloads, and a comparison of bits
+    holds only where the value is not NaN."""
+    a = np.asarray(a, np.float32)
+    return np.where(np.isnan(a), np.uint32(0x7FFFFFFF), a.view(np.uint32))
+
+
+def test_repair_plain_versions_on_nan_cells_match_the_reference():
+    """C4 on repair_list_cases()["nan"]: the plain reverse blocks (every
+    block, rt 1), tile minima and forward rows against the reference's
+    _build_repair_tile (jnp.argmin: a block's first NaN; a block of +inf
+    its first task) and _build_repair_forward (its dirty-column block,
+    reduced as the reference's repair reduces it: np.minimum from the pad,
+    which a NaN cell makes NaN; its rows, NaN cells last), at proximity 0.
+    The card holds the list launches against these plain versions on the
+    same case (test_repair_list_kernels_cases_match_plain_bits[nan])."""
+    from protocol_tpu.ops.encoding import EncodedProviders, EncodedRequirements
+
+    pa, ra, tile, _, ids = repair_list_cases()["nan"]
+    ep, er = EncodedProviders(**pa), EncodedRequirements(**ra)
+    tp, tr = to_port(ep, er)
+    jw, tw = ZERO_PROX
+    P, T = ep.gpu_count.shape[0], er.cpu_cores.shape[0]
+    n_tiles = T // tile
+    blk_j, blk_p = torch.nonzero(torch.ones(n_tiles, P, dtype=torch.bool), as_tuple=True)
+    pool_t = torch.zeros((P, n_tiles), dtype=torch.int32)
+    pool_c = torch.zeros((P, n_tiles), dtype=torch.float32)
+    ps._reverse_blocks_plain(tp, tr, tw, tile, 1, blk_p, blk_j, pool_t, pool_c)
+    ep_rows = jax.tree.map(jnp.asarray, ep)
+    for j in range(n_tiles):
+        er_tile = jax.tree.map(lambda a: jnp.asarray(np.asarray(a)[j * tile:(j + 1) * tile]), er)
+        run = j_build_repair_tile(dataclasses.astuple(jw), tile, 1, P, jax.tree.structure(ep_rows),
+                                  jax.tree.structure(er_tile))
+        tt, tc = run(ep_rows, jnp.arange(P, dtype=jnp.uint32), er_tile, jnp.uint32(j * tile))
+        np.testing.assert_array_equal(pool_t[:, j].numpy(), np.asarray(tt)[:, 0])
+        np.testing.assert_array_equal(nan_bits(pool_c[:, j]), nan_bits(np.asarray(tc)[:, 0]))
+    assert torch.isnan(pool_c[NAN_PROVIDER]).any() and torch.isnan(pool_c[NAN_LAT_PROVIDER]).any()
+    assert int(pool_t[11, 2]) == 2 * tile and float(pool_c[11, 2]) == np.inf
+    ids = np.asarray(ids)
+    er_rows = EncodedRequirements(**{n: np.asarray(a)[ids] for n, a in ra.items()})
+    er_rows_j = jax.tree.map(jnp.asarray, er_rows)
+    k = 16
+    run = j_build_repair_forward(dataclasses.astuple(jw), P, k, ids.size,
+                                 jax.tree.structure(ep_rows), jax.tree.structure(er_rows_j))
+    prov, cost_k, dc = run(ep_rows, er_rows_j, jnp.asarray(ids.astype(np.uint32)),
+                           jnp.ones(ids.size, bool))
+    want = np.full((P, n_tiles), ps._PAD_COST, np.float32)
+    dc = np.asarray(dc)
+    for j in np.unique(ids // tile):
+        sel = ids // tile == j
+        np.minimum(want[:, j], dc[:, sel].min(axis=1), out=want[:, j])
+    got = ps._tile_min_plain(tp, tr, tw, torch.from_numpy(ids), tile, ps._PAD_COST)
+    np.testing.assert_array_equal(nan_bits(got), nan_bits(want))
+    assert np.isnan(want[:, 0]).any() and np.isnan(want[NAN_PROVIDER]).any()
+    p, c = ps._forward_rows_plain(tp, tr, tw, k, torch.from_numpy(ids))
+    np.testing.assert_array_equal(p.numpy(), np.asarray(prov))
+    np.testing.assert_array_equal(nan_bits(c), nan_bits(np.asarray(cost_k)))
 
 
 def tile_cut(ids, i, tile):
@@ -419,14 +516,11 @@ def tile_cut(ids, i, tile):
     return i + int(later[0]) if later.size else len(ids)
 
 
-@pytest.mark.parametrize("ranges", [1, 3, 7, 40])
-def test_tile_min_over_ranges_cut_at_tile_boundaries_equals_plain(ranges):
-    """K4's ranges of the dirty ids, cut at tile boundaries, partition the ids
-    with no tile in two ranges; a running fminf from the pad per (provider,
-    tile) over each range's rows in order, stored when the tile changes,
-    equals the plain tile minima."""
+def tile_min_ranges_model(ranges, ep, er):
+    """K4's ranges of the dirty ids, cut at tile boundaries, each reduced by
+    a running NaN-propagating min from the pad per (provider, tile) over
+    its rows in order, stored when the tile changes: (model, plain)."""
     P, T, tile = 16, 96, 8
-    ep, er = synth(P, T, 4)
     tp, tr = to_port(ep, er)
     tw = ZERO_PROX[1]
     ids = np.array([0, 1, 7, 8, 15, 16, 17, 23, 40, 41, 42, 43, 44, 45, 46, 47, 48, 90, 95])
@@ -450,8 +544,29 @@ def test_tile_min_over_ranges_cut_at_tile_boundaries_equals_plain(ranges):
                     if cur >= 0:
                         got[p, cur] = m
                     cur, m = t // tile, pad
-                m = np.fmin(m, cost[p, t])
+                m = np.minimum(m, cost[p, t])  # min.NaN: a NaN cell's tile is NaN
             if cur >= 0:
                 got[p, cur] = m
-    want = ps._tile_min_plain(tp, tr, tw, torch.from_numpy(ids), tile, ps._PAD_COST)
-    np.testing.assert_array_equal(bits(got), bits(want.numpy()))
+    return got, ps._tile_min_plain(tp, tr, tw, torch.from_numpy(ids), tile, ps._PAD_COST).numpy()
+
+
+@pytest.mark.parametrize("ranges", [1, 3, 7, 40])
+def test_tile_min_over_ranges_cut_at_tile_boundaries_equals_plain(ranges):
+    """K4's ranges of the dirty ids partition the ids with no tile in two
+    ranges, and their running minima equal the plain tile minima."""
+    got, want = tile_min_ranges_model(ranges, *synth(16, 96, 4))
+    np.testing.assert_array_equal(bits(got), bits(want))
+
+
+@pytest.mark.parametrize("ranges", [1, 7])
+def test_tile_min_over_ranges_on_nan_cells_equals_plain(ranges):
+    """The same on nan_arrays' NaN cells (C4): a tile with a NaN dirty cell
+    has a NaN minimum in the model (K4's min.NaN) and in the plain
+    scatter_reduce "amin", as in the reference's np.minimum."""
+    ep, er = synth(16, 96, 4)
+    pa = {n: np.array(a, copy=True) for n, a in dataclasses.asdict(ep).items()}
+    ra = {n: np.array(a, copy=True) for n, a in dataclasses.asdict(er).items()}
+    nan_arrays(pa, ra, 8)
+    got, want = tile_min_ranges_model(ranges, type(ep)(**pa), type(er)(**ra))
+    np.testing.assert_array_equal(nan_bits(got), nan_bits(want))
+    assert np.isnan(want[:, 0]).any() and np.isnan(want[NAN_PROVIDER]).any()
