@@ -198,6 +198,24 @@ with the counts set to 0 just before each (run_replay):
     (divergence None) and at least 0.99 of the tasks assigned on every
     tick; cold_ms, warm_median_ms, warm_percentiles and the wire bytes
     printed beside the card's name and power limit.
+Then the session journals, the drain, Migrate and the client half of the
+seam, in three more runs with the counts set to 0 just before each
+(run_resilience), on the port's servers on free localhost ports and the
+replay's 65,536^2 recording:
+
+  - resilience_restart: a session takes tick 1 at servicer A, its journal
+    flushed before each ack; drain(A); servicer B rehydrates it at start
+    from the same journal root and takes tick 2, no re-open;
+  - resilience_migrate: after tick 1, Migrate(A -> C); the next delta is
+    answered moved:C, C rehydrates the session lazily and takes tick 2; in
+    both, every tick equals the uninterrupted recording bit for bit (2 of
+    its 8 ticks: a flush takes ~12 s at this width);
+  - resilience_remote: RemoteBatchMatcher (wire v2, native_fallback,
+    torch:1) from a store of 65,536 nodes and 4,096 slots, a cold and two
+    churned refreshes as session deltas (no re-open), every pair feasible,
+    0.99 of the slots seated, each equal to the in-process matcher on the
+    card; the flush ms a tick, the restore ms, the journal's bytes and the
+    wire-v2 split of each refresh printed.
 Prints:
 
   - the card's name and power limit (nvidia-smi),
@@ -215,6 +233,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -2918,7 +2937,7 @@ REPLAY_KERNELS = ("candidates_bidir", "candidates_forward_rows", "auction_phase"
                   "candidates_reverse_blocks", "repair_refold")
 
 
-def run_replay(torch, kernels) -> dict:
+def run_replay(torch, kernels, tmp: str) -> dict:
     """The flight recorder's replay (trace/replay.py) through the port, in
     two runs with the counts set to 0 just before each:
 
@@ -2931,17 +2950,15 @@ def run_replay(torch, kernels) -> dict:
         outcome metrics; the rows that differ from the recorded outcomes
         (the haversine's ulps, then the carried plans) are printed;
       - full width: synth_trace writes a N x N trace, REPLAY_TICKS ticks at
-        REPLAY_CHURN provider churn, k 64, into a temporary directory; the
-        port records it through inproc, then replays the recording through
-        inproc and through wire-v2, and both must verify every tick
-        (divergence None): the port on the card is deterministic from run
-        to run. Every tick of the three must assign REPLAY_ASSIGNED_FLOOR
-        of the tasks.
+        REPLAY_CHURN provider churn, k 64, into ``tmp``; the port records it
+        through inproc (``tmp``/recorded.trace, which run_resilience replays
+        through its drills), then replays the recording through inproc and
+        through wire-v2, and both must verify every tick (divergence None):
+        the port on the card is deterministic from run to run. Every tick of
+        the three must assign REPLAY_ASSIGNED_FLOOR of the tasks.
     Returns {"replay_golden": launches, "replay_full": launches}; raises on
     any failed check."""
     import pathlib
-    import shutil
-    import tempfile
 
     import numpy as np
 
@@ -3019,36 +3036,338 @@ def run_replay(torch, kernels) -> dict:
 
     # ---- full width: synth, record, replay twice, the counts set to 0
     # just before the recording
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    src = synth_trace(str(pathlib.Path(tmp) / "synth.trace"), n_providers=N, n_tasks=N,
+                      ticks=REPLAY_TICKS, churn=REPLAY_CHURN, seed=SEED, kernel="jax:1",
+                      top_k=64)
+    rec = str(pathlib.Path(tmp) / "recorded.trace")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    full = {"record": replay(src, engine="jax:1", verify=False, record_path=rec)}
+    full["inproc"] = replay(rec)
+    full["wire-v2"] = replay(rec, transport="wire-v2")
+    torch.cuda.synchronize()
+    runs["replay_full"] = check_launches("full-width replays")
+    for label, rep in full.items():
+        low = [a for a in rep["assigned"] if a < REPLAY_ASSIGNED_FLOOR * N]
+        print(f"replay {label} at {N}x{N}, {rep['ticks']} ticks, card {card_line()}: "
+              f"cold_ms {rep['cold_ms']}, warm_median_ms {rep['warm_median_ms']}, "
+              f"warm_percentiles {json.dumps(rep['warm_percentiles'])}, tick walls "
+              f"{rep['tick_wall_ms']}, assigned {rep['assigned']}, verified "
+              f"{rep['verified_ticks']}, divergence {rep['divergence']}, wire bytes out "
+              f"{rep.get('wire_bytes_out')} in {rep.get('wire_bytes_in')}", flush=True)
+        if rep["ticks"] != REPLAY_TICKS + 1 or low:
+            raise AssertionError(f"replay {label}: {rep['ticks']} ticks, assigned below "
+                                 f"{REPLAY_ASSIGNED_FLOOR}: {low}")
+        split = rep.get("wire_delta_split_ms")
+        if split:
+            med = {k_: round(float(np.median([t_[k_] for t_ in split])), 3) for k_ in split[0]}
+            print(f"replay {label} delta ticks' split (median over {len(split)}; client "
+                  f"serialize, round trip, the server's time inside it and its decode): "
+                  f"{json.dumps(med)}; inproc warm median {full['inproc']['warm_median_ms']} ms; "
+                  f"per tick {json.dumps(split)}", flush=True)
+        if label != "record" and (rep["divergence"] is not None
+                                  or rep["verified_ticks"] != REPLAY_TICKS + 1):
+            raise AssertionError(f"replay {label}: the recording did not verify: "
+                                 f"{rep['divergence']}")
+    return runs
+
+
+# delta ticks of each drill, half before the restart or the migration: cut
+# from the recording's 8 because each flush (the journal deflated at level
+# 6 before every ack) takes ~12-17 s at 65,536^2 on one H100 host (PERF.md §6)
+RESIL_TICKS = 2
+# the client seam's store: 65,536 nodes, 256 tasks of 16 replicas (the
+# 4,096-slot cap of native_fallback) and 64 unbounded tasks
+RESIL_POOL = (N, 256, 16, 64)
+RESIL_SEATS_FLOOR = 0.99  # bounded seats over the fillable slots, every remote refresh
+REMOTE_KERNELS = ("candidates_bidir", "auction_phase", "candidates_forward_rows",
+                  "repair_enter", "unbounded_best")
+
+
+def run_resilience(torch, kernels, recorded: str, refresh) -> dict:
+    """Session checkpoints, drain, Migrate and the client seam on the card,
+    at full width, in three runs with the counts set to 0 just before each.
+    ``recorded`` is run_replay's 65,536^2 recording (8 ticks of 1% provider
+    churn), whose outcomes are the uninterrupted chain.
+
+      - warm restart: servicer A (proc p0, a journal flushed every tick
+        before its ack) opens the session and takes the first half of the
+        RESIL_TICKS delta ticks through the port's client; drain(A);
+        servicer B starts on the same root and proc id and rehydrates at
+        start (session_restored 1); the second half goes to B, with no
+        re-open;
+      - live migration: servicers A (p0) and C (p1) on one root; after the
+        first half, Migrate(A -> C); the next delta is answered moved:C, the
+        client rebinds and resends, C rehydrates lazily
+        (session_rehydrated 1); the second half at C, one open in all;
+      - the client seam: RemoteBatchMatcher (wire v2, native_fallback,
+        torch:1, sent as jax:1) over a port server on the card, a store of
+        RESIL_POOL, one cold refresh and two of 1% node churn, the second and
+        third delta ticks (no re-open); every pair feasible and
+        RESIL_SEATS_FLOOR of the fillable slots seated (a task's replicas,
+        at most its compatible nodes); each refresh equal to an
+        in-process TorchBatchMatcher (native_engine torch:1) on the card on
+        the same store, whose launches are not counted.
+    In both drills every tick's p4t must equal the recording's bit for bit;
+    each takes RESIL_TICKS delta ticks of the recording.
+    Prints the flush ms a tick, the restore ms, the journal's bytes, and per
+    remote refresh the client's serialize ms, remote_rtt_ms,
+    remote_backend_ms and the server's decode and solve sums. Returns
+    {"resilience_restart", "resilience_migrate", "resilience_remote":
+    launches}; raises on any failed check."""
+    import os
+
+    import numpy as np
+
+    from protocol_tpu_torch.fleet.fabric import FleetConfig
+    from protocol_tpu_torch.proto import scheduler_pb2 as pb
+    from protocol_tpu_torch.proto import wire
+    from protocol_tpu_torch.sched import torch_backend as tb
+    from protocol_tpu_torch.services import scheduler_grpc as tg
+    from protocol_tpu_torch.trace import format as tfmt
+    from protocol_tpu_torch.trace.replay import iter_input_ticks
+
+    trace = tfmt.read_trace(recorded)
+    snap = trace.snapshot
+    ticks = list(iter_input_ticks(trace))[:RESIL_TICKS + 1]
+    expect = [trace.outcome_for(t).provider_for_task for t in range(len(ticks))]
+    half = (len(ticks) - 1) // 2
+    top_k = max(int(snap.top_k) or 64, 1)
+    w = tfmt._as_ns(dict(zip(("price", "load", "proximity", "priority"), snap.weights)))
+    fp = wire.epoch_fingerprint(ticks[0][1], ticks[0][2], w, snap.kernel, top_k, snap.eps,
+                                snap.max_iters)
+    root = os.path.dirname(recorded)
+    runs = {}
+
+    def serve_at(journals, proc_id):
+        server = tg.serve("127.0.0.1:0", device=DEVICE, fleet=FleetConfig(
+            shards=2, ckpt_dir=journals, proc_id=proc_id, ckpt_every=1))
+        addr = f"127.0.0.1:{server.port}"
+        server.servicer.endpoint = addr
+        ckpt = server.servicer.ckpt
+        flushes: list = []
+
+        def timed(session, _orig=ckpt.flush_locked):
+            t0 = time.perf_counter()
+            ok = _orig(session)
+            flushes.append((time.perf_counter() - t0) * 1e3)
+            return ok
+
+        ckpt.flush_locked = timed
+        return addr, server, flushes
+
+    def request(t, sid):
+        d = ticks[t][3]
+        req = pb.AssignDeltaRequest(session_id=sid, epoch_fingerprint=fp, tick=t)
+        if d.provider_rows.size:
+            req.provider_rows.CopyFrom(wire.blob(d.provider_rows, np.int32))
+            req.providers.CopyFrom(wire.encode_providers_v2(tfmt._as_ns(d.p_cols)))
+        if d.task_rows.size:
+            req.task_rows.CopyFrom(wire.blob(d.task_rows, np.int32))
+            req.requirements.CopyFrom(wire.encode_requirements_v2(tfmt._as_ns(d.r_cols)))
+        return req
+
+    def check_tick(label, t, resp, walls, t0):
+        walls.append(round((time.perf_counter() - t0) * 1e3, 1))
+        if not resp.session_ok or resp.replayed or resp.stale:
+            raise AssertionError(f"{label} tick {t}: {resp.error or 'replayed or stale'}")
+        if not np.array_equal(wire.unblob(resp.result.provider_for_task, np.int32), expect[t]):
+            raise AssertionError(f"{label} tick {t}: p4t differs from the uninterrupted chain")
+
+    def open_session(client, sid, label):
+        chunks = list(wire.chunk_snapshot(sid, fp, snap.request_v2()))
+        t0 = time.perf_counter()
+        resp = client.open_session(iter(chunks), timeout=600)
+        wall = round((time.perf_counter() - t0) * 1e3, 1)
+        if not resp.ok:
+            raise AssertionError(f"{label}: OpenSession refused: {resp.error}")
+        if not np.array_equal(wire.unblob(resp.result.provider_for_task, np.int32), expect[0]):
+            raise AssertionError(f"{label} tick 0: p4t differs from the recording")
+        return wall
+
+    def check_launches(label, key):
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        print(f"kernels ({label}): {json.dumps(launches)}", flush=True)
+        need = REMOTE_KERNELS if key == "resilience_remote" else REPLAY_KERNELS
+        missing = [k_ for k_ in need if launches[k_] == 0]
+        if missing:
+            raise AssertionError(f"{label}: launched no {missing}")
+        runs[key] = launches
+
+    # ---- (a) the warm restart
+    journals = os.path.join(root, "journals_restart")
+    sid = "t0@restart"
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    addr_a, a, flush_a = serve_at(journals, "p0")
+    client = tg.SchedulerBackendClient(addr_a)
+    walls: list = []
     try:
-        src = synth_trace(str(pathlib.Path(tmp) / "synth.trace"), n_providers=N, n_tasks=N,
-                          ticks=REPLAY_TICKS, churn=REPLAY_CHURN, seed=SEED, kernel="jax:1",
-                          top_k=64)
-        rec = str(pathlib.Path(tmp) / "recorded.trace")
-        torch.cuda.synchronize()
-        kernels.reset_launches()
-        full = {"record": replay(src, engine="jax:1", verify=False, record_path=rec)}
-        full["inproc"] = replay(rec)
-        full["wire-v2"] = replay(rec, transport="wire-v2")
-        torch.cuda.synchronize()
-        runs["replay_full"] = check_launches("full-width replays")
-        for label, rep in full.items():
-            low = [a for a in rep["assigned"] if a < REPLAY_ASSIGNED_FLOOR * N]
-            print(f"replay {label} at {N}x{N}, {rep['ticks']} ticks, card {card_line()}: "
-                  f"cold_ms {rep['cold_ms']}, warm_median_ms {rep['warm_median_ms']}, "
-                  f"warm_percentiles {json.dumps(rep['warm_percentiles'])}, tick walls "
-                  f"{rep['tick_wall_ms']}, assigned {rep['assigned']}, verified "
-                  f"{rep['verified_ticks']}, divergence {rep['divergence']}, wire bytes out "
-                  f"{rep.get('wire_bytes_out')} in {rep.get('wire_bytes_in')}", flush=True)
-            if rep["ticks"] != REPLAY_TICKS + 1 or low:
-                raise AssertionError(f"replay {label}: {rep['ticks']} ticks, assigned below "
-                                     f"{REPLAY_ASSIGNED_FLOOR}: {low}")
-            if label != "record" and (rep["divergence"] is not None
-                                      or rep["verified_ticks"] != REPLAY_TICKS + 1):
-                raise AssertionError(f"replay {label}: the recording did not verify: "
-                                     f"{rep['divergence']}")
+        open_ms = open_session(client, sid, "restart")
+        for t in range(1, half + 1):
+            t0 = time.perf_counter()
+            check_tick("restart", t, client.assign_delta(request(t, sid), timeout=600), walls, t0)
+        t0 = time.perf_counter()
+        flushed = tg.drain(a, grace_s=5.0)
+        drain_ms = (time.perf_counter() - t0) * 1e3
+        journal_bytes = os.path.getsize(a.servicer.ckpt.path_for(sid))
+        if flushed != 1:
+            raise AssertionError(f"restart: the drain flushed {flushed} sessions, not 1")
+        t0 = time.perf_counter()
+        addr_b, b, flush_b = serve_at(journals, "p0")
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        client.close()
+        client = tg.SchedulerBackendClient(addr_b)
+        try:
+            for t in range(half + 1, len(ticks)):
+                t0 = time.perf_counter()
+                check_tick("restart", t, client.assign_delta(request(t, sid), timeout=600),
+                           walls, t0)
+            seam_b = b.servicer.seam.snapshot()
+        finally:
+            b.stop(grace=None)
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        client.close()
+        a.stop(grace=None)
+    check_launches("warm restart", "resilience_restart")
+    if seam_b.get("session_session_restored") != 1 or "session_session_open" in seam_b:
+        raise AssertionError(f"restart: B restored {seam_b.get('session_session_restored')}, "
+                             f"opened {seam_b.get('session_session_open')}")
+    at_a, at_b = [round(x, 1) for x in flush_a], [round(x, 1) for x in flush_b]
+    print(f"resilience restart at {N}x{N}, card {card_line()}: {len(ticks) - 1} delta ticks "
+          f"equal to the uninterrupted chain; open {open_ms} ms, tick walls {walls} ms "
+          f"(journal flushed before each ack); flush ms a tick at A {at_a} (the last the "
+          f"drain's), at B {at_b}; drain {drain_ms:.1f} ms; restore (servicer start with the "
+          f"rehydration) {restore_ms:.1f} ms; journal {journal_bytes} bytes", flush=True)
+
+    # ---- (b) the live migration
+    journals = os.path.join(root, "journals_migrate")
+    sid = "t0@migrate"
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    addr_a, a, flush_a = serve_at(journals, "p0")
+    addr_c, c, flush_c = serve_at(journals, "p1")
+    client = tg.SchedulerBackendClient(addr_a)
+    walls = []
+    try:
+        open_session(client, sid, "migrate")
+        for t in range(1, half + 1):
+            t0 = time.perf_counter()
+            check_tick("migrate", t, client.assign_delta(request(t, sid), timeout=600), walls, t0)
+        t0 = time.perf_counter()
+        moved = client.migrate(pb.MigrateRequest(target_endpoint=addr_c, target_proc_id="p1"))
+        migrate_ms = (time.perf_counter() - t0) * 1e3
+        if not moved.ok or moved.moved != 1:
+            raise AssertionError(f"migrate: {moved.error or moved.moved}")
+        req = request(half + 1, sid)
+        resp = client.assign_delta(req, timeout=600)
+        if resp.session_ok or resp.error != f"moved:{addr_c}":
+            raise AssertionError(f"migrate: A answered {resp.error!r}, not moved:{addr_c}")
+        client.close()
+        client = tg.SchedulerBackendClient(addr_c)
+        t0 = time.perf_counter()
+        check_tick("migrate", half + 1, client.assign_delta(req, timeout=600), walls, t0)
+        for t in range(half + 2, len(ticks)):
+            t0 = time.perf_counter()
+            check_tick("migrate", t, client.assign_delta(request(t, sid), timeout=600), walls, t0)
+        seam_a, seam_c = a.servicer.seam.snapshot(), c.servicer.seam.snapshot()
+    finally:
+        client.close()
+        a.stop(grace=None)
+        c.stop(grace=None)
+    check_launches("live migration", "resilience_migrate")
+    if (seam_c.get("session_session_rehydrated") != 1 or seam_a.get("session_session_open") != 1
+            or "session_session_open" in seam_c or seam_a.get("session_moved_refused") != 1):
+        raise AssertionError(f"migrate: A {seam_a}, C {seam_c}")
+    at_a, at_c = [round(x, 1) for x in flush_a], [round(x, 1) for x in flush_c]
+    print(f"resilience migration at {N}x{N}, card {card_line()}: {len(ticks) - 1} delta ticks "
+          f"equal to the uninterrupted chain, one open, moved:C once, rehydrated at C once; "
+          f"Migrate {migrate_ms:.1f} ms (eviction, flush, rename); tick walls {walls} ms (tick "
+          f"{half + 1} at C includes the lazy rehydration); flush ms a tick at A {at_a} (the "
+          f"last Migrate's), at C {at_c}", flush=True)
+
+    # ---- (c) the client seam: RemoteBatchMatcher over wire-v2 sessions
+    from protocol_tpu_torch.ops.encoding import FeatureEncoder, compat_mask
+
+    nodes, tasks = make_pool(np.random.default_rng(SEED + 60), *RESIL_POOL, sites=SITES)
+    store = mem_store(nodes, tasks)
+    slots = RESIL_POOL[1] * RESIL_POOL[2]
+    # the slots the pool can fill: a task's replicas, at most its compatible
+    # nodes (the churn reprices only, so this holds for every refresh)
+    bounded = [t for t in tasks if tb.task_replicas(t)]
+    enc = FeatureEncoder()
+    compat = compat_mask(enc.encode_providers([n.compute_specs for n in nodes], device=DEVICE),
+                         enc.encode_requirements([tb.task_requirements(t) for t in bounded],
+                                                 device=DEVICE))
+    fillable = sum(min(tb.task_replicas(t), int(c))
+                   for t, c in zip(bounded, compat.sum(dim=0).tolist()))
+    del compat
+    rng = np.random.default_rng(SEED + 61)
+    server = tg.serve("127.0.0.1:0", device=DEVICE, fleet=FleetConfig(shards=2))
+    remote = tg.RemoteBatchMatcher(store, f"127.0.0.1:{server.port}", min_solve_interval=0.0,
+                                   wire="v2", native_fallback=True, native_engine="torch:1")
+    local = tb.TorchBatchMatcher(store, native_engine="torch:1", device=DEVICE)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    splits = []
+    try:
+        for i in range(3):
+            if i:
+                churn_pool(rng, store, CHURN, replace_tasks=0)
+            c0, s0 = remote.seam.snapshot(), server.servicer.seam.snapshot()
+            st = refresh(remote, store, f"remote {'cold' if i == 0 else f'churn {i}'}",
+                         "torch_arena")
+            c1, s1 = remote.seam.snapshot(), server.servicer.seam.snapshot()
+            split = {
+                "serialize_ms": round(c1.get("serialize_ms_sum", 0) - c0.get("serialize_ms_sum", 0),
+                                      3),
+                "remote_rtt_ms": st["remote_rtt_ms"],
+                "remote_backend_ms": st["remote_backend_ms"],
+                "remote_calls": st["remote_calls"],
+                "server_decode_ms": round(s1.get("decode_ms_sum", 0) - s0.get("decode_ms_sum", 0),
+                                          3),
+                "server_solve_ms": round(s1.get("solve_ms_sum", 0) - s0.get("solve_ms_sum", 0), 3),
+                "encode_ms": round(st["encode_ms"], 3),
+                "solve_ms": round(st["solve_ms"], 3),
+                "bytes_out": st["remote_bytes_out"],
+                "bytes_in": st["remote_bytes_in"],
+                "session_tick": remote._session["tick"],
+            }
+            splits.append(split)
+            print(f"resilience remote refresh {i} (wire-v2, card {card_line()}): "
+                  f"{json.dumps(split)}", flush=True)
+            if remote._session["tick"] != i:
+                raise AssertionError(f"remote refresh {i}: session tick {remote._session['tick']}")
+            seats = st["checked"]["bounded_seats"]
+            if seats < RESIL_SEATS_FLOOR * fillable:
+                raise AssertionError(f"remote refresh {i}: {seats} of {fillable} fillable slots "
+                                     "seated")
+            with uncounted(kernels):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                local.refresh()
+                torch.cuda.synchronize()
+                local_wall = (time.perf_counter() - t0) * 1e3
+            ls = local.last_solve_stats
+            print(f"resilience remote refresh {i}, the in-process matcher on the same store: "
+                  f"wall_ms {local_wall:.1f} solve_ms {ls['solve_ms']:.1f} encode_ms "
+                  f"{ls['encode_ms']:.1f} phase1_ms {ls['phase1_ms']:.1f} phase2_ms "
+                  f"{ls['phase2_ms']:.1f}", flush=True)
+            if local._assignment != remote._assignment:
+                diff = sum(local._assignment.get(k_) != v for k_, v in remote._assignment.items())
+                raise AssertionError(f"remote refresh {i}: {diff} nodes differ from the "
+                                     "in-process matcher")
+        snap_c = remote.seam.snapshot()
+    finally:
+        remote.client.close()
+        server.stop(grace=None)
+    check_launches("remote matcher", "resilience_remote")
+    if "session_session_reopen" in snap_c or snap_c.get("session_session_open", 0):
+        raise AssertionError(f"remote: the session re-opened: {snap_c}")
+    print(f"resilience remote: 3 refreshes at {N} nodes x {slots} slots ({fillable} fillable) "
+          f"equal to the in-process matcher, session ticks 0, 1, 2, no re-open; client seam "
+          f"{json.dumps(snap_c)}", flush=True)
     return runs
 
 
@@ -3718,8 +4037,19 @@ def main() -> int:
     sink_rows, sink_runs = run_mesh_sinkhorn(torch, kernels, stage_ref)
     del stage_ref
 
-    # ---- the flight recorder's replay: the golden and a full-width trace
-    replay_runs = run_replay(torch, kernels)
+    # ---- the flight recorder's replay: the golden and a full-width trace;
+    # then the journals, the drain, Migrate and the client seam on its
+    # recording
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    try:
+        replay_runs = run_replay(torch, kernels, tmp)
+        replay_runs.update(run_resilience(torch, kernels, os.path.join(tmp, "recorded.trace"),
+                                          refresh))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     runs = {"cold_ticks": launches, "warm_chain": launches_warm,
             "matcher_dense": launches_dense, "matcher_torch": launches_torch, **phase_runs,

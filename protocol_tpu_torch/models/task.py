@@ -1,14 +1,16 @@
 """Task model, the part of ``protocol_tpu/models/task.py`` the batch
-matcher reads: ``TaskState`` (:28), ``SchedulingConfig`` (:47),
-``_validate_tpu_scheduler_plugin`` (:136) and ``Task`` (:213) with its id,
-creation time, scheduling config and ``allowed_topologies()``. Volume
-mounts, storage config, metadata and the config hash are not needed by
-the matcher and are left out.
+matcher and the scheduler read: ``TaskState`` (:28), ``SchedulingConfig``
+(:47), ``VolumeMount`` (:67, its label expansion), ``_validate_tpu_
+scheduler_plugin`` (:136) and ``Task`` (:213) with its id, creation time,
+scheduling config, ``allowed_topologies()`` and the fields the scheduler
+expands per node (env vars, cmd, entrypoint, volume mounts). The storage
+config, metadata and the config hash are left out.
 """
 
 from __future__ import annotations
 
 import enum
+import time
 import uuid
 from dataclasses import dataclass, field
 from typing import Optional
@@ -47,6 +49,25 @@ class SchedulingConfig:
         return list(self.plugins.get("node_groups", {}).get("allowed_topologies", []))
 
 
+@dataclass
+class VolumeMount:
+    host_path: str
+    container_path: str
+
+    def replace_labels(self, task_id: str, node_address: Optional[str] = None) -> "VolumeMount":
+        """``${TASK_ID}``, ``${NODE_ADDRESS}`` and ``${TIMESTAMP}`` expanded in
+        both paths."""
+        host_path = self.host_path.replace("${TASK_ID}", task_id)
+        container_path = self.container_path.replace("${TASK_ID}", task_id)
+        if node_address is not None:
+            host_path = host_path.replace("${NODE_ADDRESS}", node_address)
+            container_path = container_path.replace("${NODE_ADDRESS}", node_address)
+        ts = str(int(time.time()))
+        host_path = host_path.replace("${TIMESTAMP}", ts)
+        container_path = container_path.replace("${TIMESTAMP}", ts)
+        return VolumeMount(host_path=host_path, container_path=container_path)
+
+
 def _validate_tpu_scheduler_plugin(cfg: SchedulingConfig) -> None:
     """Malformed tpu_scheduler plugin config must be rejected at task
     creation — the batch matcher consumes these strings on its hot path."""
@@ -79,9 +100,13 @@ class Task:
     name: str = ""
     id: str = field(default_factory=lambda: str(uuid.uuid4()))
     image: str = ""
+    env_vars: Optional[dict[str, str]] = None
+    cmd: Optional[list[str]] = None
+    entrypoint: Optional[list[str]] = None
     state: TaskState = TaskState.UNKNOWN
     created_at: int = 0  # ms since epoch
     scheduling_config: Optional[SchedulingConfig] = None
+    volume_mounts: Optional[list[VolumeMount]] = None
 
     def allowed_topologies(self) -> list[str]:
         if self.scheduling_config is None:

@@ -165,13 +165,33 @@ def canon_columns(enc, spec: dict[str, np.dtype]) -> dict[str, np.ndarray]:
     return {name: np.ascontiguousarray(host(getattr(enc, name)), dt) for name, dt in spec.items()}
 
 
+def real_rows(enc) -> int:
+    """The rows before the pow2 padding: up to the last valid row. A row
+    marked invalid before it (a provider that phase 0 or 0.5 claimed) is a
+    real entity, and its index is the one the answer speaks of."""
+    valid = np.flatnonzero(np.asarray(host(enc.valid), bool))
+    return int(valid[-1]) + 1 if valid.size else 0
+
+
 def strip_padding(enc):
-    """Drop pow2-padding rows (the valid=False tail) before the wire:
+    """Drop the pow2-padding tail (:func:`real_rows`) before the wire:
     padded rows would be real entities to the backend and dead weight on
-    the wire. Returns the same dataclass with numpy columns."""
-    n = int(host(enc.valid).sum())
+    the wire. Rows marked invalid inside the real rows stay, with their
+    ``valid`` column. Returns the same dataclass with numpy columns (a
+    namespace of host columns stays a namespace)."""
+    return select_rows(enc, slice(0, real_rows(enc)))
+
+
+def select_rows(enc, rows):
+    """``enc`` with the rows ``rows`` (a slice or indices) of every column,
+    as numpy columns (a namespace of host columns stays a namespace)."""
+    if not dataclasses.is_dataclass(enc):
+        ns = type(enc)()
+        for name, a in vars(enc).items():
+            setattr(ns, name, host(a)[rows])
+        return ns
     return dataclasses.replace(
-        enc, **{f.name: host(getattr(enc, f.name))[:n] for f in dataclasses.fields(enc)}
+        enc, **{f.name: host(getattr(enc, f.name))[rows] for f in dataclasses.fields(enc)}
     )
 
 

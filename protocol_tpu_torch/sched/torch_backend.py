@@ -231,9 +231,15 @@ def solve_unbounded(ep, er, weights) -> torch.Tensor:
 
 class TorchBatchMatcher:
     """The reference's ``TpuBatchMatcher`` on one card: the same
-    constructor arguments, names and defaults, plus ``device``.
-    ``native_threads`` is taken for the reference's signature: only its
-    unported native engines read it."""
+    constructor arguments, names and defaults, plus ``device`` (the card
+    when not given). ``native_fallback`` is served with the arena engine
+    (``torch[:D]``) and then runs the matcher on the CPU, the device it
+    defaults to and the only one it accepts; ``native_threads`` is read only by
+    :class:`~protocol_tpu_torch.services.scheduler_grpc.RemoteBatchMatcher`'s
+    kernel string. The device solves are the methods a remote matcher
+    overrides: :meth:`_bounded_t4p` (phase 1, dense or the arena),
+    :meth:`_bounded_t4p_sparse` (the stateless sparse route) and
+    :meth:`_unbounded_best` (phase 2)."""
 
     # the candidate cache is an in-process structure; a matcher whose
     # candidates live behind a wire turns it off
@@ -254,13 +260,16 @@ class TorchBatchMatcher:
         use_mesh: bool = False,
         approx_recall: Optional[float] = None,
         time_fn=time.monotonic,
-        device: str | torch.device = "cuda",
+        device: Optional[str | torch.device] = None,
     ):
-        if native_fallback:
-            raise _not_ported(
-                "native_fallback (the reference's native C++ engine)", "queue A, M5"
-            )
         name, _, suffix = native_engine.partition(":")
+        if native_fallback and name != "torch":
+            # the reference's fallback runs its native C++ engines; with the
+            # arena engine it means the CPU (below)
+            raise _not_ported(
+                f"native_fallback with native_engine={native_engine!r} (the reference's "
+                "native C++ engine)", "queue A, M5"
+            )
         if name in ("native-mt", "sinkhorn-mt"):
             raise _not_ported(
                 f"native_engine={native_engine!r} (the reference's native C++ engines)",
@@ -284,6 +293,20 @@ class TorchBatchMatcher:
             raise _not_ported("approx_recall (approximate top-k)", "queue A item 4")
         if os.environ.get("PROTOCOL_TPU_TRACE"):
             raise _not_ported("PROTOCOL_TPU_TRACE (the solve flight recorder)", "queue A, M6")
+        # native_fallback with the arena engine is the reference's jax[:D]
+        # under fallback: the caller asks for the CPU, where the arena runs
+        # on the one CPU device (a larger D clamps, flagged, as the
+        # reference's does), phase 1 keeps the 4,096-slot cap and the
+        # sparse route is off (tpu_backend.py:265-272, :308-314,
+        # :1270-1302)
+        self.native_fallback = native_fallback
+        if device is None:
+            device = "cpu" if native_fallback else "cuda"
+        if native_fallback and torch.device(device).type != "cpu":
+            raise ValueError(
+                f"native_fallback runs the matcher on the CPU; device={str(device)!r} "
+                "asks for a card (drop native_fallback to solve there)"
+            )
         self.device = resolve_device(device)
         # phase 1's sparse route over the provider mesh of every visible
         # device (opt-in: the sharded frontier is a different, equally
@@ -293,7 +316,7 @@ class TorchBatchMatcher:
         self._last_sharded = False
         self._last_gen_sharded = False
         self._mesh_fallback_logged = False
-        if use_mesh:
+        if use_mesh and not native_fallback:
             n_dev = len(visible_devices(self.device.type))
             if n_dev > 1:
                 self._mesh = make_mesh(n_dev, self.device)
@@ -328,6 +351,7 @@ class TorchBatchMatcher:
         self._warm_solves_since_cold = 0
         self._cand_memo = CandidateMemo()
         self.native_engine = native_engine
+        self.native_threads = int(native_threads)
         self._arena_engine = name == "torch"
         self._native_arena = None
         self._last_arena_stats: dict = {}
@@ -348,6 +372,7 @@ class TorchBatchMatcher:
         self._last_stall: dict = {}
         self._last_mesh_route: str | None = None
         self.last_solve_stats: dict = {}
+        self._dense_stats: dict = {}  # the dense auction's rounds, a refresh
         self._solve_seq = 0
         # per-solve counters of phases 0 and 0.5
         self._aa_truncated = self._colo_truncated = self._colo_requested = 0
@@ -409,24 +434,37 @@ class TorchBatchMatcher:
 
     # ----- device solves
 
-    def _bounded_t4p_arena(self, ep_host, er_host) -> np.ndarray:
-        """Phase 1 through the persistent arena (the ``jax[:D]`` twin):
-        every size, warm ticks carried between solves."""
-        from protocol_tpu_torch.parallel.torch_arena import TorchSolveArena
+    def _bounded_t4p(self, ep, er, ep_device=None) -> np.ndarray:
+        """Phase 1 below the sparse route: the slot per provider [P_pad].
+        ``ep`` and ``er`` are the padded host columns (namespaces of numpy
+        arrays, claimed providers invalid), ``ep_device`` the same providers
+        on the matcher's device. The arena engine (the ``jax[:D]`` twin)
+        takes every size and carries its warm ticks between solves; else the
+        dense auction (K6, K7 on a card)."""
+        if self._arena_engine:
+            from protocol_tpu_torch.parallel.torch_arena import TorchSolveArena
 
-        n_providers = int(ep_host.gpu_count.shape[0])
-        if self._native_arena is None:
-            self._native_arena = TorchSolveArena(
-                cold_every=self.cold_every, devices=self._torch_devices, device=self.device,
-            )
-        p4s = self._native_arena.solve(ep_host, er_host, self.weights)
-        self._last_arena_stats = {
-            f"arena_{k}": v for k, v in self._native_arena.last_stats.items()
-        }
-        t4p = np.full(n_providers, -1, np.int32)
-        seated = p4s >= 0
-        t4p[p4s[seated]] = np.flatnonzero(seated)
-        return t4p
+            n_providers = int(ep.gpu_count.shape[0])
+            if self._native_arena is None:
+                self._native_arena = TorchSolveArena(
+                    cold_every=self.cold_every, devices=self._torch_devices, device=self.device,
+                )
+            p4s = self._native_arena.solve(ep, er, self.weights)
+            self._last_arena_stats = {
+                f"arena_{k}": v for k, v in self._native_arena.last_stats.items()
+            }
+            t4p = np.full(n_providers, -1, np.int32)
+            seated = p4s >= 0
+            t4p[p4s[seated]] = np.flatnonzero(seated)
+            return t4p
+        er_device = requirements_from_numpy(vars(er), self.device)
+        return solve_bounded(ep_device, er_device, self.weights, self._dense_stats).cpu().numpy()
+
+    def _unbounded_best(self, ep, er) -> np.ndarray:
+        """Phase 2 over encoded batches on the matcher's device: each
+        provider's cheapest compatible unbounded task [P_pad], -1 for none
+        (K8 on a card)."""
+        return solve_unbounded(ep, er, self.weights).cpu().numpy()
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         """A copy of a host array on the matcher's device."""
@@ -897,7 +935,10 @@ class TorchBatchMatcher:
         req_by_task: dict[int, ComputeRequirements] = {}
         if bounded:
             req_by_task = {i: task_requirements(tasks[i]) for i, _ in bounded}
-            slot_cap = self.max_replica_slots
+            # under native_fallback phase 1 keeps the reference's 4,096-slot
+            # envelope of its host engines
+            slot_cap = (min(self.max_replica_slots, 4096) if self.native_fallback
+                        else self.max_replica_slots)
             for i, r in bounded:
                 take = min(min(r, P), slot_cap - len(slot_task))
                 slot_range[i] = (len(slot_task), take)
@@ -919,7 +960,7 @@ class TorchBatchMatcher:
         self._claim_rows_now = None  # set by the claim masking below
         s_bucket = _pow2_bucket(len(slot_task)) if slot_task else 0
         use_sparse = (
-            bool(slot_task) and not self._arena_engine
+            bool(slot_task) and not self.native_fallback and not self._arena_engine
             and p_bucket * s_bucket > self.dense_cell_budget
         )
         # the candidate cache owns the provider rows on the cached route:
@@ -1045,7 +1086,7 @@ class TorchBatchMatcher:
         kernel_used = "none"
         warm_used = False
         warm_seeded = 0
-        solve_stats: dict = {}
+        self._dense_stats = solve_stats = {}
         phase1_ms = 0.0
         if slot_task:
             t1 = time.perf_counter()
@@ -1068,15 +1109,12 @@ class TorchBatchMatcher:
                         ep, requirements_from_numpy(r_arrays, self.device), idx_addrs,
                         tasks, bounded, slot_range, p_bucket, s_bucket,
                     )
-                elif self._arena_engine:
-                    kernel_used = "torch_arena"
-                    t4p = self._bounded_t4p_arena(
-                        types.SimpleNamespace(**arena_p_arrays), types.SimpleNamespace(**r_arrays)
-                    )
                 else:
-                    kernel_used = "dense_auction"
-                    er = requirements_from_numpy(r_arrays, self.device)
-                    t4p = solve_bounded(ep, er, self.weights, solve_stats).cpu().numpy()
+                    kernel_used = "torch_arena" if self._arena_engine else "dense_auction"
+                    t4p = self._bounded_t4p(
+                        types.SimpleNamespace(**arena_p_arrays),
+                        types.SimpleNamespace(**r_arrays), ep_device=ep,
+                    )
             for p_idx, s_idx in enumerate(t4p[:N]):
                 if 0 <= s_idx < len(slot_task):
                     assignment[idx_addrs[p_idx]] = tasks[slot_task[s_idx]].id
@@ -1095,7 +1133,7 @@ class TorchBatchMatcher:
             )
             t2 = time.perf_counter()
             encode_ms += (t2 - t_enc) * 1e3
-            best = solve_unbounded(ep, er, self.weights).cpu().numpy()[:N]
+            best = self._unbounded_best(ep, er)[:N]
             for p_idx in range(N):
                 if not assigned[p_idx] and 0 <= best[p_idx] < len(unbounded):
                     assignment[idx_addrs[p_idx]] = tasks[unbounded[best[p_idx]]].id

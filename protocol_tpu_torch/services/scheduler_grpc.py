@@ -10,25 +10,47 @@ fingerprint or tick cursor out of step, an evicted session) answers
 ``session_ok=false`` with the reference's reasons, and the client falls
 back down its ladder.
 
+The fleet layer: sessions live in a sharded
+:class:`~protocol_tpu_torch.fleet.fabric.SessionFabric` under the
+:class:`~protocol_tpu_torch.fleet.fabric.FleetConfig` budgets. With a
+journal root (``FleetConfig.ckpt_dir``), each session's journal
+(:mod:`protocol_tpu_torch.faults.checkpoint`) is flushed before a tick on
+the cadence is acknowledged, and a servicer that starts on the root
+rehydrates its namespace. The router: ``Migrate`` / :meth:`migrate_out`
+hands sessions to another process (a redirect, an eviction, a flush, a
+journal rename), whose next delta miss rehydrates them lazily; a migrated
+session's deltas and re-opens answer ``moved:<endpoint>``; a superseded
+journal fence refuses every delta, open and flush. :func:`drain` stops
+admitting sessions, lets in-flight ticks finish and flushes every journal.
+The tick watchdog (``tick_deadline_ms``) serves the previous plan, flagged
+stale, when a tick's budget is already spent.
+
+The client half is :class:`RemoteBatchMatcher`: the port's batch matcher
+with its device solves over this wire, the session protocol on wire v2,
+the reference's retry, failover and refusal ladder.
+
 The wire contract is the reference's: the service name, the messages
 (``protocol_tpu_torch.proto.scheduler_pb2``, the reference's descriptor)
 and the codecs (``proto/wire.py``), so the reference's client and
-``RemoteBatchMatcher`` drive this server unchanged. Service stubs are
-generic method handlers, as in the reference.
+``RemoteBatchMatcher`` drive this server unchanged, and the port's client
+drives the reference's. Service stubs are generic method handlers, as in
+the reference.
 
-``Migrate`` answers ``UNIMPLEMENTED``: live migration, drain, session
-checkpoints and the fleet router come later (ROADMAP queue A, M4b), and
-so do stream sessions (``stream_mode``, the stream engine; queue A, M5).
-Not here yet either: the per-session obs registry, the SLO engine, the
-flight recorder, the ``/metrics`` endpoint and the chaos interceptor
-(queue A, M6).
+Not here: stream sessions (``stream_mode``, the stream engine; ROADMAP
+queue A, M5); the per-session obs registry, the SLO engine, the flight
+recorder, the ``/metrics`` endpoint, the chaos interceptor and the shard
+blackout (queue A, M6).
 """
 
 from __future__ import annotations
 
+import hashlib
+import os
+import threading
 import time
 import uuid
 import zlib
+from collections import OrderedDict
 from concurrent import futures
 from typing import NamedTuple, Optional
 
@@ -37,22 +59,35 @@ import numpy as np
 import torch
 
 from protocol_tpu_torch.device import resolve_device
+from protocol_tpu_torch.dfleet.topology import FleetTopology
+from protocol_tpu_torch.faults.checkpoint import SessionCheckpointer
 from protocol_tpu_torch.fleet.admission import TenantAdmission
+from protocol_tpu_torch.fleet.fabric import FleetConfig, SessionFabric, estimate_arena_bytes
 from protocol_tpu_torch.obs.spans import TRACER as _tracer
 from protocol_tpu_torch.ops.cost import CostWeights
 from protocol_tpu_torch.ops.encoding import providers_from_numpy, requirements_from_numpy
 from protocol_tpu_torch.proto import scheduler_pb2 as pb
 from protocol_tpu_torch.proto.wire import (
+    P_WIRE_DTYPES,
+    R_WIRE_DTYPES,
     assemble_snapshot,
     blob,
+    canon_columns,
+    chunk_snapshot,
     decode_providers_v2,
     decode_requirements_v2,
+    dirty_rows,
     encode_providers_v2,
     encode_requirements_v2,
     epoch_fingerprint,
     host,
+    real_rows,
+    select_rows,
+    strip_padding,
+    take_rows,
     unblob,
 )
+from protocol_tpu_torch.sched.torch_backend import TorchBatchMatcher
 from protocol_tpu_torch.services.assign_kernels import (
     KernelDispatch,
     KernelNotServed,
@@ -60,7 +95,6 @@ from protocol_tpu_torch.services.assign_kernels import (
     _SolveOut,
 )
 from protocol_tpu_torch.services.session_store import (
-    SessionStore,
     SolveSession,
     _pad_cols,
     make_solve_arena,
@@ -141,22 +175,184 @@ def _delta_crc(request: pb.AssignDeltaRequest) -> int:
     return crc
 
 
-# ticks a session may hold inside the servicer (the reference's fleet
-# default, ``delta_queue_depth``); past it a delta is refused
-DELTA_QUEUE_DEPTH = 8
-
-
 class SchedulerBackendServicer:
     """The backend on one device (``"cuda"`` by default; it raises without
     a card unless asked for ``"cpu"``). Every solve on the device, unary
-    or session, runs under ``kernels.lock``."""
+    or session, runs under ``kernels.lock``. ``fleet`` is a
+    :class:`FleetConfig`; None reads ``PROTOCOL_TPU_FLEET_*``."""
 
-    def __init__(self, device="cuda", max_sessions: int = 8, session_ttl_s: float = 900.0):
+    # bound of the redirect and tombstone maps (client-minted session ids)
+    _ROUTER_CAP = 4096
+
+    def __init__(self, device="cuda", max_sessions: int = 8, session_ttl_s: float = 900.0,
+                 fleet: Optional[FleetConfig] = None):
         self.device = resolve_device(device)
         self.kernels = KernelDispatch()
-        self.sessions = SessionStore(max_sessions=max_sessions, ttl_s=session_ttl_s)
-        self.admission = TenantAdmission()  # rate=None: admits all, counts
+        cfg = fleet if fleet is not None else FleetConfig.from_env()
+        self.fleet_config = cfg
+        self.sessions = SessionFabric(
+            shards=cfg.shards, max_sessions=max_sessions, ttl_s=session_ttl_s,
+            max_bytes=cfg.max_bytes, tenant_max_bytes=cfg.tenant_max_bytes, vnodes=cfg.vnodes,
+        )
+        self.admission = TenantAdmission(rate=cfg.admit_rate, burst=cfg.admit_burst)
         self.seam = SeamMetrics(role="server")
+        # the SIGTERM drain: OpenSession stops admitting
+        self.draining = False
+        self.ckpt = None
+        # the router: _moved maps a session migrated away to its new home
+        # (the "moved:" answer); _no_rehydrate tombstones the sessions this
+        # process evicted itself (an eviction releases memory, so the lazy
+        # rehydration must not bring the victim back). A leaf lock guards
+        # both (dict work only, taken under a shard lock by the hook).
+        self._router_lock = threading.Lock()
+        self._moved: OrderedDict[str, str] = OrderedDict()
+        self._no_rehydrate: OrderedDict[str, bool] = OrderedDict()
+        self._rehydrating: set = set()
+        self._migrating: set = set()
+        self.proc_id = cfg.proc_id
+        self.endpoint = cfg.endpoint
+        if cfg.ckpt_dir:
+            self.ckpt = SessionCheckpointer(cfg.ckpt_dir, every=cfg.ckpt_every,
+                                            proc_id=cfg.proc_id, device=self.device)
+            # newest first, capped at the session budget
+            for session in self.ckpt.load_all(limit=max_sessions):
+                self.sessions.put(session)
+                self.seam.count("session_restored")
+
+            def _ckpt_gc(session, reason: str) -> None:
+                # a TTL-expired or dropped session's client is gone: its
+                # journal goes too. Every other involuntary let-go keeps the
+                # journal and tombstones the session against lazy rehydration.
+                if reason in ("ttl", "drop"):
+                    self.ckpt.drop(session.session_id)
+                elif reason not in ("migrate", "replace"):
+                    self._router_tombstone(session.session_id)
+
+            self.sessions.on_let_go = _ckpt_gc
+
+    # ---------------- the router ----------------
+
+    def _router_tombstone(self, session_id: str) -> None:
+        with self._router_lock:
+            self._no_rehydrate[session_id] = True
+            while len(self._no_rehydrate) > self._ROUTER_CAP:
+                self._no_rehydrate.popitem(last=False)
+
+    def _router_adopt(self, session_id: str) -> None:
+        """The session was opened or rehydrated here: clear a stale
+        redirect or tombstone."""
+        with self._router_lock:
+            self._moved.pop(session_id, None)
+            self._no_rehydrate.pop(session_id, None)
+
+    def _moved_to(self, session_id: str) -> Optional[str]:
+        """Where the session was migrated to, or None. The journal's place
+        is the authority and the redirect a cache: a journal back in this
+        namespace (the target died and the ring re-routed it here) adopts
+        the session back, unless its migration is still in flight."""
+        with self._router_lock:
+            moved = self._moved.get(session_id)
+            in_flight = session_id in self._migrating
+        if moved is None:
+            return None
+        if (not in_flight and self.ckpt is not None
+                and os.path.exists(self.ckpt.path_for(session_id))):
+            self._router_adopt(session_id)
+            return None
+        return moved
+
+    def _fence_route(self, session_id: str) -> Optional[str]:
+        """None while this namespace's fence holds (one stat). Else the
+        process was ejected: the session's new home by the stamped
+        topology, or "" where the stamp has no usable route."""
+        if self.ckpt is None or not self.ckpt.fence_superseded():
+            return None
+        self.seam.count("fence_refused")
+        topo = self.ckpt.fence_state().get("topology")
+        if topo:
+            try:
+                ep = FleetTopology.from_dict(topo).endpoint_for(session_id)
+                if ep and ep != self.endpoint:
+                    return ep
+            except Exception:  # a torn or foreign stamp
+                pass
+        return ""
+
+    def _rehydrate(self, session_id: str, fingerprint: str):
+        """The lazy restore behind a delta miss: a journal of this session
+        in this namespace (a handoff landed it, or the start-up cap skipped
+        it) is loaded and adopted. None when there is none; one load at a
+        time a session (a concurrent miss gets None)."""
+        if self.ckpt is None:
+            return None
+        with self._router_lock:
+            if (session_id in self._no_rehydrate or session_id in self._moved
+                    or session_id in self._rehydrating):
+                return None
+            self._rehydrating.add(session_id)
+        try:
+            loaded = self.ckpt.load_one(session_id)
+            if loaded is None:
+                return None
+            self.sessions.put(loaded)
+            self.seam.count("session_rehydrated")
+        finally:
+            with self._router_lock:
+                self._rehydrating.discard(session_id)
+        session, _ = self.sessions.get(session_id, fingerprint)
+        return session
+
+    def migrate_out(self, target_endpoint: str, target_proc_id: str, session_ids=None) -> int:
+        """Hand sessions to another process: the redirect first (a delta
+        racing the eviction is answered "moved:", never "unknown"), then
+        the eviction (an in-flight solve refuses), the flush at the final
+        tick and the journal's rename into the target's namespace. The
+        target rehydrates each on its first redirected delta. Returns the
+        sessions moved."""
+        if self.ckpt is None:
+            return 0
+        wanted = set(session_ids) if session_ids else None
+        moved = 0
+        for session in self.sessions.snapshot_sessions():
+            sid = session.session_id
+            if wanted is not None and sid not in wanted:
+                continue
+            with self._router_lock:
+                self._moved[sid] = target_endpoint
+                self._migrating.add(sid)
+                while len(self._moved) > self._ROUTER_CAP:
+                    self._moved.popitem(last=False)
+            try:
+                self.sessions.shard_of(sid).evict(sid, reason="migrate")
+                with session.lock:
+                    flushed = self.ckpt.flush_locked(session)
+                if not flushed or not self.ckpt.handoff(sid, target_proc_id):
+                    # no journal to move: no redirect either, the client
+                    # re-opens at the target
+                    with self._router_lock:
+                        self._moved.pop(sid, None)
+                    continue
+            finally:
+                with self._router_lock:
+                    self._migrating.discard(sid)
+            moved += 1
+            self.seam.count("session_migrated_out")
+        return moved
+
+    def Migrate(self, request: pb.MigrateRequest, context) -> pb.MigrateResponse:
+        """The live migration's admin RPC (not on a client's hot path)."""
+        with self._rpc_span("rpc.Migrate", context):
+            if not request.target_endpoint or not request.target_proc_id:
+                return pb.MigrateResponse(
+                    ok=False, error="UNAVAILABLE: migrate needs target_endpoint and "
+                                    "target_proc_id")
+            if self.ckpt is None:
+                return pb.MigrateResponse(
+                    ok=False, error="UNAVAILABLE: no checkpoint journal configured (ckpt_dir "
+                                    "unset) — nothing to hand off")
+            moved = self.migrate_out(request.target_endpoint, request.target_proc_id,
+                                     list(request.session_ids) or None)
+            return pb.MigrateResponse(ok=True, moved=moved)
 
     def _solve(self, ep, er, weights, kernel, top_k, eps, max_iters, warm_price, seed_p4t,
                context) -> _SolveOut:
@@ -311,6 +507,18 @@ class SchedulerBackendServicer:
         except ValueError as e:
             return pb.OpenSessionResponse(ok=False, error=str(e))
         self.seam.add_bytes("in", wire_bytes)
+        if self.draining:
+            # the SIGTERM drain: a transient refusal, the client's ladder
+            # takes unary for this tick and re-opens at the replacement
+            self.seam.count("drain_refused")
+            return pb.OpenSessionResponse(
+                ok=False,
+                error="UNAVAILABLE: draining, not admitting new sessions (retry against the "
+                      "replacement)")
+        if session_id:
+            refused = self._route_refusal(session_id, pb.OpenSessionResponse, "ok")
+            if refused is not None:
+                return refused
         # tenant admission before the decode and the cold solve; a refusal
         # is a protocol answer, and the client's ladder falls to unary v2
         tenant = tenant_of(session_id) if session_id else "unknown"
@@ -351,19 +559,32 @@ class SchedulerBackendServicer:
             return pb.OpenSessionResponse(ok=False, error=f"kernel {kernel!r}: {e}")
         n_p = p_cols["gpu_count"].shape[0]
         n_t = r_cols["cpu_cores"].shape[0]
+        padded_p, padded_r = _pad_cols(p_cols, n_p), _pad_cols(r_cols, n_t)
         session = SolveSession(
             session_id=session_id or uuid.uuid4().hex, fingerprint=fp, weights=weights,
-            kernel=kernel, threads=threads, top_k=top_k, p_cols=_pad_cols(p_cols, n_p),
-            r_cols=_pad_cols(r_cols, n_t), n_providers=n_p, n_tasks=n_t, arena=arena,
+            kernel=kernel, threads=threads, top_k=top_k, p_cols=padded_p, r_cols=padded_r,
+            n_providers=n_p, n_tasks=n_t, arena=arena,
+            arena_bytes=estimate_arena_bytes(padded_p, padded_r, top_k),
         )
         t_dec = time.perf_counter()
         self._check_deadline(context, "session-open")
         with _tracer.span("engine.solve", kernel=kernel, cold=True):
-            with session.lock, self.kernels.lock:
-                p4t, t4p, price = session.solve()
+            with session.lock:
+                with self.kernels.lock:
+                    p4t, t4p, price = session.solve()
                 session.last_p4t = np.asarray(p4t, np.int32)
+                # tick 0's journal: a crash before the first delta restores
+                # the session too (flush before the ack)
+                if self.ckpt is not None:
+                    self.ckpt.flush_locked(session)
+        # an open that raced an ejection is not acknowledged
+        if session_id:
+            refused = self._fence_refusal(session_id, pb.OpenSessionResponse, "ok")
+            if refused is not None:
+                return refused
         t_solve = time.perf_counter()
         self.sessions.put(session)
+        self._router_adopt(session.session_id)
         self.seam.count("session_open")
         self.seam.observe_ms("decode", (t_dec - t0) * 1e3)
         self.seam.observe_ms("solve", (t_solve - t_dec) * 1e3)
@@ -375,6 +596,27 @@ class SchedulerBackendServicer:
         self.seam.add_bytes("out", resp.ByteSize())
         return resp
 
+    def _fence_refusal(self, session_id: str, response, ok_field: str):
+        """The refusal of a superseded fence (``moved:<home>``, or "unknown
+        session" where the stamp names none) as ``response``, or None."""
+        fenced = self._fence_route(session_id)
+        if fenced is None:
+            return None
+        error = f"moved:{fenced}" if fenced else "unknown session (journal fence superseded)"
+        return response(**{ok_field: False, "error": error})
+
+    def _route_refusal(self, session_id: str, response, ok_field: str):
+        """The fence's refusal, else a migrated session's ``moved:``
+        (opening or serving it here would fork its ownership), or None."""
+        refused = self._fence_refusal(session_id, response, ok_field)
+        if refused is not None:
+            return refused
+        moved = self._moved_to(session_id)
+        if moved is None:
+            return None
+        self.seam.count("moved_refused")
+        return response(**{ok_field: False, "error": f"moved:{moved}"})
+
     def AssignDelta(self, request: pb.AssignDeltaRequest, context) -> pb.AssignDeltaResponse:
         with self._rpc_span("rpc.AssignDelta", context, session=request.session_id,
                             tick=int(request.tick)):
@@ -382,21 +624,36 @@ class SchedulerBackendServicer:
 
     def _assign_delta(self, request: pb.AssignDeltaRequest, context) -> pb.AssignDeltaResponse:
         t0 = time.perf_counter()
+        # the fence first (one stat): an ejected process refuses every delta
+        # before it spends a token or a lookup
+        refused = self._fence_refusal(request.session_id, pb.AssignDeltaResponse, "session_ok")
+        if refused is not None:
+            return refused
         if not self.admission.admit(tenant_of(request.session_id)):
             self.seam.count("admission_refused")
             return pb.AssignDeltaResponse(
                 session_ok=False,
                 error="RESOURCE_EXHAUSTED: tenant over admission rate (AssignDelta)")
         session, reason = self.sessions.get(request.session_id, request.epoch_fingerprint)
+        if session is None and reason == "unknown session":
+            # a session migrated away answers with its new home (the client
+            # rebinds and resends the same delta); one whose journal was
+            # handed here rehydrates and the delta goes on
+            moved = self._moved_to(request.session_id)
+            if moved is not None:
+                self.seam.count("moved_refused")
+                return pb.AssignDeltaResponse(session_ok=False, error=f"moved:{moved}")
+            session = self._rehydrate(request.session_id, request.epoch_fingerprint)
         if session is None:
             self.seam.count("session_miss")
             return pb.AssignDeltaResponse(session_ok=False, error=reason)
         # the queued-tick bound is checked before parking on the session's lock
-        if not session.enter_tick(DELTA_QUEUE_DEPTH):
+        depth = self.fleet_config.delta_queue_depth
+        if not session.enter_tick(depth):
             self.seam.count("backpressure_refused")
             return pb.AssignDeltaResponse(
                 session_ok=False,
-                error=f"RESOURCE_EXHAUSTED: session delta queue over depth {DELTA_QUEUE_DEPTH}")
+                error=f"RESOURCE_EXHAUSTED: session delta queue over depth {depth}")
         try:
             return self._assign_delta_admitted(request, context, t0, session)
         finally:
@@ -458,8 +715,29 @@ class SchedulerBackendServicer:
                 session.apply_delta(prow, p_delta, trow, r_delta)
             except ValueError as e:
                 context.abort(grpc.StatusCode.INVALID_ARGUMENT, str(e))
-            with self.kernels.lock:
-                p4t_out, _, _ = session.solve()
+            # the tick watchdog: when the lock wait, the decode and the EWMA
+            # of recent solves would overrun the tick's deadline, the previous
+            # plan is served, flagged stale (the delta stays applied), at most
+            # max_stale_ticks in a row
+            deadline_ms = self.fleet_config.tick_deadline_ms
+            stale = (deadline_ms is not None and session.last_p4t is not None
+                     and session.stale_streak < self.fleet_config.max_stale_ticks
+                     and (time.perf_counter() - t0) * 1e3 + session.solve_ewma_ms
+                     > deadline_ms)
+            if stale:
+                session.stale_streak += 1
+                staleness = session.stale_streak
+                p4t_out = np.array(session.last_p4t, np.int32)
+                self.seam.count("stale_served")
+            else:
+                staleness = 0
+                t_s0 = time.perf_counter()
+                with self.kernels.lock:
+                    p4t_out, _, _ = session.solve()
+                solve_ms = (time.perf_counter() - t_s0) * 1e3
+                session.solve_ewma_ms = (solve_ms if session.solve_ewma_ms == 0.0
+                                         else 0.5 * session.solve_ewma_ms + 0.5 * solve_ms)
+                session.stale_streak = 0
             session.tick += 1
             session.last_p4t = p4t_out
             session.last_delta_crc = _delta_crc(request)
@@ -467,12 +745,22 @@ class SchedulerBackendServicer:
                 # the eviction landed during the solve: no ack
                 self.seam.count("session_evicted_inflight")
                 return pb.AssignDeltaResponse(session_ok=False, error="session evicted")
+            if self.ckpt is not None and self.ckpt.due(session.tick):
+                # flush before the ack: a crash leaves the journal at or one
+                # behind the client's cursor (a resume, or a replayed twin)
+                self.ckpt.flush_locked(session)
+            # the fence again, after the flush and just before the ack: an
+            # ejection while this thread was frozen withholds the ack
+            refused = self._fence_refusal(request.session_id, pb.AssignDeltaResponse,
+                                          "session_ok")
+            if refused is not None:
+                return refused
         self.seam.observe_ms("decode", (t_dec - t0) * 1e3)
         self.seam.observe_ms("solve", (time.perf_counter() - t_dec) * 1e3)
         # a slim answer, p4t only: t4p is derivable and the prices are
         # session state
         resp = pb.AssignDeltaResponse(
-            session_ok=True, stale=False, staleness_ticks=0,
+            session_ok=True, stale=bool(staleness), staleness_ticks=staleness,
             result=pb.AssignResponseV2(
                 provider_for_task=blob(p4t_out, np.int32),
                 num_assigned=int((p4t_out >= 0).sum()),
@@ -483,19 +771,42 @@ class SchedulerBackendServicer:
         self.seam.add_bytes("out", resp.ByteSize())
         return resp
 
-    def Migrate(self, request: pb.MigrateRequest, context) -> pb.MigrateResponse:
-        context.abort(grpc.StatusCode.UNIMPLEMENTED,
-                      "Migrate: live migration, drain and session checkpoints are not served "
-                      "by the port yet (ROADMAP queue A, M4b)")
+    def finish_drain(self) -> int:
+        """The drain's tail: flush every live session's journal, after the
+        server stopped taking RPCs (each session's lock is then free).
+        Returns the sessions flushed."""
+        flushed = 0
+        if self.ckpt is not None:
+            for session in self.sessions.snapshot_sessions():
+                with session.lock:
+                    if not session.evicted and self.ckpt.flush_locked(session):
+                        flushed += 1
+        return flushed
 
     def Health(self, request: pb.HealthRequest, context) -> pb.HealthResponse:
+        # health probes are the periodic traffic every deployment has: idle
+        # expired sessions release their bytes here
+        self.sessions.sweep()
         gpu = self.device.type == "cuda"
         resp = pb.HealthResponse(
             status="ok",
             platform="gpu" if gpu else "cpu",
             device_count=torch.cuda.device_count() if gpu else 1,
         )
-        seam = self.seam.snapshot()
+        seam = dict(self.seam.snapshot())
+        seam["sessions_active"] = float(len(self.sessions))
+        seam["session_evictions"] = float(self.sessions.evictions)
+        seam["session_expirations"] = float(self.sessions.expirations)
+        seam["draining"] = 1.0 if self.draining else 0.0
+        if self.ckpt is not None:
+            seam["ckpt_flushes"] = float(self.ckpt.flushes)
+            seam["ckpt_flush_failures"] = float(self.ckpt.flush_failures)
+            seam["ckpt_handoffs"] = float(self.ckpt.handoffs)
+            seam["ckpt_fence_epoch"] = float(self.ckpt.fence_epoch)
+            seam["ckpt_fence_refusals"] = float(self.ckpt.fence_refusals)
+            seam["ckpt_journals_skipped"] = float(self.ckpt.journals_skipped)
+        with self._router_lock:
+            seam["sessions_moved_out"] = float(len(self._moved))
         for name in sorted(seam):
             resp.seam_metrics.add(name=name, value=seam[name])
         return resp
@@ -546,14 +857,29 @@ _CHANNEL_OPTIONS = [
 ]
 
 
+def drain(server: grpc.Server, grace_s: float = 5.0) -> int:
+    """The graceful drain (the SIGTERM path): stop admitting sessions, stop
+    taking RPCs and let in-flight ticks finish (``grace_s``), then flush
+    every session's journal. Returns the sessions flushed; a servicer that
+    starts on the same journal root then rehydrates them warm."""
+    servicer = server.servicer
+    servicer.draining = True
+    server.stop(grace=grace_s).wait()
+    return servicer.finish_drain()
+
+
 def serve(address: str = "127.0.0.1:50061", max_workers: int = 4, device="cuda",
-          max_sessions: int = 8, session_ttl_s: float = 900.0) -> grpc.Server:
+          max_sessions: int = 8, session_ttl_s: float = 900.0,
+          fleet: Optional[FleetConfig] = None) -> grpc.Server:
     """Start the backend server (non-blocking; call
     ``.wait_for_termination()``). The servicer rides on the returned
     server as ``.servicer`` and the bound port as ``.port`` (so that
-    ``"127.0.0.1:0"`` takes a free port)."""
+    ``"127.0.0.1:0"`` takes a free port). ``fleet`` is a
+    :class:`FleetConfig` (shards, budgets, admission, queue depth, the
+    journal root, proc id and endpoint); None reads
+    ``PROTOCOL_TPU_FLEET_*``."""
     servicer = SchedulerBackendServicer(device=device, max_sessions=max_sessions,
-                                        session_ttl_s=session_ttl_s)
+                                        session_ttl_s=session_ttl_s, fleet=fleet)
     server = grpc.server(futures.ThreadPoolExecutor(max_workers=max_workers),
                          options=_CHANNEL_OPTIONS)
     server.add_generic_rpc_handlers((_handlers(servicer),))
@@ -596,6 +922,11 @@ class SchedulerBackendClient:
             request_serializer=pb.HealthRequest.SerializeToString,
             response_deserializer=pb.HealthResponse.FromString,
         )
+        self._migrate = self.channel.unary_unary(
+            f"/{SERVICE_NAME}/Migrate",
+            request_serializer=pb.MigrateRequest.SerializeToString,
+            response_deserializer=pb.MigrateResponse.FromString,
+        )
 
     def assign(self, request: pb.AssignRequest, timeout: float = 60.0,
                metadata=None) -> pb.AssignResponse:
@@ -615,6 +946,9 @@ class SchedulerBackendClient:
 
     def health(self, timeout: float = 10.0) -> pb.HealthResponse:
         return self._health(pb.HealthRequest(), timeout=timeout)
+
+    def migrate(self, request: pb.MigrateRequest, timeout: float = 120.0) -> pb.MigrateResponse:
+        return self._migrate(request, timeout=timeout)
 
     def close(self) -> None:
         self.channel.close()
@@ -707,10 +1041,483 @@ def _res_v1(resp: pb.AssignResponse) -> _WireResult:
     )
 
 
-def _res_v2(resp: pb.AssignResponseV2) -> _WireResult:
+def _res_v2(resp: pb.AssignResponseV2, n_providers: Optional[int] = None) -> _WireResult:
+    p4t = unblob(resp.provider_for_task, np.int32)
+    if resp.HasField("task_for_provider"):
+        t4p = unblob(resp.task_for_provider, np.int32)
+    else:
+        # a slim delta answer: the inverse matching is a local scatter
+        t4p = np.full(int(n_providers), -1, np.int32)
+        seated = np.flatnonzero((p4t >= 0) & (p4t < int(n_providers)))
+        t4p[p4t[seated]] = seated.astype(np.int32)
     return _WireResult(
-        unblob(resp.provider_for_task, np.int32),
-        unblob(resp.task_for_provider, np.int32),
+        p4t,
+        t4p,
         unblob(resp.price, np.float32) if resp.HasField("price") else None,
         resp.solve_ms,
     )
+
+
+def _widen(res: _WireResult, rows: np.ndarray, n_providers: int) -> _WireResult:
+    """An answer about the providers ``rows`` of ``n_providers``, spoken of
+    them by their rank in ``rows``, as an answer about all of them (the
+    others seated nowhere, priced 0)."""
+    t4p = np.full(n_providers, -1, np.int32)
+    t4p[rows] = res.t4p[:rows.size]
+    p4t = np.asarray(res.p4t, np.int32)
+    seated = (p4t >= 0) & (p4t < rows.size)
+    p4t = np.where(seated, rows[np.where(seated, p4t, 0)] if rows.size else -1, -1)
+    price = None
+    if res.price is not None:
+        price = np.zeros(n_providers, np.float32)
+        price[rows] = res.price[:rows.size]
+    return _WireResult(p4t.astype(np.int32), t4p, price, res.solve_ms)
+
+
+_RETRYABLE = (grpc.StatusCode.UNAVAILABLE, grpc.StatusCode.DEADLINE_EXCEEDED)
+
+# OpenSession refusals that are capability answers (the server will never
+# serve the session protocol for these parameters): only these demote the
+# client's ladder for good; anything else (a torn stream, a draining
+# server, a corrupted frame) is transient
+_PERMANENT_REFUSALS = ("not session-servable", "fingerprint mismatch")
+
+
+class RemoteBatchMatcher(TorchBatchMatcher):
+    """The port's batch matcher with its device solves over the gRPC
+    scheduler backend (``protocol_tpu/services/scheduler_grpc.py:2095``): the
+    control plane stays a thin host process and the kernels run where the
+    backend's card is. Phases 0, 0.5 and the dict build run here, on
+    ``device``; phase 1 and phase 2 ride the wire (:meth:`_bounded_t4p`,
+    :meth:`_bounded_t4p_sparse`, :meth:`_unbounded_best`).
+
+    ``wire="v1"`` speaks the repeated-scalar contract. ``wire="v2"`` speaks
+    tensor frames and, for an arena kernel (``native_fallback`` with
+    ``native_engine="torch[:D]"``, sent as the reference's ``jax[:D]``), the
+    session protocol: one streamed snapshot, then ``AssignDelta`` messages
+    with the rows whose columns changed since the last acknowledged tick. A
+    refused delta climbs the refusal ladder (throttle, ``moved:`` redirect,
+    an evicted session's one resend, the handoff wait) and re-opens last;
+    an ``UNIMPLEMENTED`` v2 RPC drops the client to v1 for good; transient
+    transport failures retry with jittered backoff, a reconnect, then
+    failover down ``address`` (one endpoint, a comma-separated list or a
+    sequence).
+
+    ``last_solve_stats`` gains ``remote_rtt_ms`` (client-observed) beside
+    ``remote_backend_ms`` (the server's ``solve_ms``), the calls, the bytes
+    and the degraded ticks (``stale_ticks``, ``replayed_ticks``)."""
+
+    # the candidates are generated behind the wire
+    use_candidate_cache = False
+
+    def __init__(self, store, address="127.0.0.1:50061", request_timeout: float = 300.0,
+                 wire: str = "v1", chunk_bytes: int = 1 << 20, gzip_snapshots: bool = True,
+                 retries: int = 3, retry_base_s: float = 0.05, retry_max_s: float = 2.0,
+                 tick_timeout_s: Optional[float] = None, **kwargs):
+        super().__init__(store, **kwargs)
+        if wire not in ("v1", "v2"):
+            raise ValueError(f"wire must be v1|v2, got {wire!r}")
+        if isinstance(address, (list, tuple)):
+            endpoints = [str(a) for a in address]
+        else:
+            endpoints = [a.strip() for a in str(address).split(",")]
+        # the ordered endpoint list is the failover ladder
+        self.endpoints = [e for e in endpoints if e] or ["127.0.0.1:50061"]
+        self._endpoint_i = 0
+        self.request_timeout = request_timeout
+        # the deadline of the steady-state RPCs (unary and AssignDelta): a
+        # wedged server fails this tick fast; the cold OpenSession keeps
+        # request_timeout. None: request_timeout for all
+        self.tick_timeout_s = tick_timeout_s
+        self.wire = wire
+        self.chunk_bytes = chunk_bytes
+        self.gzip_snapshots = gzip_snapshots
+        self.retries = retries
+        self.retry_base_s = retry_base_s
+        self.retry_max_s = retry_max_s
+        self.client = SchedulerBackendClient(self.endpoints[0])
+        # the highest topology generation adopted (a stale view loses)
+        self._topology_generation: Optional[int] = None
+        self.seam = SeamMetrics(role="client")
+        self._rtt_ms: list[float] = []
+        self._backend_ms: list[float] = []
+        self._bytes_out = 0
+        self._bytes_in = 0
+        # the session protocol's client half: the columns of the last
+        # snapshot or delta the server acknowledged, keyed by solve params
+        self._session: Optional[dict] = None
+        self._session_uid = uuid.uuid4().hex
+        self._session_refused = False
+        self._stale_ticks = 0
+        self._replayed_ticks = 0
+
+    def refresh(self) -> None:
+        self._rtt_ms, self._backend_ms = [], []
+        self._bytes_out = self._bytes_in = 0
+        self._stale_ticks = self._replayed_ticks = 0
+        # one trace a scheduler tick: every RPC of this refresh carries it
+        with _tracer.span("seam.tick", wire=self.wire):
+            super().refresh()
+        if self._rtt_ms:
+            self.last_solve_stats["wire"] = self.wire
+            self.last_solve_stats["remote_calls"] = len(self._rtt_ms)
+            self.last_solve_stats["remote_rtt_ms"] = round(sum(self._rtt_ms), 3)
+            self.last_solve_stats["remote_backend_ms"] = round(sum(self._backend_ms), 3)
+            self.last_solve_stats["remote_bytes_out"] = self._bytes_out
+            self.last_solve_stats["remote_bytes_in"] = self._bytes_in
+            if self._stale_ticks:
+                self.last_solve_stats["stale_ticks"] = self._stale_ticks
+            if self._replayed_ticks:
+                self.last_solve_stats["replayed_ticks"] = self._replayed_ticks
+
+    # ---------------- transport: retry, reconnect, failover ----------------
+
+    def rebind(self, endpoint: Optional[str] = None) -> None:
+        """Reconnect: to ``endpoint`` when given (a ``moved:`` redirect; a
+        new one joins the failover list), else to the current endpoint."""
+        if endpoint:
+            if endpoint not in self.endpoints:
+                self.endpoints.append(endpoint)
+            self._endpoint_i = self.endpoints.index(endpoint)
+        try:
+            self.client.close()
+        except Exception:
+            pass
+        self.client = SchedulerBackendClient(self.endpoints[self._endpoint_i])
+
+    def adopt_topology(self, topology, session_id=None) -> bool:
+        """Take a fleet topology's ring walk for this client's session as the
+        failover list. Generation-monotonic: a topology no newer than the
+        one adopted is refused (False, counted). An ejected current endpoint
+        fails over at once."""
+        gen = int(getattr(topology, "generation", 0))
+        if self._topology_generation is not None and gen <= self._topology_generation:
+            self.seam.count("stale_topology_refused")
+            return False
+        self._topology_generation = gen
+        sid = session_id or ((self._session or {}).get("id") or self._session_uid)
+        current = self.endpoints[self._endpoint_i]
+        self.endpoints = list(topology.failover_order(sid))
+        if current in self.endpoints:
+            self._endpoint_i = self.endpoints.index(current)
+        else:
+            self._endpoint_i = 0
+            self.seam.count("endpoint_failover")
+            self.rebind()
+        self.seam.count("topology_adopted")
+        return True
+
+    def _reconnect(self, failover: bool = False) -> None:
+        """A fresh channel; with ``failover`` the next endpoint of the list."""
+        if failover and len(self.endpoints) > 1:
+            self._endpoint_i = (self._endpoint_i + 1) % len(self.endpoints)
+            self.seam.count("endpoint_failover")
+        self.rebind()
+
+    def _backoff_s(self, attempt: int) -> float:
+        """Retry ``attempt``'s wait: ``retry_base_s * 2^attempt`` capped at
+        ``retry_max_s``, scaled into [0.5x, 1.5x) by the sha1 of the session
+        uid and the attempt (the reference's schedule, a pure function)."""
+        base = min(self.retry_base_s * (2.0 ** attempt), self.retry_max_s)
+        digest = hashlib.sha1(f"{self._session_uid}:{attempt}".encode()).digest()
+        frac = int.from_bytes(digest[:8], "big") / 2.0 ** 64
+        return min(base * (0.5 + frac), self.retry_max_s)
+
+    def _rpc(self, make_call):
+        """``make_call()`` with jittered backoff on transient transport
+        failures, a reconnect on the first retry and failover after it; a
+        ``RESOURCE_EXHAUSTED`` (the unary admission gate) backs off without
+        reconnecting."""
+        for attempt in range(self.retries + 1):
+            try:
+                return make_call()
+            except grpc.RpcError as e:
+                code = e.code()
+                if attempt >= self.retries:
+                    raise
+                if code == grpc.StatusCode.RESOURCE_EXHAUSTED:
+                    self.seam.count("throttled_retry")
+                    time.sleep(self._backoff_s(attempt))
+                    continue
+                if code not in _RETRYABLE:
+                    raise
+                self.seam.count("retry")
+                time.sleep(self._backoff_s(attempt))
+                self._reconnect(failover=attempt >= 1)
+
+    # ---------------- v1 / v2 unary ----------------
+
+    def _timed(self, make_call, bytes_out: int):
+        t0 = time.perf_counter()
+        with _tracer.span("seam.rpc", wire=self.wire):
+            resp = self._rpc(make_call)
+        self._rtt_ms.append((time.perf_counter() - t0) * 1e3)
+        self._bytes_out += bytes_out
+        self._bytes_in += resp.ByteSize()
+        return resp
+
+    def _serialized(self, t0: float) -> None:
+        t_ser = time.perf_counter()
+        _tracer.record_span("wire.encode", int(t0 * 1e9), int((t_ser - t0) * 1e9),
+                            wire=self.wire)
+        self.seam.observe_ms("serialize", (t_ser - t0) * 1e3)
+
+    def _call(self, ep, er, kernel: str, eps: float, max_iters: int, warm_price=None,
+              seed_p4t=None, top_k: int = 64) -> _WireResult:
+        sp = strip_padding(ep)
+        sr = strip_padding(er)
+        if self.wire == "v2":
+            try:
+                return self._call_v2(sp, sr, kernel, eps, max_iters, warm_price, seed_p4t, top_k)
+            except grpc.RpcError as e:
+                if e.code() != grpc.StatusCode.UNIMPLEMENTED:
+                    raise
+                # an old server: the v1 contract for good
+                self.wire = "v1"
+                self.seam.count("fallback_v1")
+        t0 = time.perf_counter()
+        # the v1 wire has no valid column: a provider that phase 0 or 0.5
+        # claimed (invalid amid the real rows) stays home, and the answer is
+        # widened back to every row
+        n_p = sp.valid.shape[0]
+        rows = np.flatnonzero(sp.valid)
+        if rows.size < n_p:
+            sp = select_rows(sp, rows)
+            if warm_price is not None and seed_p4t is not None:
+                warm_price = np.asarray(warm_price)[rows]
+                rank = np.full(n_p, -1, np.int32)
+                rank[rows] = np.arange(rows.size, dtype=np.int32)
+                seed_p4t = np.asarray(seed_p4t, np.int32)
+                seed_p4t = np.where(seed_p4t >= 0, rank[np.maximum(seed_p4t, 0)], -1)
+        req = encoded_to_proto(sp, sr, self.weights, kernel=kernel, top_k=top_k, eps=eps,
+                               max_iters=max_iters)
+        if warm_price is not None and seed_p4t is not None:
+            req.warm_price.extend(np.asarray(warm_price, np.float32))
+            req.seed_provider_for_task.extend(np.asarray(seed_p4t, np.int32))
+        self._serialized(t0)
+        resp = self._timed(lambda: self.client.assign(req, timeout=self.request_timeout),
+                           req.ByteSize())
+        self._backend_ms.append(resp.solve_ms)
+        res = _res_v1(resp)
+        return _widen(res, rows, n_p) if rows.size < n_p else res
+
+    def _call_v2(self, sp, sr, kernel, eps, max_iters, warm_price, seed_p4t,
+                 top_k) -> _WireResult:
+        if parse_session_kernel(kernel) is not None and not self._session_refused:
+            res = self._session_call(sp, sr, kernel, eps, max_iters, top_k)
+            if res is not None:
+                return res
+        t0 = time.perf_counter()
+        req = encoded_to_proto_v2(sp, sr, self.weights, kernel=kernel, top_k=top_k, eps=eps,
+                                  max_iters=max_iters)
+        if warm_price is not None and seed_p4t is not None:
+            req.warm_price.CopyFrom(blob(warm_price, np.float32))
+            req.seed_provider_for_task.CopyFrom(blob(seed_p4t, np.int32))
+        self._serialized(t0)
+        resp = self._timed(lambda: self.client.assign_v2(req, timeout=self.request_timeout),
+                           req.ByteSize())
+        self._backend_ms.append(resp.solve_ms)
+        return _res_v2(resp)
+
+    # ---------------- the session protocol's client half ----------------
+
+    def _session_call(self, sp, sr, kernel, eps, max_iters, top_k) -> Optional[_WireResult]:
+        """A delta tick against the open session, or a fresh snapshot when
+        there is none, the population reshaped or the server lost it. None
+        when the server refuses the session protocol (unary v2 then)."""
+        t0 = time.perf_counter()
+        p_cols = canon_columns(sp, P_WIRE_DTYPES)
+        r_cols = canon_columns(sr, R_WIRE_DTYPES)
+        params = (
+            kernel, int(top_k), float(eps), int(max_iters),
+            float(self.weights.price), float(self.weights.load),
+            float(self.weights.proximity), float(self.weights.priority),
+            p_cols["gpu_count"].shape[0], r_cols["cpu_cores"].shape[0],
+        )
+        st = self._session
+        if st is None or st["params"] != params:
+            return self._open_session(p_cols, r_cols, kernel, eps, max_iters, top_k, params, t0)
+        prow = dirty_rows(p_cols, st["p_cols"])
+        trow = dirty_rows(r_cols, st["r_cols"])
+        if (prow.size + trow.size) > 0.5 * (params[-2] + params[-1]):
+            # more than half the rows changed: a new epoch is cheaper
+            return self._open_session(p_cols, r_cols, kernel, eps, max_iters, top_k, params, t0)
+        req = pb.AssignDeltaRequest(session_id=st["id"], epoch_fingerprint=st["fp"],
+                                    tick=st["tick"] + 1)
+        if prow.size:
+            req.provider_rows.CopyFrom(blob(prow, np.int32))
+            req.providers.CopyFrom(encode_providers_v2(take_rows(p_cols, prow)))
+        if trow.size:
+            req.task_rows.CopyFrom(blob(trow, np.int32))
+            req.requirements.CopyFrom(encode_requirements_v2(take_rows(r_cols, trow)))
+        self._serialized(t0)
+        # the tick's deadline, not the snapshot's
+        tick_timeout = self.tick_timeout_s or self.request_timeout
+        try:
+            resp = self._timed(lambda: self.client.assign_delta(req, timeout=tick_timeout),
+                               req.ByteSize())
+        except grpc.RpcError as e:
+            if e.code() != grpc.StatusCode.INVALID_ARGUMENT:
+                raise
+            # a frame mangled in transit is refused at decode, before any
+            # state moved: one resend is safe; a second raises
+            self.seam.count("corrupt_resend")
+            resp = self._timed(lambda: self.client.assign_delta(req, timeout=tick_timeout),
+                               req.ByteSize())
+        if not resp.session_ok:
+            resp = self._delta_refusal_ladder(resp, req, tick_timeout)
+        if not resp.session_ok:
+            # evicted, expired, or a replica that never saw the snapshot:
+            # re-open from this client's columns
+            self.seam.count("session_reopen")
+            self._session = None
+            return self._open_session(p_cols, r_cols, kernel, eps, max_iters, top_k, params, t0)
+        st["p_cols"], st["r_cols"] = p_cols, r_cols
+        st["tick"] += 1
+        if resp.stale:
+            # the server served the previous plan, flagged; the delta was
+            # applied (the shadow update above holds)
+            self.seam.count("stale_served")
+            self._stale_ticks += 1
+        if resp.replayed:
+            # the answer to a retransmit of an applied tick
+            self.seam.count("delta_replayed")
+            self._replayed_ticks += 1
+        self._backend_ms.append(resp.result.solve_ms)
+        return _res_v2(resp.result, n_providers=params[-2])
+
+    def _delta_refusal_ladder(self, resp, req, tick_timeout):
+        """One refused delta's rungs, each bounded; returns the last answer
+        (still refused: the caller re-opens).
+
+        throttle   RESOURCE_EXHAUSTED: the same delta after a backoff.
+        moved      "moved:<endpoint>": rebind there, resend the same delta
+                   (the session rehydrates warm from its journal).
+        evicted    one resend of the same delta (a migration racing it is
+                   answered "moved:" next).
+        handoff    "unknown session" with more than one endpoint: a backoff
+                   and the next endpoint, a few times (the journal's rename
+                   may be in flight)."""
+        throttles = redirects = waits = 0
+        evict_retried = False
+        # the redirect bound from before the loop: rebind() grows the list
+        redirect_limit = len(self.endpoints) + 1
+        while not resp.session_ok:
+            err = resp.error
+            if "RESOURCE_EXHAUSTED" in err:
+                if throttles >= self.retries:
+                    break
+                self.seam.count("throttled_retry")
+                time.sleep(self._backoff_s(throttles))
+                throttles += 1
+            elif err.startswith("moved:"):
+                if redirects >= redirect_limit:
+                    break  # a redirect loop: re-open
+                self.seam.count("moved_redirect")
+                self.rebind(err[len("moved:"):].strip())
+                redirects += 1
+            elif "session evicted" in err and not evict_retried:
+                evict_retried = True
+            elif "unknown session" in err and len(self.endpoints) > 1:
+                if waits >= max(self.retries, len(self.endpoints)):
+                    break
+                self.seam.count("handoff_wait")
+                time.sleep(self._backoff_s(waits))
+                waits += 1
+                self._reconnect(failover=True)
+            else:
+                break
+            resp = self._timed(lambda: self.client.assign_delta(req, timeout=tick_timeout),
+                               req.ByteSize())
+        return resp
+
+    def _open_session(self, p_cols, r_cols, kernel, eps, max_iters, top_k, params,
+                      t0) -> Optional[_WireResult]:
+        fp = epoch_fingerprint(p_cols, r_cols, self.weights, kernel, int(top_k), eps,
+                               int(max_iters))
+        req = encoded_to_proto_v2(take_rows(p_cols, slice(None)), take_rows(r_cols, slice(None)),
+                                  self.weights, kernel=kernel, top_k=top_k, eps=eps,
+                                  max_iters=max_iters)
+        chunks = list(chunk_snapshot(self._session_uid, fp, req, chunk_bytes=self.chunk_bytes,
+                                     use_gzip=self.gzip_snapshots))
+        n_bytes = sum(len(c.payload) for c in chunks)
+        self._serialized(t0)
+        resp = self._timed(
+            lambda: self.client.open_session(iter(chunks), timeout=self.request_timeout), n_bytes)
+        redirects = 0
+        redirect_limit = len(self.endpoints) + 1
+        while not resp.ok and resp.error.startswith("moved:") and redirects < redirect_limit:
+            # the open itself redirected: the session's journal lives there
+            self.seam.count("moved_redirect")
+            self.rebind(resp.error[len("moved:"):].strip())
+            redirects += 1
+            resp = self._timed(
+                lambda: self.client.open_session(iter(chunks), timeout=self.request_timeout),
+                n_bytes)
+        if not resp.ok:
+            self._session = None
+            if "RESOURCE_EXHAUSTED" in resp.error:
+                # a throttle, not a capability answer: unary for this tick
+                self.seam.count("session_throttled")
+                return None
+            if not any(marker in resp.error for marker in _PERMANENT_REFUSALS):
+                # transient (a torn stream, a draining server): unary for
+                # this tick, the session protocol again next tick
+                self.seam.count("session_transient_refusal")
+                return None
+            # a capability answer: every later tick goes to unary
+            self.seam.count("session_refused")
+            self._session_refused = True
+            return None
+        self._session = {
+            "id": resp.session_id,
+            "fp": resp.epoch_fingerprint,
+            "tick": 0,
+            "p_cols": p_cols,
+            "r_cols": r_cols,
+            "params": params,
+        }
+        self._backend_ms.append(resp.result.solve_ms)
+        return _res_v2(resp.result)
+
+    # ---------------- the matcher's device solves ----------------
+
+    def _native_kernel(self) -> str:
+        """The arena engine's kernel string on the wire: the port's
+        ``torch[:D]`` rides as the reference's ``jax[:D]`` (a bare engine
+        takes its suffix from ``native_threads``)."""
+        name, _, suffix = self.native_engine.partition(":")
+        if name == "torch":
+            if suffix:
+                return f"jax:{suffix}"
+            return f"jax:{self.native_threads}" if self.native_threads else "jax"
+        return "native"
+
+    def _bounded_t4p(self, ep, er, ep_device=None) -> np.ndarray:
+        if self.native_fallback:
+            # the arena engine rides the kernel string (the backend's warm
+            # arena does the work); on wire v2 the session protocol
+            res = self._call(ep, er, self._native_kernel(), eps=0.02, max_iters=0)
+            return np.asarray(res.t4p, np.int32)
+        res = self._call(ep, er, "auction", eps=0.05, max_iters=300)
+        return np.asarray(res.t4p, np.int32)
+
+    def _bounded_t4p_sparse(self, ep, er, price0: np.ndarray, p4s0: np.ndarray,
+                            warm: bool) -> tuple[np.ndarray, np.ndarray]:
+        """The sparse route over the wire: the backend's "topk" kernel, the
+        warm prices and the previous matching riding the request, so the
+        backend stays stateless across replicas."""
+        n_p = real_rows(ep)
+        n_s = real_rows(er)
+        warm_price = seed = None
+        if warm:
+            warm_price = np.asarray(price0[:n_p], np.float32)
+            seed = np.asarray(p4s0[:n_s], np.int32)
+        res = self._call(ep, er, "topk", eps=0.02, max_iters=0, warm_price=warm_price,
+                         seed_p4t=seed, top_k=self.top_k)
+        price = res.price if res.price is not None else np.zeros(n_p, np.float32)
+        return np.asarray(res.t4p, np.int32), np.asarray(price, np.float32)
+
+    def _unbounded_best(self, ep, er) -> np.ndarray:
+        res = self._call(ep, er, "best", eps=0.0, max_iters=0)
+        return np.asarray(res.t4p, np.int32)

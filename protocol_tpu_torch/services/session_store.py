@@ -21,10 +21,15 @@ sessions, the servicer's unary arena and the trace replayer: the wire's
 views of the servicer's device. The reference's native engines
 (``native-mt``, ``sinkhorn-mt``) are refused (ROADMAP queue A, M5).
 
+The store serves the fleet layer (:mod:`protocol_tpu_torch.fleet.fabric`):
+every let-go calls its ``on_evict`` hook, ``snapshot_sessions`` is the
+drain's and the migration's walk, and a session carries its byte estimate
+(``arena_bytes``) and the tick watchdog's state (``stale_streak``,
+``solve_ewma_ms``).
+
 Left out: the native engines' thread budget (``EngineThreadBudget``), the
-flight recorder's capture, the stream engine and the fleet layer's byte
-accounting. Locks are plain ``threading.Lock`` s (the reference's lock
-witness is ROADMAP queue A, L).
+flight recorder's capture and the stream engine. Locks are plain
+``threading.Lock`` s (the reference's lock witness is ROADMAP queue A, L).
 """
 
 from __future__ import annotations
@@ -138,6 +143,13 @@ class SolveSession:
     # the cached answer, so a tick is applied once
     last_delta_crc: int = 0
     last_p4t: object = None  # np.ndarray [n_tasks] i32 after any solve
+    # the fleet's byte budget: the session's pinned state, estimated once
+    # at open (fleet.fabric.estimate_arena_bytes)
+    arena_bytes: int = 0
+    # the tick watchdog: ticks served stale in a row, and the EWMA of the
+    # solve walls it predicts the next solve by
+    stale_streak: int = 0
+    solve_ewma_ms: float = 0.0
 
     def enter_tick(self, max_depth: int) -> bool:
         """Claim one queued-tick slot; False past ``max_depth`` (refused as
@@ -160,8 +172,10 @@ class SolveSession:
         t4p = np.full(self.n_providers, -1, np.int32)
         seated = np.flatnonzero((p4t >= 0) & (p4t < self.n_providers))
         t4p[p4t[seated]] = seated.astype(np.int32)
-        price = np.asarray(self.arena.price)[: self.n_providers]
-        return p4t, t4p, price
+        price = self.arena.price  # None: no provider or no task to price
+        if price is None:
+            price = np.zeros(self.n_providers, np.float32)
+        return p4t, t4p, np.asarray(price)[: self.n_providers]
 
     def apply_delta(self, provider_rows: np.ndarray, p_delta: dict[str, np.ndarray],
                     task_rows: np.ndarray, r_delta: dict[str, np.ndarray]) -> int:
@@ -202,19 +216,25 @@ class SolveSession:
 
 
 class SessionStore:
-    """LRU + TTL registry of :class:`SolveSession`."""
+    """LRU + TTL registry of :class:`SolveSession`. ``on_evict(session,
+    reason)`` runs on every let-go (lru, ttl, drop, replace, pressure,
+    migrate), after ``evicted`` is set and under this store's lock: it may
+    take only leaf locks and never call back into a store."""
 
-    def __init__(self, max_sessions: int = 8, ttl_s: float = 900.0):
+    def __init__(self, max_sessions: int = 8, ttl_s: float = 900.0, on_evict=None):
         self.max_sessions = max_sessions
         self.ttl_s = ttl_s
         self._lock = threading.Lock()
         self._sessions: OrderedDict[str, SolveSession] = OrderedDict()
         self.evictions = 0
         self.expirations = 0
+        self._on_evict = on_evict
 
     def _let_go_locked(self, session: SolveSession, reason: str) -> None:
         session.evicted = True
         _tracer.point("session.evict", session=session.session_id, reason=reason)
+        if self._on_evict is not None:
+            self._on_evict(session, reason)
 
     def _expire_locked(self) -> None:
         now = time.monotonic()
@@ -286,6 +306,12 @@ class SessionStore:
                     continue
                 return sid, s.last_used
         return None
+
+    def snapshot_sessions(self) -> list:
+        """The live sessions now (the drain's and the migration's walk; each
+        is then locked on its own, never under the store's lock)."""
+        with self._lock:
+            return list(self._sessions.values())
 
     def __len__(self) -> int:
         with self._lock:

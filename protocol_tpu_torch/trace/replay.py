@@ -127,6 +127,7 @@ class _WireTransport:
         self._tick = 0
         self.bytes_out = 0
         self.bytes_in = 0
+        self.delta_split: list = []  # wire-v2's delta ticks, see solve()
 
     def _request_v2(self, snap, p_cols, r_cols) -> pb.AssignRequestV2:
         return pb.AssignRequestV2(
@@ -167,6 +168,7 @@ class _WireTransport:
             return p4t, {"solve_ms": resp.result.solve_ms}
 
         self._tick += 1
+        t0 = time.perf_counter()
         req = pb.AssignDeltaRequest(session_id="replay", epoch_fingerprint=self._fp,
                                     tick=self._tick)
         if delta is not None and delta.provider_rows.size:
@@ -175,12 +177,23 @@ class _WireTransport:
         if delta is not None and delta.task_rows.size:
             req.task_rows.CopyFrom(wire.blob(delta.task_rows, np.int32))
             req.requirements.CopyFrom(wire.encode_requirements_v2(tfmt._as_ns(delta.r_cols)))
+        t_ser = time.perf_counter()
         resp = self.client.assign_delta(req, timeout=600)
+        t_rpc = time.perf_counter()
         if not resp.session_ok:
             raise RuntimeError(f"AssignDelta tick {self._tick} refused: {resp.error}")
         self.bytes_out += req.ByteSize()
         self.bytes_in += resp.ByteSize()
         p4t = wire.unblob(resp.result.provider_for_task, np.int32)
+        # a delta tick's wall split: the client's packing, the round trip,
+        # and inside it the server's time (its decode, the session's lock,
+        # the delta's apply and the solve) and decode alone
+        self.delta_split.append({
+            "serialize_ms": round((t_ser - t0) * 1e3, 3),
+            "rpc_ms": round((t_rpc - t_ser) * 1e3, 3),
+            "server_ms": round(resp.result.solve_ms, 3),
+            "server_decode_ms": round(resp.result.decode_ms, 3),
+        })
         return p4t, {"solve_ms": resp.result.solve_ms}
 
     def close(self) -> None:
@@ -334,6 +347,8 @@ def replay(
     if isinstance(backend, _WireTransport):
         report["wire_bytes_out"] = backend.bytes_out
         report["wire_bytes_in"] = backend.bytes_in
+        if backend.delta_split:
+            report["wire_delta_split_ms"] = backend.delta_split
     if keep_p4t:
         report["p4ts"] = p4ts
     return report

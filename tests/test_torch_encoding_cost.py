@@ -218,7 +218,9 @@ def test_port_imports_neither_jax_nor_the_reference():
         "        'protocol_tpu_torch.proto.wire', 'protocol_tpu_torch.kernels',\n"
         "        'protocol_tpu_torch.services.session_store', 'protocol_tpu_torch.trace.format',\n"
         "        'protocol_tpu_torch.trace.replay', 'protocol_tpu_torch.trace.__main__',\n"
-        "        'protocol_tpu_torch.obs.metrics'}\n"
+        "        'protocol_tpu_torch.obs.metrics', 'protocol_tpu_torch.faults.checkpoint',\n"
+        "        'protocol_tpu_torch.fleet.fabric', 'protocol_tpu_torch.dfleet.topology',\n"
+        "        'protocol_tpu_torch.sched.scheduler'}\n"
         "assert need <= set(mods), need - set(mods)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'protocol_tpu' or m.startswith('protocol_tpu.')]\n"

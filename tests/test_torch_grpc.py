@@ -145,10 +145,11 @@ def test_arena_kernels_are_served_on_both_wires(port_server, kernel):
 
 
 def test_session_rpcs_are_not_served(port_server):
-    """Of the session RPCs, ``Migrate`` (live migration, ROADMAP queue A,
-    M4b) is not served: gRPC ``UNIMPLEMENTED`` naming ROADMAP. The v2
-    sessions are (tests/test_torch_sessions.py): an empty snapshot stream
-    to ``OpenSession`` answers ``ok=false``, not an RPC error."""
+    """``Migrate`` answers as the reference's does (it was ``UNIMPLEMENTED``
+    before the journals were ported): without a journal root it is
+    ``ok=false`` "no checkpoint journal", and without a target it names the
+    missing fields. An empty snapshot stream to ``OpenSession`` answers
+    ``ok=false``, not an RPC error."""
     server, _ = port_server
     channel = grpc.insecure_channel(f"127.0.0.1:{server.port}")
     migrate = channel.unary_unary(
@@ -156,9 +157,11 @@ def test_session_rpcs_are_not_served(port_server):
         request_serializer=pb.MigrateRequest.SerializeToString,
         response_deserializer=pb.MigrateResponse.FromString,
     )
-    with pytest.raises(grpc.RpcError) as e:
-        migrate(pb.MigrateRequest(target_endpoint="x:1", target_proc_id="p"), timeout=TIMEOUT)
-    assert e.value.code() == grpc.StatusCode.UNIMPLEMENTED and "ROADMAP" in e.value.details()
+    resp = migrate(pb.MigrateRequest(target_endpoint="x:1", target_proc_id="p"), timeout=TIMEOUT)
+    assert not resp.ok and resp.moved == 0
+    assert resp.error.startswith("UNAVAILABLE: no checkpoint journal")
+    resp = migrate(pb.MigrateRequest(), timeout=TIMEOUT)
+    assert not resp.ok and "target_endpoint and target_proc_id" in resp.error
     open_session = channel.stream_unary(
         f"/{tg.SERVICE_NAME}/OpenSession",
         request_serializer=pb.SnapshotChunk.SerializeToString,
@@ -420,9 +423,25 @@ def test_wire_codecs_round_trip():
     assert stripped.gpu_count.shape == (10,) and isinstance(stripped.price, np.ndarray)
 
 
-def test_serve_refuses_the_fleet_flags():
+def test_serve_refuses_the_fleet_flags(monkeypatch):
+    """``--metrics-port`` (the obs endpoint, ROADMAP queue A, M6) is still
+    refused; the three fleet flags parse into the servicer's FleetConfig with
+    the reference's precedence: the flag, then PROTOCOL_TPU_FLEET_*, then the
+    bind address for the endpoint."""
     from protocol_tpu_torch import serve
 
-    for flag in ("--metrics-port=9", "--ckpt-dir=/x", "--proc-id=p1", "--endpoint=a:1"):
-        with pytest.raises(SystemExit):
-            serve.main(["scheduler", "--device", "cpu", flag])
+    with pytest.raises(SystemExit):
+        serve.main(["scheduler", "--device", "cpu", "--metrics-port=9"])
+    args = serve.parse_args(["scheduler", "--device", "cpu", "--address", "127.0.0.1:7",
+                             "--ckpt-dir=/x", "--proc-id=p1", "--endpoint=a:1"])
+    cfg = serve.fleet_config(args)
+    assert (cfg.ckpt_dir, cfg.proc_id, cfg.endpoint) == ("/x", "p1", "a:1")
+    monkeypatch.setenv("PROTOCOL_TPU_FLEET_ENDPOINT", "10.0.0.7:50061")
+    cfg = serve.fleet_config(serve.parse_args(["scheduler", "--address", "0.0.0.0:7",
+                                               "--proc-id=p2"]))
+    assert (cfg.proc_id, cfg.endpoint, cfg.ckpt_dir) == ("p2", "10.0.0.7:50061", None)
+    monkeypatch.delenv("PROTOCOL_TPU_FLEET_ENDPOINT")
+    cfg = serve.fleet_config(serve.parse_args(["scheduler", "--address", "0.0.0.0:7",
+                                               "--ckpt-dir=/y"]))
+    assert (cfg.proc_id, cfg.endpoint) == ("p0", "0.0.0.0:7")
+    assert serve.fleet_config(serve.parse_args(["scheduler"])) is None

@@ -2477,3 +2477,57 @@ def test_blocked_passes_refuse_a_mismatched_bitmap(card):
         with pytest.raises(ValueError, match="feasibility bitmaps"):
             kernels.blocked_col_partial(ep, er, w, 0.05, u, wrong)
     assert kernels.LAUNCHES == before
+
+
+def test_restored_arena_continues_the_chain_on_the_card(card):
+    """A warm arena's state at 16,384², checkpointed as a session journal
+    carries it (``export_state`` through ``pack_arrays`` and back) and
+    restored into a fresh arena on the card, continues the chain bit for
+    bit: 3 warm ticks of 1% provider churn give the same sha256 of p4t, the
+    prices and the six candidate parts as the uninterrupted arena, warm
+    (no cold candidate pass)."""
+    import hashlib
+    import types
+
+    from protocol_tpu_torch.trace import format as tfmt
+
+    n = 16_384
+    p = synth_provider_arrays(np.random.default_rng(21), n)
+    r = synth_requirement_arrays(np.random.default_rng(22), n)
+    rng = np.random.default_rng(23)
+    w = CostWeights()
+
+    def churned(cols):
+        out = dict(cols)
+        rows = rng.choice(n, n // 100, replace=False)
+        price = cols["price"].copy()
+        price[rows] = rng.uniform(0.5, 4.0, rows.size).astype(price.dtype)
+        out["price"] = price
+        return out
+
+    def sha(arena):
+        h = hashlib.sha256()
+        for a in (arena._p4t, arena._price, arena._cand_p, arena._cand_c, arena._fwd_p,
+                  arena._fwd_c, arena._pool_t, arena._pool_c):
+            h.update(np.ascontiguousarray(a).tobytes())
+        return h.hexdigest()
+
+    ns = types.SimpleNamespace
+    live = TorchSolveArena(device=card)
+    live.solve(ns(**p), ns(**r), w)
+    p = churned(p)
+    live.solve(ns(**p), ns(**r), w)
+    state = live.export_state()
+    meta = {k: state.pop(k) for k in ("warm_solves", "dual_age", "weights_key", "native_isa")}
+    state = tfmt.unpack_arrays(tfmt.pack_arrays(state))
+    state.update(meta)
+    restored = TorchSolveArena(device=card)
+    restored.restore_state(ns(**p), ns(**r), state)
+    assert restored._p4t is not None  # the carry was honoured
+    for tick in range(3):
+        p = churned(p)
+        got = [a.solve(ns(**p), ns(**r), w) for a in (live, restored)]
+        np.testing.assert_array_equal(*got)
+        assert restored.last_stats["cold"] is False, tick
+        assert restored.last_stats["cand_cold_passes"] == 0, tick
+        assert sha(live) == sha(restored), tick
