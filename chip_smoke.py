@@ -216,6 +216,23 @@ replay's 65,536^2 recording:
     0.99 of the slots seated, each equal to the in-process matcher on the
     card; the flush ms a tick, the restore ms, the journal's bytes and the
     wire-v2 split of each refresh printed.
+Then the orchestrator service (services/orchestrator.py), in one more run
+with the counts set to 0 just before it (run_orchestrator): the
+default-route pool (65,536 HEALTHY nodes, 4,096 tasks x 16 replicas and 64
+unbounded tasks, the tasks created through the admin POST /tasks) in a
+KVStore that journals every write, served by aiohttp on a free localhost
+port, with TorchBatchMatcher on the card and the reference's defaults
+behind the Scheduler. 512 nodes send signed heartbeats (the first alone,
+taking the cold refresh, the rest 32 at a time); then the beats expire,
+all but 1% of the other nodes beat again, three status_update_once ticks
+take that 1% Dead and eject it, a node is banned, two tasks are deleted
+and two created; a second round takes the one warm refresh. Every handed
+task equals matcher.lookup and meets its requirements, no Dead or banned
+node holds one, K1, K2, K9 and K8 launched; a second service on the same
+journal hands a node the task a cold matcher on the live store gives it.
+The beats' ms, the store reads inside each refresh, the refresh's split
+and its device idle share are printed beside the card's name and power
+limit.
 Prints:
 
   - the card's name and power limit (nvidia-smi),
@@ -787,13 +804,15 @@ def check_matching(torch, compat_mask, store, matcher) -> dict:
     one (compat by the plain torch mask)."""
     from protocol_tpu_torch.ops.encoding import FeatureEncoder
     from protocol_tpu_torch.sched.torch_backend import (
+        SCHEDULABLE,
         task_colocate,
         task_replicas,
         task_requirements,
     )
 
-    nodes = store.node_store.get_nodes()
-    tasks = store.task_store.tasks
+    nodes = [n for n in store.node_store.get_nodes()
+             if getattr(n.status, "value", n.status) in SCHEDULABLE]
+    tasks = {t.id: t for t in store.task_store.get_all_tasks()}
     unbounded = [t for t in tasks.values() if task_replicas(t) is None]
     reqs = {tid: relaxed_requirement(task_requirements(t)) if task_colocate(t)
             else task_requirements(t) for tid, t in tasks.items()}
@@ -3371,6 +3390,429 @@ def run_resilience(torch, kernels, recorded: str, refresh) -> dict:
     return runs
 
 
+ORCH_BEATERS = 512  # distinct nodes that send signed heartbeats, spread over the pool
+ORCH_BATCH = 32  # heartbeats in flight at once
+ORCH_DEAD = 0.01  # nodes whose beats expire before the churn's FSM ticks
+ORCH_TASK_BATCH = 64  # admin /tasks calls in flight at once while the pool is built
+# K1 (any launch of the cache's), K2, K9 and K8 must launch in the run
+ORCH_KERNELS = (("candidates_forward_rows", "candidates_reverse", "candidates_bidir"),
+                ("auction_phase",), ("greedy_cleanup",), ("unbounded_best",))
+
+
+class _PoolLedger:
+    """The pool's membership as the orchestrator reads it from the chain
+    (``is_node_in_pool``, ``eject_node``, ``get_pool_info``), held in a set.
+    The in-process ``chain.Ledger`` keeps a pool's members in a list and
+    sums a provider's nodes on every join, quadratic at 65,536 nodes; a
+    deployment reads a chain through ``RemoteLedger``."""
+
+    def __init__(self, members):
+        self.members = set(members)
+        self.ejected: list = []
+
+    def is_node_in_pool(self, pool_id: int, node: str) -> bool:
+        return node.lower() in self.members
+
+    def eject_node(self, pool_id: int, node: str, caller: str) -> None:
+        self.members.discard(node.lower())
+        self.ejected.append(node.lower())
+
+    def get_pool_info(self, pool_id: int):
+        return types.SimpleNamespace(pool_id=pool_id, domain_id=0)
+
+
+class _SkewClock:
+    """The KV store's wall clock with a settable skew: the churn moves it
+    past the heartbeat TTL instead of waiting 90 s."""
+
+    def __init__(self):
+        self.skew = 0.0
+
+    def __call__(self) -> float:
+        return time.time() + self.skew
+
+
+def _time_calls(obj, name: str, into: dict) -> None:
+    """Wrap ``obj.name`` so that each call's host ms is appended to
+    ``into[name]`` while ``into["on"]`` is set."""
+    orig = getattr(obj, name)
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return orig(*args, **kw)
+        finally:
+            if into.get("on"):
+                into.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+
+    setattr(obj, name, timed)
+
+
+def _pct(xs: list, q: float) -> float:
+    s = sorted(xs)
+    return s[min(len(s) - 1, int(round(q * (len(s) - 1))))]
+
+
+def run_orchestrator(torch, kernels, tmp: str) -> dict:
+    """The orchestrator service on the card (services/orchestrator.py): a
+    worker's signed POST /heartbeat -> handle_heartbeat -> Scheduler ->
+    TorchBatchMatcher with the reference's defaults (the default route's
+    candidate cache), over a StoreContext(KVStore(persist_path=...)) that
+    journals every write, in one run with the counts set to 0 just before
+    it:
+
+      - the world: ARENA_POOL's 65,536 HEALTHY nodes (located ones at
+        SITES shared sites) added with the node store's verb, and its 4,096
+        tasks x 16 replicas and 64 unbounded tasks created through the
+        admin POST /tasks, ORCH_TASK_BATCH at a time; the service served by
+        aiohttp on a free localhost port;
+      - a cold round: ORCH_BEATERS distinct nodes beat through HTTP, signed
+        by their wallets: the first alone (it takes the cold refresh at full
+        width), the rest ORCH_BATCH at a time;
+      - churn as a deployment makes it: the beats expire (the store's clock
+        moves 91 s), every node but ORCH_DEAD of the others beats again
+        through heartbeat_store.beat, three status_update_once ticks take
+        those to Dead and eject them from the pool; a ban through the route;
+        two tasks deleted and two created through the routes;
+      - a warm round as the cold one: its first beat takes the one warm
+        refresh.
+    Checks: every handed task equals matcher.lookup(node) and every pair
+    meets its requirements (check_matching); no banned or Dead node holds a
+    task and the banned node's beat is refused; one cold and one warm
+    refresh; K1, K2, K9 and K8 launched. Then a second service on the same
+    journal: its store equals the first's, and its first beat hands a node
+    the task a fresh cold matcher on the first store gives it.
+    The rounds run with no profiler and no in-place timing. Prints each
+    refreshing beat's ms, the median and p99 of the others, the node and
+    task reads' ms inside each refresh, and the refresh's prepare_ms /
+    encode_ms / phase*_ms. After each round a shadow matcher on the same
+    store (built with the first, refreshed by hand) refreshes the state the
+    main one just refreshed (cold, then warm) under torch.profiler and
+    in-place timing: the device's idle share over that profiled window, its
+    wall beside the unprofiled one, and the kernels' in-place ms. The
+    shadow's launches are taken out of the path's counts.
+    Returns {"orchestrator": launches}; raises on any failed check."""
+    import asyncio
+
+    import numpy as np
+    from aiohttp import ClientSession, web
+
+    from protocol_tpu_torch.models.heartbeat import HeartbeatRequest
+    from protocol_tpu_torch.ops.encoding import compat_mask
+    from protocol_tpu_torch.sched.scheduler import Scheduler
+    from protocol_tpu_torch.sched.torch_backend import TorchBatchMatcher
+    from protocol_tpu_torch.security import Wallet, sign_request
+    from protocol_tpu_torch.services.orchestrator import OrchestratorService
+    from protocol_tpu_torch.store import KVStore, NodeStatus, StoreContext
+
+    card = card_line()
+    journal = os.path.join(tmp, "orchestrator.aof")
+    clock = _SkewClock()
+    rng = np.random.default_rng(SEED + 70)
+    nodes, tasks = make_pool(np.random.default_rng(SEED + 30), *ARENA_POOL, sites=SITES)
+    n = len(nodes)
+    step = n // ORCH_BEATERS
+    wallets = [Wallet.from_seed(f"orchestrator-node-{i}".encode()) for i in range(ORCH_BEATERS)]
+    for w, i in zip(wallets, range(0, n, step)):
+        nodes[i].address = w.address
+    beating = {w.address for w in wallets}
+    others = [x.address for x in nodes if x.address not in beating]
+    dead = set(rng.choice(others, int(n * ORCH_DEAD), replace=False).tolist())
+    banned = wallets[1].address
+    manager = Wallet.from_seed(b"orchestrator-manager")
+    ledger = _PoolLedger(x.address for x in nodes)
+    admin = {"Authorization": "Bearer admin"}
+
+    def service(kv_path):
+        t0 = time.perf_counter()
+        store = StoreContext(KVStore(time_fn=clock, persist_path=kv_path))
+        load_ms = (time.perf_counter() - t0) * 1e3
+        matcher = TorchBatchMatcher(store, device=DEVICE)
+        matcher.attach_observers()
+        svc = OrchestratorService(ledger, 0, manager, store=store,
+                                  scheduler=Scheduler(store, batch_matcher=matcher))
+        return svc, matcher, load_ms
+
+    svc, matcher, _ = service(journal)
+    store = svc.store
+    t0 = time.perf_counter()
+    for x in nodes:
+        store.node_store.add_node(x)
+    fill_ms = (time.perf_counter() - t0) * 1e3
+
+    reads: dict = {}
+    _time_calls(store.node_store, "get_nodes", reads)
+    _time_calls(store.task_store, "get_all_tasks", reads)
+    refreshes: list = []
+    inner = matcher.refresh
+
+    def refresh():
+        reads.clear()
+        reads["on"] = True
+        t0 = time.perf_counter()
+        try:
+            inner()
+            torch.cuda.synchronize()
+        finally:
+            reads["on"] = False
+        st = dict(matcher.last_solve_stats)
+        refreshes.append({"wall_ms": (time.perf_counter() - t0) * 1e3,
+                          "get_nodes_ms": sum(reads.get("get_nodes", [])),
+                          "get_all_tasks_ms": sum(reads.get("get_all_tasks", [])), **{
+                              k: st.get(k) for k in (
+                                  "kernel", "warm", "cache_rebuilt", "prepare_ms", "encode_ms",
+                                  "phase0_ms", "phase05_ms", "phase1_ms", "phase2_ms",
+                                  "solve_ms", "assigned", "nodes", "tasks", "seq",
+                                  "cache_delta_rows", "cache_delta_tasks",
+                                  "cache_uncovered_rows")}})
+
+    matcher.refresh = refresh
+    # where a beat's host time goes: the signature check, the store
+    # section and the scheduler's answer, each on a worker thread
+    import protocol_tpu_torch.security.middleware as mw
+
+    verify_request = mw.verify_request
+    split: dict = {}
+    _time_calls(mw, "verify_request", split)
+    _time_calls(svc, "_heartbeat_store_ops", split)
+    _time_calls(svc.scheduler, "get_tasks_for_node", split)
+
+    async def start(svc_):
+        runner = web.AppRunner(svc_.make_app())
+        await runner.setup()
+        site = web.TCPSite(runner, "127.0.0.1", 0)
+        await site.start()
+        return runner, f"http://127.0.0.1:{runner.addresses[0][1]}"
+
+    async def beat(http, base, w):
+        headers, body = sign_request("/heartbeat", w, {"address": w.address,
+                                                       "task_state": "RUNNING"})
+        t0 = time.perf_counter()
+        async with http.post(base + "/heartbeat", json=body, headers=headers) as r:
+            data = await r.json()
+        return w.address, r.status, data, (time.perf_counter() - t0) * 1e3
+
+    shadow = TorchBatchMatcher(store, device=DEVICE)
+    side: dict = {}  # the shadow's launches, not the path's
+
+    def profiled_refresh(label):
+        """The shadow's refresh of the state the main matcher refreshed in
+        the round, under torch.profiler (CPU and CUDA activities) and
+        in-place timing. The idle share divides the device time the profiler
+        saw by the wall of the same window."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        before = dict(kernels.LAUNCHES)
+        torch.cuda.synchronize()
+        kernels.time_in_place(True)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            shadow.refresh()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels.time_in_place(False)
+        in_place = kernels.in_place_ms()
+        for k, v in kernels.LAUNCHES.items():
+            side[k] = side.get(k, 0) + v - before.get(k, 0)
+        busy_ms = sum(getattr(ev, "self_device_time_total", 0.0) for ev in prof.key_averages()
+                      if ev.device_type == DeviceType.CUDA) / 1e3
+        st = shadow.last_solve_stats
+        if st.get("warm") != refreshes[-1]["warm"]:
+            raise AssertionError(f"orchestrator {label}: the shadow's refresh was warm="
+                                 f"{st.get('warm')}, the path's {refreshes[-1]['warm']}")
+        differ = sum(shadow._assignment.get(a) != t for a, t in matcher._assignment.items()) + sum(
+            a not in matcher._assignment for a in shadow._assignment)
+        print(f"orchestrator {label}, the shadow's refresh under torch.profiler ({card}): wall "
+              f"{wall_ms:.1f} ms (the path's unprofiled {refreshes[-1]['wall_ms']:.1f}), device "
+              f"busy {busy_ms:.1f} ms, idle share "
+              f"{'not measured' if busy_ms <= 0 else f'{1.0 - busy_ms / wall_ms:.4f}'}; "
+              f"prepare_ms {st.get('prepare_ms')}, encode_ms {st.get('encode_ms')}, phase1_ms "
+              f"{st.get('phase1_ms')}; {differ} nodes assigned otherwise than the path's", flush=True)
+        print(f"in place (orchestrator {label}, the shadow's refresh): " + "; ".join(
+            f"{k} {v['ms']:.3f} ({v['launches']})"
+            for k, v in sorted(in_place.items(), key=lambda kv: -kv[1]["ms"])), flush=True)
+
+    async def beat_round(http, base, label):
+        """The first beat alone, then the rest ORCH_BATCH at a time.
+        Returns the answers."""
+        n_before = len(refreshes)
+        split.clear()
+        split["on"] = True
+        first = [await beat(http, base, wallets[0])]
+        if len(refreshes) != n_before + 1:
+            raise AssertionError(f"orchestrator {label}: the first beat took "
+                                 f"{len(refreshes) - n_before} refreshes, not 1")
+        rest = []
+        for i in range(1, len(wallets), ORCH_BATCH):
+            rest += await asyncio.gather(*(beat(http, base, w)
+                                           for w in wallets[i:i + ORCH_BATCH]))
+        if len(refreshes) != n_before + 1:
+            raise AssertionError(f"orchestrator {label}: {len(refreshes) - n_before} refreshes "
+                                 "in the round, not 1")
+        split["on"] = False
+        rf = refreshes[-1]
+        ok = [a for a in rest if a[1] == 200]
+        ms = [a[3] for a in ok]
+        print(f"orchestrator {label} ({card}): refreshing beat {first[0][3]:.1f} ms; the other "
+              f"{len(ok)} beats median {_pct(ms, 0.5):.2f} ms p99 {_pct(ms, 0.99):.2f} ms "
+              f"max {max(ms):.2f} ms, {ORCH_BATCH} in flight; refused "
+              f"{[(a[0], a[1], a[2].get('error')) for a in rest if a[1] != 200]}", flush=True)
+        print(f"orchestrator {label}, a beat's host ms on its worker threads (median, p99 "
+              "over the round; the scheduler's max is the refresh): " + "; ".join(
+                  f"{k} {_pct(split[k], 0.5):.3f}, {_pct(split[k], 0.99):.3f}" for k in (
+                      "verify_request", "_heartbeat_store_ops", "get_tasks_for_node")),
+              flush=True)
+        print(f"orchestrator {label} refresh: " + json.dumps(
+            {k: (round(v, 3) if isinstance(v, float) else v) for k, v in rf.items()}),
+            flush=True)
+        return first + rest
+
+    def check(answers, label):
+        if matcher._dirty:
+            raise AssertionError(f"orchestrator {label}: the matcher is dirty after the round")
+        by_addr = {x.address: x for x in store.node_store.get_nodes()}
+        handed = 0
+        for addr, status, data, _ in answers:
+            if addr == banned and label == "warm":
+                if status != 401:
+                    raise AssertionError(f"the banned node's beat got {status}, not 401")
+                continue
+            if status != 200:
+                raise AssertionError(f"orchestrator {label}: {addr} got {status} {data}")
+            got = data["data"]["current_task"]
+            want, covered = matcher.lookup(by_addr[addr])
+            if not covered or (got and got["id"]) != (want and want.id):
+                raise AssertionError(f"orchestrator {label}: {addr} was handed "
+                                     f"{got and got['id']}, lookup says {want and want.id}")
+            handed += got is not None
+        held = [a for a in (dead | {banned}) if a in matcher._assignment]
+        if label == "warm" and held:
+            raise AssertionError(f"orchestrator {label}: Dead or banned nodes hold tasks: "
+                                 f"{held[:5]}")
+        checked = check_matching(torch, compat_mask, store, matcher)
+        print(f"orchestrator {label}: {handed} of {len(answers)} beats handed a task, each "
+              f"equal to lookup; {json.dumps(checked)}", flush=True)
+
+    async def main_run():
+        runner, base = await start(svc)
+        try:
+            async with ClientSession() as http:
+                t0 = time.perf_counter()
+                bodies = [{"name": t.name, "image": "img",
+                           "scheduling_config": t.scheduling_config.to_dict()} for t in tasks]
+                for i in range(0, len(bodies), ORCH_TASK_BATCH):
+                    async def create(b):
+                        async with http.post(base + "/tasks", json=b, headers=admin) as r:
+                            if r.status != 201:
+                                raise AssertionError(f"POST /tasks {b['name']}: {r.status}")
+                    await asyncio.gather(*(create(b) for b in bodies[i:i + ORCH_TASK_BATCH]))
+                tasks_ms = (time.perf_counter() - t0) * 1e3
+                print(f"orchestrator world: {n} nodes added in {fill_ms:.1f} ms, {len(bodies)} "
+                      f"tasks created through POST /tasks in {tasks_ms:.1f} ms; the journal "
+                      f"{os.path.getsize(journal)} bytes", flush=True)
+
+                torch.cuda.synchronize()
+                kernels.time_in_place(False)
+                kernels.reset_launches()
+                cold = await beat_round(http, base, "cold")
+                check(cold, "cold")
+                profiled_refresh("cold")
+
+                # churn: the beats expire, all but the dead beat again
+                t0 = time.perf_counter()
+                clock.skew += 91.0
+                for x in nodes:
+                    if x.address not in dead:
+                        store.heartbeat_store.beat(HeartbeatRequest(address=x.address))
+                beats_ms = (time.perf_counter() - t0) * 1e3
+                fsm_ms = []
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    await svc.status_update_once()
+                    fsm_ms.append((time.perf_counter() - t0) * 1e3)
+                status = {x.address: x.status for x in store.node_store.get_nodes()}
+                not_dead = [a for a in dead if status[a] != NodeStatus.DEAD]
+                unhealthy = [a for a, s in status.items()
+                             if a not in dead and s != NodeStatus.HEALTHY]
+                if not_dead or unhealthy or sorted(ledger.ejected) != sorted(dead):
+                    raise AssertionError(f"the FSM: {len(not_dead)} expired nodes not Dead, "
+                                         f"{len(unhealthy)} live nodes not Healthy, "
+                                         f"{len(ledger.ejected)} ejected")
+                async with http.post(f"{base}/nodes/{banned}/ban", headers=admin) as r:
+                    if r.status != 200:
+                        raise AssertionError(f"ban: {r.status}")
+                bounded = [t for t in store.task_store.get_all_tasks()
+                           if (t.scheduling_config.plugins["tpu_scheduler"].get("replicas"))]
+                for t in bounded[:2]:
+                    async with http.delete(f"{base}/tasks/{t.id}", headers=admin) as r:
+                        if r.status != 200:
+                            raise AssertionError(f"DELETE /tasks: {r.status}")
+                for j, t in enumerate(bounded[:2]):
+                    b = {"name": f"late{j}", "image": "img",
+                         "scheduling_config": t.scheduling_config.to_dict()}
+                    async with http.post(base + "/tasks", json=b, headers=admin) as r:
+                        if r.status != 201:
+                            raise AssertionError(f"POST /tasks: {r.status}")
+                print(f"orchestrator churn: {n - len(dead)} beats written in {beats_ms:.1f} ms; "
+                      f"three status_update_once ticks {[round(x, 1) for x in fsm_ms]} ms: "
+                      f"{len(dead)} Dead and ejected; 1 banned; 2 tasks deleted, 2 created",
+                      flush=True)
+
+                warm = await beat_round(http, base, "warm")
+                check(warm, "warm")
+                profiled_refresh("warm")
+                launches = {k: v - side.get(k, 0) for k, v in kernels.LAUNCHES.items()}
+        finally:
+            await runner.cleanup()
+        return launches
+
+    try:
+        launches = asyncio.run(main_run())
+    finally:
+        mw.verify_request = verify_request
+    print(f"kernels (orchestrator): {json.dumps(launches)}", flush=True)
+    missing = [keys for keys in ORCH_KERNELS if not any(launches[k] for k in keys)]
+    if missing:
+        raise AssertionError(f"the orchestrator's refreshes launched none of {missing}")
+    if [r_["warm"] for r_ in refreshes] != [False, True]:
+        raise AssertionError(f"the refreshes were {[r_['warm'] for r_ in refreshes]}, "
+                             "not one cold then one warm")
+
+    # the restart: a second service on the same journal
+    probe = next(w for w in wallets[2:] if w.address in matcher._assignment)
+    cold_m = TorchBatchMatcher(store, device=DEVICE)
+    want, _ = cold_m.lookup(store.node_store.get_node(probe.address))
+    live = ([x.to_dict() for x in store.node_store.get_nodes()],
+            [t.to_dict() for t in store.task_store.get_all_tasks()])
+    store.kv.close()
+    del cold_m, matcher, shadow, svc
+    svc2, matcher2, load_ms = service(journal)
+    reloaded = ([x.to_dict() for x in svc2.store.node_store.get_nodes()],
+                [t.to_dict() for t in svc2.store.task_store.get_all_tasks()])
+    if reloaded != live:
+        raise AssertionError("the restarted service's store differs from the first one's")
+
+    async def restarted():
+        runner, base = await start(svc2)
+        try:
+            async with ClientSession() as http:
+                return await beat(http, base, probe)
+        finally:
+            await runner.cleanup()
+
+    _, status, data, ms = asyncio.run(restarted())
+    got = data.get("data", {}).get("current_task")
+    if status != 200 or got is None or got["id"] != want.id:
+        raise AssertionError(f"the restarted service handed {probe.address} {status} "
+                             f"{got and got['id']}, a cold matcher on the live store {want.id}")
+    print(f"orchestrator restart ({card}): journal {os.path.getsize(journal)} bytes reloaded "
+          f"in {load_ms:.1f} ms, store equal; first beat {ms:.1f} ms (a cold refresh) handed "
+          f"{got['name']}, as a cold matcher on the live store", flush=True)
+    svc2.store.kv.close()
+    return {"orchestrator": launches}
+
+
 def main() -> int:
     try:
         import torch
@@ -4048,6 +4490,8 @@ def main() -> int:
         replay_runs = run_replay(torch, kernels, tmp)
         replay_runs.update(run_resilience(torch, kernels, os.path.join(tmp, "recorded.trace"),
                                           refresh))
+        # ---- the orchestrator: signed heartbeats at 65,536 nodes
+        replay_runs.update(run_orchestrator(torch, kernels, tmp))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -1,14 +1,16 @@
-"""Compute-spec and compute-requirement models, copied from
-``protocol_tpu/models/node.py:25-375`` (the reference's node.rs:180-527
+"""Node, compute-spec and compute-requirement models, copied from
+``protocol_tpu/models/node.py`` (the reference's node.rs:180-527
 semantics): the requirements DSL (:meth:`ComputeRequirements.parse`), the
-fuzzy GPU-model match and ``meets()``. ``Node`` and ``DiscoveryNode`` are
-not needed by the matcher and are left out. The port keeps its own copy
-because it imports nothing of the reference package; the encoder reads
-specs by attribute, so either package's objects encode identically.
+fuzzy GPU-model match and ``meets()``; ``Node`` and ``DiscoveryNode``, the
+discovery service's view that the orchestrator's monitor loop reads. The
+port keeps its own copy because it imports nothing of the reference
+package; the encoder reads specs by attribute, so either package's objects
+encode identically.
 """
 
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass, field, asdict
 from typing import Any, Optional
 
@@ -361,6 +363,126 @@ class NodeLocation:
             region=d.get("region"),
             country=d.get("country"),
         )
+
+
+def _drop_none(d: dict) -> dict:
+    return {k: v for k, v in d.items() if v is not None}
+
+
+@dataclass
+class Node:
+    """A registered worker node (node.rs:10-23). ``id`` is the node wallet
+    address; ``provider_address`` the staking provider's address."""
+
+    id: str = ""
+    provider_address: str = ""
+    ip_address: str = ""
+    port: int = 0
+    compute_pool_id: int = 0
+    compute_specs: Optional[ComputeSpecs] = None
+    worker_p2p_id: Optional[str] = None
+    worker_p2p_addresses: Optional[list[str]] = None
+    # provider-advertised ask price (cost units/hour); a live input to the
+    # batch matcher's price cost term — the reference scores nothing, so
+    # this field is the marketplace half of the redesign (ops/cost.py)
+    price: Optional[float] = None
+
+    def to_dict(self) -> dict:
+        d: dict[str, Any] = {
+            "id": self.id,
+            "provider_address": self.provider_address,
+            "ip_address": self.ip_address,
+            "port": self.port,
+            "compute_pool_id": self.compute_pool_id,
+            "compute_specs": self.compute_specs.to_dict() if self.compute_specs else None,
+        }
+        if self.worker_p2p_id is not None:
+            d["worker_p2p_id"] = self.worker_p2p_id
+        if self.worker_p2p_addresses is not None:
+            d["worker_p2p_addresses"] = self.worker_p2p_addresses
+        if self.price is not None:
+            d["price"] = self.price
+        return d
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "Node":
+        return cls(
+            id=d.get("id", ""),
+            provider_address=d.get("provider_address", ""),
+            ip_address=d.get("ip_address", ""),
+            port=int(d.get("port", 0)),
+            compute_pool_id=int(d.get("compute_pool_id", 0)),
+            compute_specs=ComputeSpecs.from_dict(d["compute_specs"])
+            if d.get("compute_specs")
+            else None,
+            worker_p2p_id=d.get("worker_p2p_id"),
+            worker_p2p_addresses=d.get("worker_p2p_addresses"),
+            price=float(d["price"]) if d.get("price") is not None else None,
+        )
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict(), sort_keys=True)
+
+    @classmethod
+    def from_json(cls, s: str) -> "Node":
+        return cls.from_dict(json.loads(s))
+
+
+@dataclass
+class DiscoveryNode:
+    """Discovery-service view of a node plus chain-derived flags
+    (node.rs:552-570)."""
+
+    node: Node = field(default_factory=Node)
+    is_validated: bool = False
+    is_active: bool = False
+    is_provider_whitelisted: bool = False
+    is_blacklisted: bool = False
+    last_updated: Optional[float] = None
+    created_at: Optional[float] = None
+    location: Optional[NodeLocation] = None
+    latest_balance: Optional[int] = None
+
+    def to_dict(self) -> dict:
+        d = self.node.to_dict()
+        d.update(
+            {
+                "is_validated": self.is_validated,
+                "is_active": self.is_active,
+                "is_provider_whitelisted": self.is_provider_whitelisted,
+                "is_blacklisted": self.is_blacklisted,
+            }
+        )
+        if self.last_updated is not None:
+            d["last_updated"] = self.last_updated
+        if self.created_at is not None:
+            d["created_at"] = self.created_at
+        if self.location is not None:
+            d["location"] = self.location.to_dict()
+        if self.latest_balance is not None:
+            d["latest_balance"] = self.latest_balance
+        return d
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "DiscoveryNode":
+        return cls(
+            node=Node.from_dict(d),
+            is_validated=bool(d.get("is_validated", False)),
+            is_active=bool(d.get("is_active", False)),
+            is_provider_whitelisted=bool(d.get("is_provider_whitelisted", False)),
+            is_blacklisted=bool(d.get("is_blacklisted", False)),
+            last_updated=d.get("last_updated"),
+            created_at=d.get("created_at"),
+            location=NodeLocation.from_dict(d["location"]) if d.get("location") else None,
+            latest_balance=d.get("latest_balance"),
+        )
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict(), sort_keys=True)
+
+    @classmethod
+    def from_json(cls, s: str) -> "DiscoveryNode":
+        return cls.from_dict(json.loads(s))
 
 
 def _drop_none(d: dict) -> dict:

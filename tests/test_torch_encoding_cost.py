@@ -220,7 +220,19 @@ def test_port_imports_neither_jax_nor_the_reference():
         "        'protocol_tpu_torch.trace.replay', 'protocol_tpu_torch.trace.__main__',\n"
         "        'protocol_tpu_torch.obs.metrics', 'protocol_tpu_torch.faults.checkpoint',\n"
         "        'protocol_tpu_torch.fleet.fabric', 'protocol_tpu_torch.dfleet.topology',\n"
-        "        'protocol_tpu_torch.sched.scheduler'}\n"
+        "        'protocol_tpu_torch.sched.scheduler', 'protocol_tpu_torch.store.kv',\n"
+        "        'protocol_tpu_torch.store.context', 'protocol_tpu_torch.store.node_store',\n"
+        "        'protocol_tpu_torch.store.domains.node_store',\n"
+        "        'protocol_tpu_torch.store.domains.task_store',\n"
+        "        'protocol_tpu_torch.store.domains.heartbeat_store',\n"
+        "        'protocol_tpu_torch.store.domains.metrics_store',\n"
+        "        'protocol_tpu_torch.models.heartbeat', 'protocol_tpu_torch.models.metric',\n"
+        "        'protocol_tpu_torch.security.wallet', 'protocol_tpu_torch.security.signer',\n"
+        "        'protocol_tpu_torch.security.middleware', 'protocol_tpu_torch.chain.ledger',\n"
+        "        'protocol_tpu_torch.chain.remote', 'protocol_tpu_torch.utils.http_client',\n"
+        "        'protocol_tpu_torch.utils.storage', 'protocol_tpu_torch.utils.metrics',\n"
+        "        'protocol_tpu_torch.utils.api_docs', 'protocol_tpu_torch.utils.tls',\n"
+        "        'protocol_tpu_torch.sched.webhook', 'protocol_tpu_torch.services.orchestrator'}\n"
         "assert need <= set(mods), need - set(mods)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'protocol_tpu' or m.startswith('protocol_tpu.')]\n"
